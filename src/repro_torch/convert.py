@@ -1,0 +1,53 @@
+"""Load a JAX-package parameter tree into the port's model.
+
+The JAX package stacks the layers on a leading ``[n_layers, ...]`` axis (it
+scans them); the port keeps one module per layer.  Tests use this to run
+both packages on the same dense weights: ``torch.Generator`` and
+``jax.random`` draw different numbers from one seed, while the sparse FFN
+structures and values come from numpy seeds and are equal anyway.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import bcsr as bcsr_lib
+from repro_torch.core.sparse_linear import BUFFER_FIELDS
+from repro_torch.models import transformer as T
+
+
+def _put(target: torch.Tensor, value) -> None:
+    value = torch.from_numpy(np.array(value))
+    if tuple(value.shape) != tuple(target.shape):
+        raise ValueError(f"shape {tuple(value.shape)} does not fit "
+                         f"{tuple(target.shape)}")
+    target.copy_(value.to(target.dtype))
+
+
+def params_from_jax(cfg: ModelConfig, params_np, device) -> T.Transformer:
+    """``params_np`` is the JAX ``init_params`` tree with every leaf a numpy
+    array (pass bf16 leaves through float32).  Returns the port's
+    ``Transformer`` on ``device`` holding the same values."""
+    model = T.Transformer(cfg, device=T.resolve_device(device))
+    blocks = params_np["blocks"]
+    with torch.no_grad():
+        for name in ("final_norm", "embed", "lm_head"):
+            _put(getattr(model, name), params_np[name])
+        for i, blk in enumerate(model.blocks):
+            _put(blk.ln1, blocks["ln1"][i])
+            _put(blk.ln2, blocks["ln2"][i])
+            for name, value in blocks["attn"].items():
+                _put(getattr(blk.attn, name), value[i])
+            for name, layer in blocks["mlp"].items():
+                if isinstance(layer, dict):          # a sparse linear layer
+                    sparse = getattr(blk.mlp, name)
+                    _put(sparse.vals, layer["vals"][i])
+                    for field in BUFFER_FIELDS[:-1]:
+                        _put(getattr(sparse, field), layer[field][i])
+                    _put(sparse.rowptr, bcsr_lib.rowptr_from_rows(
+                        np.asarray(layer["row_ids"][i]),
+                        sparse.meta.n_block_rows))
+                else:
+                    _put(getattr(blk.mlp, name), layer[i])
+    return model

@@ -1,0 +1,148 @@
+"""Rules of the PyTorch/CUDA port that no numeric test shows.
+
+* ``src/repro_torch`` and ``chip_smoke.py`` import neither JAX nor the JAX
+  package, and every port module imports in a process where both are
+  blocked.
+* Entry points default to the card and raise without one; they never run on
+  the CPU unless asked to.
+* The kernel wrapper takes its plain version for CPU tensors only, and the
+  build helper says clearly when ``nvcc`` is missing."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.configs import get_config
+from repro_torch.kernels import _build, bcsr_spmm
+from repro_torch.launch import serve as serve_cli
+from repro_torch.models import transformer as T
+from repro_torch.serve.engine import ServeEngine
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_MODULES = sorted(
+    ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+    .removesuffix(".__init__") for p in PORT.rglob("*.py"))
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == top or name.startswith(top + ".")
+               for top in ("jax", "jaxlib", "repro"))
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_jax_or_repro_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if _forbidden(node.module or ""):
+                bad.append(node.module)
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_lazy_exports_stay_in_the_port():
+    assert all(m.startswith("repro_torch.")
+               for m in repro_torch._EXPORTS.values())
+    assert sorted(repro_torch.__all__) == sorted(repro_torch._EXPORTS)
+
+
+def test_every_module_imports_with_jax_and_repro_blocked():
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"for name in {PORT_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import repro_torch\n"
+        "for name in repro_torch.__all__:\n"
+        "    getattr(repro_torch, name)\n"
+        "loaded = [m for m, v in sys.modules.items() if v is not None and\n"
+        "          (m.split('.')[0] in ('jax', 'jaxlib') or\n"
+        "           m.split('.')[0] == 'repro')]\n"
+        "assert not loaded, loaded\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert len(PORT_MODULES) >= 15
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    """Make the test read 'no CUDA device' wherever it runs."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_default_to_the_card(no_card):
+    cfg = get_config("smat-ffn-1.3b:smoke")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.init_cache(cfg, 1, 8)
+    model = T.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(cfg, model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_cli.main(["--arch", "smat-ffn-1.3b:smoke"])
+
+
+def _small_operand():
+    rng = np.random.default_rng(0)
+    vals = torch.from_numpy(rng.standard_normal((3, 8, 8)).astype(np.float32))
+    row_ids = torch.tensor([0, 0, 1], dtype=torch.int32)
+    col_ids = torch.tensor([0, 1, 1], dtype=torch.int32)
+    b = torch.from_numpy(rng.standard_normal((16, 5)).astype(np.float32))
+    return vals, row_ids, col_ids, b
+
+
+def test_wrapper_takes_the_plain_version_on_cpu(monkeypatch):
+    calls = []
+    plain = bcsr_spmm.ref.bcsr_spmm_ref
+
+    def spy(*args, **kwargs):
+        calls.append(kwargs.get("out_dtype"))
+        return plain(*args, **kwargs)
+
+    def no_build(name):
+        raise AssertionError("a CPU tensor must not build the kernel")
+
+    monkeypatch.setattr(bcsr_spmm.ref, "bcsr_spmm_ref", spy)
+    monkeypatch.setattr(bcsr_spmm._build, "load", no_build)
+    before = bcsr_spmm.LAUNCHES["nnz_stream"]
+    vals, row_ids, col_ids, b = _small_operand()
+    got = bcsr_spmm.bcsr_spmm_nnz_stream(vals, row_ids, col_ids, b, 2)
+    assert calls == [torch.float32]
+    assert bcsr_spmm.LAUNCHES["nnz_stream"] == before
+    np.testing.assert_allclose(
+        got.numpy(), plain(vals, row_ids, col_ids, b, 2).numpy())
+
+
+def test_wrapper_refuses_a_device_without_a_kernel():
+    vals, row_ids, col_ids, b = _small_operand()
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        bcsr_spmm.bcsr_spmm_nnz_stream(vals.to("meta"), row_ids.to("meta"),
+                                       col_ids.to("meta"), b.to("meta"), 2)
+
+
+def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc was not found"):
+        _build.find_nvcc()
+    with pytest.raises(RuntimeError, match="nvcc was not found"):
+        _build.build("bcsr_spmm")
+    assert not (tmp_path / "build").exists() or \
+        not any((tmp_path / "build").iterdir())
