@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of the ``repro`` package, for one NVIDIA H100.
 
-The ported surface so far is the serving path of ``smat-ffn-1.3b``: host
-BCSR -> ``prepare`` -> ``spmm`` (the hand-written CUDA kernel) -> sparse FFN
--> transformer decode -> ``ServeEngine``.  Exports resolve lazily (PEP 562),
+The ported surface so far is the main path of ``smat-ffn-1.3b``: host BCSR
+-> ``prepare`` -> ``spmm`` / ``sddmm`` (hand-written CUDA kernels, forward
+and backward) -> sparse FFN -> transformer -> serving (``ServeEngine``) and
+training (``repro_torch.train.loop``).  Exports resolve lazily (PEP 562),
 so ``import repro_torch`` imports nothing heavy until a name is touched.
 The package imports torch, numpy and scipy, never jax or ``repro``.
 
@@ -19,6 +20,7 @@ __all__ = [
     "ServeEngine",
     "get_config",
     "prepare",
+    "sddmm",
     "spmm",
 ]
 
@@ -27,6 +29,7 @@ _EXPORTS = {
     "ServeEngine": "repro_torch.serve.engine",
     "get_config": "repro_torch.configs",
     "prepare": "repro_torch.kernels.ops",
+    "sddmm": "repro_torch.kernels.ops",
     "spmm": "repro_torch.kernels.ops",
 }
 

@@ -1,6 +1,6 @@
 """Model configuration schema — every field of the JAX package's
-``ModelConfig``.  Block-sparse attention (``attn_sparsity``) is not ported
-yet, so a config that sets it raises."""
+``ModelConfig`` — and the ``ShapeCell`` of a run.  Block-sparse attention
+(``attn_sparsity``) is not ported yet, so a config that sets it raises."""
 from __future__ import annotations
 
 import dataclasses
@@ -76,3 +76,11 @@ class ModelConfig:
         if self.attn_sparsity is not None:
             raise NotImplementedError(
                 "block-sparse attention (attn_sparsity) is not ported yet")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    kind: str           # train | prefill | decode
+    seq_len: int
+    global_batch: int

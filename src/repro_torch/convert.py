@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import bcsr as bcsr_lib
-from repro_torch.core.sparse_linear import BUFFER_FIELDS
+from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 
 
@@ -23,6 +23,23 @@ def _put(target: torch.Tensor, value) -> None:
         raise ValueError(f"shape {tuple(value.shape)} does not fit "
                          f"{tuple(target.shape)}")
     target.copy_(value.to(target.dtype))
+
+
+def _put_sparse(sparse, layer, i: int) -> None:
+    """Layer ``i`` of a JAX sparse linear tree into a ``SparseLinear``: the
+    JAX fields by name, then the port's own (``ops.PORT_FIELDS``) rebuilt
+    from them."""
+    missing = set(ops.SparseArrays._fields) - set(ops.PORT_FIELDS) - \
+        set(layer)
+    if missing:
+        raise KeyError(f"the JAX layer lacks {sorted(missing)}")
+    for field, value in layer.items():
+        _put(getattr(sparse, field), value[i])
+    meta = sparse.meta
+    _put(sparse.rowptr, bcsr_lib.rowptr_from_rows(
+        np.asarray(layer["row_ids"][i]), meta.n_block_rows))
+    _put(sparse.t_rowptr, bcsr_lib.rowptr_from_rows(
+        np.asarray(layer["t_row_ids"][i]), meta.n_block_cols))
 
 
 def params_from_jax(cfg: ModelConfig, params_np, device) -> T.Transformer:
@@ -41,13 +58,7 @@ def params_from_jax(cfg: ModelConfig, params_np, device) -> T.Transformer:
                 _put(getattr(blk.attn, name), value[i])
             for name, layer in blocks["mlp"].items():
                 if isinstance(layer, dict):          # a sparse linear layer
-                    sparse = getattr(blk.mlp, name)
-                    _put(sparse.vals, layer["vals"][i])
-                    for field in BUFFER_FIELDS[:-1]:
-                        _put(getattr(sparse, field), layer[field][i])
-                    _put(sparse.rowptr, bcsr_lib.rowptr_from_rows(
-                        np.asarray(layer["row_ids"][i]),
-                        sparse.meta.n_block_rows))
+                    _put_sparse(getattr(blk.mlp, name), layer, i)
                 else:
                     _put(getattr(blk.mlp, name), layer[i])
     return model

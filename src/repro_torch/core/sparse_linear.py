@@ -23,9 +23,10 @@ from repro_torch.core import bcsr as bcsr_lib
 from repro_torch.kernels import ops
 
 # SparseArrays fields a layer keeps as buffers, in the JAX params' key order
-# (the JAX package keeps no rowptr; the port's kernel reads it)
+# (the JAX package keeps no rowptr or t_rowptr, ``ops.PORT_FIELDS``; the
+# port's kernel reads them in the forward and the backward)
 BUFFER_FIELDS = ("row_ids", "col_ids", "real_mask", "t_perm", "t_row_ids",
-                 "t_col_ids", "row_perm", "inv_perm", "rowptr")
+                 "t_col_ids", "row_perm", "inv_perm", "rowptr", "t_rowptr")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,14 +141,16 @@ def apply_sparse_linear(params, meta: ops.SparseMeta, x: torch.Tensor,
         col_ids=params["col_ids"], real_mask=params["real_mask"],
         t_perm=params["t_perm"], t_row_ids=params["t_row_ids"],
         t_col_ids=params["t_col_ids"], row_perm=params.get("row_perm"),
-        inv_perm=params.get("inv_perm"), rowptr=params.get("rowptr"))
+        inv_perm=params.get("inv_perm"), rowptr=params.get("rowptr"),
+        t_rowptr=params.get("t_rowptr"))
     c = ops.spmm(arrays, meta, xt, backend=spec.backend)   # [M, T]
     return c.T.reshape(*lead, meta.shape[0])
 
 
 class SparseLinear(nn.Module):
-    """A block-sparse linear layer: ``vals`` is its parameter, the index
-    arrays are buffers, ``meta`` and ``spec`` are static."""
+    """A block-sparse linear layer: ``vals`` is its parameter (trained
+    through ``ops.spmm``'s backward), the index arrays are buffers, ``meta``
+    and ``spec`` are static."""
 
     def __init__(self, params, meta: ops.SparseMeta, spec: SparsitySpec):
         super().__init__()

@@ -1,1 +1,2 @@
-"""The BCSR SpMM kernel, its plain version and the op that dispatches to them."""
+"""The BCSR SpMM and SDDMM kernels, their plain versions and the ops that
+dispatch to them."""

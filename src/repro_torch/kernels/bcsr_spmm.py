@@ -1,11 +1,12 @@
-"""Hand-written CUDA kernel for BCSR SpMM, and its wrapper.
+"""Hand-written CUDA kernels for BCSR SpMM and SDDMM, and their wrappers.
 
-``bcsr_spmm_nnz_stream`` replaces the Pallas TPU kernel of the same name
-(``repro/kernels/bcsr_spmm.py:67``).  The kernel is
-``csrc/bcsr_spmm.cu``; its header says how it is laid out and what bounds it.
-The wrapper dispatches on the device of its operands: a CPU tensor goes to
-the plain version (``ref.bcsr_spmm_ref``), a CUDA tensor launches the kernel
-or raises — it never falls back.
+``bcsr_spmm_nnz_stream`` and ``bcsr_sddmm`` replace the Pallas TPU kernels
+of the same names (``repro/kernels/bcsr_spmm.py:67`` and ``:189``).  The
+kernels are ``csrc/bcsr_spmm.cu`` and ``csrc/bcsr_sddmm.cu``; their headers
+say how they are laid out and what bounds them.  Each wrapper dispatches on
+the device of its operands: a CPU tensor goes to the plain version
+(``ref.bcsr_spmm_ref``, ``ref.bcsr_sddmm_ref``), a CUDA tensor launches the
+kernel or raises — it never falls back.
 """
 from __future__ import annotations
 
@@ -17,22 +18,30 @@ from repro_torch.kernels import _build, ref
 
 # kernel launches since the last reset — a run reads it to show that its
 # path went through the kernel (plain integers, reset by assignment)
-LAUNCHES = {"nnz_stream": 0}
+LAUNCHES = {"nnz_stream": 0, "sddmm": 0}
 
 _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_C = ctypes.c_void_p
-_ARGTYPES = [_C, _C, _C, _C, _C,                       # vals rowptr cols b out
-             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # nbr h w
-             ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,  # N strides
-             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # bn in_type out_type
-             _C]                                        # stream
+_C, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# (source, C symbol) -> argument types of the C interface
+_ARGTYPES = {
+    ("bcsr_spmm", "bcsr_spmm_nnz_stream"): [
+        _C, _C, _C, _C, _C,              # vals rowptr col_ids b out
+        _I, _I, _I, _I, _LL, _LL,        # nbr h w N, b's strides
+        _I, _I, _I, _C],                 # bn in_type out_type stream
+    ("bcsr_sddmm", "bcsr_sddmm"): [
+        _C, _C, _C, _C, _C,              # dc b row_ids col_ids out
+        _I, _I, _I, _I,                  # nnzb h w N
+        _LL, _LL, _LL, _LL,              # dc's strides, b's strides
+        _I, _I, _C],                     # in_type out_type stream
+}
 
 
-def _lib():
-    lib = _build.load("bcsr_spmm")
-    fn = lib.bcsr_spmm_nnz_stream
+def _lib(source: str, symbol: str):
+    """The C function ``symbol`` of ``csrc/<source>.cu``, built on first
+    use."""
+    fn = getattr(_build.load(source), symbol)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = _ARGTYPES[(source, symbol)]
         fn.restype = ctypes.c_int
     return fn
 
@@ -97,7 +106,7 @@ def bcsr_spmm_nnz_stream(vals: torch.Tensor, row_ids: torch.Tensor,
     out = torch.empty((n_block_rows * h, N), dtype=out_dtype, device=b.device)
     if N == 0 or n_block_rows == 0:
         return out
-    fn = _lib()
+    fn = _lib("bcsr_spmm", "bcsr_spmm_nnz_stream")
     with torch.cuda.device(b.device):
         err = fn(vals.data_ptr(), rowptr.data_ptr(), col_ids.data_ptr(),
                  b.data_ptr(), out.data_ptr(), n_block_rows, h, w, N,
@@ -108,4 +117,55 @@ def bcsr_spmm_nnz_stream(vals: torch.Tensor, row_ids: torch.Tensor,
         raise RuntimeError(f"bcsr_spmm_nnz_stream: kernel launch failed with "
                            f"CUDA error {err}")
     LAUNCHES["nnz_stream"] += 1
+    return out
+
+
+def bcsr_sddmm(dc: torch.Tensor, b: torch.Tensor, row_ids: torch.Tensor,
+               col_ids: torch.Tensor, h: int, w: int, *,
+               out_dtype=None) -> torch.Tensor:
+    """dvals[s] = dC[block row_ids[s]] @ B[block col_ids[s]]^T, [nnzb, h, w]:
+    the sparse weight gradient, computed only at the stored blocks.  ``dc``
+    is [M, N] with M a multiple of h, ``b`` is [K, N] with K a multiple of
+    w; both may be strided views.  Accumulated in float32 over N; the
+    result is a new contiguous tensor in ``out_dtype`` (default
+    ``dc.dtype``)."""
+    out_dtype = out_dtype or dc.dtype
+    if dc.device.type == "cpu":
+        return ref.bcsr_sddmm_ref(dc, b, row_ids, col_ids, h, w,
+                                  out_dtype=out_dtype)
+    if dc.device.type != "cuda":
+        raise ValueError(f"bcsr_sddmm: no kernel for device {dc.device}")
+    M, N = dc.shape
+    K = b.shape[0]
+    nnzb = row_ids.shape[0]
+    for name, t in (("b", b), ("row_ids", row_ids), ("col_ids", col_ids)):
+        if t.device != dc.device:
+            raise ValueError(f"{name} is on {t.device}, dc on {dc.device}")
+    for name, t in (("row_ids", row_ids), ("col_ids", col_ids)):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int32 tensor")
+    if dc.dtype != b.dtype or dc.dtype not in _TYPE_CODES:
+        raise ValueError(f"dc ({dc.dtype}) and b ({b.dtype}) must share one "
+                         "type, float32 or bfloat16")
+    if out_dtype not in _TYPE_CODES:
+        raise ValueError(f"out_dtype {out_dtype} not float32 or bfloat16")
+    if M % h or K % w or b.shape[1] != N or col_ids.shape != (nnzb,):
+        raise ValueError(f"shapes do not fit: dc {tuple(dc.shape)}, b "
+                         f"{tuple(b.shape)}, block ({h}, {w}), row_ids "
+                         f"{tuple(row_ids.shape)}, col_ids "
+                         f"{tuple(col_ids.shape)}")
+    out = torch.empty((nnzb, h, w), dtype=out_dtype, device=dc.device)
+    if nnzb == 0:
+        return out
+    fn = _lib("bcsr_sddmm", "bcsr_sddmm")
+    with torch.cuda.device(dc.device):
+        err = fn(dc.data_ptr(), b.data_ptr(), row_ids.data_ptr(),
+                 col_ids.data_ptr(), out.data_ptr(), nnzb, h, w, N,
+                 dc.stride(0), dc.stride(1), b.stride(0), b.stride(1),
+                 _TYPE_CODES[dc.dtype], _TYPE_CODES[out_dtype],
+                 torch.cuda.current_stream(dc.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"bcsr_sddmm: kernel launch failed with CUDA "
+                           f"error {err}")
+    LAUNCHES["sddmm"] += 1
     return out

@@ -1,21 +1,29 @@
-"""The SpMM op: kernel-ready BCSR operands and backend dispatch.
+"""The SpMM/SDDMM op pair: kernel-ready BCSR operands, backend dispatch and
+the two mutually dual gradients.
 
 ``prepare`` turns a host ``BCSR`` into the device tensors of a
 ``SparseArrays`` (entries padded so every block-row is nonempty, plus the
-transpose structure the training slice's backward will read) and a static
-``SparseMeta``.  ``spmm`` computes C = A @ B through one of:
+transpose structure the backward reads) and a static ``SparseMeta``.
+``spmm`` computes C = A @ B and ``sddmm`` the blocks of X @ Y^T stored by
+A's structure, each through one of:
 
-  * ``nnz_stream`` — the hand-written CUDA kernel
-    (``kernels/csrc/bcsr_spmm.cu``); ``pallas`` is accepted as an alias, the
-    JAX package's name for the same kernel.  On a CPU tensor its wrapper runs
-    the plain version.
-  * ``xla``        — the plain PyTorch version (``ref.bcsr_spmm_ref``), only
-    when a caller names it.
-  * ``dense``      — materialize the padded dense matrix and multiply.
+  * ``nnz_stream`` — the hand-written CUDA kernels (``bcsr_spmm_nnz_stream``,
+    ``kernels/csrc/bcsr_spmm.cu``, for spmm and for dB = A^T dC over the
+    transpose structure; ``bcsr_sddmm``, ``kernels/csrc/bcsr_sddmm.cu``, for
+    sddmm and so for dvals); ``pallas`` is accepted as an alias, the JAX
+    package's name.  On a CPU tensor the wrappers run the plain versions.
+  * ``xla``        — the plain PyTorch versions (``kernels/ref.py``), only
+    when a caller names them.
+  * ``dense``      — materialize the dense operand (or product) and multiply.
   * ``auto``       — resolves to ``nnz_stream`` until the autotuner is ported.
 
-``row_loop`` is not ported yet and raises.  This slice serves only: ``spmm``
-is a forward function and raises where autograd would need its backward.
+``row_loop`` is not ported yet and raises.  Both ops are differentiable:
+``spmm``'s backward gives dB through the transpose structure and dvals
+through ``sddmm``; ``sddmm``'s gives dX through ``spmm`` and dY through the
+transpose structure, so higher derivatives bounce between the two
+``torch.autograd.Function``s, as the JAX package's custom VJPs do.  Without
+grad (serving runs under ``torch.inference_mode()``) the ops call their
+forward directly and add no autograd work.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.nn import functional as F
 
 from repro_torch.core import bcsr as bcsr_lib
 from repro_torch.core import permute as permute_lib
@@ -36,8 +45,9 @@ class SparseArrays(NamedTuple):
     """Device tensors of a BCSR operand.
 
     The fields up to ``inv_perm`` are those of the JAX package, equal to
-    them element for element.  ``rowptr`` is the port's own: the CUDA kernel
-    reads each block-row's entry range from it."""
+    them element for element.  ``rowptr`` and ``t_rowptr`` (``PORT_FIELDS``)
+    are the port's own: the SpMM kernel reads each block-row's entry range
+    from them, of A in the forward and of A^T in the backward."""
     vals: torch.Tensor        # [nnzb, h, w]
     row_ids: torch.Tensor     # [nnzb] int32, sorted row-major
     col_ids: torch.Tensor     # [nnzb] int32
@@ -48,6 +58,11 @@ class SparseArrays(NamedTuple):
     row_perm: Optional[torch.Tensor] = None   # [M]: A'[i] = A[row_perm[i]]
     inv_perm: Optional[torch.Tensor] = None   # [M]: argsort(row_perm)
     rowptr: Optional[torch.Tensor] = None     # [nbr + 1] int32
+    t_rowptr: Optional[torch.Tensor] = None   # [nbc + 1] int32 (of A^T)
+
+
+# the fields the JAX package does not have, rebuilt from the others
+PORT_FIELDS = ("rowptr", "t_rowptr")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,6 +139,7 @@ def _prepare_sparse_host(a: bcsr_lib.BCSR, *, reorder: str,
         "row_perm": row_perm_np,
         "inv_perm": permute_lib.invert_perm(row_perm_np),
         "rowptr": a_p.rowptr,
+        "t_rowptr": bcsr_lib.rowptr_from_rows(t_row_ids, n_brows_t),
     }
     max_bpr, pad_pct, cv_pct = a_p.dispatch_stats()
     meta = SparseMeta(shape=a_p.shape, block=a_p.block,
@@ -167,6 +183,7 @@ def prepare_sparse(a: bcsr_lib.BCSR, dtype=torch.bfloat16, *,
         row_perm=dev(host["row_perm"]),
         inv_perm=dev(host["inv_perm"]),
         rowptr=dev(host["rowptr"]),
+        t_rowptr=dev(host["t_rowptr"]),
     )
     return arrays, meta
 
@@ -245,11 +262,152 @@ def _fwd_impl(cfg: SpmmConfig, meta: SparseMeta, arrays: SparseArrays,
     return out
 
 
+def transposed_vals(vals: torch.Tensor, t_perm: torch.Tensor) -> torch.Tensor:
+    """The blocks of A^T in the transpose structure's order, [nnzb_t, w, h]
+    contiguous: ``vals[t_perm]`` transposed, where ``t_perm == nnzb`` picks
+    the sentinel zero block of an empty block-row of A^T."""
+    sentinel = vals.new_zeros((1,) + tuple(vals.shape[1:]))
+    t_vals = torch.cat([vals, sentinel])[t_perm.long()]
+    return t_vals.transpose(1, 2).contiguous()
+
+
+def _dx_impl(cfg: SpmmConfig, meta: SparseMeta, arrays: SparseArrays,
+             g: torch.Tensor) -> torch.Tensor:
+    """dB = A^T @ g through the stored transpose structure, [nbc*w, N]: the
+    SpMM kernel over ``t_row_ids``/``t_col_ids``/``t_rowptr`` with the
+    blocks of ``transposed_vals``.  ``g`` [M, N] may be a strided view; its
+    rows are padded to ``n_block_rows * h``, since the kernel reads whole
+    h-row panels."""
+    h, w = meta.block
+    vals = arrays.vals
+    if (cfg.backend == "nnz_stream" and g.is_cuda and torch.is_grad_enabled()
+            and (g.requires_grad or vals.requires_grad)):
+        # the kernel's output carries no graph; the JAX package's Pallas
+        # kernel has no JVP rule either, so higher derivatives run on xla
+        raise NotImplementedError(
+            "a derivative of dB = A^T dC through the nnz_stream kernel is not "
+            "supported; take higher derivatives with backend='xla'")
+    t_vals = transposed_vals(vals, arrays.t_perm)
+    m_pad = meta.n_block_rows * h - g.shape[0]
+    if m_pad:
+        g = F.pad(g, (0, 0, 0, m_pad))
+    if cfg.backend == "nnz_stream":
+        return pk.bcsr_spmm_nnz_stream(
+            t_vals, arrays.t_row_ids, arrays.t_col_ids, g, meta.n_block_cols,
+            rowptr=arrays.t_rowptr, out_dtype=g.dtype)
+    return ref.bcsr_spmm_ref(t_vals, arrays.t_row_ids, arrays.t_col_ids, g,
+                             meta.n_block_cols, out_dtype=g.dtype)
+
+
+def _sddmm_impl(cfg: SpmmConfig, meta: SparseMeta, arrays: SparseArrays,
+                x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """vals[s] = X'[block row_ids[s]] @ Y[block col_ids[s]]^T — the dense
+    pair sampled at the stored structure (X' = P X when the structure was
+    prepared with a reorder; callers pass X in ORIGINAL row order).  X is
+    padded to ``n_block_rows * h`` rows and Y to ``n_block_cols * w``; N is
+    never padded (the kernel masks its ragged N edge).  Padding entries
+    (``real_mask`` False) are zeroed: they are structural, not values."""
+    h, w = meta.block
+    if meta.reorder != "identity" and arrays.row_perm is not None:
+        x = x.index_select(0, arrays.row_perm.long())
+    out_dtype = cfg.out_dtype or x.dtype
+    x_pad = meta.n_block_rows * h - x.shape[0]
+    y_pad = meta.n_block_cols * w - y.shape[0]
+    if x_pad:
+        x = F.pad(x, (0, 0, 0, x_pad))
+    if y_pad:
+        y = F.pad(y, (0, 0, 0, y_pad))
+    if cfg.backend == "nnz_stream":
+        vals = pk.bcsr_sddmm(x, y, arrays.row_ids, arrays.col_ids, h, w,
+                             out_dtype=out_dtype)
+    elif cfg.backend == "xla":
+        vals = ref.bcsr_sddmm_ref(x, y, arrays.row_ids, arrays.col_ids, h, w,
+                                  out_dtype=out_dtype)
+    elif cfg.backend == "dense":
+        vals = ref.bcsr_sddmm_dense_ref(x, y, arrays.row_ids, arrays.col_ids,
+                                        h, w, out_dtype=out_dtype)
+    else:
+        raise ValueError(f"unknown backend {cfg.backend!r}")
+    # padding entries are structural zeros — never values, never gradients
+    return vals * arrays.real_mask[:, None, None].to(vals.dtype)
+
+
+# ---------------------------------------------------------------- autograd
+# ``rest`` is ``tuple(arrays[1:])``: the index tensors, never differentiated.
+# The ``meta.reorder != "identity"`` branches mirror the JAX package's; only
+# the identity scheme is ported so far, so they run untested until the
+# reorder schemes are (ROADMAP A3).
+class _Spmm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cfg, meta, rest, vals, b):
+        ctx.cfg, ctx.meta, ctx.rest = cfg, meta, rest
+        ctx.save_for_backward(vals, b)
+        return _fwd_impl(cfg, meta, SparseArrays(vals, *rest), b)
+
+    @staticmethod
+    def backward(ctx, g):
+        vals, b = ctx.saved_tensors
+        cfg, meta, rest = ctx.cfg, ctx.meta, ctx.rest
+        arrays = SparseArrays(vals, *rest)
+        g2 = g.to(b.dtype)
+        dvals = db = None
+        if ctx.needs_input_grad[4]:
+            gp = g2
+            if meta.reorder != "identity" and arrays.row_perm is not None:
+                # the cotangent arrives in ORIGINAL row order; the stored
+                # structure is A' = P A, so dB = A'^T (P dC)
+                gp = g2.index_select(0, arrays.row_perm.long())
+            db = _dx_impl(cfg, meta, arrays, gp)[: b.shape[0], : b.shape[1]]
+        if ctx.needs_input_grad[3]:
+            # dvals through the SDDMM op: SpMM and SDDMM are mutual duals
+            cfg_d = dataclasses.replace(cfg, out_dtype=vals.dtype)
+            dvals = _Sddmm.apply(cfg_d, meta, rest, g2, b)
+        return None, None, None, dvals, db
+
+
+class _Sddmm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cfg, meta, rest, x, y):
+        ctx.cfg, ctx.meta, ctx.rest = cfg, meta, rest
+        ctx.save_for_backward(x, y)
+        # the vals slot is unused by the sampling
+        return _sddmm_impl(cfg, meta, SparseArrays(None, *rest), x, y)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        cfg, meta, rest = ctx.cfg, ctx.meta, ctx.rest
+        gm = g * SparseArrays(None, *rest).real_mask[:, None, None].to(
+            g.dtype)
+        cfg_b = dataclasses.replace(cfg, out_dtype=None)
+        dx = dy = None
+        if ctx.needs_input_grad[3]:
+            # dX = G @ Y: the SpMM forward on the cotangent blocks (the op
+            # un-permutes back to original row order itself)
+            dx = _Spmm.apply(cfg_b, meta, rest, gm.to(y.dtype), y).to(x.dtype)
+        if ctx.needs_input_grad[4]:
+            # dY = G^T @ X' through the stored transpose structure
+            garr = SparseArrays(gm.to(y.dtype), *rest)
+            xp = x
+            if meta.reorder != "identity" and garr.row_perm is not None:
+                xp = x.index_select(0, garr.row_perm.long())
+            dy = _dx_impl(cfg_b, meta, garr, xp)[: y.shape[0], : y.shape[1]]
+            dy = dy.to(y.dtype)
+        return None, None, None, dx, dy
+
+
+def _needs_graph(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 # ------------------------------------------------------------------ public API
-def resolve_backend(backend: str) -> str:
-    """Normalize aliases; ``auto`` resolves to ``nnz_stream`` until the
-    autotuner is ported.  (The JAX package's N-tile ``bn`` is not a choice
-    here: the kernel picks its own N tile, ``bcsr_spmm.tile_n``.)"""
+def resolve_backend(backend: str, op: str = "spmm") -> str:
+    """Normalize aliases; ``auto`` resolves to ``nnz_stream`` for either
+    ``op`` (``"spmm"`` | ``"sddmm"``) until the autotuner is ported.  (The
+    JAX package's N-tile ``bn`` is not a choice here: the kernels pick their
+    own tiles.)"""
+    if op not in ("spmm", "sddmm"):
+        raise ValueError(f"unknown op {op!r}; want 'spmm' or 'sddmm'")
     if backend == "auto":
         backend = "nnz_stream"
     backend = _BACKEND_ALIASES.get(backend, backend)
@@ -264,7 +422,7 @@ def resolve_backend(backend: str) -> str:
 
 def spmm(arrays: SparseArrays, meta: SparseMeta, b: torch.Tensor,
          *, backend: str = "nnz_stream", out_dtype=None) -> torch.Tensor:
-    """C = A @ B (forward only in this slice).
+    """C = A @ B, differentiable w.r.t. ``arrays.vals`` and ``b``.
 
     A is the BCSR operand from ``prepare``; B is ``[K, N]`` dense and may be
     a strided view.  Outputs come back in ORIGINAL row order.
@@ -284,10 +442,43 @@ def spmm(arrays: SparseArrays, meta: SparseMeta, b: torch.Tensor,
     >>> bool(torch.allclose(c, torch.as_tensor(dense) @ b, atol=1e-5))
     True
     """
-    if torch.is_grad_enabled() and (arrays.vals.requires_grad
-                                    or b.requires_grad):
-        raise NotImplementedError(
-            "spmm has no backward yet (it comes with the training slice); "
-            "call it under torch.no_grad() or torch.inference_mode()")
     cfg = SpmmConfig(backend=resolve_backend(backend), out_dtype=out_dtype)
+    if _needs_graph(arrays.vals, b):
+        return _Spmm.apply(cfg, meta, tuple(arrays[1:]), arrays.vals, b)
     return _fwd_impl(cfg, meta, arrays, b)
+
+
+def sddmm(arrays: SparseArrays, meta: SparseMeta, x: torch.Tensor,
+          y: torch.Tensor, *, backend: str = "nnz_stream",
+          out_dtype=None) -> torch.Tensor:
+    """Sampled dense-dense product: the blocks of ``X @ Y^T`` stored by the
+    structure of ``(arrays, meta)``, SpMM's dual.  ``X`` is ``[M, N]``
+    (original row order), ``Y`` is ``[K, N]``; both may be strided views.
+    The result is ``[nnzb, h, w]`` with padding entries (``real_mask``
+    False) zeroed.  Differentiable w.r.t. ``x`` and ``y``; ``arrays.vals``
+    is not read.
+
+    >>> import numpy as np, torch
+    >>> from repro_torch.core import bcsr as bcsr_lib
+    >>> from repro_torch.kernels import ops
+    >>> rng = np.random.default_rng(0)
+    >>> dense = np.kron(rng.random((4, 4)) < 0.5,
+    ...                 np.ones((8, 8))).astype(np.float32)
+    >>> a = bcsr_lib.from_dense(dense, (8, 8))
+    >>> arrays, meta = ops.prepare(a, torch.float32, device="cpu")
+    >>> x = torch.as_tensor(rng.standard_normal((32, 16)), dtype=torch.float32)
+    >>> y = torch.as_tensor(rng.standard_normal((32, 16)), dtype=torch.float32)
+    >>> vals = ops.sddmm(arrays, meta, x, y)
+    >>> vals.shape == (meta.nnzb, 8, 8)
+    True
+    >>> full = (x @ y.T).reshape(4, 8, 4, 8).permute(0, 2, 1, 3)
+    >>> blk = full[arrays.row_ids.long(), arrays.col_ids.long()]
+    >>> blk = blk * arrays.real_mask[:, None, None]       # padding -> 0
+    >>> bool(torch.allclose(vals, blk, atol=1e-4))
+    True
+    """
+    cfg = SpmmConfig(backend=resolve_backend(backend, op="sddmm"),
+                     out_dtype=out_dtype)
+    if _needs_graph(x, y):
+        return _Sddmm.apply(cfg, meta, tuple(arrays[1:]), x, y)
+    return _sddmm_impl(cfg, meta, arrays, x, y)

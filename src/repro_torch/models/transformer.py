@@ -5,7 +5,10 @@ decoder; ``smat-ffn`` with its block-sparse FFN).
 The JAX package stacks the blocks on a leading axis and scans them; here
 ``Transformer.blocks`` is a ``ModuleList`` walked by a Python loop, and the
 decode cache keeps the stacked layout (``{"k", "v"}: [n_layers, B, S, KV,
-dh]``) so a layer's cache is a view into it.
+dh]``) so a layer's cache is a view into it.  ``forward``'s ``remat``
+replaces the JAX package's ``jax.checkpoint`` policies: ``"full"`` runs
+each block under ``torch.utils.checkpoint``; ``"dots"`` and ``"names"`` are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ from typing import Any, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -78,9 +82,10 @@ class Transformer(nn.Module):
             Block(cfg, dtype=dtype, device=device, generator=generator,
                   seed_hint=i) for i in range(cfg.n_layers))
 
-    def forward(self, batch_in, *, cache=None, pos=None, slot_mask=None):
+    def forward(self, batch_in, *, cache=None, pos=None, slot_mask=None,
+                remat: str = "none"):
         return forward(self.cfg, self, batch_in, cache=cache, pos=pos,
-                       slot_mask=slot_mask)
+                       slot_mask=slot_mask, remat=remat)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *,
@@ -125,12 +130,33 @@ def _apply_block(cfg: ModelConfig, p: Block, x, cache, pos, slot_mask=None):
     return x, c
 
 
+REMAT = ("none", "full")
+
+
+def _remat_block(cfg: ModelConfig, blk: Block, x):
+    """One block without a cache under activation checkpointing: its
+    activations are recomputed in the backward (JAX ``remat="full"``)."""
+    return torch_checkpoint.checkpoint(
+        lambda x_: _apply_block(cfg, blk, x_, None, None)[0], x,
+        use_reentrant=False)
+
+
 def forward(cfg: ModelConfig, params: Transformer, batch_in, *, cache=None,
-            pos=None, slot_mask=None) -> Tuple[torch.Tensor, Any,
-                                               torch.Tensor]:
-    """Returns (logits, cache, aux_loss); the cache is updated in place."""
+            pos=None, slot_mask=None, remat: str = "none"
+            ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
+    """Returns (logits, cache, aux_loss); the cache is updated in place.
+    ``remat="full"`` checkpoints each block (training, no cache)."""
+    if remat in ("dots", "names"):
+        raise NotImplementedError(
+            f"remat={remat!r} (a jax.checkpoint policy) is not ported yet; "
+            f"use one of {REMAT}")
+    if remat not in REMAT:
+        raise ValueError(f"unknown remat {remat!r}; want one of {REMAT}")
     x = _embed(cfg, params, batch_in)
     for i, blk in enumerate(params.blocks):
+        if remat == "full" and cache is None:
+            x = _remat_block(cfg, blk, x)
+            continue
         layer_cache = None if cache is None else \
             {name: leaf[i] for name, leaf in cache.items()}
         x, _ = _apply_block(cfg, blk, x, layer_cache, pos, slot_mask)
@@ -146,6 +172,15 @@ def lm_loss(cfg: ModelConfig, logits, labels) -> torch.Tensor:
     lp = torch.log_softmax(logits, dim=-1)
     nll = -lp.gather(-1, lab[..., None])[..., 0]
     return (nll * valid).sum() / valid.sum().clamp_min(1)
+
+
+def train_loss(cfg: ModelConfig, params: Transformer, batch_in,
+               remat: str = "full"):
+    """Returns (loss, {"lm_loss", "aux_loss"}); ``batch_in`` holds
+    ``tokens`` and shifted ``labels`` (-100 = ignore)."""
+    logits, _, aux = forward(cfg, params, batch_in, remat=remat)
+    loss = lm_loss(cfg, logits, batch_in["labels"])
+    return loss + 0.01 * aux, {"lm_loss": loss, "aux_loss": aux}
 
 
 def prefill(cfg: ModelConfig, params: Transformer, batch_in, cache_len: int):

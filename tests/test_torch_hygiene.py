@@ -4,9 +4,10 @@
   package, and every port module imports in a process where both are
   blocked.
 * Entry points default to the card and raise without one; they never run on
-  the CPU unless asked to.
-* The kernel wrapper takes its plain version for CPU tensors only, and the
-  build helper says clearly when ``nvcc`` is missing."""
+  the CPU unless asked to.  (``optim.adamw`` and ``checkpoint.manager`` take
+  no device: they work on the tensors they are given, where those lie.)
+* The kernel wrappers take their plain versions for CPU tensors only, and
+  the build helper says clearly when ``nvcc`` is missing."""
 import ast
 import os
 import subprocess
@@ -20,9 +21,14 @@ import torch
 import repro_torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import _build, bcsr_spmm
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.configs.base import ShapeCell
 from repro_torch.launch import serve as serve_cli
+from repro_torch.launch import train as train_cli
 from repro_torch.models import transformer as T
+from repro_torch.optim import adamw
 from repro_torch.serve.engine import ServeEngine
+from repro_torch.train import loop
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -75,7 +81,7 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert len(PORT_MODULES) >= 15
+    assert len(PORT_MODULES) >= 20
 
 
 @pytest.fixture
@@ -95,6 +101,29 @@ def test_entry_points_default_to_the_card(no_card):
         ServeEngine(cfg, model)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_cli.main(["--arch", "smat-ffn-1.3b:smoke"])
+
+
+def test_training_entry_points_default_to_the_card(no_card, tmp_path):
+    cfg = get_config("smat-ffn-1.3b:smoke")
+    shape = ShapeCell("t", "train", 8, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.main(["--arch", "smat-ffn-1.3b:smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loop.train(cfg, shape, total_steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loop.train_with_restarts(cfg, shape, total_steps=1)
+    # asked for the CPU, the same entry points run there, and the optimizer
+    # state and a checkpoint restore stay with the tensors they are given
+    res = loop.train(cfg, shape, device="cpu", total_steps=1,
+                     ckpt_dir=str(tmp_path))
+    assert res.final_step == 1 and np.isfinite(res.losses).all()
+    model = T.init_params(cfg, device="cpu")
+    state = adamw.init(dict(model.named_parameters()))
+    assert all(m.device.type == "cpu" for m in state["m"].values())
+    restored, step = CheckpointManager(str(tmp_path)).restore(
+        {"params": model.state_dict(), "opt": state})
+    assert step == 1
+    assert all(t.device.type == "cpu" for t in restored["params"].values())
 
 
 def _small_operand():
@@ -126,6 +155,33 @@ def test_wrapper_takes_the_plain_version_on_cpu(monkeypatch):
     assert bcsr_spmm.LAUNCHES["nnz_stream"] == before
     np.testing.assert_allclose(
         got.numpy(), plain(vals, row_ids, col_ids, b, 2).numpy())
+
+
+def test_sddmm_wrapper_takes_the_plain_version_on_cpu(monkeypatch):
+    def no_build(name):
+        raise AssertionError("a CPU tensor must not build the kernel")
+
+    monkeypatch.setattr(bcsr_spmm._build, "load", no_build)
+    before = bcsr_spmm.LAUNCHES["sddmm"]
+    rng = np.random.default_rng(5)
+    dc = torch.from_numpy(rng.standard_normal((16, 5)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((24, 5)).astype(np.float32))
+    rows = torch.tensor([0, 1, 1], dtype=torch.int32)
+    cols = torch.tensor([2, 0, 1], dtype=torch.int32)
+    got = bcsr_spmm.bcsr_sddmm(dc, b, rows, cols, 8, 8)
+    assert bcsr_spmm.LAUNCHES["sddmm"] == before
+    full = dc.numpy() @ b.numpy().T
+    for s, (r, c) in enumerate(zip(rows.tolist(), cols.tolist())):
+        np.testing.assert_allclose(
+            got[s].numpy(), full[8 * r:8 * r + 8, 8 * c:8 * c + 8],
+            rtol=1e-5, atol=1e-5)
+
+
+def test_sddmm_wrapper_refuses_a_device_without_a_kernel():
+    meta_t = torch.zeros(8, 4, device="meta")
+    idx = torch.zeros(1, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        bcsr_spmm.bcsr_sddmm(meta_t, meta_t, idx, idx, 8, 8)
 
 
 def test_wrapper_refuses_a_device_without_a_kernel():

@@ -1,10 +1,12 @@
-"""The port's ``prepare``/``spmm`` against the JAX package's on the same
-numpy inputs.  Host arrays and metas must be exactly equal; f32 products
-agree within 1e-5 (the tolerance of ``tests/test_kernels.py:39``), since the
-two sum in different orders.  The kernel itself runs only on the card
+"""The port's ``prepare``/``spmm`` and spmm's gradients against the JAX
+package's on the same numpy inputs.  Host arrays and metas must be exactly
+equal; f32 products and gradients agree within 1e-5 (the tolerance of
+``tests/test_kernels.py:39``), since the two sum in different orders.  The
+kernels themselves run only on the card
 (``tests/test_torch_kernels_cuda.py``)."""
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -147,13 +149,71 @@ def test_resolve_backend_rules():
 
 
 def test_spmm_refuses_autograd():
+    """spmm no longer refuses autograd: under grad it returns a tensor with
+    a ``grad_fn``, and ``torch.no_grad()`` (and inference mode, which
+    serving runs under) gives the same values with none."""
     arrays, meta = tops.prepare(tb.random_bcsr_exact(0, (64, 64), (8, 8), 16),
                                 torch.float32, device="cpu")
-    b = torch.ones(64, 4, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        tops.spmm(arrays, meta, b)
+    b = torch.from_numpy(_b(64, 4, seed=2)).requires_grad_()
+    out = tops.spmm(arrays, meta, b)
+    assert out.grad_fn is not None
     with torch.no_grad():
-        assert tops.spmm(arrays, meta, b).shape == (64, 4)
+        plain = tops.spmm(arrays, meta, b)
+    with torch.inference_mode():
+        inferred = tops.spmm(arrays, meta, b)
+    assert plain.grad_fn is None and inferred.grad_fn is None
+    torch.testing.assert_close(out.detach(), plain, rtol=0, atol=0)
+    torch.testing.assert_close(inferred, plain, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "xla"])
+@pytest.mark.parametrize("name,make", OPERANDS, ids=[n for n, _ in OPERANDS])
+def test_spmm_grads_match_jax(name, make, backend):
+    """dvals (through sddmm) and dB (through the transpose structure)
+    against ``jax.grad`` of the JAX ``spmm``; B enters as the transposed
+    view the model passes, and the padding entries' dvals are exactly 0."""
+    ja, ta = make()
+    j_arrays, j_meta = jops.prepare(ja, dtype=jnp.float32)
+    t_arrays, t_meta = tops.prepare(ta, torch.float32, device="cpu")
+    M, K = j_meta.shape
+    n = 11
+    b, cot = _b(K, n, seed=12), _b(M, n, seed=13)
+
+    def f(vals, b_):
+        c = jops.spmm(j_arrays._replace(vals=vals), j_meta, b_,
+                      backend=backend, bn=128, interpret=True)
+        return jnp.sum(c * cot)
+    want_v, want_b = jax.grad(f, argnums=(0, 1))(j_arrays.vals,
+                                                 jnp.asarray(b))
+    vals = t_arrays.vals.clone().requires_grad_()
+    bt = torch.from_numpy(b.T.copy()).requires_grad_()    # [N, K] leaf
+    c = tops.spmm(t_arrays._replace(vals=vals), t_meta, bt.T)
+    (c * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(vals.grad.numpy(), np.asarray(want_v),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(bt.grad.T.numpy(), np.asarray(want_b),
+                               rtol=1e-5, atol=1e-5)
+    pad = ~t_arrays.real_mask
+    assert bool((vals.grad[pad] == 0).all())
+
+
+@pytest.mark.parametrize("name,make", OPERANDS, ids=[n for n, _ in OPERANDS])
+def test_t_rowptr_is_the_transpose_structures_rowptr(name, make):
+    ja, ta = make()
+    j_arrays, j_meta = jops.prepare(ja, dtype=jnp.float32)
+    t_arrays, _ = tops.prepare(ta, torch.float32, device="cpu")
+    want = jb.rowptr_from_rows(np.asarray(j_arrays.t_row_ids),
+                               j_meta.n_block_cols)
+    got = t_arrays.t_rowptr.numpy()
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+
+
+def test_resolve_backend_takes_the_op():
+    assert tops.resolve_backend("auto", op="sddmm") == "nnz_stream"
+    assert tops.resolve_backend("xla", op="sddmm") == "xla"
+    with pytest.raises(ValueError, match="unknown op"):
+        tops.resolve_backend("xla", op="attn")
 
 
 def test_materialize_dense_matches_host():
