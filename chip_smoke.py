@@ -5,13 +5,17 @@
 It builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
 (one ``nvcc`` per source, all at once), holds each against its plain
 PyTorch version at small odd shapes and at the main paths' shapes, and
-times it.  Then it drives both main paths of ``smat-ffn-1.3b`` at full width
+times it.  Then it drives the main paths of ``smat-ffn-1.3b`` at full width
 (24 layers, d_model 2048, d_ff 8192, vocab 32000, bf16, FFN 90%
 block-sparse in 128x128 blocks): it serves requests through ``ServeEngine``
-and trains a few steps through ``train.loop.train``, checks that every
-sparse FFN product (forward, dB and dvals) went through the kernels, and
-that the outputs agree with the plain path.  Every phase checks its
-results; any failure exits non-zero before the last line.
+and trains a few steps through ``train.loop.train``, each through the
+streamed kernels (``nnz_stream``) and through the static-schedule ones
+(``row_loop``), checks that every sparse FFN product (forward, dB and
+dvals) went through the kernels, and that the outputs agree with the plain
+path.  Last it drives the SMaT library path (CSR -> BCSR -> Jaccard reorder
+-> spmm) on the paper's suite of matrices, ``mip1`` at its published size,
+and the autotuner's measured sweep.  Every phase checks its results; any
+failure exits non-zero before the last line.
 
 The line before the last lists every ported kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the rest
@@ -54,7 +58,22 @@ KERNELS = [{
     "build": "bcsr_sddmm",
     "replaces": "src/repro/kernels/bcsr_spmm.py:189",
     "counter": "sddmm",
+}, {
+    "name": "bcsr_spmm_row_loop",
+    "route": "cuda",
+    "source": "src/repro_torch/kernels/csrc/bcsr_spmm_row_loop.cu",
+    "build": "bcsr_spmm_row_loop",
+    "replaces": "src/repro/kernels/bcsr_spmm.py:124",
+    "counter": "row_loop",
+}, {
+    "name": "bcsr_sddmm_row_loop",
+    "route": "cuda",
+    "source": "src/repro_torch/kernels/csrc/bcsr_sddmm_row_loop.cu",
+    "build": "bcsr_sddmm_row_loop",
+    "replaces": "src/repro/kernels/bcsr_spmm.py:246",
+    "counter": "sddmm_row_loop",
 }]
+B1, B2, B3, B4 = (k["name"] for k in KERNELS)
 
 N_SLOTS, CACHE_LEN = 4, 256
 # training: the JAX package's train_4k cell (4096 x 256 over a pod) cut to
@@ -389,36 +408,8 @@ def train_timing_phase(smi):
         dense_ms = time_ms([lambda a=a, d=d, x=x: ref.bcsr_sddmm_dense_ref(
             d, x, a.row_ids, a.col_ids, 128, 128)
             for (a, _), d, x in zip(ops_, dcs, xs)], reps=5)
-        # the yardstick: PyTorch's sampled product on the same operands,
-        # with the stored blocks as a BSR mask, else the same mask in CSR
-        bsr_masks = [torch.sparse_bsr_tensor(a.rowptr, a.col_ids,
-                                             torch.ones_like(a.vals),
-                                             size=shape) for a, _ in ops_]
-        want0 = ops.materialize_dense(arrays0._replace(
-            vals=ref.bcsr_sddmm_ref(dcs[0], xs[0], arrays0.row_ids,
-                                    arrays0.col_ids, 128, 128)), meta)
-        lib, errors = None, []
-        for layout in ("bsr", "csr"):
-            masks = bsr_masks if layout == "bsr" else [
-                m.to_dense().to_sparse_csr() for m in bsr_masks]
-
-            def check_sampled(masks=masks):
-                got = torch.sparse.sampled_addmm(masks[0], dcs[0], xs[0].T,
-                                                 beta=0.0)
-                if not torch.allclose(got.to_dense().float(), want0.float(),
-                                      rtol=2e-2, atol=2e-2):
-                    raise ValueError("sampled_addmm result differs")
-            lib, err = _library(
-                [lambda m=m, d=d, x=x: torch.sparse.sampled_addmm(
-                    m, d, x.T, beta=0.0) for m, d, x in zip(masks, dcs, xs)],
-                check_sampled, timer=time_ms_eager)
-            if lib is not None:
-                lib_note = {"library_mask": layout, "library_timing": "eager"}
-                break
-            errors.append(f"{layout}: {err}")
-        else:
-            lib_note = {"library_error": "; ".join(errors)}
-        del bsr_masks, masks
+        # the yardstick: PyTorch's sampled product on the same operands
+        lib, lib_note = _sddmm_library(ops_, dcs, xs, meta, shape)
         bound_ms, bound_by = sddmm_bound(arrays0, meta, n, dtype)
         results[("sddmm", name)] = row(
             "bcsr_sddmm", ms=ms, plain_ms=plain, bound_ms=bound_ms,
@@ -434,8 +425,7 @@ def train_timing_phase(smi):
             for (a, m), x in zip(ops_, xs)], reps=5)
         dense_ms = time_ms([lambda d=d, x=x: d @ x
                             for d, x in zip(dense, xs)], reps=5)
-        bsr = [torch.sparse_bsr_tensor(a.rowptr, a.col_ids, a.vals,
-                                       size=shape) for a, _ in ops_]
+        bsr = [_bsr_library(a, shape) for a, _ in ops_]
         xcs = [x.contiguous() for x in xs]
 
         def check_fwd():
@@ -617,14 +607,15 @@ def main_path_phase():
     check(launches["bcsr_spmm_nnz_stream"] ==
           per_call * engine.decode_calls > 0,
           f"launch count {launches} != {per_call} x decode calls")
-    check(launches["bcsr_sddmm"] == 0, "serving launched the SDDMM kernel")
+    check(launches == _counts(**{B1: launches[B1]}),
+          f"serving launched another kernel than {B1}: {launches}")
 
     with torch.inference_mode():
         oracle = _greedy_oracle(cfg, model, requests[0].prompt, NEW_TOKENS)
     log(f"[main] request 0: engine {streams[0]}")
     log(f"[main] request 0: decode_step loop {oracle}")
     check(streams[0] == oracle, "engine stream != direct decode_step loop")
-    return cfg, model, launches, n_tok / dt
+    return cfg, model, launches, n_tok / dt, streams[0]
 
 
 def model_vs_plain_phase(cfg, model):
@@ -760,6 +751,11 @@ def _read_counts():
     return {k["name"]: bcsr_spmm.LAUNCHES[k["counter"]] for k in KERNELS}
 
 
+def _counts(**nonzero):
+    """Launch counts of every kernel: the ones given, 0 for the rest."""
+    return {k["name"]: nonzero.get(k["name"], 0) for k in KERNELS}
+
+
 def train_phase(cfg, smi):
     """The training main path at full width: TRAIN_STEPS AdamW steps of
     2 x 1024 tokens, bf16, no remat, through ``train.loop.train`` on the
@@ -779,7 +775,7 @@ def train_phase(cfg, smi):
 
     shape = ShapeCell("chip", "train", TRAIN_SEQ, TRAIN_BATCH)
     opt_cfg = adamw.AdamWConfig(total_steps=TRAIN_STEPS)
-    per_layer = {"bcsr_spmm_nnz_stream": 6, "bcsr_sddmm": 3}
+    per_layer = _counts(**{B1: 6, B2: 3})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
@@ -821,8 +817,7 @@ def train_phase(cfg, smi):
     model, opt_state, metrics = step_full(model, opt_state, batch)
     loss_full = float(metrics["loss"])
     remat_counts = _read_counts()
-    want_full = {"bcsr_spmm_nnz_stream": 9 * cfg.n_layers,
-                 "bcsr_sddmm": 3 * cfg.n_layers}
+    want_full = _counts(**{B1: 9 * cfg.n_layers, B2: 3 * cfg.n_layers})
     log(f"[train] remat=full step: loss {loss_full:.4f}, launches "
         f"{remat_counts}, expected {want_full}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
@@ -879,8 +874,8 @@ def train_vs_plain_phase(cfg):
     worst = max(((g_k[n] - g).abs().max().item() /
                  max(g.abs().max().item(), 1e-30), n) for n, g in g_p.items())
     ok = (abs(loss_k - loss_p) <= 1e-5 * abs(loss_p) and worst[0] <= 1e-4
-          and counts_k == {"bcsr_spmm_nnz_stream": 12, "bcsr_sddmm": 6}
-          and counts_p == {"bcsr_spmm_nnz_stream": 0, "bcsr_sddmm": 0})
+          and counts_k == _counts(**{B1: 12, B2: 6})
+          and counts_p == _counts())
     log(f"[train] f32 2-layer full width, kernel vs plain: loss "
         f"{loss_k:.7f} vs {loss_p:.7f} (rtol 1e-5); worst gradient "
         f"max|diff|/max|grad| = {worst[0]:.3g} at {worst[1]} (tolerance "
@@ -940,6 +935,565 @@ def restart_phase():
         f"{'ok' if ok else 'FAIL'}")
     check(ok, "checkpoint/restart on the card failed")
 
+# ------------------------------------------------------------ row_loop (B3, B4)
+def _b3(arrays, meta, b):
+    from repro_torch.kernels import bcsr_spmm
+    return bcsr_spmm.bcsr_spmm_row_loop(
+        arrays.vals, arrays.flat_idx, arrays.flat_col, arrays.row_len, b,
+        meta.n_block_rows)
+
+
+def _b3_plain(arrays, meta, b, out_dtype=None):
+    from repro_torch.kernels import ref
+    return ref.bcsr_spmm_row_loop_ref(
+        arrays.vals, arrays.flat_idx, arrays.flat_col, arrays.row_len, b,
+        meta.n_block_rows, out_dtype=out_dtype)
+
+
+def _b4(arrays, meta, dc, x):
+    from repro_torch.kernels import bcsr_spmm
+    h, w = meta.block
+    return bcsr_spmm.bcsr_sddmm_row_loop(
+        dc, x, arrays.sddmm_flat_idx, arrays.flat_col, meta.n_block_rows,
+        meta.nnzb, h, w)
+
+
+def _b4_plain(arrays, meta, dc, x, out_dtype=None):
+    from repro_torch.kernels import ref
+    h, w = meta.block
+    return ref.bcsr_sddmm_row_loop_ref(
+        dc, x, arrays.sddmm_flat_idx, arrays.flat_col, meta.n_block_rows,
+        meta.nnzb, h, w, out_dtype=out_dtype)
+
+
+def row_loop_parity_phase():
+    """B3 and B4 against their plain versions (which read the same schedule
+    arrays): f32 rtol = atol = 1e-4, bf16 out 1e-2 (about one ulp).  Small
+    odd blocks with a ragged N, ``max_bpr`` of 1 (one block a row) and of
+    many; then both full-width FFN structures at N = 4 and N = TRAIN_N, with
+    the operands as the transposed views the model passes.  Returns the
+    largest full-width |err| of B3 and of B4."""
+    small = [((64, 64), (8, 8), dict(density=0.6)),
+             ((64, 64), (8, 8), dict(nnzb=8)),            # max_bpr 1
+             ((128, 256), (16, 32), dict(density=0.3)),
+             ((256, 128), (32, 16), dict(density=0.15)),
+             ((96, 160), (16, 16), dict(density=0.4))]
+    cases = [(f"small{shape}{block}", dict(shape=shape, block=block, **kw), n)
+             for shape, block, kw in small for n in (8, 33, 100)]
+    cases += [(name, dict(shape=shape, block=(128, 128), nnzb=nnzb), n)
+              for name, (shape, nnzb) in FULL_WIDTH.items()
+              for n in (N_SLOTS, TRAIN_N)]
+    err_b3 = err_b4 = 0.0
+    for i, (name, spec, n) in enumerate(cases):
+        h, w = spec["block"]
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+            arrays, meta = _prepared(900 + i, dtype=dtype, **spec)
+            for view in (False, True):
+                x = _b(1000 + i, meta.n_block_cols * w, n, dtype, view)
+                dc = _b(1100 + i, meta.n_block_rows * h, n, dtype, view)
+                for kname, got, want in (
+                        (B3, _b3(arrays, meta, x),
+                         _b3_plain(arrays, meta, x, torch.float32)),
+                        (B4, _b4(arrays, meta, dc, x),
+                         _b4_plain(arrays, meta, dc, x, torch.float32))):
+                    want = want.to(dtype)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    ok = got.shape == want.shape and torch.allclose(
+                        got.float(), want.float(), rtol=tol, atol=tol)
+                    if name in FULL_WIDTH:
+                        if kname == B3:
+                            err_b3 = max(err_b3, err)
+                        else:
+                            err_b4 = max(err_b4, err)
+                    log(f"[row_loop-parity] {kname} {name} max_bpr="
+                        f"{meta.max_bpr} N={n} {str(dtype)[6:]} "
+                        f"{'views' if view else 'row-major'} max|err|="
+                        f"{err:.3g} tol={tol} {'ok' if ok else 'FAIL'}")
+                    check(ok, f"{kname} disagrees with its plain version: "
+                          f"{name} N={n}")
+    return err_b3, err_b4
+
+
+def _bsr_library(arrays, shape):
+    """``torch.sparse_bsr_tensor`` of an operand (the SpMM yardstick)."""
+    return torch.sparse_bsr_tensor(arrays.rowptr, arrays.col_ids,
+                                   arrays.vals, size=shape)
+
+
+def _sddmm_library(ops_, dcs, xs, meta, shape):
+    """Time ``torch.sparse.sampled_addmm`` on the stored blocks as the
+    SDDMM yardstick: a BSR mask, else the same mask in CSR.  Returns
+    (ms or None, note dict)."""
+    from repro_torch.kernels import ops, ref
+    h, w = meta.block
+    arrays0 = ops_[0][0]
+    bsr_masks = [torch.sparse_bsr_tensor(a.rowptr, a.col_ids,
+                                         torch.ones_like(a.vals), size=shape)
+                 for a, _ in ops_]
+    want0 = ops.materialize_dense(arrays0._replace(
+        vals=ref.bcsr_sddmm_ref(dcs[0], xs[0], arrays0.row_ids,
+                                arrays0.col_ids, h, w)), meta)
+    errors = []
+    for layout in ("bsr", "csr"):
+        masks = bsr_masks if layout == "bsr" else [
+            m.to_dense().to_sparse_csr() for m in bsr_masks]
+
+        def check_sampled(masks=masks):
+            got = torch.sparse.sampled_addmm(masks[0], dcs[0], xs[0].T,
+                                             beta=0.0)
+            if not torch.allclose(got.to_dense().float(), want0.float(),
+                                  rtol=2e-2, atol=2e-2):
+                raise ValueError("sampled_addmm result differs")
+        lib, err = _library(
+            [lambda m=m, d=d, x=x: torch.sparse.sampled_addmm(
+                m, d, x.T, beta=0.0) for m, d, x in zip(masks, dcs, xs)],
+            check_sampled, timer=time_ms_eager)
+        if lib is not None:
+            return lib, {"library_mask": layout, "library_timing": "eager"}
+        errors.append(f"{layout}: {err}")
+    return None, {"library_error": "; ".join(errors)}
+
+
+def row_loop_timing_phase(smi):
+    """bf16 times of B3 and B4 at both full-width FFN structures, at the
+    decode (N = N_SLOTS) and training (N = TRAIN_N) widths, rotating over
+    ROTATE layers' operands so that L2 is cold, operands as the transposed
+    views the model passes; each beside its plain version, its bound, the
+    dense product and the library call."""
+    from repro_torch.kernels import ops, ref
+    dtype = torch.bfloat16
+    results = {}
+    for name, (shape, nnzb) in FULL_WIDTH.items():
+        M, K = shape
+        ops_ = [_prepared(7919 + j, shape, (128, 128), nnzb=nnzb,
+                          dtype=dtype) for j in range(ROTATE)]
+        meta = ops_[0][1]
+        dense = [ops.materialize_dense(a, m) for a, m in ops_]
+        bsr = [_bsr_library(a, shape) for a, _ in ops_]
+        for n in (N_SLOTS, TRAIN_N):
+            xs = [_b(j, K, n, dtype, transposed=True) for j in range(ROTATE)]
+            dcs = [_b(100 + j, M, n, dtype, transposed=True)
+                   for j in range(ROTATE)]
+
+            def row(case, **kw):
+                r = {"case": f"{case} {name} {M}x{K} N={n}",
+                     "max_bpr": meta.max_bpr, "card": smi, **kw}
+                log("[row_loop-timing] " + json.dumps(r))
+                return r
+
+            # ---- B3: C = A x^T through the static schedule
+            reps = 20 if n == N_SLOTS else 5
+            ms = time_ms([lambda a=a, m=m, x=x: _b3(a, m, x)
+                          for (a, m), x in zip(ops_, xs)], reps=reps)
+            plain = time_ms([lambda a=a, m=m, x=x: _b3_plain(a, m, x)
+                             for (a, m), x in zip(ops_, xs)], reps=reps)
+            dense_ms = time_ms([lambda d=d, x=x: d @ x
+                                for d, x in zip(dense, xs)], reps=reps)
+            xcs = [x.contiguous() for x in xs]
+
+            def check_fwd():
+                if not torch.allclose((bsr[0] @ xcs[0]).float(),
+                                      (dense[0] @ xs[0]).float(), rtol=2e-2,
+                                      atol=2e-2):
+                    raise ValueError("sparse_bsr result differs")
+            lib, lib_err = _library([lambda a=a, x=x: a @ x
+                                     for a, x in zip(bsr, xcs)], check_fwd)
+            bound_ms, bound_by = bound(nnzb, 128, 128, K, n,
+                                       meta.n_block_rows, dtype)
+            results[(B3, name, n)] = row(
+                B3, ms=ms, plain_ms=plain, bound_ms=bound_ms,
+                bound_by=bound_by, dense_ms=dense_ms, library_ms=lib,
+                **({"library_error": lib_err} if lib_err else {}))
+            del xcs
+
+            # ---- B4: dvals = dC x^T at the stored blocks
+            ms = time_ms([lambda a=a, m=m, d=d, x=x: _b4(a, m, d, x)
+                          for (a, m), d, x in zip(ops_, dcs, xs)], reps=reps)
+            plain = time_ms([lambda a=a, m=m, d=d, x=x: _b4_plain(a, m, d, x)
+                             for (a, m), d, x in zip(ops_, dcs, xs)],
+                            reps=reps)
+            dense_ms = time_ms([lambda a=a, d=d, x=x: ref.bcsr_sddmm_dense_ref(
+                d, x, a.row_ids, a.col_ids, 128, 128)
+                for (a, _), d, x in zip(ops_, dcs, xs)], reps=reps)
+            lib, lib_note = _sddmm_library(ops_, dcs, xs, meta, shape)
+            bound_ms, bound_by = sddmm_bound(ops_[0][0], meta, n, dtype)
+            results[(B4, name, n)] = row(
+                B4, ms=ms, plain_ms=plain, bound_ms=bound_ms,
+                bound_by=bound_by, dense_ms=dense_ms, library_ms=lib,
+                **lib_note)
+            del xs, dcs
+        del ops_, dense, bsr
+        torch.cuda.empty_cache()
+    return results
+
+
+def _with_backend(cfg, backend, **spec_kw):
+    return dataclasses.replace(cfg, ffn_sparsity=dataclasses.replace(
+        cfg.ffn_sparsity, backend=backend, **spec_kw))
+
+
+def serve_row_loop_phase(cfg, model, stream0):
+    """Serving at full width with the FFN spec's ``backend="row_loop"``
+    (same weights: ``prepare`` built the static schedules beside the
+    streamed kernel's ``rowptr``).  Checks exactly 72 B3 launches a decode
+    call and no other kernel, engine stream == direct ``decode_step`` loop,
+    and the prefill logits of 4 prompts within 2e-2 of the ``nnz_stream``
+    run's (printing the largest difference and whether the greedy tokens
+    agree)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine
+    cfg_rl = _with_backend(cfg, "row_loop")
+    warm = ServeEngine(cfg_rl, model, n_slots=N_SLOTS, cache_len=CACHE_LEN,
+                       device=DEVICE)
+    list(warm.generate(_requests(cfg)[:1]))
+    engine = ServeEngine(cfg_rl, model, n_slots=N_SLOTS, cache_len=CACHE_LEN,
+                         device=DEVICE)
+    requests = _requests(cfg)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streams = {}
+    for rid, tok in engine.generate(requests):
+        streams.setdefault(rid, []).append(tok)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _read_counts()
+    n_tok = sum(len(v) for v in streams.values())
+    per_call = 3 * cfg.n_layers
+    log(f"[serve-row_loop] {len(streams)} requests, {n_tok} new tokens, "
+        f"{engine.decode_calls} decode calls in {dt:.3f}s: "
+        f"{n_tok / dt:.1f} tok/s (host clock, synchronised)")
+    log(f"[serve-row_loop] kernel launches {launches}; expected {per_call} "
+        f"{B3} per decode call x {engine.decode_calls}")
+    check(sorted(streams) == list(range(N_REQUESTS)) and all(
+        len(v) == NEW_TOKENS for v in streams.values()),
+        "row_loop serving: requests missing or short")
+    check(launches == _counts(**{B3: per_call * engine.decode_calls}) and
+          engine.decode_calls > 0,
+          f"row_loop serving launch counts {launches}")
+    with torch.inference_mode():
+        oracle = _greedy_oracle(cfg_rl, model, requests[0].prompt, NEW_TOKENS)
+        prompts = torch.as_tensor(np.stack([r.prompt for r in
+                                            requests[:N_SLOTS]]),
+                                  device=DEVICE).long()
+        logits = {}
+        for c in (cfg, cfg_rl):
+            out, _ = T.prefill(c, model, {"tokens": prompts}, CACHE_LEN)
+            logits[c.ffn_sparsity.backend] = out.float()
+    log(f"[serve-row_loop] request 0: engine {streams[0]}; decode_step loop "
+        f"{oracle}; nnz_stream engine {stream0}")
+    check(streams[0] == oracle, "row_loop engine stream != decode_step loop")
+    diff = (logits["row_loop"] - logits["nnz_stream"]).abs().max().item()
+    same = bool((logits["row_loop"].argmax(-1) ==
+                 logits["nnz_stream"].argmax(-1)).all())
+    ok = bool(torch.isfinite(logits["row_loop"]).all()) and diff <= 2e-2
+    log(f"[serve-row_loop] prefill logits ({N_SLOTS} x {PROMPT_LEN} tokens), "
+        f"row_loop vs nnz_stream: max|diff|={diff:.4g} (tolerance 2e-2); "
+        f"greedy tokens agree at every position: {same} "
+        f"{'ok' if ok else 'FAIL'}")
+    check(ok, "row_loop prefill logits differ from nnz_stream's")
+    return launches, n_tok / dt
+
+
+def train_row_loop_phase(cfg, smi, losses_nnz):
+    """TRAIN_STEPS full-width AdamW steps with ``backend="row_loop"`` (2 x
+    1024 tokens, bf16, no remat): per step exactly 72 B3 (forward), 72 B1
+    (dB over the transpose structure) and 72 B4 (dvals), no B2; each loss
+    within 1e-2 of the ``nnz_stream`` run's."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    cfg_rl = _with_backend(cfg, "row_loop")
+    shape = ShapeCell("chip", "train", TRAIN_SEQ, TRAIN_BATCH)
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    res = loop.train(cfg_rl, shape, device=DEVICE, total_steps=TRAIN_STEPS,
+                     opt_cfg=adamw.AdamWConfig(total_steps=TRAIN_STEPS),
+                     remat="none")
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    steady = res.step_times[1:]
+    step_ms = 1e3 * sum(steady) / len(steady)
+    want = _counts(**{name: 3 * cfg.n_layers * TRAIN_STEPS
+                      for name in (B3, B1, B4)})
+    diffs = [abs(a - b) for a, b in zip(res.losses, losses_nnz)]
+    log(f"[train-row_loop] losses {res.losses}; nnz_stream run's "
+        f"{losses_nnz}; max|diff| {max(diffs):.3g} (tolerance 1e-2)")
+    log(f"[train-row_loop] step ms {[round(1e3 * t, 3) for t in res.step_times]}"
+        f"; steady {step_ms:.3f} ms = {TRAIN_N / step_ms * 1e3:.1f} tokens/s; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {smi}")
+    log(f"[train-row_loop] kernel launches {launches}; expected {want}")
+    check(res.final_step == TRAIN_STEPS and len(res.losses) == TRAIN_STEPS,
+          "row_loop training did not reach its end")
+    check(all(np.isfinite(res.losses)) and max(diffs) <= 1e-2,
+          "row_loop training losses differ from nnz_stream's")
+    check(launches == want, f"row_loop training launch counts {launches}")
+    torch.cuda.empty_cache()
+    return launches, {"step_ms": step_ms,
+                      "tokens_per_s": TRAIN_N / step_ms * 1e3}
+
+
+def train_row_loop_vs_plain_phase(cfg):
+    """One training step of a 2-layer float32 copy at full width with
+    ``backend="row_loop"`` and the weights reordered (``reorder="jaccard"``
+    at block-row granularity; ``rcm`` if Jaccard leaves the rows in place),
+    through the kernels against the plain versions: loss rtol 1e-5, every
+    gradient max|diff| <= 1e-4 x its max|grad|.  This runs the reorder
+    branches of the spmm/sddmm autograd Functions on the card."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.train import loop
+
+    for scheme in ("jaccard", "rcm"):
+        cfg32 = _with_backend(dataclasses.replace(cfg, n_layers=2,
+                                                  dtype="float32"),
+                              "row_loop", reorder=scheme)
+        model = T.init_params(cfg32, seed=0, device=DEVICE)
+        perm = model.blocks[0].mlp.gate.row_perm
+        moved = int((perm != torch.arange(perm.numel(), device=DEVICE)).sum())
+        log(f"[train-row_loop-vs-plain] reorder={scheme}: layer 0 gate "
+            f"row_perm moves {moved} of {perm.numel()} rows")
+        if moved:
+            break
+    check(moved > 0, "no reorder scheme moved a row of the FFN weights")
+    batch = loop.batch_to_device(make_batch(
+        cfg32, ShapeCell("chip", "train", TRAIN_SEQ, TRAIN_BATCH), 0), DEVICE)
+    out = {}
+    for backend in ("row_loop", "xla"):
+        cfg_b = _with_backend(cfg32, backend)
+        for p_ in model.parameters():
+            p_.grad = None
+        _reset_counts()
+        loss, _ = T.train_loss(cfg_b, model, batch, remat="none")
+        loss.backward()
+        out[backend] = (float(loss.detach()), _read_counts(),
+                        {n: p_.grad.clone()
+                         for n, p_ in model.named_parameters()})
+    (loss_k, counts_k, g_k), (loss_p, counts_p, g_p) = (out["row_loop"],
+                                                        out["xla"])
+    worst = max(((g_k[n] - g).abs().max().item() /
+                 max(g.abs().max().item(), 1e-30), n) for n, g in g_p.items())
+    want = _counts(**{B3: 6, B1: 6, B4: 6})
+    ok = (abs(loss_k - loss_p) <= 1e-5 * abs(loss_p) and worst[0] <= 1e-4
+          and counts_k == want and counts_p == _counts())
+    log(f"[train-row_loop-vs-plain] f32 2-layer full width, reorder={scheme}: "
+        f"loss {loss_k:.7f} vs {loss_p:.7f} (rtol 1e-5); worst gradient "
+        f"max|diff|/max|grad| = {worst[0]:.3g} at {worst[1]} (tolerance "
+        f"1e-4); launches {counts_k} (expected {want}) vs {counts_p} "
+        f"{'ok' if ok else 'FAIL'}")
+    check(ok, "f32 row_loop training step with a reorder disagrees with its "
+          "plain path")
+    del model
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------- library path
+LIB_N = 8                                  # the paper's N for SpMM
+LIB_BLOCK = (16, 16)
+LIB_MAX_CANDIDATES = 4096
+# SuiteSparse mip1 at its published size (66,463 rows, 10,352,819 nnz), as
+# the clustered stand-in of core.topology
+MIP1_FULL = dict(n=66463, nnz_target=10_352_819, cluster=64)
+
+
+def library_phase(smi):
+    """The quickstart path on the card: CSR -> ``from_scipy`` at 16x16 ->
+    ``prepare(reorder="jaccard", max_candidates=4096)`` and
+    ``prepare(reorder="identity")``, for each of the nine ``topology.SUITE``
+    stand-ins and for ``mip1`` at its published size.  Prints nnzb and
+    max_bpr before and after the reorder, the row_loop schedule length, the
+    reorder's host seconds and which Jaccard path ran; runs spmm at N = 8
+    through B1 and B3 in f32 against the plain version and against the
+    identity-ordered product (rtol = atol = 1e-4); times B1 and B3 in bf16
+    against the bound.  Returns the mip1-class host BCSR, reordered, for
+    the autotune phase, and the largest |err| of B3."""
+    from repro_torch.core import bcsr as B
+    from repro_torch.core import native, permute, topology
+    from repro_torch.kernels import bcsr_spmm, ops
+    jaccard_path = ("native C" if native.get_kernel() is not None
+                    else "numpy rounds")
+    log(f"[library] Jaccard clustering path: {jaccard_path} "
+        f"({native.library_path() if native.get_kernel() else '-'})")
+    cases = [(name, gen, kw) for name, (gen, kw, _) in topology.SUITE.items()]
+    cases.append(("mip1@published", topology.blocked_random, MIP1_FULL))
+    err_b3, mip1_perm = 0.0, None
+    rows = {}
+    for name, gen, kw in cases:
+        t0 = time.perf_counter()
+        csr = gen(seed=0, **kw)
+        t_gen = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        a = B.from_scipy(csr, LIB_BLOCK)
+        t_block = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        arr_i, meta_i = ops.prepare(a, torch.float32, device=DEVICE)
+        t_ident = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        arr_j, meta_j = ops.prepare(a, torch.float32, reorder="jaccard",
+                                    max_candidates=LIB_MAX_CANDIDATES,
+                                    device=DEVICE)
+        t_jacc = time.perf_counter() - t0
+        b = _b(42, csr.shape[1], LIB_N, torch.float32)
+        with torch.inference_mode():
+            want_i = ops.spmm(arr_i, meta_i, b, backend="xla")
+            want_j = ops.spmm(arr_j, meta_j, b, backend="xla")
+            errs = {}
+            for backend in ("nnz_stream", "row_loop"):
+                _reset_counts()
+                got = ops.spmm(arr_j, meta_j, b, backend=backend)
+                counts = _read_counts()
+                torch.cuda.synchronize()
+                errs[backend] = (
+                    (got - want_j).abs().max().item(),
+                    (got - want_i).abs().max().item())
+                ok = (torch.allclose(got, want_j, rtol=1e-4, atol=1e-4) and
+                      torch.allclose(got, want_i, rtol=1e-4, atol=1e-4) and
+                      counts == _counts(**{B1 if backend == "nnz_stream"
+                                           else B3: 1}))
+                check(ok, f"library spmm through {backend} on {name}: "
+                      f"|err| vs plain {errs[backend][0]:.3g}, vs identity "
+                      f"{errs[backend][1]:.3g}, launches {counts}")
+            err_b3 = max(err_b3, errs["row_loop"][0])
+        # bf16 times of B1 and B3 on the reordered operand, rotating over
+        # copies of its blocks so that a large operand is cold in L2
+        copies = max(1, min(8, -(-3 * 50_000_000 // max(
+            arr_j.vals.numel() * 2, 1))))
+        vals16 = [arr_j.vals.to(torch.bfloat16, copy=True)
+                  for _ in range(copies)]
+        b16 = b.to(torch.bfloat16)
+        b16p = torch.nn.functional.pad(            # whole w-row panels of B
+            b16, (0, 0, 0, meta_j.n_block_cols * LIB_BLOCK[1] - b16.shape[0]))
+        ms_b1 = time_ms([lambda v=v: bcsr_spmm.bcsr_spmm_nnz_stream(
+            v, arr_j.row_ids, arr_j.col_ids, b16p, meta_j.n_block_rows,
+            rowptr=arr_j.rowptr) for v in vals16], reps=10)
+        ms_b3 = time_ms([lambda v=v: _b3(arr_j._replace(vals=v), meta_j, b16p)
+                         for v in vals16], reps=10)
+        bound_ms, bound_by = bound(meta_j.nnzb, *LIB_BLOCK, csr.shape[1],
+                                   LIB_N, meta_j.n_block_rows, torch.bfloat16)
+        rows[name] = r = {
+            "matrix": name, "shape": list(csr.shape), "nnz": int(csr.nnz),
+            "nnzb_identity": meta_i.nnzb, "nnzb_jaccard": meta_j.nnzb,
+            "max_bpr_identity": meta_i.max_bpr, "max_bpr_jaccard": meta_j.max_bpr,
+            "row_loop_sched_len_identity": meta_i.row_loop_sched_len,
+            "row_loop_sched_len_jaccard": meta_j.row_loop_sched_len,
+            "host_s": {"generate": t_gen, "block": t_block,
+                       "prepare_identity": t_ident,
+                       "prepare_jaccard": t_jacc},
+            "jaccard_path": jaccard_path,
+            "max_abs_err_vs_plain": {k: v[0] for k, v in errs.items()},
+            "max_abs_err_vs_identity": {k: v[1] for k, v in errs.items()},
+            "bf16_ms": {B1: ms_b1, B3: ms_b3}, "bound_ms": bound_ms,
+            "bound_by": bound_by, "card": smi}
+        log("[library] " + json.dumps(r))
+        if name == "mip1@published":
+            t0 = time.perf_counter()
+            mip1_perm, _ = permute.permute_bcsr(
+                a, "jaccard", max_candidates=LIB_MAX_CANDIDATES)
+            log(f"[library] mip1@published reordered host BCSR for the "
+                f"autotuner: nnzb {mip1_perm.nnzb} in "
+                f"{time.perf_counter() - t0:.2f}s")
+            bsr = _bsr_library(arr_j._replace(vals=vals16[0]),
+                               (meta_j.n_block_rows * LIB_BLOCK[0],
+                                meta_j.n_block_cols * LIB_BLOCK[1]))
+
+            def check_lib():
+                got = (bsr @ b16p)[: csr.shape[0]]
+                ref_ = ops.spmm(arr_j._replace(vals=vals16[0]), meta_j, b16,
+                                backend="xla")
+                perm = arr_j.row_perm.long()
+                if not torch.allclose(got.float(), ref_[perm].float(),
+                                      rtol=2e-2, atol=2e-2):
+                    raise ValueError("sparse_bsr result differs")
+            lib, lib_err = _library([lambda: bsr @ b16p], check_lib)
+            r["library_ms"] = lib
+            log(f"[library] mip1@published torch.sparse BSR @ B (bf16): "
+                f"{lib} ms{'; ' + lib_err if lib_err else ''}")
+        del arr_i, arr_j, vals16, csr, a
+        torch.cuda.empty_cache()
+    return mip1_perm, err_b3, rows
+
+
+# ----------------------------------------------------------------- autotune
+def autotune_phase(mip1_perm, smi):
+    """``Autotuner.tune`` on the card (bf16, a fresh in-memory tuner) for
+    the reordered mip1-class operand at N = 8 (row-major operands, as the
+    library path passes them) and both full-width FFN structures at N = 4
+    and N = TRAIN_N (token-major views, as the model passes them),
+    ``op="spmm"`` and ``"sddmm"``.  Prints every candidate's time and the
+    winner, which is always a kernel; then ``backend="auto"`` must launch
+    that kernel (the launch counters show which ran) and give its output
+    bit for bit (the kernels are deterministic).  Where a yardstick (the
+    plain or the dense product) beats the winner, that is printed as a
+    finding.  Any exception of a candidate propagates."""
+    from repro_torch.core import bcsr as B
+    from repro_torch.kernels import autotune, ops
+    tuner = autotune.Autotuner()
+    autotune.set_autotuner(tuner)
+    cases = [("mip1@published", mip1_perm, LIB_N, "row_major")]
+    for name, (shape, nnzb) in FULL_WIDTH.items():
+        a = B.random_bcsr_exact(7919, shape, (128, 128), nnzb)
+        cases += [(name, a, N_SLOTS, "token_major"),
+                  (name, a, TRAIN_N, "token_major")]
+    dtype = torch.bfloat16
+    winners = {}
+    counters = {"nnz_stream": B1, "row_loop": B3}
+    sddmm_counters = {"nnz_stream": B2, "row_loop": B4}
+    for name, a, n, layout in cases:
+        arrays, meta = ops.prepare(a, dtype, device=DEVICE)
+        rng = np.random.default_rng(3)
+
+        def operand(rows):
+            shape = (n, rows) if layout == "token_major" else (rows, n)
+            t = torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to(DEVICE, dtype)
+            return t.T if layout == "token_major" else t
+        b, x = operand(meta.shape[1]), operand(meta.shape[0])
+        for op in ("spmm", "sddmm"):
+            t0 = time.perf_counter()
+            choice, timings = tuner.tune(a, n, dtype=dtype, op=op,
+                                         layout=layout, warmup=2, iters=10,
+                                         device=DEVICE)
+            sweep_s = time.perf_counter() - t0
+            with torch.inference_mode():
+                _reset_counts()
+                if op == "spmm":
+                    got = ops.spmm(arrays, meta, b, backend="auto")
+                    want = ops.spmm(arrays, meta, b, backend=choice.backend,
+                                    bn=choice.bn)
+                else:
+                    got = ops.sddmm(arrays, meta, x, b, backend="auto")
+                    want = ops.sddmm(arrays, meta, x, b,
+                                     backend=choice.backend, bn=choice.bn)
+                torch.cuda.synchronize()
+            counts = _read_counts()
+            kernel = (counters if op == "spmm" else sddmm_counters).get(
+                choice.backend)
+            ok = (kernel is not None and torch.equal(got, want)
+                  and counts == _counts(**{kernel: 2}))
+            label = f"{choice.variant}/bn{choice.bn}"
+            yard = {k: v for k, v in timings.items()
+                    if not autotune.get_variant(k.split("/")[0]).is_kernel}
+            row = {"operand": name, "op": op, "N": n, "layout": layout,
+                   "timings_ms": {k: v * 1e3 for k, v in timings.items()},
+                   "winner": label, "auto_launches": counts,
+                   "sweep_s": sweep_s, "card": smi}
+            log("[autotune] " + json.dumps(row))
+            check(ok, f"backend='auto' did not launch the tuned kernel "
+                  f"{choice.variant} for {name} {op} N={n}: launches {counts}")
+            best_yard = min(yard, key=yard.get)
+            if yard[best_yard] < timings[label]:
+                log(f"[autotune] finding: for {name} {op} N={n} the yardstick "
+                    f"{best_yard} ({yard[best_yard] * 1e3:.4f} ms) beats the "
+                    f"fastest kernel {label} ({timings[label] * 1e3:.4f} ms)")
+            winners[(name, op, n)] = label
+        del arrays, b, x
+        torch.cuda.empty_cache()
+    autotune.set_autotuner(None)
+    return winners
+
+
 
 def main():
     smi = device_phase()
@@ -947,16 +1501,24 @@ def main():
     build_phase()
     max_err = parity_phase()
     err_b2, err_dx = sddmm_parity_phase()
+    err_b3, err_b4 = row_loop_parity_phase()
     timed = timing_phase(smi)
     timed_train = train_timing_phase(smi)
-    cfg, model, launches, tok_s = main_path_phase()
+    timed_rl = row_loop_timing_phase(smi)
+    cfg, model, launches, tok_s, stream0 = main_path_phase()
     model_vs_plain_phase(cfg, model)
     profile_phase(cfg, model)
+    serve_rl_launches, tok_s_rl = serve_row_loop_phase(cfg, model, stream0)
     del model
     torch.cuda.empty_cache()
     train_launches, trained = train_phase(cfg, smi)
+    train_rl_launches, trained_rl = train_row_loop_phase(cfg, smi,
+                                                         trained["losses"])
     train_vs_plain_phase(cfg)
+    train_row_loop_vs_plain_phase(cfg)
     restart_phase()
+    mip1_perm, err_lib, _ = library_phase(smi)
+    winners = autotune_phase(mip1_perm, smi)
 
     # a layer runs each kernel twice on the gate/up shape for every once on
     # the down shape: the line's times are that mix, per launch
@@ -967,36 +1529,44 @@ def main():
     fwd = {s: timed_train[("fwd", s)] for s in FULL_WIDTH}
     dx = {s: timed_train[("dx", s)] for s in FULL_WIDTH}
     sd = {s: timed_train[("sddmm", s)] for s in FULL_WIDTH}
+    rl = {(k, n): {s: timed_rl[(k, s, n)] for s in FULL_WIDTH}
+          for k in (B3, B4) for n in (N_SLOTS, TRAIN_N)}
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
-    b1, b2 = KERNELS
-    line = {"kernels": [{
-        "name": b1["name"], "route": b1["route"], "source": b1["source"],
-        "replaces": b1["replaces"],
-        "launches": launches[b1["name"]] + train_launches[b1["name"]],
-        "max_abs_err": max(max_err, err_dx),
-        **{key: mix(decode, key) for key in keys},
-        "bound_by": decode["down"]["bound_by"],
-        "launches_by_path": {"serve": launches[b1["name"]],
-                             "train": train_launches[b1["name"]]},
-        "train_forward": {key: mix(fwd, key) for key in keys},
-        "train_dB": {key: mix(dx, key) for key in keys},
-    }, {
-        "name": b2["name"], "route": b2["route"], "source": b2["source"],
-        "replaces": b2["replaces"],
-        "launches": launches[b2["name"]] + train_launches[b2["name"]],
-        "max_abs_err": err_b2,
-        **{key: mix(sd, key) for key in keys},
-        "bound_by": sd["down"]["bound_by"],
-        "dense_ms": mix(sd, "dense_ms"),
-        "launches_by_path": {"serve": launches[b2["name"]],
-                             "train": train_launches[b2["name"]]},
-    }]}
-    log(f"[main] serving: {tok_s:.1f} tok/s; training: "
-        f"{trained['step_ms']:.3f} ms per step, "
-        f"{trained['tokens_per_s']:.1f} tokens/s.  Kernel times per launch: "
-        f"{b1['name']} at the decode shape (N={N_SLOTS}; train_forward and "
-        f"train_dB at N={TRAIN_N}), {b2['name']} at N={TRAIN_N}; each "
-        f"averaged 2:1 over the gate/up and down shapes")
+    paths = {"serve": launches, "train": train_launches,
+             "serve_row_loop": serve_rl_launches,
+             "train_row_loop": train_rl_launches}
+
+    def entry(k, err, rows, **extra):
+        by_path = {path: counts[k["name"]] for path, counts in paths.items()}
+        return {"name": k["name"], "route": k["route"],
+                "source": k["source"], "replaces": k["replaces"],
+                "launches": sum(by_path.values()), "max_abs_err": err,
+                **{key: mix(rows, key) for key in keys},
+                "bound_by": rows["down"]["bound_by"],
+                "launches_by_path": by_path, **extra}
+    b1, b2, b3, b4 = KERNELS
+    line = {"kernels": [
+        entry(b1, max(max_err, err_dx), decode,
+              train_forward={key: mix(fwd, key) for key in keys},
+              train_dB={key: mix(dx, key) for key in keys}),
+        entry(b2, err_b2, sd, dense_ms=mix(sd, "dense_ms")),
+        entry(b3, max(err_b3, err_lib), rl[(B3, N_SLOTS)],
+              train_forward={key: mix(rl[(B3, TRAIN_N)], key)
+                             for key in keys}),
+        entry(b4, err_b4, rl[(B4, TRAIN_N)],
+              dense_ms=mix(rl[(B4, TRAIN_N)], "dense_ms"),
+              decode={key: mix(rl[(B4, N_SLOTS)], key) for key in keys}),
+    ]}
+    log(f"[main] serving: {tok_s:.1f} tok/s (nnz_stream), {tok_s_rl:.1f} "
+        f"tok/s (row_loop); training: {trained['step_ms']:.3f} ms per step, "
+        f"{trained['tokens_per_s']:.1f} tokens/s (nnz_stream), "
+        f"{trained_rl['step_ms']:.3f} ms, {trained_rl['tokens_per_s']:.1f} "
+        f"tokens/s (row_loop).  Autotune winners: "
+        f"{ {f'{k[0]} {k[1]} N={k[2]}': v for k, v in winners.items()} }.  "
+        f"Kernel times per launch: {B1} and {B3} at the decode shape "
+        f"(N={N_SLOTS}; train_forward and train_dB at N={TRAIN_N}), {B2} and "
+        f"{B4} at N={TRAIN_N}; each averaged 2:1 over the gate/up and down "
+        f"shapes")
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
 """PyTorch/CUDA port of the ``repro`` package, for one NVIDIA H100.
 
-The ported surface so far is the main path of ``smat-ffn-1.3b``: host BCSR
--> ``prepare`` -> ``spmm`` / ``sddmm`` (hand-written CUDA kernels, forward
-and backward) -> sparse FFN -> transformer -> serving (``ServeEngine``) and
-training (``repro_torch.train.loop``).  Exports resolve lazily (PEP 562),
+The ported surface so far is the main path of ``smat-ffn-1.3b`` and the
+SMaT library path: host BCSR -> ``prepare`` (with the block-densifying row
+reorder) -> ``spmm`` / ``sddmm`` (hand-written CUDA kernels, streamed and
+static-schedule, forward and backward; ``backend="auto"`` through the
+``Autotuner``) -> sparse FFN (``SparsitySpec``) -> transformer -> serving
+(``ServeEngine``) and training (``repro_torch.train.loop``).  Exports resolve lazily (PEP 562),
 so ``import repro_torch`` imports nothing heavy until a name is touched.
 The package imports torch, numpy and scipy, never jax or ``repro``.
 
@@ -16,19 +18,25 @@ from __future__ import annotations
 import importlib
 
 __all__ = [
+    "Autotuner",
     "Request",
     "ServeEngine",
+    "SparsitySpec",
     "get_config",
     "prepare",
+    "prepare_sparse",
     "sddmm",
     "spmm",
 ]
 
 _EXPORTS = {
+    "Autotuner": "repro_torch.kernels.autotune",
     "Request": "repro_torch.serve.engine",
     "ServeEngine": "repro_torch.serve.engine",
+    "SparsitySpec": "repro_torch.core.sparse_linear",
     "get_config": "repro_torch.configs",
     "prepare": "repro_torch.kernels.ops",
+    "prepare_sparse": "repro_torch.kernels.ops",
     "sddmm": "repro_torch.kernels.ops",
     "spmm": "repro_torch.kernels.ops",
 }

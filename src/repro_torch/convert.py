@@ -12,7 +12,6 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import bcsr as bcsr_lib
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 
@@ -36,10 +35,12 @@ def _put_sparse(sparse, layer, i: int) -> None:
     for field, value in layer.items():
         _put(getattr(sparse, field), value[i])
     meta = sparse.meta
-    _put(sparse.rowptr, bcsr_lib.rowptr_from_rows(
-        np.asarray(layer["row_ids"][i]), meta.n_block_rows))
-    _put(sparse.t_rowptr, bcsr_lib.rowptr_from_rows(
-        np.asarray(layer["t_row_ids"][i]), meta.n_block_cols))
+    rebuilt = ops.port_fields(
+        np.asarray(layer["row_ids"][i]), np.asarray(layer["col_ids"][i]),
+        np.asarray(layer["t_row_ids"][i]), meta.n_block_rows,
+        meta.n_block_cols, meta.max_bpr)
+    for field, value in rebuilt.items():
+        _put(getattr(sparse, field), value)
 
 
 def params_from_jax(cfg: ModelConfig, params_np, device) -> T.Transformer:

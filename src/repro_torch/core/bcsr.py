@@ -23,6 +23,7 @@ import math
 from typing import Tuple
 
 import numpy as np
+import scipy.sparse as sp
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -70,6 +71,10 @@ class BCSR:
         total = self.vals.size
         return 1.0 - self.nnz / max(total, 1)
 
+    @property
+    def density(self) -> float:
+        return self.nnz / (self.shape[0] * self.shape[1])
+
     def blocks_per_row(self) -> np.ndarray:
         return np.diff(self.rowptr)
 
@@ -83,6 +88,32 @@ class BCSR:
                 int(round(self.padding_ratio * 100)),
                 int(round(cv * 100)))
 
+    def block_bounds(self) -> Tuple[int, int]:
+        """The paper's Eq. 2 bounds on the number of blocks n_e for this
+        matrix's nnz."""
+        h, w = self.block
+        n, m = self.shape
+        nnz = self.nnz
+        lo = _ceil_div(nnz, h * w)
+        hi = min(_ceil_div(n, h) * _ceil_div(m, w), nnz)
+        return lo, hi
+
+    def stats(self) -> dict:
+        bpr = self.blocks_per_row()
+        lo, hi = self.block_bounds()
+        return {
+            "shape": self.shape,
+            "block": self.block,
+            "nnz": self.nnz,
+            "nnzb": self.nnzb,
+            "padding_ratio": self.padding_ratio,
+            "blocks_per_row_mean": float(bpr.mean()) if bpr.size else 0.0,
+            "blocks_per_row_std": float(bpr.std()) if bpr.size else 0.0,
+            "blocks_per_row_max": int(bpr.max()) if bpr.size else 0,
+            "n_e_lower_bound": lo,
+            "n_e_upper_bound": hi,
+        }
+
     def to_dense(self) -> np.ndarray:
         h, w = self.block
         M, K = self.shape
@@ -92,6 +123,18 @@ class BCSR:
             i, j = int(self.row_ids[s]), int(self.col_ids[s])
             out[i * h:(i + 1) * h, j * w:(j + 1) * w] = self.vals[s]
         return out[:M, :K]
+
+    def to_scipy(self) -> sp.csr_matrix:
+        """The nonzero structure as a scipy CSR matrix (reordering works on
+        element rows).  Stored zeros are dropped: this is the structure
+        view, not a value-preserving round trip."""
+        h, w = self.block
+        s, i, j = np.nonzero(self.vals)
+        rows = self.row_ids[s].astype(np.int64) * h + i
+        cols = self.col_ids[s].astype(np.int64) * w + j
+        m = sp.coo_matrix((self.vals[s, i, j], (rows, cols)),
+                          shape=self.shape)
+        return m.tocsr()
 
     def transpose(self) -> "BCSR":
         """Block-structure transpose (the operand of dB = A^T @ dC)."""
@@ -156,6 +199,30 @@ def from_dense(a: np.ndarray, block: Tuple[int, int]) -> BCSR:
     rowptr = rowptr_from_rows(row_ids, nbr)
     return BCSR(vals, col_ids.astype(np.int32), row_ids.astype(np.int32),
                 rowptr, (M, K), (h, w))
+
+
+def from_csr(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray,
+             shape: Tuple[int, int], block: Tuple[int, int]) -> BCSR:
+    """CSR -> BCSR, the paper's input path (its Figure 1, left).  Duplicate
+    coordinates are summed, as scipy's ``sum_duplicates`` does."""
+    h, w = block
+    M, K = shape
+    nbr, nbc = _ceil_div(M, h), _ceil_div(K, w)
+    coo = sp.csr_matrix((data, indices, indptr), shape=shape).tocoo()
+    bid = (coo.row // h).astype(np.int64) * nbc + (coo.col // w).astype(
+        np.int64)
+    uniq, inv = np.unique(bid, return_inverse=True)
+    vals = np.zeros((uniq.size, h, w), dtype=data.dtype)
+    np.add.at(vals, (inv, coo.row % h, coo.col % w), coo.data)
+    row_ids = (uniq // nbc).astype(np.int32)
+    col_ids = (uniq % nbc).astype(np.int32)
+    rowptr = rowptr_from_rows(row_ids, nbr)
+    return BCSR(vals, col_ids, row_ids, rowptr, shape, block)
+
+
+def from_scipy(mat, block: Tuple[int, int]) -> BCSR:
+    csr = mat.tocsr()
+    return from_csr(csr.indptr, csr.indices, csr.data, csr.shape, block)
 
 
 def random_bcsr_exact(key: int, shape: Tuple[int, int],

@@ -20,13 +20,13 @@ import torch
 from torch import nn
 
 from repro_torch.core import bcsr as bcsr_lib
-from repro_torch.kernels import ops
+from repro_torch.kernels import autotune, ops
 
-# SparseArrays fields a layer keeps as buffers, in the JAX params' key order
-# (the JAX package keeps no rowptr or t_rowptr, ``ops.PORT_FIELDS``; the
-# port's kernel reads them in the forward and the backward)
+# SparseArrays fields a layer keeps as buffers: the JAX params' keys in their
+# order, then ``ops.PORT_FIELDS`` (entry ranges and the row_loop schedules
+# the port's kernels read, which the JAX package keeps no copy of)
 BUFFER_FIELDS = ("row_ids", "col_ids", "real_mask", "t_perm", "t_row_ids",
-                 "t_col_ids", "row_perm", "inv_perm", "rowptr", "t_rowptr")
+                 "t_col_ids", "row_perm", "inv_perm") + ops.PORT_FIELDS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,13 +34,22 @@ class SparsitySpec:
     """Config for a block-sparse weight.
 
     The fields are the JAX package's, less ``interpret`` (a Pallas option
-    with no meaning on the card).  ``bn`` is kept for config parity; the
-    CUDA kernel chooses its own N tile.  ``tune_n``, ``reorder_shards``,
-    ``shard_cols`` and ``shard_chunks`` are carried for the slices that use
-    them; ``shards`` other than 0 raises."""
+    with no meaning on the card).  ``backend="auto"`` routes every apply
+    through ``kernels.autotune`` (the variant and N tile picked from the
+    weight's structure fingerprint); ``tune_n > 0`` also runs the timed
+    sweep once at ``init_sparse_linear`` with N = ``tune_n`` (the tokens a
+    step feeds the layer).  ``bn`` is the JAX package's TPU tile, kept for
+    config parity and not read: the kernel or the tuner picks the N tile.
+    ``reorder`` applies a row scheme of ``core.permute.SCHEMES`` to the
+    weight at block-row granularity (``jaccard`` | ``rcm`` |
+    ``shard_balance`` | ``identity``; ``shard_balance`` balances over
+    ``reorder_shards`` bins, 0 = the number of cards); ``spmm``
+    un-permutes, so the layer's math is unchanged.  ``shard_cols`` and
+    ``shard_chunks`` are carried for the partitioned slice; ``shards``
+    other than 0 raises."""
     density: float = 0.1            # fraction of nonzero blocks
     block: Tuple[int, int] = (128, 128)
-    backend: str = "nnz_stream"     # nnz_stream (alias pallas) | xla | dense | auto
+    backend: str = "nnz_stream"     # nnz_stream (alias pallas) | row_loop | xla | dense | auto
     bn: int = 512
     tune_n: int = 0
     reorder: str = "identity"
@@ -69,6 +78,13 @@ def _nnzb_for(spec: SparsitySpec, out_dim: int, in_dim: int) -> int:
     return nnzb
 
 
+def _reorder_shards(spec: SparsitySpec) -> int:
+    """The bin count of ``shard_balance``: the spec's, else the number of
+    cards (the JAX package's ``spmm_shard_count`` without a mesh: its
+    device count)."""
+    return spec.reorder_shards or max(torch.cuda.device_count(), 1)
+
+
 def _pattern_for(seed: int, in_dim: int, out_dim: int,
                  spec: SparsitySpec) -> bcsr_lib.BCSR:
     """THE weight pattern of ``(seed, dims, spec)`` — shared by
@@ -86,7 +102,8 @@ def sparse_linear_meta(seed: int, in_dim: int, out_dim: int,
     _check_unsharded(spec)
     a = _pattern_for(seed, in_dim, out_dim, spec)
     return ops.prepare_sparse_meta(a, reorder=spec.reorder,
-                                   reorder_granularity="block_row")
+                                   reorder_granularity="block_row",
+                                   n_shards=_reorder_shards(spec))
 
 
 def _merge_two(m0: ops.SparseMeta, m1: ops.SparseMeta) -> ops.SparseMeta:
@@ -118,12 +135,25 @@ def init_sparse_linear(key: int, in_dim: int, out_dim: int,
                        device="cuda"):
     """Returns ``(params, meta)``: ``params`` a dict of tensors on
     ``device`` (``vals`` plus the index arrays of ``BUFFER_FIELDS``), and
-    the static meta, equal to ``sparse_linear_meta(key, ...)``."""
+    the static meta, equal to ``sparse_linear_meta(key, ...)``.  With
+    ``spec.backend == "auto"`` and ``spec.tune_n > 0`` it also runs the
+    autotuner's timed sweep for this structure on ``device`` at N =
+    ``tune_n``, with the operands laid out as ``apply_sparse_linear``
+    passes them (``layout="token_major"``), so ``auto`` applies hit a
+    measured pick."""
     _check_unsharded(spec)
     a = _pattern_for(key, in_dim, out_dim, spec)
+    n_shards = _reorder_shards(spec)
+    # block_row granularity: the permutation relabels whole block-rows, so
+    # nnzb (and every buffer's shape) is the same for every seed
     arrays, meta = ops.prepare_sparse(
         a, dtype, reorder=spec.reorder, reorder_granularity="block_row",
-        device=device)
+        n_shards=n_shards, device=device)
+    if spec.backend == "auto" and spec.tune_n > 0:
+        autotune.get_autotuner().tune(
+            a, spec.tune_n, dtype=dtype, reorder=spec.reorder,
+            reorder_granularity="block_row", n_shards=n_shards,
+            layout="token_major", device=device)
     return arrays._asdict(), meta
 
 
@@ -141,8 +171,8 @@ def apply_sparse_linear(params, meta: ops.SparseMeta, x: torch.Tensor,
         col_ids=params["col_ids"], real_mask=params["real_mask"],
         t_perm=params["t_perm"], t_row_ids=params["t_row_ids"],
         t_col_ids=params["t_col_ids"], row_perm=params.get("row_perm"),
-        inv_perm=params.get("inv_perm"), rowptr=params.get("rowptr"),
-        t_rowptr=params.get("t_rowptr"))
+        inv_perm=params.get("inv_perm"),
+        **{name: params.get(name) for name in ops.PORT_FIELDS})
     c = ops.spmm(arrays, meta, xt, backend=spec.backend)   # [M, T]
     return c.T.reshape(*lead, meta.shape[0])
 

@@ -1,12 +1,13 @@
 """Hand-written CUDA kernels for BCSR SpMM and SDDMM, and their wrappers.
 
-``bcsr_spmm_nnz_stream`` and ``bcsr_sddmm`` replace the Pallas TPU kernels
-of the same names (``repro/kernels/bcsr_spmm.py:67`` and ``:189``).  The
-kernels are ``csrc/bcsr_spmm.cu`` and ``csrc/bcsr_sddmm.cu``; their headers
+``bcsr_spmm_nnz_stream``, ``bcsr_spmm_row_loop``, ``bcsr_sddmm`` and
+``bcsr_sddmm_row_loop`` replace the Pallas TPU kernels of the same names
+(``repro/kernels/bcsr_spmm.py:67``, ``:124``, ``:189`` and ``:246``).  The
+kernels are ``csrc/bcsr_spmm.cu``, ``csrc/bcsr_spmm_row_loop.cu``,
+``csrc/bcsr_sddmm.cu`` and ``csrc/bcsr_sddmm_row_loop.cu``; their headers
 say how they are laid out and what bounds them.  Each wrapper dispatches on
-the device of its operands: a CPU tensor goes to the plain version
-(``ref.bcsr_spmm_ref``, ``ref.bcsr_sddmm_ref``), a CUDA tensor launches the
-kernel or raises — it never falls back.
+the device of its operands: a CPU tensor goes to the plain version in
+``ref``, a CUDA tensor launches the kernel or raises -- it never falls back.
 """
 from __future__ import annotations
 
@@ -18,7 +19,10 @@ from repro_torch.kernels import _build, ref
 
 # kernel launches since the last reset — a run reads it to show that its
 # path went through the kernel (plain integers, reset by assignment)
-LAUNCHES = {"nnz_stream": 0, "sddmm": 0}
+LAUNCHES = {"nnz_stream": 0, "row_loop": 0, "sddmm": 0, "sddmm_row_loop": 0}
+
+SPMM_TILES = (8, 16, 32, 64)     # the N tiles the SpMM kernels compile
+SDDMM_TILES = (32,)              # the N chunk of the SDDMM kernels
 
 _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _C, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -31,6 +35,15 @@ _ARGTYPES = {
     ("bcsr_sddmm", "bcsr_sddmm"): [
         _C, _C, _C, _C, _C,              # dc b row_ids col_ids out
         _I, _I, _I, _I,                  # nnzb h w N
+        _LL, _LL, _LL, _LL,              # dc's strides, b's strides
+        _I, _I, _C],                     # in_type out_type stream
+    ("bcsr_spmm_row_loop", "bcsr_spmm_row_loop"): [
+        _C, _C, _C, _C, _C, _C,          # vals flat_idx flat_col row_len b out
+        _I, _I, _I, _I, _I, _LL, _LL,    # nbr max_bpr h w N, b's strides
+        _I, _I, _I, _C],                 # bn in_type out_type stream
+    ("bcsr_sddmm_row_loop", "bcsr_sddmm_row_loop"): [
+        _C, _C, _C, _C, _C,              # dc b flat_idx flat_col out
+        _I, _I, _I, _I, _I,              # nbr max_bpr h w N
         _LL, _LL, _LL, _LL,              # dc's strides, b's strides
         _I, _I, _C],                     # in_type out_type stream
 }
@@ -47,12 +60,47 @@ def _lib(source: str, symbol: str):
 
 
 def tile_n(n: int) -> int:
-    """The kernel's N-tile: the smallest of 8/16/32/64 that covers ``n``
-    (decode feeds a handful of tokens), else 64."""
-    for bn in (8, 16, 32):
+    """The SpMM kernels' own N-tile: the smallest of ``SPMM_TILES`` that
+    covers ``n`` (decode feeds a handful of tokens), else the largest."""
+    for bn in SPMM_TILES:
         if n <= bn:
             return bn
-    return 64
+    return SPMM_TILES[-1]
+
+
+def _tile(bn, n: int) -> int:
+    if bn is None:
+        return tile_n(n)
+    if bn not in SPMM_TILES:
+        raise ValueError(f"bn={bn} is not a tile the SpMM kernels compile "
+                         f"{SPMM_TILES}")
+    return bn
+
+
+def _check_int32(device, **tensors) -> None:
+    for name, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, the operands on "
+                             f"{device}")
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int32 tensor")
+
+
+def _check_vals(vals: torch.Tensor, device) -> None:
+    if vals.device != device or not vals.is_contiguous():
+        raise ValueError(f"vals must be a contiguous tensor on {device}")
+
+
+def _check_types(a, b, out_dtype, names) -> None:
+    if a.dtype != b.dtype or a.dtype not in _TYPE_CODES:
+        raise ValueError(f"{names[0]} ({a.dtype}) and {names[1]} ({b.dtype}) "
+                         "must share one type, float32 or bfloat16")
+    if out_dtype not in _TYPE_CODES:
+        raise ValueError(f"out_dtype {out_dtype} not float32 or bfloat16")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def rowptr_from_rows(row_ids: torch.Tensor, n_block_rows: int) -> torch.Tensor:
@@ -66,12 +114,13 @@ def rowptr_from_rows(row_ids: torch.Tensor, n_block_rows: int) -> torch.Tensor:
 
 def bcsr_spmm_nnz_stream(vals: torch.Tensor, row_ids: torch.Tensor,
                          col_ids: torch.Tensor, b: torch.Tensor,
-                         n_block_rows: int, *, rowptr=None,
+                         n_block_rows: int, *, rowptr=None, bn=None,
                          out_dtype=None) -> torch.Tensor:
     """C[nbr*h, N] = A_bcsr @ B.  Entries must be sorted row-major;
     ``rowptr`` [nbr+1] int32 gives each block-row's entry range (built from
     ``row_ids`` when not given).  ``b`` is [K, N] with K a multiple of w and
-    may be strided; the result is a new contiguous tensor in ``out_dtype``
+    may be strided; ``bn`` is the N tile (one of ``SPMM_TILES``; default
+    ``tile_n(N)``).  The result is a new contiguous tensor in ``out_dtype``
     (default ``b.dtype``), accumulated in float32."""
     out_dtype = out_dtype or b.dtype
     if b.device.type == "cpu":
@@ -84,19 +133,9 @@ def bcsr_spmm_nnz_stream(vals: torch.Tensor, row_ids: torch.Tensor,
     K, N = b.shape
     if rowptr is None:
         rowptr = rowptr_from_rows(row_ids, n_block_rows)
-    for name, t in (("vals", vals), ("rowptr", rowptr),
-                    ("col_ids", col_ids)):
-        if t.device != b.device:
-            raise ValueError(f"{name} is on {t.device}, b on {b.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if rowptr.dtype != torch.int32 or col_ids.dtype != torch.int32:
-        raise ValueError("rowptr and col_ids must be int32")
-    if vals.dtype != b.dtype or vals.dtype not in _TYPE_CODES:
-        raise ValueError(f"vals ({vals.dtype}) and b ({b.dtype}) must share "
-                         "one type, float32 or bfloat16")
-    if out_dtype not in _TYPE_CODES:
-        raise ValueError(f"out_dtype {out_dtype} not float32 or bfloat16")
+    _check_int32(b.device, rowptr=rowptr, col_ids=col_ids)
+    _check_vals(vals, b.device)
+    _check_types(vals, b, out_dtype, ("vals", "b"))
     if K % w or rowptr.shape != (n_block_rows + 1,) or \
             col_ids.shape != (nnzb,):
         raise ValueError(f"shapes do not fit: vals {tuple(vals.shape)}, "
@@ -110,9 +149,8 @@ def bcsr_spmm_nnz_stream(vals: torch.Tensor, row_ids: torch.Tensor,
     with torch.cuda.device(b.device):
         err = fn(vals.data_ptr(), rowptr.data_ptr(), col_ids.data_ptr(),
                  b.data_ptr(), out.data_ptr(), n_block_rows, h, w, N,
-                 b.stride(0), b.stride(1), tile_n(N), _TYPE_CODES[vals.dtype],
-                 _TYPE_CODES[out_dtype],
-                 torch.cuda.current_stream(b.device).cuda_stream)
+                 b.stride(0), b.stride(1), _tile(bn, N),
+                 _TYPE_CODES[vals.dtype], _TYPE_CODES[out_dtype], _stream(b))
     if err:
         raise RuntimeError(f"bcsr_spmm_nnz_stream: kernel launch failed with "
                            f"CUDA error {err}")
@@ -138,17 +176,10 @@ def bcsr_sddmm(dc: torch.Tensor, b: torch.Tensor, row_ids: torch.Tensor,
     M, N = dc.shape
     K = b.shape[0]
     nnzb = row_ids.shape[0]
-    for name, t in (("b", b), ("row_ids", row_ids), ("col_ids", col_ids)):
-        if t.device != dc.device:
-            raise ValueError(f"{name} is on {t.device}, dc on {dc.device}")
-    for name, t in (("row_ids", row_ids), ("col_ids", col_ids)):
-        if t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous int32 tensor")
-    if dc.dtype != b.dtype or dc.dtype not in _TYPE_CODES:
-        raise ValueError(f"dc ({dc.dtype}) and b ({b.dtype}) must share one "
-                         "type, float32 or bfloat16")
-    if out_dtype not in _TYPE_CODES:
-        raise ValueError(f"out_dtype {out_dtype} not float32 or bfloat16")
+    if b.device != dc.device:
+        raise ValueError(f"b is on {b.device}, dc on {dc.device}")
+    _check_int32(dc.device, row_ids=row_ids, col_ids=col_ids)
+    _check_types(dc, b, out_dtype, ("dc", "b"))
     if M % h or K % w or b.shape[1] != N or col_ids.shape != (nnzb,):
         raise ValueError(f"shapes do not fit: dc {tuple(dc.shape)}, b "
                          f"{tuple(b.shape)}, block ({h}, {w}), row_ids "
@@ -162,10 +193,109 @@ def bcsr_sddmm(dc: torch.Tensor, b: torch.Tensor, row_ids: torch.Tensor,
         err = fn(dc.data_ptr(), b.data_ptr(), row_ids.data_ptr(),
                  col_ids.data_ptr(), out.data_ptr(), nnzb, h, w, N,
                  dc.stride(0), dc.stride(1), b.stride(0), b.stride(1),
-                 _TYPE_CODES[dc.dtype], _TYPE_CODES[out_dtype],
-                 torch.cuda.current_stream(dc.device).cuda_stream)
+                 _TYPE_CODES[dc.dtype], _TYPE_CODES[out_dtype], _stream(dc))
     if err:
         raise RuntimeError(f"bcsr_sddmm: kernel launch failed with CUDA "
                            f"error {err}")
     LAUNCHES["sddmm"] += 1
     return out
+
+
+def bcsr_spmm_row_loop(vals: torch.Tensor, flat_idx: torch.Tensor,
+                       flat_col: torch.Tensor, row_len: torch.Tensor,
+                       b: torch.Tensor, n_block_rows: int, *, bn=None,
+                       out_dtype=None) -> torch.Tensor:
+    """C[nbr*h, N] = A_bcsr @ B through SMaT's static schedule: block-row i
+    runs slots t = 0 .. max_bpr-1, slot t holding entry ``flat_idx[i *
+    max_bpr + t]`` of block-col ``flat_col[i * max_bpr + t]``, live while
+    ``t < row_len[i]`` (``ops._row_loop_schedule``).  ``b`` as for
+    ``bcsr_spmm_nnz_stream``; accumulated in float32."""
+    out_dtype = out_dtype or b.dtype
+    if b.device.type == "cpu":
+        return ref.bcsr_spmm_row_loop_ref(vals, flat_idx, flat_col, row_len,
+                                          b, n_block_rows,
+                                          out_dtype=out_dtype)
+    if b.device.type != "cuda":
+        raise ValueError(f"bcsr_spmm_row_loop: no kernel for device "
+                         f"{b.device}")
+    nnzb, h, w = vals.shape
+    K, N = b.shape
+    _check_int32(b.device, flat_idx=flat_idx, flat_col=flat_col,
+                 row_len=row_len)
+    _check_vals(vals, b.device)
+    _check_types(vals, b, out_dtype, ("vals", "b"))
+    max_bpr = flat_idx.shape[0] // max(n_block_rows, 1)
+    if K % w or flat_idx.shape != (n_block_rows * max_bpr,) or \
+            flat_col.shape != flat_idx.shape or \
+            row_len.shape != (n_block_rows,):
+        raise ValueError(f"shapes do not fit: vals {tuple(vals.shape)}, "
+                         f"b {tuple(b.shape)}, flat_idx "
+                         f"{tuple(flat_idx.shape)}, flat_col "
+                         f"{tuple(flat_col.shape)}, row_len "
+                         f"{tuple(row_len.shape)}, n_block_rows "
+                         f"{n_block_rows}")
+    out = torch.empty((n_block_rows * h, N), dtype=out_dtype, device=b.device)
+    if N == 0 or n_block_rows == 0:
+        return out
+    fn = _lib("bcsr_spmm_row_loop", "bcsr_spmm_row_loop")
+    with torch.cuda.device(b.device):
+        err = fn(vals.data_ptr(), flat_idx.data_ptr(), flat_col.data_ptr(),
+                 row_len.data_ptr(), b.data_ptr(), out.data_ptr(),
+                 n_block_rows, max_bpr, h, w, N, b.stride(0), b.stride(1),
+                 _tile(bn, N), _TYPE_CODES[vals.dtype], _TYPE_CODES[out_dtype],
+                 _stream(b))
+    if err:
+        raise RuntimeError(f"bcsr_spmm_row_loop: kernel launch failed with "
+                           f"CUDA error {err}")
+    LAUNCHES["row_loop"] += 1
+    return out
+
+
+def bcsr_sddmm_row_loop(dc: torch.Tensor, b: torch.Tensor,
+                        flat_idx: torch.Tensor, flat_col: torch.Tensor,
+                        n_block_rows: int, nnzb: int, h: int, w: int, *,
+                        out_dtype=None) -> torch.Tensor:
+    """dvals [nnzb, h, w] through the static schedule: slot t of block-row
+    i computes dC[block i] @ B[block flat_col[i * max_bpr + t]]^T into
+    entry ``flat_idx[i * max_bpr + t]``, where a padding slot's entry is the
+    sentinel ``nnzb`` (``ops._sddmm_row_loop_schedule``).  The kernel writes
+    an ``[nnzb + 1, h, w]`` buffer; the sentinel entry is sliced off.
+    ``dc`` [M, N] and ``b`` [K, N] may be strided views; accumulated in
+    float32 over N."""
+    out_dtype = out_dtype or dc.dtype
+    if dc.device.type == "cpu":
+        return ref.bcsr_sddmm_row_loop_ref(dc, b, flat_idx, flat_col,
+                                           n_block_rows, nnzb, h, w,
+                                           out_dtype=out_dtype)
+    if dc.device.type != "cuda":
+        raise ValueError(f"bcsr_sddmm_row_loop: no kernel for device "
+                         f"{dc.device}")
+    M, N = dc.shape
+    K = b.shape[0]
+    if b.device != dc.device:
+        raise ValueError(f"b is on {b.device}, dc on {dc.device}")
+    _check_int32(dc.device, flat_idx=flat_idx, flat_col=flat_col)
+    _check_types(dc, b, out_dtype, ("dc", "b"))
+    max_bpr = flat_idx.shape[0] // max(n_block_rows, 1)
+    if M % h or K % w or b.shape[1] != N or M // h < n_block_rows or \
+            flat_idx.shape != (n_block_rows * max_bpr,) or \
+            flat_col.shape != flat_idx.shape:
+        raise ValueError(f"shapes do not fit: dc {tuple(dc.shape)}, b "
+                         f"{tuple(b.shape)}, block ({h}, {w}), flat_idx "
+                         f"{tuple(flat_idx.shape)}, flat_col "
+                         f"{tuple(flat_col.shape)}, n_block_rows "
+                         f"{n_block_rows}")
+    out = torch.empty((nnzb + 1, h, w), dtype=out_dtype, device=dc.device)
+    if flat_idx.numel():
+        fn = _lib("bcsr_sddmm_row_loop", "bcsr_sddmm_row_loop")
+        with torch.cuda.device(dc.device):
+            err = fn(dc.data_ptr(), b.data_ptr(), flat_idx.data_ptr(),
+                     flat_col.data_ptr(), out.data_ptr(), n_block_rows,
+                     max_bpr, h, w, N, dc.stride(0), dc.stride(1),
+                     b.stride(0), b.stride(1), _TYPE_CODES[dc.dtype],
+                     _TYPE_CODES[out_dtype], _stream(dc))
+        if err:
+            raise RuntimeError(f"bcsr_sddmm_row_loop: kernel launch failed "
+                               f"with CUDA error {err}")
+        LAUNCHES["sddmm_row_loop"] += 1
+    return out[:nnzb]

@@ -2,28 +2,38 @@
 the two mutually dual gradients.
 
 ``prepare`` turns a host ``BCSR`` into the device tensors of a
-``SparseArrays`` (entries padded so every block-row is nonempty, plus the
-transpose structure the backward reads) and a static ``SparseMeta``.
-``spmm`` computes C = A @ B and ``sddmm`` the blocks of X @ Y^T stored by
-A's structure, each through one of:
+``SparseArrays`` (optionally row-reordered, entries padded so every
+block-row is nonempty, plus the transpose structure the backward reads and
+the ``row_loop`` schedules) and a static ``SparseMeta``.  ``spmm`` computes
+C = A @ B and ``sddmm`` the blocks of X @ Y^T stored by A's structure, each
+through one of:
 
-  * ``nnz_stream`` — the hand-written CUDA kernels (``bcsr_spmm_nnz_stream``,
-    ``kernels/csrc/bcsr_spmm.cu``, for spmm and for dB = A^T dC over the
-    transpose structure; ``bcsr_sddmm``, ``kernels/csrc/bcsr_sddmm.cu``, for
-    sddmm and so for dvals); ``pallas`` is accepted as an alias, the JAX
-    package's name.  On a CPU tensor the wrappers run the plain versions.
-  * ``xla``        — the plain PyTorch versions (``kernels/ref.py``), only
+  * ``nnz_stream`` -- the hand-written CUDA kernels that stream each
+    block-row's entries (``bcsr_spmm_nnz_stream``, ``kernels/csrc/
+    bcsr_spmm.cu``, for spmm and for dB = A^T dC over the transpose
+    structure; ``bcsr_sddmm``, ``kernels/csrc/bcsr_sddmm.cu``, for sddmm
+    and so for dvals); ``pallas`` is accepted as an alias, the JAX
+    package's name.
+  * ``row_loop``   -- SMaT's static schedule: every block-row loops over
+    ``max_bpr`` slots (``bcsr_spmm_row_loop`` and ``bcsr_sddmm_row_loop``,
+    ``kernels/csrc/bcsr_*_row_loop.cu``); dB stays on the streamed kernel
+    over the transpose structure, as in the JAX package.
+  * ``xla``        -- the plain PyTorch versions (``kernels/ref.py``), only
     when a caller names them.
-  * ``dense``      — materialize the dense operand (or product) and multiply.
-  * ``auto``       — resolves to ``nnz_stream`` until the autotuner is ported.
+  * ``dense``      -- materialize the dense operand (or product) and multiply.
+  * ``auto``       -- the autotuner's pick among the two kernel backends
+    (``kernels.autotune``): a measured entry for this structure on this
+    device, else the analytic model's.  It never resolves to ``xla`` or
+    ``dense``.
 
-``row_loop`` is not ported yet and raises.  Both ops are differentiable:
-``spmm``'s backward gives dB through the transpose structure and dvals
-through ``sddmm``; ``sddmm``'s gives dX through ``spmm`` and dY through the
-transpose structure, so higher derivatives bounce between the two
-``torch.autograd.Function``s, as the JAX package's custom VJPs do.  Without
-grad (serving runs under ``torch.inference_mode()``) the ops call their
-forward directly and add no autograd work.
+On a CPU tensor the kernel wrappers run their plain versions.  Both ops are
+differentiable: ``spmm``'s backward gives dB through the transpose
+structure and dvals through ``sddmm``; ``sddmm``'s gives dX through
+``spmm`` and dY through the transpose structure, so higher derivatives
+bounce between the two ``torch.autograd.Function``s, as the JAX package's
+custom VJPs do.  Without grad (serving runs under
+``torch.inference_mode()``) the ops call their forward directly and add no
+autograd work.
 """
 from __future__ import annotations
 
@@ -45,9 +55,13 @@ class SparseArrays(NamedTuple):
     """Device tensors of a BCSR operand.
 
     The fields up to ``inv_perm`` are those of the JAX package, equal to
-    them element for element.  ``rowptr`` and ``t_rowptr`` (``PORT_FIELDS``)
-    are the port's own: the SpMM kernel reads each block-row's entry range
-    from them, of A in the forward and of A^T in the backward."""
+    them element for element.  The rest (``PORT_FIELDS``) are the port's
+    own, built once on the host by ``prepare``: the streamed SpMM kernel
+    reads each block-row's entry range from ``rowptr`` (of A in the
+    forward) and ``t_rowptr`` (of A^T in the backward); the ``row_loop``
+    kernels read the static schedule (``flat_idx``/``flat_col``/``row_len``
+    for SpMM, ``sddmm_flat_idx``/``flat_col`` for SDDMM), which the JAX
+    package builds inside each call instead."""
     vals: torch.Tensor        # [nnzb, h, w]
     row_ids: torch.Tensor     # [nnzb] int32, sorted row-major
     col_ids: torch.Tensor     # [nnzb] int32
@@ -59,10 +73,16 @@ class SparseArrays(NamedTuple):
     inv_perm: Optional[torch.Tensor] = None   # [M]: argsort(row_perm)
     rowptr: Optional[torch.Tensor] = None     # [nbr + 1] int32
     t_rowptr: Optional[torch.Tensor] = None   # [nbc + 1] int32 (of A^T)
+    flat_idx: Optional[torch.Tensor] = None   # [nbr * max_bpr] int32, pad 0
+    flat_col: Optional[torch.Tensor] = None   # [nbr * max_bpr] int32, pad 0
+    row_len: Optional[torch.Tensor] = None    # [nbr] int32
+    sddmm_flat_idx: Optional[torch.Tensor] = None  # as flat_idx, pad nnzb
 
 
 # the fields the JAX package does not have, rebuilt from the others
-PORT_FIELDS = ("rowptr", "t_rowptr")
+# (``port_fields``)
+PORT_FIELDS = ("rowptr", "t_rowptr", "flat_idx", "flat_col", "row_len",
+               "sddmm_flat_idx")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,24 +106,102 @@ class SparseMeta:
 
 
 _BACKEND_ALIASES = {"pallas": "nnz_stream"}
-BACKENDS = ("nnz_stream", "xla", "dense")
+BACKENDS = ("nnz_stream", "row_loop", "xla", "dense")
+OPS = ("spmm", "sddmm")
 
 
 @dataclasses.dataclass(frozen=True)
 class SpmmConfig:
-    backend: str = "nnz_stream"     # nnz_stream | xla | dense
+    backend: str = "nnz_stream"     # nnz_stream | row_loop | xla | dense
+    bn: Optional[int] = None        # the SpMM kernels' N tile (None: theirs)
     out_dtype: Optional[torch.dtype] = None
+
+
+def kernel_tiles(backend: str, op: str = "spmm") -> Tuple[int, ...]:
+    """The N tiles ``backend``'s CUDA kernel for ``op`` compiles, so the
+    values an explicit ``bn`` may take; () for the plain backends.  The
+    SDDMM kernels loop over N in chunks of one fixed width."""
+    if backend not in ("nnz_stream", "row_loop"):
+        return ()
+    return pk.SPMM_TILES if op == "spmm" else pk.SDDMM_TILES
+
+
+# --------------------------------------------------------- row_loop schedule
+def _row_loop_schedule(row_ids: np.ndarray, col_ids: np.ndarray,
+                       n_block_rows: int, max_bpr: int):
+    """``(flat_idx, flat_col, row_len)`` of the static SpMM schedule from
+    the sorted row-major entry list: slot t of block-row i holds entry
+    ``flat_idx[i * max_bpr + t]`` and its block-col; padding slots point at
+    entry 0 / column 0 and are masked by ``t < row_len[i]``.  Equal to the
+    JAX package's traced builder (``repro.kernels.ops._row_loop_schedule``).
+    """
+    nnzb = row_ids.shape[0]
+    row_len = np.bincount(row_ids, minlength=n_block_rows).astype(np.int32)
+    rowptr = np.concatenate([[0], np.cumsum(row_len)])
+    slot = np.arange(nnzb, dtype=np.int32) - rowptr[row_ids].astype(np.int32)
+    pos = row_ids * max_bpr + slot
+    flat_idx = np.zeros(n_block_rows * max_bpr, np.int32)
+    flat_idx[pos] = np.arange(nnzb, dtype=np.int32)
+    flat_col = np.zeros(n_block_rows * max_bpr, np.int32)
+    flat_col[pos] = col_ids
+    return flat_idx, flat_col, row_len
+
+
+def _sddmm_row_loop_schedule(row_ids: np.ndarray, col_ids: np.ndarray,
+                             n_block_rows: int, max_bpr: int):
+    """``(flat_idx, flat_col)`` of the static SDDMM schedule: per (row,
+    slot), the OUTPUT entry and its block-col.  Padding slots point at the
+    sentinel entry ``nnzb`` (the kernel computes and discards their
+    product -- the static waste of the ``row_loop`` family).  Equal to
+    ``repro.kernels.ops._sddmm_row_loop_schedule``."""
+    flat_idx, flat_col, row_len = _row_loop_schedule(
+        row_ids, col_ids, n_block_rows, max_bpr)
+    slot = np.arange(max_bpr, dtype=np.int32)
+    padding = (slot[None, :] >= row_len[:, None]).reshape(-1)
+    flat_idx[padding] = row_ids.shape[0]
+    return flat_idx, flat_col
+
+
+def make_row_loop_schedule(a: bcsr_lib.BCSR):
+    """Host-side padded ``(flat_idx, flat_col, row_len, max_bpr)`` of the
+    static SpMM schedule of ``a`` (``max_bpr`` at least 1), through
+    ``_row_loop_schedule``."""
+    bpr = a.blocks_per_row()
+    max_bpr = max(int(bpr.max()) if bpr.size else 1, 1)
+    row_ids = np.repeat(np.arange(a.n_block_rows, dtype=np.int32), bpr)
+    flat_idx, flat_col, row_len = _row_loop_schedule(
+        row_ids, a.col_ids, a.n_block_rows, max_bpr)
+    return flat_idx, flat_col, row_len, max_bpr
+
+
+def port_fields(row_ids: np.ndarray, col_ids: np.ndarray,
+                t_row_ids: np.ndarray, n_block_rows: int, n_block_cols: int,
+                max_bpr: int) -> dict:
+    """The ``PORT_FIELDS`` of an operand, from the JAX package's fields:
+    the padded entry list (``row_ids``, ``col_ids``), the transpose
+    structure's rows and the meta's ``max_bpr``."""
+    flat_idx, flat_col, row_len = _row_loop_schedule(
+        row_ids, col_ids, n_block_rows, max_bpr)
+    sddmm_flat_idx, _ = _sddmm_row_loop_schedule(
+        row_ids, col_ids, n_block_rows, max_bpr)
+    return {"rowptr": bcsr_lib.rowptr_from_rows(row_ids, n_block_rows),
+            "t_rowptr": bcsr_lib.rowptr_from_rows(t_row_ids, n_block_cols),
+            "flat_idx": flat_idx, "flat_col": flat_col, "row_len": row_len,
+            "sddmm_flat_idx": sddmm_flat_idx}
 
 
 # ------------------------------------------------------------------- prepare
 def _prepare_sparse_host(a: bcsr_lib.BCSR, *, reorder: str,
-                         reorder_granularity: str):
+                         reorder_granularity: str, tau: float,
+                         max_candidates: Optional[int], n_shards: int):
     """Host-side (numpy) portion of ``prepare_sparse``: permute, pad,
-    build the transpose structure, and compute the static meta.  Returns
-    ``(host_arrays_dict, meta)``.  (The JAX package also records trace
-    spans and metrics here; ``obs`` is not ported yet.)"""
+    build the transpose structure and the ``row_loop`` schedules, and
+    compute the static meta.  Returns ``(host_arrays_dict, meta)``.  (The
+    JAX package also records trace spans and metrics here; ``obs`` is not
+    ported yet.)"""
     a, row_perm_np = permute_lib.permute_bcsr(
-        a, reorder, granularity=reorder_granularity)
+        a, reorder, tau=tau, max_candidates=max_candidates,
+        n_shards=n_shards, granularity=reorder_granularity)
     # padding entries are tagged explicitly by ensure_nonempty_rows (before
     # its lexsort), so genuinely-zero original blocks keep real_mask=True
     a_p, real_mask = a.ensure_nonempty_rows(return_mask=True)
@@ -128,6 +226,7 @@ def _prepare_sparse_host(a: bcsr_lib.BCSR, *, reorder: str,
         t_perm, t_row_ids, t_col_ids = (
             t_perm[order_t], t_row_ids[order_t], t_col_ids[order_t])
 
+    max_bpr, pad_pct, cv_pct = a_p.dispatch_stats()
     host = {
         "vals": a_p.vals,
         "row_ids": a_p.row_ids,
@@ -138,10 +237,9 @@ def _prepare_sparse_host(a: bcsr_lib.BCSR, *, reorder: str,
         "t_col_ids": t_col_ids,
         "row_perm": row_perm_np,
         "inv_perm": permute_lib.invert_perm(row_perm_np),
-        "rowptr": a_p.rowptr,
-        "t_rowptr": bcsr_lib.rowptr_from_rows(t_row_ids, n_brows_t),
+        **port_fields(a_p.row_ids, a_p.col_ids, t_row_ids, a_p.n_block_rows,
+                      n_brows_t, max_bpr),
     }
-    max_bpr, pad_pct, cv_pct = a_p.dispatch_stats()
     meta = SparseMeta(shape=a_p.shape, block=a_p.block,
                       n_block_rows=a_p.n_block_rows,
                       n_block_cols=a_p.n_block_cols,
@@ -154,8 +252,22 @@ def _prepare_sparse_host(a: bcsr_lib.BCSR, *, reorder: str,
 def prepare_sparse(a: bcsr_lib.BCSR, dtype=torch.bfloat16, *,
                    reorder: str = "identity",
                    reorder_granularity: str = "element",
+                   tau: float = 0.7, max_candidates: Optional[int] = None,
+                   n_shards: int = 8,
                    device="cuda") -> Tuple[SparseArrays, SparseMeta]:
     """Host BCSR -> kernel-ready device tensors on ``device`` + static meta.
+
+    ``reorder`` applies a block-densifying row permutation first (any
+    scheme in ``core.permute.SCHEMES`` that yields a pure row permutation:
+    ``jaccard`` | ``rcm`` | ``shard_balance`` | ``identity``; ``tau`` and
+    ``max_candidates`` tune the Jaccard clustering, ``n_shards`` the
+    shard balance).  It is transparent downstream: ``spmm`` un-permutes
+    its output and the gradients carry the permutation, so results match
+    ``reorder="identity"``.  ``reorder_granularity="element"`` re-blocks
+    the permuted nonzero structure (stored zero blocks do not survive);
+    ``"block_row"`` permutes whole block-rows (nnzb and every stored entry
+    kept: the model-weight path).  The meta carries the post-reorder
+    structure stats, which the ``row_loop`` schedules are sized by.
 
     >>> import numpy as np, torch
     >>> from repro_torch.core import bcsr as bcsr_lib
@@ -167,7 +279,8 @@ def prepare_sparse(a: bcsr_lib.BCSR, dtype=torch.bfloat16, *,
     (4, 1, 4)
     """
     host, meta = _prepare_sparse_host(
-        a, reorder=reorder, reorder_granularity=reorder_granularity)
+        a, reorder=reorder, reorder_granularity=reorder_granularity, tau=tau,
+        max_candidates=max_candidates, n_shards=n_shards)
 
     def dev(x, dt=torch.int32):
         return torch.as_tensor(np.asarray(x)).to(device=device, dtype=dt)
@@ -182,23 +295,28 @@ def prepare_sparse(a: bcsr_lib.BCSR, dtype=torch.bfloat16, *,
         t_col_ids=dev(host["t_col_ids"]),
         row_perm=dev(host["row_perm"]),
         inv_perm=dev(host["inv_perm"]),
-        rowptr=dev(host["rowptr"]),
-        t_rowptr=dev(host["t_rowptr"]),
+        **{name: dev(host[name]) for name in PORT_FIELDS},
     )
     return arrays, meta
 
 
 def prepare_sparse_meta(a: bcsr_lib.BCSR, *, reorder: str = "identity",
-                        reorder_granularity: str = "element") -> SparseMeta:
+                        reorder_granularity: str = "element",
+                        tau: float = 0.7,
+                        max_candidates: Optional[int] = None,
+                        n_shards: int = 8) -> SparseMeta:
     """The static meta ``prepare_sparse`` would return, without building
     device tensors (same host pipeline, so equal by construction)."""
     return _prepare_sparse_host(
-        a, reorder=reorder, reorder_granularity=reorder_granularity)[1]
+        a, reorder=reorder, reorder_granularity=reorder_granularity, tau=tau,
+        max_candidates=max_candidates, n_shards=n_shards)[1]
 
 
 def prepare(a: bcsr_lib.BCSR, dtype=torch.bfloat16, *,
             meta_only: bool = False, reorder: str = "identity",
-            reorder_granularity: str = "element", device="cuda"):
+            reorder_granularity: str = "element", tau: float = 0.7,
+            max_candidates: Optional[int] = None, n_shards: int = 8,
+            device="cuda"):
     """``(SparseArrays, SparseMeta)`` of ``a`` on ``device``, or the
     ``SparseMeta`` alone with ``meta_only=True``.
 
@@ -211,12 +329,11 @@ def prepare(a: bcsr_lib.BCSR, dtype=torch.bfloat16, *,
     >>> ops.prepare(a, meta_only=True) == meta
     True
     """
+    kw = dict(reorder=reorder, reorder_granularity=reorder_granularity,
+              tau=tau, max_candidates=max_candidates, n_shards=n_shards)
     if meta_only:
-        return prepare_sparse_meta(a, reorder=reorder,
-                                   reorder_granularity=reorder_granularity)
-    return prepare_sparse(a, dtype, reorder=reorder,
-                          reorder_granularity=reorder_granularity,
-                          device=device)
+        return prepare_sparse_meta(a, **kw)
+    return prepare_sparse(a, dtype, device=device, **kw)
 
 
 # ------------------------------------------------------------------- forward
@@ -245,7 +362,13 @@ def _fwd_impl(cfg: SpmmConfig, meta: SparseMeta, arrays: SparseArrays,
     if cfg.backend == "nnz_stream":
         out = pk.bcsr_spmm_nnz_stream(
             arrays.vals, arrays.row_ids, arrays.col_ids, b,
-            meta.n_block_rows, rowptr=arrays.rowptr, out_dtype=out_dtype)
+            meta.n_block_rows, rowptr=arrays.rowptr, bn=cfg.bn,
+            out_dtype=out_dtype)
+    elif cfg.backend == "row_loop":
+        _check_schedule(arrays, "flat_idx")
+        out = pk.bcsr_spmm_row_loop(
+            arrays.vals, arrays.flat_idx, arrays.flat_col, arrays.row_len, b,
+            meta.n_block_rows, bn=cfg.bn, out_dtype=out_dtype)
     elif cfg.backend == "xla":
         out = ref.bcsr_spmm_ref(arrays.vals, arrays.row_ids, arrays.col_ids,
                                 b, meta.n_block_rows, out_dtype=out_dtype)
@@ -260,6 +383,13 @@ def _fwd_impl(cfg: SpmmConfig, meta: SparseMeta, arrays: SparseArrays,
         # C = P^T C' so the permutation never leaks to callers
         out = out.index_select(0, arrays.inv_perm.long())
     return out
+
+
+def _check_schedule(arrays: SparseArrays, field: str) -> None:
+    if getattr(arrays, field) is None:
+        raise ValueError(
+            f"backend='row_loop' reads the static schedule ({field!r}), which "
+            "ops.prepare builds; this SparseArrays has none")
 
 
 def transposed_vals(vals: torch.Tensor, t_perm: torch.Tensor) -> torch.Tensor:
@@ -280,21 +410,24 @@ def _dx_impl(cfg: SpmmConfig, meta: SparseMeta, arrays: SparseArrays,
     h-row panels."""
     h, w = meta.block
     vals = arrays.vals
-    if (cfg.backend == "nnz_stream" and g.is_cuda and torch.is_grad_enabled()
+    # row_loop is a forward-schedule choice; the backward always streams the
+    # transpose structure (whose row skew differs from A's), as in JAX
+    kernel = cfg.backend in ("nnz_stream", "row_loop")
+    if (kernel and g.is_cuda and torch.is_grad_enabled()
             and (g.requires_grad or vals.requires_grad)):
         # the kernel's output carries no graph; the JAX package's Pallas
         # kernel has no JVP rule either, so higher derivatives run on xla
         raise NotImplementedError(
-            "a derivative of dB = A^T dC through the nnz_stream kernel is not "
+            "a derivative of dB = A^T dC through the streamed kernel is not "
             "supported; take higher derivatives with backend='xla'")
     t_vals = transposed_vals(vals, arrays.t_perm)
     m_pad = meta.n_block_rows * h - g.shape[0]
     if m_pad:
         g = F.pad(g, (0, 0, 0, m_pad))
-    if cfg.backend == "nnz_stream":
+    if kernel:
         return pk.bcsr_spmm_nnz_stream(
             t_vals, arrays.t_row_ids, arrays.t_col_ids, g, meta.n_block_cols,
-            rowptr=arrays.t_rowptr, out_dtype=g.dtype)
+            rowptr=arrays.t_rowptr, bn=cfg.bn, out_dtype=g.dtype)
     return ref.bcsr_spmm_ref(t_vals, arrays.t_row_ids, arrays.t_col_ids, g,
                              meta.n_block_cols, out_dtype=g.dtype)
 
@@ -320,6 +453,11 @@ def _sddmm_impl(cfg: SpmmConfig, meta: SparseMeta, arrays: SparseArrays,
     if cfg.backend == "nnz_stream":
         vals = pk.bcsr_sddmm(x, y, arrays.row_ids, arrays.col_ids, h, w,
                              out_dtype=out_dtype)
+    elif cfg.backend == "row_loop":
+        _check_schedule(arrays, "sddmm_flat_idx")
+        vals = pk.bcsr_sddmm_row_loop(
+            x, y, arrays.sddmm_flat_idx, arrays.flat_col, meta.n_block_rows,
+            meta.nnzb, h, w, out_dtype=out_dtype)
     elif cfg.backend == "xla":
         vals = ref.bcsr_sddmm_ref(x, y, arrays.row_ids, arrays.col_ids, h, w,
                                   out_dtype=out_dtype)
@@ -334,9 +472,8 @@ def _sddmm_impl(cfg: SpmmConfig, meta: SparseMeta, arrays: SparseArrays,
 
 # ---------------------------------------------------------------- autograd
 # ``rest`` is ``tuple(arrays[1:])``: the index tensors, never differentiated.
-# The ``meta.reorder != "identity"`` branches mirror the JAX package's; only
-# the identity scheme is ported so far, so they run untested until the
-# reorder schemes are (ROADMAP A3).
+# Where one op's backward calls the other, ``bn`` is dropped: it names a
+# tile of the calling op's kernel, and each kernel then takes its own.
 class _Spmm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg, meta, rest, vals, b):
@@ -360,7 +497,7 @@ class _Spmm(torch.autograd.Function):
             db = _dx_impl(cfg, meta, arrays, gp)[: b.shape[0], : b.shape[1]]
         if ctx.needs_input_grad[3]:
             # dvals through the SDDMM op: SpMM and SDDMM are mutual duals
-            cfg_d = dataclasses.replace(cfg, out_dtype=vals.dtype)
+            cfg_d = dataclasses.replace(cfg, bn=None, out_dtype=vals.dtype)
             dvals = _Sddmm.apply(cfg_d, meta, rest, g2, b)
         return None, None, None, dvals, db
 
@@ -379,7 +516,7 @@ class _Sddmm(torch.autograd.Function):
         cfg, meta, rest = ctx.cfg, ctx.meta, ctx.rest
         gm = g * SparseArrays(None, *rest).real_mask[:, None, None].to(
             g.dtype)
-        cfg_b = dataclasses.replace(cfg, out_dtype=None)
+        cfg_b = dataclasses.replace(cfg, bn=None, out_dtype=None)
         dx = dy = None
         if ctx.needs_input_grad[3]:
             # dX = G @ Y: the SpMM forward on the cotangent blocks (the op
@@ -401,31 +538,57 @@ def _needs_graph(*tensors) -> bool:
 
 
 # ------------------------------------------------------------------ public API
-def resolve_backend(backend: str, op: str = "spmm") -> str:
-    """Normalize aliases; ``auto`` resolves to ``nnz_stream`` for either
-    ``op`` (``"spmm"`` | ``"sddmm"``) until the autotuner is ported.  (The
-    JAX package's N-tile ``bn`` is not a choice here: the kernels pick their
-    own tiles.)"""
-    if op not in ("spmm", "sddmm"):
+def resolve_backend(backend: str, bn: Optional[int], meta: SparseMeta,
+                    n: int, op: str = "spmm",
+                    device="cuda") -> Tuple[str, Optional[int]]:
+    """Normalize aliases, resolve ``auto`` and check the choice: returns
+    ``(backend, bn)``.
+
+    ``auto`` asks ``autotune.get_autotuner().pick`` for the ``op`` family
+    (``"spmm"`` | ``"sddmm"``) on ``device`` (the device is part of the
+    cache key, so a pick measured on one device never serves another); the
+    pick is always one of the two kernel backends, and a cached
+    ``row_loop`` pick for a meta without ``max_bpr`` falls back to
+    ``nnz_stream``.  ``bn`` is the SpMM kernels' N tile: None (or 0) lets
+    the kernel choose, otherwise it must be one of ``kernel_tiles(backend,
+    op)``.  An explicit ``row_loop`` for a meta without ``max_bpr``
+    raises."""
+    if op not in OPS:
         raise ValueError(f"unknown op {op!r}; want 'spmm' or 'sddmm'")
     if backend == "auto":
-        backend = "nnz_stream"
+        from repro_torch.kernels import autotune  # local: autotune imports ops
+        choice = autotune.get_autotuner().pick(meta, n, op=op, device=device)
+        backend, bn = choice.backend, choice.bn
+        if backend == "row_loop" and meta.max_bpr <= 0:
+            backend = "nnz_stream"   # stale cached pick for a specs meta
     backend = _BACKEND_ALIASES.get(backend, backend)
-    if backend == "row_loop":
-        raise NotImplementedError(
-            "backend='row_loop' is not yet ported to the GPU")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; want one of "
                          f"{BACKENDS + ('auto', 'pallas')}")
-    return backend
+    if backend == "row_loop" and meta.max_bpr <= 0:
+        # an explicit request we cannot honor: raising beats silently
+        # timing a different kernel than the caller asked for
+        raise ValueError(
+            "backend='row_loop' needs meta.max_bpr > 0 (metas built by "
+            "prepare / prepare_sparse_meta have it; hand-built metas do not)")
+    if not bn:
+        bn = None
+    elif bn not in kernel_tiles(backend, op):
+        raise ValueError(
+            f"bn={bn} is not an N tile the {backend} {op} kernel compiles; "
+            f"want None or one of {kernel_tiles(backend, op)}")
+    return backend, bn
 
 
 def spmm(arrays: SparseArrays, meta: SparseMeta, b: torch.Tensor,
-         *, backend: str = "nnz_stream", out_dtype=None) -> torch.Tensor:
+         *, backend: str = "nnz_stream", bn: Optional[int] = None,
+         out_dtype=None) -> torch.Tensor:
     """C = A @ B, differentiable w.r.t. ``arrays.vals`` and ``b``.
 
     A is the BCSR operand from ``prepare``; B is ``[K, N]`` dense and may be
-    a strided view.  Outputs come back in ORIGINAL row order.
+    a strided view.  Outputs come back in ORIGINAL row order, whatever
+    ``reorder`` prepared A.  ``bn`` is the kernel's N tile
+    (``resolve_backend``).
 
     >>> import numpy as np, torch
     >>> from repro_torch.core import bcsr as bcsr_lib
@@ -442,7 +605,9 @@ def spmm(arrays: SparseArrays, meta: SparseMeta, b: torch.Tensor,
     >>> bool(torch.allclose(c, torch.as_tensor(dense) @ b, atol=1e-5))
     True
     """
-    cfg = SpmmConfig(backend=resolve_backend(backend), out_dtype=out_dtype)
+    backend, bn = resolve_backend(backend, bn, meta, int(b.shape[-1]),
+                                  device=b.device)
+    cfg = SpmmConfig(backend=backend, bn=bn, out_dtype=out_dtype)
     if _needs_graph(arrays.vals, b):
         return _Spmm.apply(cfg, meta, tuple(arrays[1:]), arrays.vals, b)
     return _fwd_impl(cfg, meta, arrays, b)
@@ -450,13 +615,14 @@ def spmm(arrays: SparseArrays, meta: SparseMeta, b: torch.Tensor,
 
 def sddmm(arrays: SparseArrays, meta: SparseMeta, x: torch.Tensor,
           y: torch.Tensor, *, backend: str = "nnz_stream",
-          out_dtype=None) -> torch.Tensor:
+          bn: Optional[int] = None, out_dtype=None) -> torch.Tensor:
     """Sampled dense-dense product: the blocks of ``X @ Y^T`` stored by the
     structure of ``(arrays, meta)``, SpMM's dual.  ``X`` is ``[M, N]``
     (original row order), ``Y`` is ``[K, N]``; both may be strided views.
     The result is ``[nnzb, h, w]`` with padding entries (``real_mask``
     False) zeroed.  Differentiable w.r.t. ``x`` and ``y``; ``arrays.vals``
-    is not read.
+    is not read.  ``bn`` is checked as ``resolve_backend`` says; the SDDMM
+    kernels have one N chunk each.
 
     >>> import numpy as np, torch
     >>> from repro_torch.core import bcsr as bcsr_lib
@@ -477,8 +643,9 @@ def sddmm(arrays: SparseArrays, meta: SparseMeta, x: torch.Tensor,
     >>> bool(torch.allclose(vals, blk, atol=1e-4))
     True
     """
-    cfg = SpmmConfig(backend=resolve_backend(backend, op="sddmm"),
-                     out_dtype=out_dtype)
+    backend, bn = resolve_backend(backend, bn, meta, int(x.shape[-1]),
+                                  op="sddmm", device=x.device)
+    cfg = SpmmConfig(backend=backend, bn=bn, out_dtype=out_dtype)
     if _needs_graph(x, y):
         return _Sddmm.apply(cfg, meta, tuple(arrays[1:]), x, y)
     return _sddmm_impl(cfg, meta, arrays, x, y)

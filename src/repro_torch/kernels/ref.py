@@ -1,11 +1,14 @@
 """Plain PyTorch versions of the BCSR SpMM and SDDMM kernels.
 
-``bcsr_spmm_ref`` and ``bcsr_sddmm_ref`` are the CUDA kernels' plain twins:
-the CPU path of their wrappers, the ``xla`` backend of ``ops.spmm`` /
+``bcsr_spmm_ref`` and ``bcsr_sddmm_ref`` are the streamed kernels' plain
+twins: the CPU path of their wrappers, the ``xla`` backend of ``ops.spmm`` /
 ``ops.sddmm`` (the name is kept from the JAX package, where it was the plain
 jnp path), and the oracles the kernels are held against on the card.
-``spmm_dense_ref`` and ``bcsr_sddmm_dense_ref`` are the ``dense`` backends.
-Products accumulate in float32.
+``bcsr_spmm_row_loop_ref`` and ``bcsr_sddmm_row_loop_ref`` are the
+``row_loop`` kernels' twins: they read the same static schedule arrays as
+the kernels, padding slots and sentinel included, so the CPU tests pin that
+logic.  ``spmm_dense_ref`` and ``bcsr_sddmm_dense_ref`` are the ``dense``
+backends.  Products accumulate in float32.
 """
 from __future__ import annotations
 
@@ -35,6 +38,32 @@ def bcsr_spmm_ref(vals: torch.Tensor, row_ids: torch.Tensor,
     return out.reshape(n_block_rows * h, N).to(out_dtype or b.dtype)
 
 
+def bcsr_spmm_row_loop_ref(vals: torch.Tensor, flat_idx: torch.Tensor,
+                           flat_col: torch.Tensor, row_len: torch.Tensor,
+                           b: torch.Tensor, n_block_rows: int,
+                           out_dtype=None) -> torch.Tensor:
+    """C = A @ B through the static schedule: slot t of block-row i
+    multiplies entry ``flat_idx[i * max_bpr + t]`` by the B panel of block-col
+    ``flat_col[i * max_bpr + t]``; slots with ``t >= row_len[i]`` (padding,
+    pointing at entry 0) are masked out.
+
+    flat_idx, flat_col [n_block_rows * max_bpr]; row_len [n_block_rows]
+    returns [n_block_rows * h, N]
+    """
+    nnzb, h, w = vals.shape
+    K, N = b.shape
+    if K % w:
+        raise ValueError(f"K={K} must be a multiple of the block width {w}")
+    max_bpr = flat_idx.shape[0] // n_block_rows
+    slot = torch.arange(max_bpr, device=b.device)
+    live = (slot[None, :] < row_len[:, None]).reshape(-1)    # [nbr*max_bpr]
+    a = vals[flat_idx.long()].float() * live[:, None, None]
+    gathered = b.reshape(K // w, w, N)[flat_col.long()].float()
+    prod = torch.einsum("shw,swn->shn", a, gathered)
+    out = prod.reshape(n_block_rows, max_bpr, h, N).sum(1)
+    return out.reshape(n_block_rows * h, N).to(out_dtype or b.dtype)
+
+
 def bcsr_sddmm_ref(dc: torch.Tensor, b: torch.Tensor, row_ids: torch.Tensor,
                    col_ids: torch.Tensor, h: int, w: int,
                    out_dtype=None) -> torch.Tensor:
@@ -51,6 +80,32 @@ def bcsr_sddmm_ref(dc: torch.Tensor, b: torch.Tensor, row_ids: torch.Tensor,
     b_blocks = b.reshape(K // w, w, N)[col_ids.long()]       # [nnzb, w, N]
     dvals = torch.einsum("shn,swn->shw", dc_blocks.float(), b_blocks.float())
     return dvals.to(out_dtype or dc.dtype)
+
+
+def bcsr_sddmm_row_loop_ref(dc: torch.Tensor, b: torch.Tensor,
+                            flat_idx: torch.Tensor, flat_col: torch.Tensor,
+                            n_block_rows: int, nnzb: int, h: int, w: int,
+                            out_dtype=None) -> torch.Tensor:
+    """dVals through the static schedule: slot t of block-row i computes
+    dC[block i] @ B[block flat_col[i * max_bpr + t]]^T into output entry
+    ``flat_idx[i * max_bpr + t]``; padding slots compute too and land on the
+    sentinel entry ``nnzb`` of an ``[nnzb + 1, h, w]`` buffer, which is
+    sliced off.
+
+    dc [M, N] (M multiple of h), b [K, N] (K multiple of w)
+    returns [nnzb, h, w]
+    """
+    M, N = dc.shape
+    K, _ = b.shape
+    max_bpr = flat_idx.shape[0] // n_block_rows
+    rows = torch.arange(n_block_rows, device=dc.device).repeat_interleave(
+        max_bpr)
+    dc_blocks = dc.reshape(M // h, h, N)[rows].float()       # [S, h, N]
+    b_blocks = b.reshape(K // w, w, N)[flat_col.long()].float()
+    prod = torch.einsum("shn,swn->shw", dc_blocks, b_blocks)
+    out = prod.new_zeros((nnzb + 1, h, w))
+    out[flat_idx.long()] = prod          # the sentinel takes any padding slot
+    return out[:nnzb].to(out_dtype or dc.dtype)
 
 
 def bcsr_sddmm_dense_ref(dc: torch.Tensor, b: torch.Tensor,

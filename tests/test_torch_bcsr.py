@@ -90,11 +90,19 @@ def test_rowptr_from_rows_equal():
 
 
 def test_identity_permutation_only():
+    """``identity`` hands the matrix back as it is; the block-densifying
+    schemes, ported since, permute rows (``tests/test_torch_reorder.py``
+    holds them against JAX) and an unknown scheme raises."""
     a = tb.random_bcsr_exact(0, (64, 64), (8, 8), 16)
     same, perm = tperm.permute_bcsr(a, "identity")
     assert same is a
     np.testing.assert_array_equal(perm, np.arange(64))
     np.testing.assert_array_equal(tperm.invert_perm(perm[::-1].copy()),
                                   np.arange(64)[::-1])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tperm.permute_bcsr(a, "jaccard")
+    for scheme in ("jaccard", "rcm", "shard_balance"):
+        moved, perm = tperm.permute_bcsr(a, scheme, granularity="block_row")
+        assert sorted(perm.tolist()) == list(range(64))
+        assert moved.nnzb == a.nnzb
+        np.testing.assert_array_equal(moved.to_dense(), a.to_dense()[perm])
+    with pytest.raises(ValueError, match="unknown reorder scheme"):
+        tperm.permute_bcsr(a, "nope")

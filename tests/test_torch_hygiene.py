@@ -7,7 +7,10 @@
   the CPU unless asked to.  (``optim.adamw`` and ``checkpoint.manager`` take
   no device: they work on the tensors they are given, where those lie.)
 * The kernel wrappers take their plain versions for CPU tensors only, and
-  the build helper says clearly when ``nvcc`` is missing."""
+  the build helper says clearly when ``nvcc`` is missing.
+* The library path's entry points (``ops.prepare``, ``init_sparse_linear``,
+  the ``Autotuner``'s ``pick`` and ``tune``) default to the card too, and
+  the host Jaccard kernel builds beside the CUDA kernels."""
 import ast
 import os
 import subprocess
@@ -23,6 +26,10 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import _build, bcsr_spmm
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import ShapeCell
+from repro_torch.core import bcsr as tb
+from repro_torch.core import native
+from repro_torch.core.sparse_linear import SparsitySpec, init_sparse_linear
+from repro_torch.kernels import autotune, ops
 from repro_torch.launch import serve as serve_cli
 from repro_torch.launch import train as train_cli
 from repro_torch.models import transformer as T
@@ -124,6 +131,33 @@ def test_training_entry_points_default_to_the_card(no_card, tmp_path):
         {"params": model.state_dict(), "opt": state})
     assert step == 1
     assert all(t.device.type == "cpu" for t in restored["params"].values())
+
+
+def test_library_entry_points_default_to_the_card(no_card):
+    a = tb.random_bcsr_exact(0, (64, 64), (8, 8), 16)
+    meta = ops.prepare(a, meta_only=True)
+    tuner = autotune.Autotuner()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tuner.pick(meta, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tuner.tune(a, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        autotune.device_name("cuda")
+    # torch without CUDA raises AssertionError, torch with it RuntimeError
+    with pytest.raises((RuntimeError, AssertionError)):
+        ops.prepare(a)
+    with pytest.raises((RuntimeError, AssertionError)):
+        init_sparse_linear(0, 64, 64, SparsitySpec(block=(8, 8)))
+    # asked for the CPU, they run there
+    arrays, _ = ops.prepare(a, torch.float32, reorder="jaccard",
+                            device="cpu")
+    assert all(t.device.type == "cpu" for t in arrays)
+    assert tuner.pick(meta, 8, device="cpu").variant in \
+        autotune.variant_names()
+
+
+def test_native_jaccard_builds_beside_the_kernels():
+    assert native.library_path().parent == _build.BUILD_DIR
 
 
 def _small_operand():

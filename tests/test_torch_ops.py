@@ -15,7 +15,7 @@ import torch
 from repro.core import bcsr as jb
 from repro.kernels import ops as jops
 from repro_torch.core import bcsr as tb
-from repro_torch.kernels import bcsr_spmm
+from repro_torch.kernels import autotune, bcsr_spmm
 from repro_torch.kernels import ops as tops
 
 SHAPES = [                       # tests/test_kernels.py:19
@@ -139,13 +139,28 @@ def test_backends_and_strided_b_agree():
 
 
 def test_resolve_backend_rules():
-    assert tops.resolve_backend("auto") == "nnz_stream"
-    assert tops.resolve_backend("pallas") == "nnz_stream"
-    assert tops.resolve_backend("xla") == "xla"
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tops.resolve_backend("row_loop")
+    """Aliases resolve, ``row_loop`` resolves for a meta with ``max_bpr``
+    (and raises without one), an explicit ``bn`` must be a tile the
+    backend's kernel compiles, and unknown names raise."""
+    _, meta = tops.prepare(tb.random_bcsr(2, (96, 160), (16, 16), 0.4),
+                           torch.float32, device="cpu")
+
+    def resolve(backend, bn=None, meta=meta):
+        return tops.resolve_backend(backend, bn, meta, 64, device="cpu")
+    assert resolve("pallas") == ("nnz_stream", None)
+    assert resolve("nnz_stream", 32) == ("nnz_stream", 32)
+    assert resolve("xla") == ("xla", None)
+    assert resolve("dense", 0) == ("dense", None)
+    assert resolve("row_loop") == ("row_loop", None)
+    assert resolve("row_loop", 8) == ("row_loop", 8)
+    with pytest.raises(ValueError, match="max_bpr"):
+        resolve("row_loop", meta=dataclasses.replace(meta, max_bpr=0))
+    with pytest.raises(ValueError, match="not an N tile"):
+        resolve("nnz_stream", 512)
+    with pytest.raises(ValueError, match="not an N tile"):
+        resolve("xla", 64)
     with pytest.raises(ValueError, match="unknown backend"):
-        tops.resolve_backend("cusparse")
+        resolve("cusparse")
 
 
 def test_spmm_refuses_autograd():
@@ -210,10 +225,30 @@ def test_t_rowptr_is_the_transpose_structures_rowptr(name, make):
 
 
 def test_resolve_backend_takes_the_op():
-    assert tops.resolve_backend("auto", op="sddmm") == "nnz_stream"
-    assert tops.resolve_backend("xla", op="sddmm") == "xla"
+    """``auto`` asks the autotuner for the op's own family on the device
+    given; each op checks ``bn`` against its own kernels' tiles."""
+    _, meta = tops.prepare(tb.random_bcsr(2, (96, 160), (16, 16), 0.4),
+                           torch.float32, device="cpu")
+    tuner = autotune.Autotuner()
+    autotune.set_autotuner(tuner)
+    try:
+        for op in ("spmm", "sddmm"):
+            choice = tuner.pick(meta, 64, op=op, device="cpu")
+            assert autotune.get_variant(choice.variant).op == op
+            assert tops.resolve_backend("auto", None, meta, 64, op=op,
+                                        device="cpu") == \
+                (choice.backend, choice.bn or None)
+    finally:
+        autotune.set_autotuner(None)
+    assert tops.resolve_backend("xla", None, meta, 64, op="sddmm",
+                                device="cpu") == ("xla", None)
+    assert tops.resolve_backend("nnz_stream", 32, meta, 64, op="sddmm",
+                                device="cpu") == ("nnz_stream", 32)
+    with pytest.raises(ValueError, match="not an N tile"):
+        tops.resolve_backend("nnz_stream", 64, meta, 64, op="sddmm",
+                             device="cpu")
     with pytest.raises(ValueError, match="unknown op"):
-        tops.resolve_backend("xla", op="attn")
+        tops.resolve_backend("xla", None, meta, 64, op="attn", device="cpu")
 
 
 def test_materialize_dense_matches_host():

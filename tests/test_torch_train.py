@@ -166,10 +166,9 @@ def test_step0_loss_and_every_gradient_match_jax(pair):
     assert n_sparse == 3 * tcfg.n_layers
 
 
-def test_train_step_trajectory_matches_jax(pair):
+def _trajectory(jcfg, tcfg, jparams, np_params):
     """Four steps of each package's ``make_train_step`` from the same
     weights on the same batches: every loss within 1e-4."""
-    jcfg, tcfg, jparams, np_params = pair
     kw = dict(lr=1e-3, warmup_steps=2, total_steps=4)
     jstep = jax.jit(jsteps.make_train_step(jcfg, jadamw.AdamWConfig(**kw),
                                            remat="none"))
@@ -189,6 +188,23 @@ def test_train_step_trajectory_matches_jax(pair):
                                    err_msg=f"step {step}")
         np.testing.assert_allclose(float(tm["grad_norm"]),
                                    float(jm["grad_norm"]), rtol=1e-4)
+
+
+def test_train_step_trajectory_matches_jax(pair):
+    jcfg, tcfg, jparams, np_params = pair
+    _trajectory(jcfg, tcfg, jparams, np_params)
+
+
+def test_row_loop_train_trajectory_matches_jax(pair):
+    """The same trajectory with the FFN spec's ``backend="row_loop"`` in
+    both packages (JAX's static-schedule Pallas kernels in interpret mode,
+    the port's plain versions of B3/B4 on the CPU)."""
+    jcfg, tcfg, jparams, np_params = pair
+    jcfg = dataclasses.replace(jcfg, ffn_sparsity=dataclasses.replace(
+        jcfg.ffn_sparsity, backend="row_loop", interpret=True))
+    tcfg = dataclasses.replace(tcfg, ffn_sparsity=dataclasses.replace(
+        tcfg.ffn_sparsity, backend="row_loop"))
+    _trajectory(jcfg, tcfg, jparams, np_params)
 
 
 def test_remat_full_matches_none():
