@@ -72,8 +72,16 @@ KERNELS = [{
     "build": "bcsr_sddmm_row_loop",
     "replaces": "src/repro/kernels/bcsr_spmm.py:246",
     "counter": "sddmm_row_loop",
+}, {
+    "name": "bcsr_attn_fused",
+    "route": "cuda",
+    "source": "src/repro_torch/kernels/csrc/bcsr_attn.cu",
+    "build": "bcsr_attn",
+    "replaces": "src/repro/kernels/bcsr_attn.py:132",
+    "counter": "attn_fused",
+    "module": "bcsr_attn",
 }]
-B1, B2, B3, B4 = (k["name"] for k in KERNELS)
+B1, B2, B3, B4, B5 = (k["name"] for k in KERNELS)
 
 N_SLOTS, CACHE_LEN = 4, 256
 # training: the JAX package's train_4k cell (4096 x 256 over a pod) cut to
@@ -560,7 +568,6 @@ def _greedy_oracle(cfg, model, prompt, n_new):
 
 def main_path_phase():
     from repro_torch.configs import get_config
-    from repro_torch.kernels import bcsr_spmm
     from repro_torch.models import transformer as T
     from repro_torch.serve.engine import ServeEngine
 
@@ -580,8 +587,7 @@ def main_path_phase():
     engine = ServeEngine(cfg, model, n_slots=N_SLOTS, cache_len=CACHE_LEN,
                          device=DEVICE)
     requests = _requests(cfg)
-    for k in KERNELS:
-        bcsr_spmm.LAUNCHES[k["counter"]] = 0
+    _reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     streams = {}
@@ -589,7 +595,7 @@ def main_path_phase():
         streams.setdefault(rid, []).append(tok)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {k["name"]: bcsr_spmm.LAUNCHES[k["counter"]] for k in KERNELS}
+    launches = _read_counts()
 
     n_tok = sum(len(v) for v in streams.values())
     per_call = 3 * cfg.n_layers
@@ -699,6 +705,8 @@ def _profile_summary(prof, wall_ms, units, unit):
                                             if "nnz_stream" in k),
            f"sddmm_ms_per_{unit}": sum(ms for k, ms in device
                                        if "sddmm_kernel" in k),
+           f"attn_fused_ms_per_{unit}": sum(ms for k, ms in device
+                                            if "attn_fused" in k),
            f"top_device_ms_per_{unit}": [[k[:80], ms]
                                          for k, ms in device[:10]],
            f"top_host_ms_per_{unit}": [[k[:60], ms, n]
@@ -740,15 +748,20 @@ def profile_phase(cfg, model):
 
 
 # ------------------------------------------------------------ training path
+def _launches(k):
+    """The launch-count dict of kernel ``k``'s wrapper module."""
+    import importlib
+    return importlib.import_module(
+        f"repro_torch.kernels.{k.get('module', 'bcsr_spmm')}").LAUNCHES
+
+
 def _reset_counts():
-    from repro_torch.kernels import bcsr_spmm
     for k in KERNELS:
-        bcsr_spmm.LAUNCHES[k["counter"]] = 0
+        _launches(k)[k["counter"]] = 0
 
 
 def _read_counts():
-    from repro_torch.kernels import bcsr_spmm
-    return {k["name"]: bcsr_spmm.LAUNCHES[k["counter"]] for k in KERNELS}
+    return {k["name"]: _launches(k)[k["counter"]] for k in KERNELS}
 
 
 def _counts(**nonzero):
@@ -1494,31 +1507,649 @@ def autotune_phase(mip1_perm, smi):
     return winners
 
 
+# ------------------------------------------- block-sparse attention (B5)
+ATTN_ARCH = "smat-attn-1.3b"
+# one layer's attention call: batch 1 x 16 heads over 8,192 tokens (the
+# training and prefill length: below 4,096 tokens banded(4096) is plain
+# causal) and over 32,768 (the JAX package's prefill_32k cell)
+ATTN_G, ATTN_SEQ = 16, 8192
+ATTN_LONG = 32768     # configs.base.SHAPES["prefill_32k"].seq_len
+ATTN_DECODE = 16                       # decode steps after the prefill
+ATTN_TRAIN_STEPS = 3
+ATTN_PLAIN_CHUNK = 4    # instances a plain B5 call holds at 32768 tokens
+
+
+def _attn_case(mask, L, block, d, dv, G, cap, seed):
+    """Operands of one B5 call: q, k, v drawn from a numpy seed, the mask's
+    cached device tensors; returns (mask tensors, args, keywords)."""
+    from repro_torch.models import attention as A
+    mt = A.mask_tensors(mask, L, block, DEVICE)
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((G, L, n)).astype(
+        np.float32)).to(DEVICE) for n in (d, d, dv))
+    kw = dict(n_block_rows=mt.meta.n_block_rows,
+              n_block_cols=mt.meta.n_block_cols, block=tuple(block),
+              scale=d ** -0.5, cap=cap)
+    return mt, (q, k, v, mt.emask, mt.arrays.sddmm_flat_idx,
+                mt.arrays.flat_col), kw
+
+
+def _b5(args, kw):
+    from repro_torch.kernels import bcsr_attn
+    return bcsr_attn.bcsr_attn_fused(*args, **kw)
+
+
+def _b5_plain(args, kw):
+    from repro_torch.kernels import ref
+    return ref.bcsr_attn_fused_ref(*args, **kw)
+
+
+def _rel(got, want):
+    """max|got - want| / max|want|."""
+    return (got - want).abs().max().item() / max(
+        want.abs().max().item(), 1e-30)
+
+
+def _composed(args, kw, mask, backend):
+    """The composed path on the card's kernels (SDDMM -> block_softmax ->
+    SpMM, the B5 backward's route) on B5's operands."""
+    from repro_torch.models import attention as A
+    spec = A.AttnSparsitySpec(mask=mask, block=kw["block"], backend=backend)
+    return A._composed_heads(*args[:3], spec, kw["scale"], kw["cap"])
+
+
+def attn_parity_phase():
+    """B5 against its plain version, f32: max|diff| <= 1e-4 x max|plain|
+    (FMA order and expf differ), and two calls bit-equal; at small odd
+    shapes (blocks 16-128, d 32-256, L 61 and 1000, cap on and off, the
+    three mask kinds, an empty block-row) and at one layer's full width
+    (G = 16, d = 128, banded(4096) in 128x128 blocks, L = 8192 and 32768,
+    the two lengths the prefill path gives B5).  Also B5 against the
+    composed path on its kernels (B2 -> block_softmax -> B1, and B4 -> B3):
+    ROADMAP C carve-out 2, 1e-5 x max|composed| (its softmax sums block by
+    block, B5 row by row).  Returns (max abs err against plain, worst
+    fused-vs-composed relative difference, the mask's build seconds at
+    each full-width length)."""
+    from repro_torch.models import attention as A
+    masks = {"banded": A.banded(100), "local_global": A.local_global(64, 20),
+             "blockwise_causal": A.blockwise_causal()}
+    cases = [(m, L, blk, d, cap)
+             for blk, d in (((16, 16), 32), ((32, 32), 64), ((64, 64), 128),
+                            ((128, 128), 256))
+             for L in (61, 1000) for m in masks for cap in (None, 30.0)]
+    worst, worst_c, max_abs = 0.0, 0.0, 0.0
+    for i, (m, L, blk, d, cap) in enumerate(cases):
+        _, args, kw = _attn_case(masks[m], L, blk, d, d, 3, cap, seed=i)
+        got, again = _b5(args, kw), _b5(args, kw)
+        want = _b5_plain(args, kw)
+        comp = _composed(args, kw, masks[m], "nnz_stream")
+        torch.cuda.synchronize()
+        rel, rel_c = _rel(got, want), _rel(got, comp)
+        worst, worst_c = max(worst, rel), max(worst_c, rel_c)
+        max_abs = max(max_abs, (got - want).abs().max().item())
+        check(rel <= 1e-4 and torch.equal(got, again),
+              f"B5 vs plain {m} L={L} block={blk} d={d} cap={cap}: "
+              f"rel {rel:.3g}, bit-stable {torch.equal(got, again)}")
+        check(rel_c <= 1e-5, f"B5 vs composed {m} L={L} block={blk} d={d} "
+              f"cap={cap}: rel {rel_c:.3g}")
+    log(f"[attn-parity] {len(cases)} small cases: B5 vs plain worst "
+        f"{worst:.3g} x max|plain| (tolerance 1e-4), bit-stable; vs composed "
+        f"(B2 -> block_softmax -> B1) worst {worst_c:.3g} (tolerance 1e-5)")
+
+    # a block-row whose schedule holds only sentinel slots: zero context
+    h = 16
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2 * h, 32)).astype(
+        np.float32)).to(DEVICE) for _ in range(3))
+    emask = torch.ones((1, h, h), device=DEVICE)
+    idx = torch.tensor([0, 1], dtype=torch.int32, device=DEVICE)
+    col = torch.zeros(2, dtype=torch.int32, device=DEVICE)
+    kw = dict(n_block_rows=2, n_block_cols=2, block=(h, h), scale=0.5)
+    out = _b5((q, k, v, emask, idx, col), kw)
+    p = torch.softmax((q[0, :h] @ k[0, :h].T) * 0.5, dim=-1)
+    torch.cuda.synchronize()
+    ok = bool((out[0, h:] == 0).all()) and torch.allclose(
+        out[0, :h], p @ v[0, :h], rtol=1e-4, atol=1e-4)
+    log(f"[attn-parity] empty block-row: zero context, the other row equals "
+        f"softmax(q k^T / 2) v: {'ok' if ok else 'FAIL'}")
+    check(ok, "B5 with an empty block-row")
+
+    # full width: one layer of smat-attn-1.3b at both prefill lengths (the
+    # mask's first use at each length builds its host BCSR and device
+    # tensors: timed, then cached)
+    mask = A.banded(4096)
+    mask_s = {}
+    for L in (ATTN_SEQ, ATTN_LONG):
+        t0 = time.perf_counter()
+        A.mask_tensors(mask, L, (128, 128), DEVICE)
+        mask_s[L] = time.perf_counter() - t0
+        mt, args, kw = _attn_case(mask, L, (128, 128), 128, 128, ATTN_G,
+                                  None, seed=99)
+        got, again = _b5(args, kw), _b5(args, kw)
+        # the plain version gathers K, V and the scores for every (instance,
+        # block-row, slot): about 0.7 GB an instance at 8192 tokens, 2.8 GB
+        # at 32768, so at 32768 it runs ATTN_PLAIN_CHUNK instances at a time
+        step = ATTN_G if L == ATTN_SEQ else ATTN_PLAIN_CHUNK
+        want = torch.cat([_b5_plain(tuple(t[g:g + step] for t in args[:3])
+                                    + args[3:], kw)
+                          for g in range(0, ATTN_G, step)])
+        torch.cuda.synchronize()
+        rel = _rel(got, want)
+        max_abs = max(max_abs, (got - want).abs().max().item())
+        del want
+        comp = {be: _composed(args, kw, mask, be)
+                for be in ("nnz_stream", "row_loop")}
+        rel_c = {be: _rel(got, c) for be, c in comp.items()}
+        worst_c = max(worst_c, *rel_c.values())
+        log(f"[attn-parity] full width G={ATTN_G} L={L} d=128 banded(4096) "
+            f"128x128 (nnzb {mt.meta.nnzb}, max_bpr {mt.meta.max_bpr}; mask "
+            f"built in {mask_s[L]:.3f}s): B5 vs plain ({step} instances a "
+            f"call) {rel:.3g} x max|plain|, bit-stable "
+            f"{torch.equal(got, again)}; vs composed {rel_c} (B2/B1, B4/B3)")
+        check(rel <= 1e-4 and torch.equal(got, again),
+              f"B5 disagrees with its plain version at full width L={L}")
+        check(max(rel_c.values()) <= 1e-5,
+              f"B5 vs composed at full width L={L}: {rel_c}")
+        del got, again, comp, args
+        torch.cuda.empty_cache()
+    return max_abs, worst_c, mask_s
+
+
+def attn_bound(meta, G, L, d, dv):
+    """(bound_ms, bound_by) of one B5 call: q, k, v, the element mask and
+    the schedule read once, out written once (f32); the useful work is
+    Q K^T and P V once per stored block per instance, 2 operations per
+    multiply-add, over the f32 FMA peak."""
+    h, w = meta.block
+    nbytes = (4 * G * L * (2 * d + 2 * dv) + 4 * meta.nnzb * h * w
+              + 8 * meta.n_block_rows * meta.max_bpr)
+    flops = G * meta.nnzb * 2 * h * w * (d + dv)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[torch.float32]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def attn_timing_phase(smi, mask_s):
+    """B5's ms per launch at one layer's shapes (G = 16, d = 128,
+    banded(4096), L = 8192 and 32768), each beside its bound, its plain
+    version (at 8192 only: at 32768 it runs in chunks of instances, held
+    in ``[attn-parity]``), the composed path on the kernels the tuner
+    resolves (launches per call counted; its output held against B5's
+    within carve-out 2, 1e-5), the library call
+    ``scaled_dot_product_attention`` in f32 with the boolean band mask
+    (the one PyTorch call that computes the same function) and, for
+    context only, dense causal SDPA in bf16 (a different function).  The
+    plain version at 32768 is timed nowhere.  Eager launches timed with CUDA events: a B5
+    call takes tens of ms, so the host's share is small."""
+    from torch.nn import functional as F
+
+    from repro_torch.models import attention as A
+    mask = A.banded(4096)
+    rows = {}
+    for L in (ATTN_SEQ, ATTN_LONG):
+        mt, args, kw = _attn_case(mask, L, (128, 128), 128, 128, ATTN_G,
+                                  None, seed=7)
+        row = {"case": f"{B5} G={ATTN_G} L={L} d=dv=128 banded(4096) "
+                       f"128x128", "nnzb": mt.meta.nnzb,
+               "max_bpr": mt.meta.max_bpr, "mask_build_s": mask_s[L],
+               "card": smi}
+        row["ms"] = time_ms_eager([lambda: _b5(args, kw)], reps=5)
+        row["bound_ms"], row["bound_by"] = attn_bound(mt.meta, ATTN_G, L,
+                                                      128, 128)
+        row["plain_ms"] = time_ms_eager(
+            [lambda: _b5_plain(args, kw)], reps=2) if L == ATTN_SEQ else None
+        _reset_counts()
+        comp = _composed(args, kw, mask, "auto")
+        torch.cuda.synchronize()
+        row["composed_launches"] = {n: c for n, c in _read_counts().items()
+                                    if c}
+        row["fused_vs_composed_rel"] = _rel(_b5(args, kw), comp)
+        check(row["fused_vs_composed_rel"] <= 1e-5,
+              f"B5 vs the composed path on auto at L={L}: "
+              f"{row['fused_vs_composed_rel']:.3g}")
+        del comp
+        row["composed_ms"] = time_ms_eager(
+            [lambda: _composed(args, kw, mask, "auto")], reps=2)
+        q, k, v = (t[None] for t in args[:3])       # [1, G, L, d]
+        pos = torch.arange(L, device=DEVICE)
+        allowed = A.mask_allowed(mask, pos, pos)    # [L, L] bool
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=allowed)
+
+        def check_sdpa():
+            ref_out = _b5(args, kw)
+            err = _rel(sdpa()[0], ref_out)
+            if err > 1e-4:
+                raise ValueError(f"SDPA differs from B5 by {err:.3g}")
+        row["library_ms"], lib_err = _library([sdpa], check_sdpa,
+                                              timer=time_ms_eager)
+        if lib_err:
+            row["library_error"] = lib_err
+        del allowed
+        qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+        row["dense_causal_sdpa_bf16_ms"] = time_ms_eager(
+            [lambda: F.scaled_dot_product_attention(qb, kb, vb,
+                                                    is_causal=True)], reps=5)
+        log("[attn-timing] " + json.dumps(row))
+        rows[L] = row
+        del args, q, k, v, qb, kb, vb
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _attn_cfg(**attn_kw):
+    """smat-attn-1.3b with the attention spec's fields replaced; decode
+    takes the dense-bias path (``paged_decode="off"``: paged KV is ROADMAP
+    A6)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(ATTN_ARCH)
+    return dataclasses.replace(cfg, attn_sparsity=dataclasses.replace(
+        cfg.attn_sparsity, paged_decode="off", **attn_kw))
+
+
+def prefill_attn_phase(smi):
+    """smat-attn-1.3b at full width and depth (24 layers, random weights
+    from seed 0): prefill one 8192-token prompt through
+    ``launch/steps.make_prefill_step`` (exactly 24 B5 and 72 B1 launches);
+    its last-position logits against the plain path (attention and FFN on
+    ``xla``) within max(2e-2, 2 x the plain path's own noise: FFN ``dense``
+    against ``xla``, as ``[model]``); then ATTN_DECODE decode steps from that
+    cache (72 B1 and no B5 a call: decode applies the mask as a bias),
+    each step's logits against the plain path decoding from a copy of the
+    cache, by the same rule; the prefill again in float32, where
+    the logits hold to the plain path's within 2e-2; then one timed
+    32768-token prefill (the prefill_32k cell cut from global batch 32 to
+    1 on one card): ms and peak memory."""
+    from repro_torch.launch import steps as st
+    from repro_torch.models import transformer as T
+    cfg = _attn_cfg()
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    log(f"[prefill-attn] {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads x {cfg.head_dim}, attention "
+        f"{cfg.attn_sparsity.mask} in {cfg.attn_sparsity.block} blocks, "
+        f"backend {cfg.attn_sparsity.backend}; FFN backend "
+        f"{cfg.ffn_sparsity.backend}; built in {time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(1, ATTN_SEQ))).to(DEVICE)
+    cache_len = ATTN_SEQ + 128
+    prefill = st.make_prefill_step(cfg, cache_len)
+    prefill(model, {"tokens": tokens[:, :4096]})   # first-call set-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _read_counts()
+    want = _counts(**{B5: cfg.n_layers, B1: 3 * cfg.n_layers})
+    logits = logits.float()
+    ref_logits = {}
+    for ffn in ("dense", "xla"):        # the plain path: FFN on xla
+        cfg_p = dataclasses.replace(
+            _attn_cfg(backend="xla"), ffn_sparsity=dataclasses.replace(
+                cfg.ffn_sparsity, backend=ffn))
+        ref_logits[ffn] = st.make_prefill_step(cfg_p, cache_len)(
+            model, {"tokens": tokens})[0].float()
+    err = (logits - ref_logits["xla"]).abs().max().item()
+    noise = (ref_logits["dense"] - ref_logits["xla"]).abs().max().item()
+    tol = max(2e-2, 2 * noise)
+    log(f"[prefill-attn] 1 x {ATTN_SEQ} tokens: {dt * 1e3:.3f} ms (host "
+        f"clock, synchronised), {ATTN_SEQ / dt:.1f} tokens/s; launches "
+        f"{counts}, expected {want}; last-position logits vs plain: "
+        f"max|dlogit|={err:.4g}, plain's own noise {noise:.4g}, tolerance "
+        f"{tol:.4g}, max|logit|={ref_logits['xla'].abs().max().item():.4g}, "
+        f"same argmax {bool(logits.argmax() == ref_logits['xla'].argmax())}; "
+        f"{smi}")
+    check(counts == want, f"prefill launch counts {counts} != {want}")
+    check(bool(torch.isfinite(logits).all()) and err <= tol,
+          "prefill logits disagree with the plain path")
+    del ref_logits
+
+    decode = st.make_decode_step(cfg)
+    cache0 = {n: t.clone() for n, t in cache.items()}
+    tok = logits.argmax(-1)
+    fed, step_logits_k = [tok], []
+    _reset_counts()
+    t0 = time.perf_counter()
+    for s in range(ATTN_DECODE):
+        step_logits, cache = decode(model, cache, tok, ATTN_SEQ + s)
+        step_logits_k.append(step_logits.float())
+        tok = step_logits.float().argmax(-1)
+        fed.append(tok)
+    torch.cuda.synchronize()
+    dt_dec = time.perf_counter() - t0
+    counts_dec = _read_counts()
+    want_dec = _counts(**{B1: 3 * cfg.n_layers * ATTN_DECODE})
+    out = [int(t[0]) for t in fed[1:]]
+    # the plain path (FFN on xla) decodes from a copy of the same cache,
+    # fed the kernel path's tokens: every step's logits within max(2e-2,
+    # 2 x the plain path's own decode noise, FFN dense against xla), and
+    # its greedy tokens compared
+    plain_steps = {}
+    for ffn in ("dense", "xla"):
+        dec_p = st.make_decode_step(dataclasses.replace(
+            cfg_p, ffn_sparsity=dataclasses.replace(cfg.ffn_sparsity,
+                                                    backend=ffn)))
+        c = {n: t.clone() for n, t in cache0.items()}
+        plain_steps[ffn] = []
+        for s in range(ATTN_DECODE):
+            lp, c = dec_p(model, c, fed[s], ATTN_SEQ + s)
+            plain_steps[ffn].append(lp.float())
+        del c
+
+    def worst(a, b):
+        return max((x - y).abs().max().item() for x, y in zip(a, b))
+    dec_err = worst(step_logits_k, plain_steps["xla"])
+    dec_noise = worst(plain_steps["dense"], plain_steps["xla"])
+    dec_tol = max(2e-2, 2 * dec_noise)
+    same = sum(int(lp.argmax(-1)[0]) == t
+               for lp, t in zip(plain_steps["xla"], out))
+    log(f"[prefill-attn] {ATTN_DECODE} decode steps from the cache "
+        f"(positions {ATTN_SEQ}..{ATTN_SEQ + ATTN_DECODE - 1}, cache "
+        f"{cache_len}, mask bias): tokens {out}; {dt_dec * 1e3:.3f} ms; "
+        f"launches {counts_dec}, expected {want_dec}; against the plain "
+        f"path from a copy of the cache: max|dlogit| {dec_err:.4g}, plain's "
+        f"own noise {dec_noise:.4g}, tolerance {dec_tol:.4g}; same greedy "
+        f"token {same}/{ATTN_DECODE}")
+    check(counts_dec == want_dec and all(0 <= t < cfg.vocab_size
+                                         for t in out),
+          f"decode after prefill: launches {counts_dec} or tokens {out}")
+    check(dec_err <= dec_tol, "decode after prefill disagrees with the "
+          "plain path")
+    del cache, cache0, logits, step_logits_k, plain_steps
+
+    # the same prefill in float32, full depth: kernels against the plain
+    # path within 2e-2 (in bf16 the plain path's own noise is above it)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = T.init_params(cfg32, seed=0, device=DEVICE)
+    lg32 = {}
+    for name, c in (("kernels", cfg32), ("plain", dataclasses.replace(
+            cfg_p, dtype="float32"))):
+        lg32[name] = st.make_prefill_step(c, cache_len)(
+            model32, {"tokens": tokens})[0].float()
+    err32 = (lg32["kernels"] - lg32["plain"]).abs().max().item()
+    log(f"[prefill-attn] float32, {cfg.n_layers} layers, 1 x {ATTN_SEQ} "
+        f"tokens: last-position logits kernels vs plain max|dlogit| "
+        f"{err32:.4g} (tolerance 2e-2), max|logit| "
+        f"{lg32['plain'].abs().max().item():.4g}")
+    check(bool(torch.isfinite(lg32["kernels"]).all()) and err32 <= 2e-2,
+          "float32 prefill logits disagree with the plain path")
+    del model32, lg32
+    torch.cuda.empty_cache()
+
+    # where a prefill's time goes: torch.profiler over one 8192-token call
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prefill(model, {"tokens": tokens})
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    log("[prefill-attn-profile] " + json.dumps(
+        {"tokens": ATTN_SEQ, "card": smi,
+         **_profile_summary(prof, wall_ms, 1, "call")}))
+    del prof
+
+    # the prefill_32k cell, one sequence (its mask tensors were built and
+    # cached by [attn-timing], so the timed call is the prefill alone)
+    from repro_torch.configs.base import SHAPES, cell_applicable
+    cell = SHAPES["prefill_32k"]
+    check(cell.seq_len == ATTN_LONG and cell_applicable(cfg, cell)[0],
+          f"{cell} does not apply to {cfg.name}")
+    long_tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(1, ATTN_LONG))).to(DEVICE)
+    prefill_long = st.make_prefill_step(cfg, ATTN_LONG)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    long_logits, _ = prefill_long(model, {"tokens": long_tokens})
+    torch.cuda.synchronize()
+    dt_long = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    counts_long = _read_counts()
+    log(f"[prefill-attn] {cell.name} cell (global batch "
+        f"{cell.global_batch} cut to 1 on one card), 1 x {ATTN_LONG} tokens: "
+        f"{dt_long * 1e3:.3f} ms ({ATTN_LONG / dt_long:.1f} tokens/s), peak "
+        f"memory {peak:.2f} GB; launches {counts_long}; {smi}")
+    check(bool(torch.isfinite(long_logits).all()) and counts_long == want,
+          f"32k prefill: launches {counts_long} or logits not finite")
+    del model, long_logits
+    torch.cuda.empty_cache()
+    return counts, {"prefill_ms": dt * 1e3, "prefill_32k_ms": dt_long * 1e3,
+                    "prefill_32k_peak_gb": peak}
+
+
+def serve_attn_phase():
+    """ServeEngine with smat-attn-1.3b at full width (4 slots, cache 256, 8
+    requests): prompts go token by token through decode calls, which apply
+    the mask as a bias, so each call launches 72 B1 and no B5; the engine's
+    stream equals a direct ``decode_step`` loop."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine
+    cfg = _attn_cfg()
+    model = T.init_params(cfg, seed=0, device=DEVICE)
+    warm = ServeEngine(cfg, model, n_slots=N_SLOTS, cache_len=CACHE_LEN,
+                       device=DEVICE)
+    list(warm.generate(_requests(cfg)[:1]))
+    engine = ServeEngine(cfg, model, n_slots=N_SLOTS, cache_len=CACHE_LEN,
+                         device=DEVICE)
+    requests = _requests(cfg)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streams = {}
+    for rid, tok in engine.generate(requests):
+        streams.setdefault(rid, []).append(tok)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _read_counts()
+    n_tok = sum(len(v) for v in streams.values())
+    want = _counts(**{B1: 3 * cfg.n_layers * engine.decode_calls})
+    log(f"[serve-attn] {len(streams)} requests, {n_tok} new tokens, "
+        f"{engine.decode_calls} decode calls in {dt:.3f}s: {n_tok / dt:.1f} "
+        f"tok/s; paged_kv {engine.paged_kv}; launches {launches}, expected "
+        f"{want}")
+    check(sorted(streams) == list(range(N_REQUESTS)) and all(
+        len(v) == NEW_TOKENS for v in streams.values()),
+        "attention serving: requests missing or short")
+    check(launches == want and engine.decode_calls > 0,
+          f"attention serving launch counts {launches} != {want}")
+    with torch.inference_mode():
+        oracle = _greedy_oracle(cfg, model, requests[0].prompt, NEW_TOKENS)
+    log(f"[serve-attn] request 0: engine {streams[0]}; decode_step loop "
+        f"{oracle}")
+    check(streams[0] == oracle, "attention engine stream != decode_step loop")
+    del model, engine, warm
+    torch.cuda.empty_cache()
+    return launches, n_tok / dt
+
+
+def _attn_train_counts(cfg, per_step_b5):
+    """Launches per training step of smat-attn-1.3b, derived from the code:
+    the FFN as in ``[train]`` (B1 forward and dB, B2 dvals), B5 forward,
+    and the B5 backward's composed path per head and layer: two SDDMMs
+    (scores recomputed, d(probs)) and two SpMMs (context recomputed, dQ)
+    on the kernels ``backend="auto"`` resolves for the mask, and two B1
+    launches over the transpose structure (dV, dK)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as A
+    sp = cfg.attn_sparsity
+    meta = A.attention_mask_meta(sp.mask, ATTN_SEQ, tuple(sp.block))
+    sddmm = {"nnz_stream": B2, "row_loop": B4}[ops.resolve_backend(
+        "auto", None, meta, cfg.head_dim, op="sddmm", device=DEVICE)[0]]
+    spmm = {"nnz_stream": B1, "row_loop": B3}[ops.resolve_backend(
+        "auto", None, meta, cfg.head_dim, op="spmm", device=DEVICE)[0]]
+    per_head = {sddmm: 2, spmm: 2}
+    per_head[B1] = per_head.get(B1, 0) + 2
+    counts = {B5: per_step_b5, B1: 6 * cfg.n_layers, B2: 3 * cfg.n_layers}
+    for name, n in per_head.items():
+        counts[name] = counts.get(name, 0) + n * cfg.n_heads * cfg.n_layers
+    return _counts(**counts), (sddmm, spmm)
+
+
+def train_attn_phase(smi):
+    """ATTN_TRAIN_STEPS AdamW steps of 1 x 8192 tokens of smat-attn-1.3b at
+    full width, bf16, no remat, through ``train.loop.train``: finite losses,
+    exact launch counts per step (``_attn_train_counts``), step ms,
+    tokens/s and peak memory."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    cfg = _attn_cfg()
+    shape = ShapeCell("chip", "train", ATTN_SEQ, 1)
+    per_step, (sddmm, spmm) = _attn_train_counts(cfg, cfg.n_layers)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    res = loop.train(cfg, shape, device=DEVICE,
+                     total_steps=ATTN_TRAIN_STEPS,
+                     opt_cfg=adamw.AdamWConfig(total_steps=ATTN_TRAIN_STEPS),
+                     remat="none")
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    steady = res.step_times[1:]
+    step_ms = 1e3 * sum(steady) / len(steady)
+    want = {n: c * ATTN_TRAIN_STEPS for n, c in per_step.items()}
+    log(f"[train-attn] {cfg.name} full width, 1 x {ATTN_SEQ} tokens, bf16, "
+        f"remat none, AdamW: losses {res.losses}; step ms "
+        f"{[round(1e3 * t, 3) for t in res.step_times]}; steady "
+        f"{step_ms:.3f} ms = {ATTN_SEQ / step_ms * 1e3:.1f} tokens/s; peak "
+        f"memory {peak:.2f} GB; {smi}")
+    log(f"[train-attn] kernel launches {launches}; expected {want} (per "
+        f"step {per_step}: the backward's composed path resolves its SDDMM "
+        f"to {sddmm} and its SpMM to {spmm})")
+    check(res.final_step == ATTN_TRAIN_STEPS and
+          len(res.losses) == ATTN_TRAIN_STEPS,
+          "attention training did not reach its end")
+    check(all(np.isfinite(res.losses)), "an attention training loss is not "
+          "finite")
+    check(launches == want, f"attention training launch counts {launches} "
+          f"!= {want}")
+
+    # where a step's time goes: torch.profiler over one step after a
+    # warm-up step, as [train-profile]
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch import steps as st
+    from repro_torch.models import transformer as T
+    opt_cfg = adamw.AdamWConfig(total_steps=ATTN_TRAIN_STEPS)
+    model = T.init_params(cfg, seed=0, device=DEVICE)
+    opt_state = adamw.init(dict(model.named_parameters()))
+    batch = loop.batch_to_device(make_batch(cfg, shape, 0), DEVICE)
+    step = st.make_train_step(cfg, opt_cfg, remat="none")
+    model, opt_state, _ = step(model, opt_state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model, opt_state, metrics = step(model, opt_state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    log("[train-attn-profile] " + json.dumps(
+        {"train_steps": 1, "card": smi,
+         **_profile_summary(prof, wall_ms, 1, "step")}))
+    del model, opt_state, batch, prof
+    torch.cuda.empty_cache()
+    return launches, {"step_ms": step_ms,
+                      "tokens_per_s": ATTN_SEQ / step_ms * 1e3,
+                      "peak_gb": peak, "losses": res.losses}
+
+
+def train_attn_vs_plain_phase():
+    """One training step of a 2-layer float32 smat-attn-1.3b at full width
+    (1 x 8192 tokens) through B5 and the kernels, and through the plain
+    path (attention and FFN on ``xla``), same weights and batch: loss rtol
+    1e-5, every gradient max|diff| <= 1e-4 x its max|grad|."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.train import loop
+    cfg32 = dataclasses.replace(_attn_cfg(), n_layers=2, dtype="float32")
+    model = T.init_params(cfg32, seed=0, device=DEVICE)
+    batch = loop.batch_to_device(make_batch(
+        cfg32, ShapeCell("chip", "train", ATTN_SEQ, 1), 0), DEVICE)
+    plain = dataclasses.replace(
+        _attn_cfg(backend="xla"), n_layers=2, dtype="float32",
+        ffn_sparsity=dataclasses.replace(cfg32.ffn_sparsity, backend="xla"))
+    out = {}
+    for name, cfg_b in (("kernels", cfg32), ("plain", plain)):
+        for p in model.parameters():
+            p.grad = None
+        _reset_counts()
+        loss, _ = T.train_loss(cfg_b, model, batch, remat="none")
+        loss.backward()
+        out[name] = (float(loss.detach()), _read_counts(),
+                     {n: p.grad.clone() for n, p in model.named_parameters()})
+    (loss_k, counts_k, g_k), (loss_p, counts_p, g_p) = (out["kernels"],
+                                                        out["plain"])
+    want_k, _ = _attn_train_counts(cfg32, cfg32.n_layers)
+    worst = max(((g_k[n] - g).abs().max().item() /
+                 max(g.abs().max().item(), 1e-30), n) for n, g in g_p.items())
+    ok = (abs(loss_k - loss_p) <= 1e-5 * abs(loss_p) and worst[0] <= 1e-4
+          and counts_k == want_k and counts_p == _counts())
+    log(f"[train-attn-vs-plain] f32 2-layer full width, 1 x {ATTN_SEQ} "
+        f"tokens, kernels vs plain: loss {loss_k:.7f} vs {loss_p:.7f} (rtol "
+        f"1e-5); worst gradient max|diff|/max|grad| = {worst[0]:.3g} at "
+        f"{worst[1]} (tolerance 1e-4); launches {counts_k} (expected "
+        f"{want_k}) vs {counts_p} {'ok' if ok else 'FAIL'}")
+    check(ok, "f32 attention training step disagrees with its plain path")
+    del model, out
+    torch.cuda.empty_cache()
+
 
 def main():
+    t_start = time.perf_counter()
+
+    def phase(fn, *args):
+        """Run one phase and log its wall time (the script's whole run must
+        stay inside its time limit)."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"[time] {fn.__name__}: {time.perf_counter() - t0:.1f}s "
+            f"(total {time.perf_counter() - t_start:.1f}s)")
+        return out
+
     smi = device_phase()
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    build_phase()
-    max_err = parity_phase()
-    err_b2, err_dx = sddmm_parity_phase()
-    err_b3, err_b4 = row_loop_parity_phase()
-    timed = timing_phase(smi)
-    timed_train = train_timing_phase(smi)
-    timed_rl = row_loop_timing_phase(smi)
-    cfg, model, launches, tok_s, stream0 = main_path_phase()
-    model_vs_plain_phase(cfg, model)
-    profile_phase(cfg, model)
-    serve_rl_launches, tok_s_rl = serve_row_loop_phase(cfg, model, stream0)
+    phase(build_phase)
+    max_err = phase(parity_phase)
+    err_b2, err_dx = phase(sddmm_parity_phase)
+    err_b3, err_b4 = phase(row_loop_parity_phase)
+    err_b5, carve_out_2, mask_s = phase(attn_parity_phase)
+    timed = phase(timing_phase, smi)
+    timed_train = phase(train_timing_phase, smi)
+    timed_rl = phase(row_loop_timing_phase, smi)
+    timed_attn = phase(attn_timing_phase, smi, mask_s)
+    cfg, model, launches, tok_s, stream0 = phase(main_path_phase)
+    phase(model_vs_plain_phase, cfg, model)
+    phase(profile_phase, cfg, model)
+    serve_rl_launches, tok_s_rl = phase(serve_row_loop_phase, cfg, model,
+                                        stream0)
     del model
     torch.cuda.empty_cache()
-    train_launches, trained = train_phase(cfg, smi)
-    train_rl_launches, trained_rl = train_row_loop_phase(cfg, smi,
-                                                         trained["losses"])
-    train_vs_plain_phase(cfg)
-    train_row_loop_vs_plain_phase(cfg)
-    restart_phase()
-    mip1_perm, err_lib, _ = library_phase(smi)
-    winners = autotune_phase(mip1_perm, smi)
+    train_launches, trained = phase(train_phase, cfg, smi)
+    train_rl_launches, trained_rl = phase(train_row_loop_phase, cfg, smi,
+                                          trained["losses"])
+    phase(train_vs_plain_phase, cfg)
+    phase(train_row_loop_vs_plain_phase, cfg)
+    phase(restart_phase)
+    mip1_perm, err_lib, _ = phase(library_phase, smi)
+    winners = phase(autotune_phase, mip1_perm, smi)
+    prefill_attn_launches, prefilled = phase(prefill_attn_phase, smi)
+    serve_attn_launches, tok_s_attn = phase(serve_attn_phase)
+    train_attn_launches, trained_attn = phase(train_attn_phase, smi)
+    phase(train_attn_vs_plain_phase)
 
     # a layer runs each kernel twice on the gate/up shape for every once on
     # the down shape: the line's times are that mix, per launch
@@ -1534,7 +2165,10 @@ def main():
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     paths = {"serve": launches, "train": train_launches,
              "serve_row_loop": serve_rl_launches,
-             "train_row_loop": train_rl_launches}
+             "train_row_loop": train_rl_launches,
+             "prefill_attn": prefill_attn_launches,
+             "serve_attn": serve_attn_launches,
+             "train_attn": train_attn_launches}
 
     def entry(k, err, rows, **extra):
         by_path = {path: counts[k["name"]] for path, counts in paths.items()}
@@ -1544,7 +2178,10 @@ def main():
                 **{key: mix(rows, key) for key in keys},
                 "bound_by": rows["down"]["bound_by"],
                 "launches_by_path": by_path, **extra}
-    b1, b2, b3, b4 = KERNELS
+    b1, b2, b3, b4, b5 = KERNELS
+    attn_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "composed_ms", "composed_launches",
+                 "dense_causal_sdpa_bf16_ms")
     line = {"kernels": [
         entry(b1, max(max_err, err_dx), decode,
               train_forward={key: mix(fwd, key) for key in keys},
@@ -1556,6 +2193,16 @@ def main():
         entry(b4, err_b4, rl[(B4, TRAIN_N)],
               dense_ms=mix(rl[(B4, TRAIN_N)], "dense_ms"),
               decode={key: mix(rl[(B4, N_SLOTS)], key) for key in keys}),
+        {"name": b5["name"], "route": b5["route"], "source": b5["source"],
+         "replaces": b5["replaces"],
+         "launches": sum(c[B5] for c in paths.values()),
+         "max_abs_err": err_b5,
+         **{key: timed_attn[ATTN_SEQ][key] for key in attn_keys},
+         "launches_by_path": {p: c[B5] for p, c in paths.items()},
+         "fused_vs_composed_rel": max(
+             carve_out_2, *(r["fused_vs_composed_rel"]
+                            for r in timed_attn.values())),
+         "at_32768": {key: timed_attn[ATTN_LONG][key] for key in attn_keys}},
     ]}
     log(f"[main] serving: {tok_s:.1f} tok/s (nnz_stream), {tok_s_rl:.1f} "
         f"tok/s (row_loop); training: {trained['step_ms']:.3f} ms per step, "
@@ -1566,7 +2213,15 @@ def main():
         f"Kernel times per launch: {B1} and {B3} at the decode shape "
         f"(N={N_SLOTS}; train_forward and train_dB at N={TRAIN_N}), {B2} and "
         f"{B4} at N={TRAIN_N}; each averaged 2:1 over the gate/up and down "
-        f"shapes")
+        f"shapes.  {ATTN_ARCH}: prefill {prefilled['prefill_ms']:.3f} ms "
+        f"(1 x {ATTN_SEQ}), {prefilled['prefill_32k_ms']:.3f} ms (1 x "
+        f"{ATTN_LONG}, peak {prefilled['prefill_32k_peak_gb']:.2f} GB); "
+        f"serving {tok_s_attn:.1f} tok/s; training "
+        f"{trained_attn['step_ms']:.3f} ms per step, "
+        f"{trained_attn['tokens_per_s']:.1f} tokens/s, peak "
+        f"{trained_attn['peak_gb']:.2f} GB; {B5} per launch at G={ATTN_G}, "
+        f"L={ATTN_SEQ} (at_32768: L={ATTN_LONG}); whole run "
+        f"{time.perf_counter() - t_start:.1f}s")
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

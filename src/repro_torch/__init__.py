@@ -5,7 +5,9 @@ SMaT library path: host BCSR -> ``prepare`` (with the block-densifying row
 reorder) -> ``spmm`` / ``sddmm`` (hand-written CUDA kernels, streamed and
 static-schedule, forward and backward; ``backend="auto"`` through the
 ``Autotuner``) -> sparse FFN (``SparsitySpec``) -> transformer -> serving
-(``ServeEngine``) and training (``repro_torch.train.loop``).  Exports resolve lazily (PEP 562),
+(``ServeEngine``) and training (``repro_torch.train.loop``); and block-sparse
+attention (``AttnSparsitySpec``, ``smat-attn-1.3b``: the fused kernel B5 or
+the composed SDDMM/SpMM pair).  Exports resolve lazily (PEP 562),
 so ``import repro_torch`` imports nothing heavy until a name is touched.
 The package imports torch, numpy and scipy, never jax or ``repro``.
 
@@ -18,6 +20,7 @@ from __future__ import annotations
 import importlib
 
 __all__ = [
+    "AttnSparsitySpec",
     "Autotuner",
     "Request",
     "ServeEngine",
@@ -30,6 +33,7 @@ __all__ = [
 ]
 
 _EXPORTS = {
+    "AttnSparsitySpec": "repro_torch.core.attention_mask",
     "Autotuner": "repro_torch.kernels.autotune",
     "Request": "repro_torch.serve.engine",
     "ServeEngine": "repro_torch.serve.engine",

@@ -1,11 +1,13 @@
-"""Registered architectures.  The port registers the paper's own arch so
-far: an LM whose FFN weights are 90% block-sparse, multiplied by the BCSR
-SpMM kernel."""
+"""Registered architectures.  The port registers the paper's two
+workloads so far: an LM whose FFN weights are 90% block-sparse, multiplied
+by the BCSR SpMM kernels, and the same LM with block-sparse attention
+scores on top."""
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.attention_mask import AttnSparsitySpec, banded
 from repro_torch.core.sparse_linear import SparsitySpec
 
 ARCHS = {}
@@ -28,6 +30,23 @@ _register(ModelConfig(
                               backend="nnz_stream"),
 ))
 
+# Both sparse workloads at once: block-sparse FFN weights AND block-sparse
+# attention scores (a banded mask in 128x128 blocks).  The JAX package
+# registers both specs with backend="xla" so that its registry stays
+# lowerable on a CPU; here the card must run the kernels, so the FFN takes
+# backend="nnz_stream" (B1/B2) and attention backend="fused" (B5; its
+# backward runs the composed SDDMM/SpMM kernels).  Both wrappers take their
+# plain versions only for tensors on the CPU.
+_register(ModelConfig(
+    name="smat-attn-1.3b", family="dense", layout="attn_mlp",
+    n_layers=24, d_model=2048, n_heads=16, n_kv_heads=16, head_dim=128,
+    d_ff=8192, vocab_size=32000,
+    ffn_sparsity=SparsitySpec(density=0.10, block=(128, 128),
+                              backend="nnz_stream"),
+    attn_sparsity=AttnSparsitySpec(mask=banded(4096), block=(128, 128),
+                                   backend="fused"),
+))
+
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:
     """Reduced same-family config for CPU tests: few layers, small width,
@@ -48,4 +67,7 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
         kw.update(ffn_sparsity=SparsitySpec(
             density=0.3, block=(16, 16), backend=cfg.ffn_sparsity.backend,
             bn=128))
+    if cfg.attn_sparsity is not None:
+        kw.update(attn_sparsity=dataclasses.replace(
+            cfg.attn_sparsity, mask=banded(32), block=(16, 16), bn=128))
     return dataclasses.replace(cfg, **kw)

@@ -1,11 +1,12 @@
 """Model configuration schema — every field of the JAX package's
-``ModelConfig`` — and the ``ShapeCell`` of a run.  Block-sparse attention
-(``attn_sparsity``) is not ported yet, so a config that sets it raises."""
+``ModelConfig`` — and the shape cells: ``ShapeCell``, the JAX package's
+``SHAPES`` and ``cell_applicable``."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
+from repro_torch.core.attention_mask import AttnSparsitySpec
 from repro_torch.core.sparse_linear import SparsitySpec
 
 
@@ -66,16 +67,27 @@ class ModelConfig:
     # --- the paper's technique: block-sparse FFN weights
     ffn_sparsity: Optional[SparsitySpec] = None
 
-    # --- block-sparse attention: must stay None until it is ported
-    attn_sparsity: Optional[object] = None
+    # --- the paper's second workload: block-sparse attention (scores
+    # sampled on a static BCSR mask; the layer is models.attention)
+    attn_sparsity: Optional[AttnSparsitySpec] = None
 
     dtype: str = "bfloat16"
     mlp_act: str = "silu"           # silu (gated) | gelu (gated, gemma2)
 
-    def __post_init__(self):
-        if self.attn_sparsity is not None:
-            raise NotImplementedError(
-                "block-sparse attention (attn_sparsity) is not ported yet")
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic sequence mixing: SSM/hybrid state, a bounded SWA
+        window, or a bounded block-sparse attention mask (banded /
+        local+global)."""
+        if self.attn_sparsity is not None and \
+                self.attn_sparsity.mask.kind in ("banded", "local_global"):
+            return True
+        return self.family in ("ssm", "hybrid") or \
+            self.sliding_window is not None
+
+    @property
+    def has_decode(self) -> bool:
+        return True  # all assigned archs are decoder-style
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,3 +96,19 @@ class ShapeCell:
     kind: str           # train | prefill | decode
     seq_len: int
     global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeCell("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeCell("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeCell("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeCell("long_500k", "decode", 524_288, 1),
+}
+
+
+def cell_applicable(cfg: ModelConfig, shape: ShapeCell) -> Tuple[bool, str]:
+    """(runs?, reason): long_500k skips pure full-attention archs."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, ("pure full-attention arch: 500k decode requires "
+                       "sub-quadratic sequence mixing")
+    return True, ""

@@ -6,13 +6,13 @@ matrix's block structure.  This module is the JAX package's
 
   * a **registry** of kernel variants per compute family (``spmm``:
     nnz_stream / row_loop / xla / dense; ``sddmm``: the same four;
-    ``attn``: fused / composed, kept for the key spaces until block-sparse
-    attention is ported), each with its N-tile candidates -- the tiles its
-    CUDA kernel compiles (``ops.kernel_tiles``), 0 for a backend without
-    one -- and its dispatch constraints.  Only the hand-written kernels
-    (``KernelVariant.is_kernel``) are ever picked; ``xla`` (the plain
-    version) and ``dense`` (cuBLAS) are yardsticks that ``tune`` times
-    beside them;
+    ``attn``: fused (kernel B5) / composed (the SDDMM and SpMM kernels),
+    resolved by ``models.attention.resolve_attn_impl``), each with its
+    N-tile candidates -- the tiles its CUDA kernel compiles
+    (``ops.kernel_tiles``), 0 for a backend without one -- and its dispatch
+    constraints.  Only the hand-written kernels (``KernelVariant.is_kernel``)
+    are ever picked; ``xla`` (the plain version) and ``dense`` (cuBLAS) are
+    yardsticks that ``tune`` times beside them;
   * a **fingerprint** of an operand's structure (nnzb, padding, skew,
     block shape, N bucket, reorder, ``max_bpr``, ...), the cache key.  Its
     key is the JAX package's v7 key with ``|dev=<device name or cpu>``
@@ -78,8 +78,11 @@ class KernelVariant:
     @property
     def is_kernel(self) -> bool:
         """True for a hand-written CUDA kernel: the only variants a pick
-        dispatches.  The others are yardsticks ``tune`` times."""
-        return bool(ops.kernel_tiles(self.backend, self.op))
+        dispatches.  The others are yardsticks ``tune`` times.  Both
+        attention variants run kernels: B5, or the SDDMM and SpMM
+        kernels."""
+        return self.op == "attn" or bool(ops.kernel_tiles(self.backend,
+                                                          self.op))
 
 
 _REGISTRY: Dict[str, KernelVariant] = {}
@@ -203,10 +206,12 @@ register_variant(KernelVariant(
     description="dense X Y^T + block gather (near-dense structures)"))
 
 
-# Attention family: the fused one-kernel path against the composed SDDMM ->
-# softmax -> SpMM triple.  Block-sparse attention (and its kernel) is not
-# ported yet; the family is registered so its names and key space match the
-# JAX package's, and keeps that package's tile until its kernel exists.
+# Attention family (``models.attention.resolve_attn_impl`` under
+# ``backend="auto"``): kernel B5, one launch of three passes, against the
+# composed SDDMM -> softmax -> SpMM triple.  These are attention-level
+# variants: their ``backend`` strings ("fused" / "composed") are resolved
+# there, not by ``ops``.  B5 contracts over the whole head width and has no
+# N tile; the composed model uses the SDDMM and SpMM kernels' own tiles.
 def _t_attn_fused(meta: ops.SparseMeta, n: int, bn: int) -> float:
     # one launch, three passes (max / denom / accumulate) over the static
     # (block-row x slot) schedule
@@ -219,20 +224,23 @@ def _t_attn_composed(meta: ops.SparseMeta, n: int, bn: int) -> float:
     # streamed SDDMM + SpMM, plus the [nnzb,h,w] scores/probs tensors
     # crossing device memory twice each, plus two extra launch latencies
     h, w = meta.block
-    t = _t_sddmm_stream(meta, n, bn) + _t_nnz_stream(meta, n, bn)
+    t = (_t_sddmm_stream(meta, n, pk.SDDMM_TILES[0])
+         + _t_nnz_stream(meta, n, pk.tile_n(n)))
     probs_bytes = 4.0 * meta.nnzb * h * w
     return t + 4.0 * probs_bytes / pm.HBM_BW + 2 * 5e-6
 
 
 register_variant(KernelVariant(
     name="attn_fused", backend="fused", op="attn",
-    bn_candidates=(512,), model_time=_t_attn_fused,
+    bn_candidates=NO_TILE, model_time=_t_attn_fused,
     supported=lambda meta: meta.max_bpr > 0,
-    description="single-launch fused SDDMM+softmax+SpMM (not ported yet)"))
+    description="CUDA kernel B5: SDDMM + block softmax + SpMM in one launch "
+                "(three passes, no scores in device memory)"))
 register_variant(KernelVariant(
     name="attn_composed", backend="composed", op="attn",
-    bn_candidates=(512,), model_time=_t_attn_composed,
-    description="three-dispatch composed path (not ported yet)"))
+    bn_candidates=NO_TILE, model_time=_t_attn_composed,
+    description="three dispatches: the SDDMM kernel, block softmax, the "
+                "SpMM kernel (materializes scores/probs)"))
 
 
 # --------------------------------------------------------------- fingerprint
@@ -376,10 +384,13 @@ def pick_bn(meta: ops.SparseMeta, n: int,
     return max(fit_n or feasible)
 
 
+PICK_OPS = ops.OPS + ("attn",)
+
+
 def _check_op(op: str) -> None:
-    if op not in ops.OPS:
-        raise ValueError(f"no kernel of the {op!r} family is ported; picks "
-                         f"and sweeps take one of {ops.OPS}")
+    if op not in PICK_OPS:
+        raise ValueError(f"unknown kernel family {op!r}; picks take one of "
+                         f"{PICK_OPS}")
 
 
 def analytic_choice(meta: ops.SparseMeta, n: int,
@@ -646,6 +657,12 @@ class Autotuner:
         skipped; any failure of a candidate that runs propagates.
         """
         _check_op(op)
+        if op == "attn":
+            raise ValueError(
+                "tune(op='attn'): there is no measured sweep of the attn "
+                "family (the JAX package's tune has none either); its picks "
+                "are analytic, and backend='fused' or an ops backend names "
+                "the path explicitly")
         if layout not in ("row_major", "token_major"):
             raise ValueError(f"unknown layout {layout!r}; want 'row_major' "
                              "or 'token_major'")

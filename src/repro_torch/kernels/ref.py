@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the BCSR SpMM and SDDMM kernels.
+"""Plain PyTorch versions of the BCSR SpMM, SDDMM and fused attention
+kernels.
 
 ``bcsr_spmm_ref`` and ``bcsr_sddmm_ref`` are the streamed kernels' plain
 twins: the CPU path of their wrappers, the ``xla`` backend of ``ops.spmm`` /
@@ -8,11 +9,18 @@ jnp path), and the oracles the kernels are held against on the card.
 ``row_loop`` kernels' twins: they read the same static schedule arrays as
 the kernels, padding slots and sentinel included, so the CPU tests pin that
 logic.  ``spmm_dense_ref`` and ``bcsr_sddmm_dense_ref`` are the ``dense``
-backends.  Products accumulate in float32.
+backends.  ``bcsr_attn_fused_ref`` is the fused block-sparse attention
+kernel's twin: its three passes over the mask schedule.  Products
+accumulate in float32.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+from torch.nn import functional as F
+
+from repro_torch.core.attention_mask import NEG_INF
 
 
 def bcsr_spmm_ref(vals: torch.Tensor, row_ids: torch.Tensor,
@@ -125,3 +133,43 @@ def spmm_dense_ref(a_dense: torch.Tensor, b: torch.Tensor,
     """Multiply the (explicitly padded) dense matrix in float32."""
     out = a_dense.float() @ b.float()
     return out.to(out_dtype or b.dtype)
+
+
+def bcsr_attn_fused_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        emask: torch.Tensor, flat_idx: torch.Tensor,
+                        flat_col: torch.Tensor, *, n_block_rows: int,
+                        n_block_cols: int, block, scale: float,
+                        cap: Optional[float] = None,
+                        out_dtype=None) -> torch.Tensor:
+    """Fused block-sparse attention (``bcsr_attn.bcsr_attn_fused``) in
+    plain PyTorch, vectorised over (instance, block-row, slot): K, V and the
+    element mask are gathered through ``flat_col`` and ``flat_idx`` (a
+    padding slot's entry is the sentinel ``nnzb``, an all-zero mask block).
+    Pass 0 takes the row max over every slot (clamped >= -1e30), pass 1 the
+    denominator sum of exp(logit - max) (clamped >= 1e-30), pass 2 the
+    context (exp(logit - max) / denominator) @ V, as the kernel does.
+
+    q [G, Lq, d], k [G, Lk, d], v [G, Lk, dv], emask [nnzb, h, w] 0/1,
+    flat_idx / flat_col [nbr * max_bpr]; returns [G, Lq, dv].
+    """
+    G, Lq, d = q.shape
+    Lk, dv = v.shape[1], v.shape[2]
+    h, w = block
+    nbr, nbc = n_block_rows, n_block_cols
+    max_bpr = flat_idx.shape[0] // nbr
+    qb = F.pad(q.float(), (0, 0, 0, nbr * h - Lq)).reshape(G, nbr, h, d)
+    kb = F.pad(k.float(), (0, 0, 0, nbc * w - Lk)).reshape(G, nbc, w, d)
+    vb = F.pad(v.float(), (0, 0, 0, nbc * w - Lk)).reshape(G, nbc, w, dv)
+    col = flat_col.long().reshape(nbr, max_bpr)
+    em = F.pad(emask.float(), (0, 0, 0, 0, 0, 1))        # + the sentinel
+    em = (em[flat_idx.long()] != 0).reshape(nbr, max_bpr, h, w)
+    s = torch.einsum("gihd,gitwd->githw", qb, kb[:, col]) * scale
+    if cap is not None:
+        s = cap * torch.tanh(s / cap)
+    logits = torch.where(em, s, NEG_INF)                 # [G, nbr, t, h, w]
+    m = logits.amax(dim=(2, 4)).clamp_min(-1e30)         # [G, nbr, h]
+    z = torch.where(em, torch.exp(logits - m[:, :, None, :, None]), 0.0)
+    denom = z.sum(dim=4).sum(dim=2).clamp_min(1e-30)     # [G, nbr, h]
+    p = z / denom[:, :, None, :, None]
+    ctx = torch.einsum("githw,gitwe->gihe", p, vb[:, col])
+    return ctx.reshape(G, nbr * h, dv)[:, :Lq].to(out_dtype or q.dtype)

@@ -1,6 +1,6 @@
 """Serving launcher CLI: builds a model with random weights and runs
 continuous batched decode over a synthetic request stream, reporting
-tokens/s and how many times the sparse FFN kernel was launched.
+tokens/s and how many times each CUDA kernel was launched.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smat-ffn-1.3b
   PYTHONPATH=src python -m repro_torch.launch.serve \
@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.kernels import bcsr_spmm
+from repro_torch.kernels import bcsr_attn, bcsr_spmm
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import Request, ServeEngine
 
@@ -46,7 +46,10 @@ def main(argv=None):
                         temperature=args.temperature)
                 for rid in range(args.requests)]
 
-    bcsr_spmm.LAUNCHES["nnz_stream"] = 0
+    counters = (bcsr_spmm.LAUNCHES, bcsr_attn.LAUNCHES)
+    for launches in counters:
+        for name in launches:
+            launches[name] = 0
     t0 = time.perf_counter()
     streamed = {}
     for rid, token in engine.generate(requests):
@@ -61,9 +64,11 @@ def main(argv=None):
     print(f"[serve] scheduler: {engine.scheduler.step_idx} engine steps, "
           f"{engine.scheduler.prefix_hits} prefix-cache hits "
           f"({engine.scheduler.prefix_tokens_reused} tokens reused)")
-    print(f"[serve] nnz_stream kernel launches: "
-          f"{bcsr_spmm.LAUNCHES['nnz_stream']} (0 on the CPU, where the "
-          "plain version runs)")
+    launched = {name: n for launches in counters
+                for name, n in launches.items()}
+    print(f"[serve] kernel launches: {sum(launched.values())} ("
+          + ", ".join(f"{name} {n}" for name, n in launched.items())
+          + "; 0 on the CPU, where the plain versions run)")
     for rid in sorted(streamed)[:3]:
         print(f"  rid={rid} first-tokens={streamed[rid][:8]}")
     return 0

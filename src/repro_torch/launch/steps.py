@@ -3,7 +3,10 @@ serving run.
 
 Sparse-FFN archs need no special handling here: each sparse layer holds its
 static meta, and ``ops.spmm``'s backward runs the kernels (``bcsr_spmm``
-for dB, ``bcsr_sddmm`` for dvals).  The JAX package's ``input_specs`` and
+for dB, ``bcsr_sddmm`` for dvals).  Neither do block-sparse attention archs
+(``smat-attn-1.3b``): training and prefill run kernel B5 through
+``models.attention``, whose backward runs the SDDMM/SpMM kernels, and
+decode applies the mask as a bias.  The JAX package's ``input_specs`` and
 ``opt_specs`` are dry-run helpers and are not ported yet.
 """
 from __future__ import annotations

@@ -21,7 +21,7 @@ import logging
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeCell
-from repro_torch.kernels import bcsr_spmm
+from repro_torch.kernels import bcsr_attn, bcsr_spmm
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 from repro_torch.train.loop import train_with_restarts
@@ -48,8 +48,10 @@ def main(argv=None):
 
     cfg = get_config(args.arch)
     shape = ShapeCell("cli", "train", args.seq, args.batch)
-    for name in bcsr_spmm.LAUNCHES:
-        bcsr_spmm.LAUNCHES[name] = 0
+    counters = (bcsr_spmm.LAUNCHES, bcsr_attn.LAUNCHES)
+    for launches in counters:
+        for name in launches:
+            launches[name] = 0
     res = train_with_restarts(
         cfg, shape, device=T.resolve_device(args.device),
         total_steps=args.steps,
@@ -60,8 +62,10 @@ def main(argv=None):
     print(f"[train] done: {res.final_step} steps, "
           f"loss {res.losses[0]:.3f} -> {res.losses[-1]:.3f}, "
           f"restarts={res.restarts_used}, stragglers={res.straggler_steps}")
-    print(f"[train] kernel launches: {dict(bcsr_spmm.LAUNCHES)} (0 on the "
-          "CPU, where the plain versions run)")
+    launched = {name: n for launches in counters
+                for name, n in launches.items()}
+    print(f"[train] kernel launches: {launched} (0 on the CPU, where the "
+          "plain versions run)")
     return 0
 
 

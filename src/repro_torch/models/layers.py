@@ -1,6 +1,7 @@
 """Transformer layer components: norms, RoPE, GQA attention (sliding window,
-logit softcap, QKV bias) and the gated MLP, dense or block-sparse (the
-paper's technique as a drop-in FFN).
+logit softcap, QKV bias, or block-sparse scores on a static BCSR mask:
+``cfg.attn_sparsity``) and the gated MLP, dense or block-sparse (the paper's
+technique as a drop-in FFN).
 
 Conventions (those of the JAX package):
   * activations are [B, L, D]; decode caches are ring buffers written at
@@ -17,6 +18,7 @@ whole cache per step.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Optional
 
@@ -131,6 +133,58 @@ def _sdpa(q, k, v, bias, cap, scale):
     return ctx.reshape(B, Lq, H, dv)
 
 
+def _sparse_mask(cfg, window):
+    """Effective mask spec of the block-sparse attention path: the config's
+    static pattern, intersected with the layer's sliding window when one is
+    set."""
+    mask = cfg.attn_sparsity.mask
+    if window is not None:
+        mask = dataclasses.replace(mask, window_cap=int(window))
+    return mask
+
+
+def _decode_pages(cfg, window, cache_len):
+    """Static paged-decode resolution for one attention layer, as the JAX
+    package decides it: the mask page table ``(pages, live)`` where the
+    paged KV path applies, else None (dense-bias decode).
+    ``AttnSparsitySpec.paged_decode``: "auto" requires a strict page saving
+    (``max_bpr < n_pages``), "force" only that pages tile the cache, "off"
+    disables.  The paged path itself is ROADMAP A6: ``attention`` raises
+    where this returns a table."""
+    sparse = getattr(cfg, "attn_sparsity", None)
+    if sparse is None:
+        return None
+    mode = getattr(sparse, "paged_decode", "auto")
+    if mode == "off":
+        return None
+    w = sparse.block[1]
+    if cache_len % w != 0:          # pages must tile the KV ring exactly
+        return None
+    from repro_torch.models import attention as A
+    pages, live, meta = A.decode_page_table(
+        _sparse_mask(cfg, window), cache_len, tuple(sparse.block))
+    if meta.max_bpr <= 0:
+        return None
+    if mode != "force" and meta.max_bpr >= cache_len // w:
+        return None                 # no page saving: keep the dense bias
+    return pages, live
+
+
+def _sparse_attention(cfg, q, k, v, window, cap, scale):
+    """Full-sequence attention through ``models.attention``: SDDMM scores
+    on the static BCSR mask, masked block softmax, SpMM context (or kernel
+    B5 for all three).  Replaces ``_causal_attention`` when
+    ``cfg.attn_sparsity`` is set."""
+    from repro_torch.models import attention as A
+    spec = dataclasses.replace(cfg.attn_sparsity,
+                               mask=_sparse_mask(cfg, window))
+    rep = q.shape[2] // k.shape[2]
+    if rep > 1:                     # GQA: expand KV heads for per-head ops
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    return A.block_sparse_attention(q, k, v, spec, scale=scale, cap=cap)
+
+
 def attention(cfg, p, x, *, window=None, cache=None, pos=None,
               rope_theta=None, slot_mask=None):
     """Returns (y, cache).  Modes:
@@ -138,7 +192,12 @@ def attention(cfg, p, x, *, window=None, cache=None, pos=None,
       prefill:  cache dict (zeroed, len >= L), pos = 0 — causal + cache write.
       decode:   cache dict, L == 1, pos = current position (int).
     The cache is written in place; in decode only the rows where
-    ``slot_mask`` [B] is True (all rows when it is None)."""
+    ``slot_mask`` [B] is True (all rows when it is None).
+
+    With ``cfg.attn_sparsity`` set, train/prefill score the static BCSR
+    mask (``models.attention``) and decode applies the SAME mask spec as a
+    positional bias.  Where the spec's ``paged_decode`` resolves a page
+    table, decode raises: paged KV is ROADMAP A6."""
     B, L, D = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     theta = rope_theta or cfg.rope_theta
@@ -156,15 +215,22 @@ def attention(cfg, p, x, *, window=None, cache=None, pos=None,
     scale = dh ** -0.5
     cap = cfg.attn_logit_softcap
 
+    sparse = cfg.attn_sparsity
     if cache is None:
-        ctx = _causal_attention(q, k, v, window, cap, scale)
+        if sparse is not None:
+            ctx = _sparse_attention(cfg, q, k, v, window, cap, scale)
+        else:
+            ctx = _causal_attention(q, k, v, window, cap, scale)
     elif L > 1:                              # prefill into empty cache
         kc, vc = cache["k"], cache["v"]
         Sc = kc.shape[1]
         n = min(L, Sc)
         kc[:, :n] = k[:, -Sc:].to(kc.dtype)
         vc[:, :n] = v[:, -Sc:].to(vc.dtype)
-        ctx = _causal_attention(q, k, v, window, cap, scale)
+        if sparse is not None:
+            ctx = _sparse_attention(cfg, q, k, v, window, cap, scale)
+        else:
+            ctx = _causal_attention(q, k, v, window, cap, scale)
     else:                                    # decode one token
         kc, vc = cache["k"], cache["v"]
         Sc = kc.shape[1]
@@ -180,6 +246,16 @@ def attention(cfg, p, x, *, window=None, cache=None, pos=None,
         k_pos = pos - ((pos - j) % Sc)       # ring-buffer slot positions
         q_pos = torch.full((1,), pos, dtype=torch.int64, device=x.device)
         bias = _mask_bias(q_pos, k_pos, window)          # [1, Sc]
+        if sparse is not None:
+            if _decode_pages(cfg, window, Sc) is not None:
+                raise NotImplementedError(
+                    "paged KV decode (AttnSparsitySpec.paged_decode resolved "
+                    "a page table for this cache) is not ported yet: ROADMAP "
+                    "A6; pass paged_decode='off' for the dense-bias decode")
+            # the decode twin of the block-sparse score mask
+            from repro_torch.models import attention as A
+            bias = bias + A.decode_mask_bias(_sparse_mask(cfg, window),
+                                             q_pos, k_pos)
         ctx = _sdpa(q, kc, vc, bias[None].expand(B, 1, Sc), cap, scale)
 
     y = _dense(ctx.reshape(B, L, h * dh).to(x.dtype), p.wo)

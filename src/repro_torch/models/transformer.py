@@ -1,6 +1,7 @@
 """Model assembly: embeddings, the block stack, caches, and the forward /
 prefill / decode entry points for the ``attn_mlp`` layout (a standard
-decoder; ``smat-ffn`` with its block-sparse FFN).
+decoder; ``smat-ffn`` with its block-sparse FFN, ``smat-attn`` with
+block-sparse attention scores on top).
 
 The JAX package stacks the blocks on a leading axis and scans them; here
 ``Transformer.blocks`` is a ``ModuleList`` walked by a Python loop, and the

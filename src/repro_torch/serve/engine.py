@@ -13,6 +13,14 @@ the old one for the masked slots (``_merge_cache``); here
 ``layers.attention`` writes the new K/V in place for the masked rows only,
 which saves a full copy of the cache per step.  The engine runs under
 ``torch.inference_mode()``.
+
+Prompts are fed token by token through decode calls, so a model with
+block-sparse attention (``cfg.attn_sparsity``) is served through the
+dense-bias decode, which applies the same mask as a positional bias; kernel
+B5 runs in training and in ``transformer.prefill``, never here.  The JAX
+engine's paged block-sparse KV cache (``PagedKVCache``) is ROADMAP A6:
+``self.paged_kv`` stays None until it is ported, and a spec whose
+``paged_decode`` resolves a page table raises in decode.
 """
 from __future__ import annotations
 
@@ -82,6 +90,7 @@ class ServeEngine:
             prefix_cache=bool(prefix_cache) and prefix_ok))
         self.done: Dict[int, Request] = {}
         self.decode_calls = 0          # model decode calls so far
+        self.paged_kv = None           # paged KV: ROADMAP A6
 
     # ---------------------------------------------------------------- admin
     def enqueue(self, req: Request) -> None:

@@ -151,12 +151,15 @@ def test_analytic_pick_is_the_argmin_of_the_model(op, n):
 
 
 def test_only_the_kernels_are_dispatchable():
+    # both attention variants run kernels (B5, or the SDDMM/SpMM kernels)
     kernels = {n for n in autotune.variant_names(None)
                if autotune.get_variant(n).is_kernel}
     assert kernels == {"nnz_stream", "row_loop", "sddmm_stream",
-                       "sddmm_row_loop"}
-    with pytest.raises(ValueError, match="attn"):
-        autotune.analytic_choice(_meta(), 64, op="attn")
+                       "sddmm_row_loop", "attn_fused", "attn_composed"}
+    assert autotune.analytic_choice(_meta(), 64, op="attn").variant in \
+        ("attn_fused", "attn_composed")
+    with pytest.raises(ValueError, match="unknown kernel family"):
+        autotune.analytic_choice(_meta(), 64, op="conv")
 
 
 def test_pick_bn_is_the_widest_tile_that_n_needs():

@@ -10,8 +10,12 @@
   the build helper says clearly when ``nvcc`` is missing.
 * The library path's entry points (``ops.prepare``, ``init_sparse_linear``,
   the ``Autotuner``'s ``pick`` and ``tune``) default to the card too, and
-  the host Jaccard kernel builds beside the CUDA kernels."""
+  the host Jaccard kernel builds beside the CUDA kernels.
+* So do block-sparse attention's (``smat-attn-1.3b``, ``resolve_attn_impl``
+  under ``backend="auto"``, the mask's device tensors), and kernel B5's
+  wrapper takes its plain version for CPU tensors only."""
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -23,7 +27,7 @@ import torch
 
 import repro_torch
 from repro_torch.configs import get_config
-from repro_torch.kernels import _build, bcsr_spmm
+from repro_torch.kernels import _build, bcsr_attn, bcsr_spmm
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import ShapeCell
 from repro_torch.core import bcsr as tb
@@ -32,6 +36,7 @@ from repro_torch.core.sparse_linear import SparsitySpec, init_sparse_linear
 from repro_torch.kernels import autotune, ops
 from repro_torch.launch import serve as serve_cli
 from repro_torch.launch import train as train_cli
+from repro_torch.models import attention as A
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 from repro_torch.serve.engine import ServeEngine
@@ -236,3 +241,49 @@ def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
         _build.build("bcsr_spmm")
     assert not (tmp_path / "build").exists() or \
         not any((tmp_path / "build").iterdir())
+
+
+def test_attention_entry_points_default_to_the_card(no_card):
+    cfg = get_config("smat-attn-1.3b:smoke")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_cli.main(["--arch", "smat-attn-1.3b:smoke"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.main(["--arch", "smat-attn-1.3b:smoke", "--steps", "1"])
+    spec = dataclasses.replace(cfg.attn_sparsity, backend="auto")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        A.resolve_attn_impl(spec, 64, 32)
+    # torch without CUDA raises AssertionError, torch with it RuntimeError
+    with pytest.raises((RuntimeError, AssertionError)):
+        A.mask_tensors(spec.mask, 64, spec.block, "cuda")
+    # asked for the CPU, they run there
+    assert A.resolve_attn_impl(spec, 64, 32, device="cpu") in ("fused",
+                                                                "composed")
+    mt = A.mask_tensors(spec.mask, 64, spec.block, "cpu")
+    assert all(t.device.type == "cpu" for t in mt.arrays)
+
+
+def test_attn_wrapper_takes_the_plain_version_on_cpu(monkeypatch):
+    calls = []
+    plain = bcsr_attn.ref.bcsr_attn_fused_ref
+
+    def spy(*args, **kwargs):
+        calls.append(kwargs["scale"])
+        return plain(*args, **kwargs)
+
+    def no_build(name):
+        raise AssertionError("a CPU tensor must not build the kernel")
+
+    monkeypatch.setattr(bcsr_attn.ref, "bcsr_attn_fused_ref", spy)
+    monkeypatch.setattr(bcsr_attn._build, "load", no_build)
+    before = dict(bcsr_attn.LAUNCHES)
+    mt = A.mask_tensors(A.banded(16), 32, (8, 8), "cpu")
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 32, 8)).astype(
+        np.float32)) for _ in range(3))
+    out = bcsr_attn.bcsr_attn_fused(
+        q, k, v, mt.emask, mt.arrays.sddmm_flat_idx, mt.arrays.flat_col,
+        n_block_rows=4, n_block_cols=4, block=(8, 8), scale=0.25)
+    assert calls == [0.25] and out.shape == (2, 32, 8)
+    assert bcsr_attn.LAUNCHES == before

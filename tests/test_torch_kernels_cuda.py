@@ -19,8 +19,9 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeCell
 from repro_torch.core import bcsr as tb
 from repro_torch.data.pipeline import make_batch
-from repro_torch.kernels import bcsr_spmm, ref
+from repro_torch.kernels import bcsr_attn, bcsr_spmm, ref
 from repro_torch.kernels import ops as tops
+from repro_torch.models import attention as A
 from repro_torch.models import transformer as T
 from repro_torch.train import loop
 
@@ -216,6 +217,62 @@ def test_smoke_train_step_row_loop_with_reorder_matches_plain(card):
                         "row_loop": 3 * cfg.n_layers, "sddmm": 0,
                         "sddmm_row_loop": 3 * cfg.n_layers}
     loss_p, grads_p = _train_grads(cfg, model, batch, "xla")
+    np.testing.assert_allclose(loss_k, loss_p, rtol=1e-5)
+    for name, g in grads_p.items():
+        err = (grads_k[name] - g).abs().max().item()
+        assert err <= 1e-4 * g.abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block,d", [((16, 16), 32), ((32, 32), 64),
+                                     ((64, 64), 128), ((128, 128), 256)])
+def test_attn_fused_kernel_on_card(card, block, d):
+    """B5 against its plain version, f32: max|diff| <= 1e-4 x max|plain|
+    (FMA order, expf); ragged L, cap on and off, the three mask kinds; two
+    launches bit-equal."""
+    masks = (A.banded(100), A.local_global(64, 20), A.blockwise_causal())
+    for L in (61, 1000):
+        for mask in masks:
+            mt = A.mask_tensors(mask, L, block, card)
+            rng = np.random.default_rng(L)
+            q, k, v = (torch.from_numpy(rng.standard_normal(
+                (3, L, d)).astype(np.float32)).to(card) for _ in range(3))
+            for cap in (None, 30.0):
+                args = (q, k, v, mt.emask, mt.arrays.sddmm_flat_idx,
+                        mt.arrays.flat_col)
+                kw = dict(n_block_rows=mt.meta.n_block_rows,
+                          n_block_cols=mt.meta.n_block_cols, block=block,
+                          scale=d ** -0.5, cap=cap)
+                before = bcsr_attn.LAUNCHES["attn_fused"]
+                got = bcsr_attn.bcsr_attn_fused(*args, **kw)
+                again = bcsr_attn.bcsr_attn_fused(*args, **kw)
+                assert bcsr_attn.LAUNCHES["attn_fused"] == before + 2
+                want = ref.bcsr_attn_fused_ref(*args, **kw)
+                scale = want.abs().max().item()
+                assert (got - want).abs().max().item() <= 1e-4 * scale
+                assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_smoke_attention_train_step_kernels_match_plain(card):
+    """One f32 training step of ``smat-attn-1.3b:smoke`` at 64 tokens
+    (banded(32) in 16x16 blocks: sparse) through B5 and the kernels, and
+    through the plain path (attention and FFN on ``xla``): B5 once a layer,
+    loss rtol 1e-5, every gradient within 1e-4 x its max|grad|."""
+    base = get_config("smat-attn-1.3b:smoke")
+    cfg = dataclasses.replace(base, dtype="float32")
+    plain = dataclasses.replace(
+        cfg, ffn_sparsity=dataclasses.replace(cfg.ffn_sparsity,
+                                              backend="xla"),
+        attn_sparsity=dataclasses.replace(cfg.attn_sparsity, backend="xla"))
+    model = T.init_params(cfg, seed=0, device=card)
+    batch = loop.batch_to_device(
+        make_batch(cfg, ShapeCell("t", "train", 64, 2), 0), card)
+    before = bcsr_attn.LAUNCHES["attn_fused"]
+    loss_k, grads_k = _train_grads(cfg, model, batch, "nnz_stream")
+    assert bcsr_attn.LAUNCHES["attn_fused"] == before + cfg.n_layers
+    loss_p, grads_p = _train_grads(plain, model, batch, "xla")
+    assert bcsr_attn.LAUNCHES["attn_fused"] == before + cfg.n_layers
     np.testing.assert_allclose(loss_k, loss_p, rtol=1e-5)
     for name, g in grads_p.items():
         err = (grads_k[name] - g).abs().max().item()

@@ -134,9 +134,14 @@ def test_config_fields_equal_except_backend(arch):
 
 
 def test_unported_configs_raise():
-    jcfg = jax_get_config("smat-attn-1.3b")
-    with pytest.raises(NotImplementedError, match="attn_sparsity"):
-        dataclasses.replace(get_config(ARCH), attn_sparsity=jcfg.attn_sparsity)
+    # block-sparse attention is ported; its row-sharded score structure is
+    # not (ROADMAP A5): the config builds, the forward raises
+    tcfg = get_config("smat-attn-1.3b:smoke")
+    cfg = dataclasses.replace(tcfg, attn_sparsity=dataclasses.replace(
+        tcfg.attn_sparsity, shards=2))
+    model = T.init_params(cfg, seed=0, device="cpu")
+    with pytest.raises(NotImplementedError, match="A5"):
+        model({"tokens": torch.zeros((1, 8), dtype=torch.long)})
     with pytest.raises(NotImplementedError, match="not ported"):
         T.Transformer(dataclasses.replace(get_config(ARCH + ":smoke"),
                                           layout="ssd"), device="cpu")

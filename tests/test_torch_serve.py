@@ -163,3 +163,25 @@ def test_serve_cli_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "3/3 requests, 6 new tokens" in out
     assert "kernel launches: 0" in out
+
+
+@pytest.mark.parametrize("n_slots", [1, 3])
+def test_attention_engine_matches_jax_decode_oracle(n_slots):
+    """smat-attn-1.3b:smoke (block-sparse attention; decode applies the
+    mask as a bias, ``paged_decode="off"``: paged KV is ROADMAP A6) through
+    the port's engine against a JAX ``decode_step`` loop: identical greedy
+    tokens over a 40-token prompt, past the banded(32) window."""
+    arch = "smat-attn-1.3b:smoke"
+
+    def off(cfg):
+        return dataclasses.replace(cfg, dtype="float32",
+                                   attn_sparsity=dataclasses.replace(
+                                       cfg.attn_sparsity, paged_decode="off"))
+    jcfg, tcfg = off(jax_get_config(arch)), off(get_config(arch))
+    jparams = JT.init_params(jcfg, seed=0)
+    model = convert.params_from_jax(tcfg, jax.tree.map(np.asarray, jparams),
+                                    "cpu")
+    prompt = list(np.random.default_rng(4).integers(0, tcfg.vocab_size, 26))
+    oracle = _jax_greedy(jcfg, jparams, prompt, 4)
+    got = _serve(tcfg, model, [(0, prompt)], n_slots, 4)[0]
+    assert got == oracle, (got, oracle)

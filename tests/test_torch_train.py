@@ -26,6 +26,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeCell
 from repro_torch.data import pipeline as tpipe
 from repro_torch.launch import steps as tsteps
+from repro_torch.models import attention as A
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 from repro_torch.train import loop
@@ -48,8 +49,8 @@ def pair():
     return jcfg, tcfg, jparams, np_params
 
 
-def _batch_np(cfg, step):
-    return tpipe.make_batch(cfg, SHAPE, step)
+def _batch_np(cfg, step, shape=SHAPE):
+    return tpipe.make_batch(cfg, shape, step)
 
 
 def _jax_grad_of(jgrads, name: str) -> np.ndarray:
@@ -166,9 +167,9 @@ def test_step0_loss_and_every_gradient_match_jax(pair):
     assert n_sparse == 3 * tcfg.n_layers
 
 
-def _trajectory(jcfg, tcfg, jparams, np_params):
+def _trajectory(jcfg, tcfg, jparams, np_params, shape=SHAPE):
     """Four steps of each package's ``make_train_step`` from the same
-    weights on the same batches: every loss within 1e-4."""
+    weights on the same batches of ``shape``: every loss within 1e-4."""
     kw = dict(lr=1e-3, warmup_steps=2, total_steps=4)
     jstep = jax.jit(jsteps.make_train_step(jcfg, jadamw.AdamWConfig(**kw),
                                            remat="none"))
@@ -178,7 +179,7 @@ def _trajectory(jcfg, tcfg, jparams, np_params):
     t_opt = adamw.init(dict(model.named_parameters()))
     jp, j_opt = jparams, jadamw.init(jparams)
     for step in range(4):
-        batch = _batch_np(tcfg, step)
+        batch = _batch_np(tcfg, step, shape)
         jp, j_opt, jm = jstep(jp, j_opt, {k: jnp.asarray(v)
                                           for k, v in batch.items()})
         model, t_opt, tm = tstep(model, t_opt,
@@ -205,6 +206,24 @@ def test_row_loop_train_trajectory_matches_jax(pair):
     tcfg = dataclasses.replace(tcfg, ffn_sparsity=dataclasses.replace(
         tcfg.ffn_sparsity, backend="row_loop"))
     _trajectory(jcfg, tcfg, jparams, np_params)
+
+
+def test_attention_train_trajectory_matches_jax():
+    """The 4-step trajectory of smat-attn-1.3b:smoke (block-sparse attention
+    in banded(32) 16x16 blocks on 64-token batches, where the band leaves
+    out the blocks below the diagonal's three; the FFN as above): the port
+    through B5's plain version and its composed backward, JAX through its
+    composed ``xla`` path (the JAX package pins fused == composed)."""
+    arch = "smat-attn-1.3b:smoke"
+    jcfg = dataclasses.replace(jax_get_config(arch), dtype="float32")
+    tcfg = dataclasses.replace(get_config(arch), dtype="float32")
+    assert tcfg.attn_sparsity.backend == "fused"
+    meta = A.attention_mask_meta(tcfg.attn_sparsity.mask, 64,
+                                 tcfg.attn_sparsity.block)
+    assert meta.nnzb < 10      # block-causal on 4 block-rows stores 10
+    jparams = JT.init_params(jcfg, seed=0)
+    _trajectory(jcfg, tcfg, jparams, jax.tree.map(np.asarray, jparams),
+                ShapeCell("t", "train", 64, 2))
 
 
 def test_remat_full_matches_none():
