@@ -3,9 +3,12 @@
     python3 chip_smoke.py
 
 It builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
-(one ``nvcc`` per source, all at once), holds each against its plain
-PyTorch version at small odd shapes and at the main paths' shapes, and
-times it.  Then it drives the main paths of ``smat-ffn-1.3b`` at full width
+(one ``nvcc`` per source, all at once), checks with ``cuobjdump -sass`` that
+the SpMM kernels run on the tensor cores and with ``ptxas`` that their bf16
+instantiations do not spill, holds each kernel against its plain PyTorch
+version at small odd shapes and at the main paths' shapes, and times it
+(decode, training and prefill widths, and the attention backward's f32
+products).  Then it drives the main paths of ``smat-ffn-1.3b`` at full width
 (24 layers, d_model 2048, d_ff 8192, vocab 32000, bf16, FFN 90%
 block-sparse in 128x128 blocks): it serves requests through ``ServeEngine``
 and trains a few steps through ``train.loop.train``, each through the
@@ -25,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -37,8 +41,11 @@ import torch
 # Published H100 SXM peaks (NVIDIA data sheet, dense): the least time the
 # card could take for some work is the larger of its bytes over the memory
 # rate and its operations over the peak rate of their type.
+# f32 products run on the tensor cores as 3xTF32 (three TF32 products per f32
+# product, B1 and B3): the least time for f32-accurate products is a third of
+# the 495 TFLOP/s TF32 rate.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 
 DEVICE = "cuda"        # the card every phase runs on
 
@@ -88,8 +95,10 @@ N_SLOTS, CACHE_LEN = 4, 256
 # 2 x 1024 tokens so that one card holds it without remat
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 1024, 2, 5
 TRAIN_N = TRAIN_SEQ * TRAIN_BATCH
+PREFILL_N = 8192       # tokens of smat-attn-1.3b's prefill: B1's N there
 N_REQUESTS, PROMPT_LEN, NEW_TOKENS = 8, 16, 16
 ROTATE = 24            # distinct weights per timed loop: 24 x 3.7 MB > L2
+ROTATE_LONG = 4        # at N = PREFILL_N one call moves > 100 MB: L2 is cold
 PROFILE_STEPS = 5
 
 
@@ -124,6 +133,9 @@ def build_phase():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:   # one nvcc per source
         list(pool.map(lambda k: _build.load(k["build"]), KERNELS))
+    cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
+    check(cuobjdump.is_file(), f"cuobjdump not found beside nvcc "
+          f"({cuobjdump}): the tensor-core check cannot run")
     for k in KERNELS:
         info = _build.BUILD_INFO[k["build"]]
         ptxas = [ln.strip() for ln in info["log"].splitlines()
@@ -132,7 +144,38 @@ def build_phase():
             f"{info['seconds']:.2f}s")
         for ln in ptxas:
             log(f"[build]   {ln}")
+        # the tensor cores: count the SASS matrix instructions
+        sass = subprocess.run(
+            [str(cuobjdump), "-sass", str(_build.library_path(k["build"]))],
+            capture_output=True, text=True, check=True, timeout=300).stdout
+        hmma = len(re.findall(r"\bHMMA\b", sass))
+        hgmma = len(re.findall(r"\bHGMMA\b", sass))
+        log(f"[build] {k['source']}: {hmma} HMMA, {hgmma} HGMMA instructions "
+            f"(cuobjdump -sass)")
+        if k["name"] in (B1, B3):
+            check(hmma + hgmma > 0, f"{k['name']} has no tensor-core "
+                  "instruction (HMMA/HGMMA) in its SASS")
+            spilled = [(fn, st) for fn, st in _spills(info["log"])
+                       if "__nv_bfloat16" in fn and st]
+            check(not spilled, f"{k['name']}: bf16 instantiations spill "
+                  f"registers: {spilled}")
     log(f"[build] all kernels built in {time.perf_counter() - t0:.2f}s")
+
+
+def _spills(ptxas_log):
+    """(mangled function name, spill-store bytes) of every kernel in
+    ``ptxas -v``'s report."""
+    out, fn = [], None
+    for ln in ptxas_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and fn is not None:
+            out.append((fn, int(m.group(1))))
+            fn = None
+    return out
 
 
 # ------------------------------------------------------------------ operands
@@ -154,13 +197,13 @@ def _operand(seed, shape, block, nnzb=None, density=None, dtype=torch.float32):
     }
 
 
-def _b(seed, k, n, dtype, transposed=False):
+def _b(seed, k, n, dtype, transposed=False, offset=0):
+    """B [k, n]: row-major, or the x^T view the model passes; ``offset``
+    elements into its storage (a misaligned base: a narrower copy)."""
     rng = np.random.default_rng(seed)
-    if transposed:     # x^T as the model passes it: a strided view
-        return torch.from_numpy(rng.standard_normal((n, k)).astype(
-            np.float32)).to(DEVICE, dtype).T
-    return torch.from_numpy(rng.standard_normal((k, n)).astype(
-        np.float32)).to(DEVICE, dtype)
+    flat = torch.from_numpy(rng.standard_normal(k * n + offset).astype(
+        np.float32)).to(DEVICE, dtype)[offset:]
+    return flat.view(n, k).T if transposed else flat.view(k, n)
 
 
 def _nnz_stream(op, b):
@@ -176,6 +219,29 @@ def _plain(op, b, out_dtype=None):
                              op["nbr"], out_dtype=out_dtype)
 
 
+def _held(what, fn, want):
+    """B1's bf16 result at a main-path width against its plain version (the
+    plain f32 result ``want`` cast to bf16, rtol = atol = 1e-2, as
+    ``[parity]``) and against a second call, bit for bit; the timing phases
+    call it on the operands they time.  Returns max|err|."""
+    got, again = fn(), fn()
+    want = want.to(got.dtype)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    stable = torch.equal(got, again)
+    ok = torch.allclose(got.float(), want.float(), rtol=1e-2,
+                        atol=1e-2) and stable
+    log(f"{what}: {B1} vs plain max|err|={err:.3g} tol=1e-2 bit-stable "
+        f"{stable} {'ok' if ok else 'FAIL'}")
+    check(ok, f"{what}: {B1} disagrees with its plain version or with "
+          "itself")
+    return err
+
+
+# block-rows of 300 entries: more than two windows of the kernels' staged
+# entry ids (spmm_tile::kWin = 128), so the window refill runs
+LONG_ROWS = [((16, 2400), (8, 8), 1.0), ((128, 38400), (128, 128), 1.0)]
+
 FULL_WIDTH = {         # smat-ffn-1.3b's sparse FFN weights: nnzb = 112
     "gate_up": ((8192, 2048), 112),
     "down": ((2048, 8192), 112),
@@ -183,35 +249,55 @@ FULL_WIDTH = {         # smat-ffn-1.3b's sparse FFN weights: nnzb = 112
 
 
 def parity_phase():
-    """Kernel against its plain version on the card.  f32: rtol = atol =
-    1e-4 (FMA order differs from the plain einsum).  bf16 in and out: the
-    plain f32 result cast to bf16, rtol = atol = 1e-2 (about 1 bf16 ulp)."""
+    """Kernel against its plain version on the card.  f32 (3xTF32 on the
+    tensor cores): rtol = atol = 1e-4.  bf16 in and out: the plain f32
+    result cast to bf16, rtol = atol = 1e-2 (about 1 bf16 ulp).  B
+    row-major and as the x^T view; at the small shapes (and LONG_ROWS) also
+    with its base one element off (the narrow copy widths); every result
+    bit-equal to a second call."""
+    from repro_torch.kernels import bcsr_spmm
     small = [((64, 64), (8, 8), 0.5), ((128, 256), (16, 32), 0.3),
-             ((256, 128), (32, 16), 0.15), ((96, 160), (16, 16), 0.4)]
+             ((256, 128), (32, 16), 0.15), ((96, 160), (16, 16), 0.4),
+             ((256, 384), (128, 128), 0.4)] + LONG_ROWS
     cases = [(f"small{shape}{block}", dict(shape=shape, block=block,
                                            density=d), n)
-             for shape, block, d in small for n in (8, 64, 100)]
+             for shape, block, d in small for n in (1, 8, 33, 64, 100)]
     cases += [(name, dict(shape=shape, block=(128, 128), nnzb=nnzb), n)
               for name, (shape, nnzb) in FULL_WIDTH.items()
               for n in (4, 64, 1024)]
-    max_err = 0.0
+    max_err, n_cases, widths = 0.0, 0, set()
     for i, (name, spec, n) in enumerate(cases):
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
             op = _operand(i, dtype=dtype, **spec)
+            offsets = (0,) if name in FULL_WIDTH else (0, 1)
             for transposed in (False, True):
-                b = _b(100 + i, spec["shape"][1], n, dtype, transposed)
-                got = _nnz_stream(op, b)
-                want = _plain(op, b, out_dtype=torch.float32).to(dtype)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                ok = torch.allclose(got.float(), want.float(), rtol=tol,
-                                    atol=tol)
-                if name in FULL_WIDTH:
-                    max_err = max(max_err, err)
-                log(f"[parity] {name} N={n} {str(dtype)[6:]} "
-                    f"{'x^T view' if transposed else 'row-major'} "
-                    f"max|err|={err:.3g} tol={tol} {'ok' if ok else 'FAIL'}")
-                check(ok, f"kernel disagrees with its plain version: {name}")
+                for offset in offsets:
+                    b = _b(100 + i, spec["shape"][1], n, dtype, transposed,
+                           offset)
+                    bm, vec, _ = bcsr_spmm._launch_config(op["vals"], b)
+                    got, again = _nnz_stream(op, b), _nnz_stream(op, b)
+                    want = _plain(op, b, out_dtype=torch.float32).to(dtype)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    ok = torch.allclose(got.float(), want.float(), rtol=tol,
+                                        atol=tol) and torch.equal(got, again)
+                    if name in FULL_WIDTH:
+                        max_err = max(max_err, err)
+                    n_cases += 1
+                    if name in FULL_WIDTH or not ok:
+                        log(f"[parity] {name} N={n} {str(dtype)[6:]} "
+                            f"{'x^T view' if transposed else 'row-major'} "
+                            f"offset={offset} bm={bm} vec={vec}B max|err|="
+                            f"{err:.3g} tol={tol} bit-stable "
+                            f"{torch.equal(got, again)} "
+                            f"{'ok' if ok else 'FAIL'}")
+                    widths.add(vec)
+                    check(ok, f"kernel disagrees with its plain version or "
+                          f"with itself: {name} N={n} offset={offset}")
+    log(f"[parity] {n_cases} cases ok (small odd shapes and block-rows of "
+        f"300 entries at N in 1, 8, 33, 64, 100, B offset by 0 and 1 "
+        f"element; copy widths run: "
+        f"{sorted(widths)} bytes), every result bit-stable")
     return max_err
 
 
@@ -380,24 +466,27 @@ def _library(fns_lib, check_one, timer=None):
             str(exc).splitlines()[0][:200]
 
 
-def train_timing_phase(smi):
+def train_timing_phase(smi, n=TRAIN_N):
     """bf16 kernel times at the training shape (N = TRAIN_N tokens),
     rotating over ROTATE layers' operands so that L2 is cold: B2 (dvals),
     B1 forward (C = A x^T) and B1 on the transpose structure (dB = A^T dC),
     each beside its plain version, its bound, the dense product and the
     library call.  Operands enter as the transposed views training
-    passes."""
+    passes.  At n = PREFILL_N (ROTATE_LONG operands: one call moves more
+    than L2 holds) only B1's two products are timed.  B1's two products are
+    also held to their plain versions and to a second call (``_held``)."""
     from repro_torch.kernels import bcsr_spmm, ops, ref
-    dtype, n = torch.bfloat16, TRAIN_N
+    dtype = torch.bfloat16
+    rotate = ROTATE if n < PREFILL_N else ROTATE_LONG
     results = {}
     for name, (shape, nnzb) in FULL_WIDTH.items():
         M, K = shape
         ops_ = [_prepared(7919 + j, shape, (128, 128), nnzb=nnzb,
-                          dtype=dtype) for j in range(ROTATE)]
+                          dtype=dtype) for j in range(rotate)]
         arrays0, meta = ops_[0]
-        xs = [_b(j, K, n, dtype, transposed=True) for j in range(ROTATE)]
+        xs = [_b(j, K, n, dtype, transposed=True) for j in range(rotate)]
         dcs = [_b(100 + j, M, n, dtype, transposed=True)
-               for j in range(ROTATE)]
+               for j in range(rotate)]
         t_vals = [ops.transposed_vals(a.vals, a.t_perm) for a, _ in ops_]
         dense = [ops.materialize_dense(a, m) for a, m in ops_]
 
@@ -407,24 +496,35 @@ def train_timing_phase(smi):
             return r
 
         # ---- B2: dvals = dC x^T at the stored blocks
-        ms = time_ms([lambda a=a, d=d, x=x: bcsr_spmm.bcsr_sddmm(
-            d, x, a.row_ids, a.col_ids, 128, 128)
-            for (a, _), d, x in zip(ops_, dcs, xs)], reps=10)
-        plain = time_ms([lambda a=a, d=d, x=x: ref.bcsr_sddmm_ref(
-            d, x, a.row_ids, a.col_ids, 128, 128)
-            for (a, _), d, x in zip(ops_, dcs, xs)], reps=5)
-        dense_ms = time_ms([lambda a=a, d=d, x=x: ref.bcsr_sddmm_dense_ref(
-            d, x, a.row_ids, a.col_ids, 128, 128)
-            for (a, _), d, x in zip(ops_, dcs, xs)], reps=5)
-        # the yardstick: PyTorch's sampled product on the same operands
-        lib, lib_note = _sddmm_library(ops_, dcs, xs, meta, shape)
-        bound_ms, bound_by = sddmm_bound(arrays0, meta, n, dtype)
-        results[("sddmm", name)] = row(
-            "bcsr_sddmm", ms=ms, plain_ms=plain, bound_ms=bound_ms,
-            bound_by=bound_by, dense_ms=dense_ms, library_ms=lib,
-            **lib_note)
+        if n < PREFILL_N:
+            ms = time_ms([lambda a=a, d=d, x=x: bcsr_spmm.bcsr_sddmm(
+                d, x, a.row_ids, a.col_ids, 128, 128)
+                for (a, _), d, x in zip(ops_, dcs, xs)], reps=10)
+            plain = time_ms([lambda a=a, d=d, x=x: ref.bcsr_sddmm_ref(
+                d, x, a.row_ids, a.col_ids, 128, 128)
+                for (a, _), d, x in zip(ops_, dcs, xs)], reps=5)
+            dense_ms = time_ms([lambda a=a, d=d, x=x:
+                                ref.bcsr_sddmm_dense_ref(
+                                    d, x, a.row_ids, a.col_ids, 128, 128)
+                                for (a, _), d, x in zip(ops_, dcs, xs)],
+                               reps=5)
+            # the yardstick: PyTorch's sampled product on the same operands
+            lib, lib_note = _sddmm_library(ops_, dcs, xs, meta, shape)
+            bound_ms, bound_by = sddmm_bound(arrays0, meta, n, dtype)
+            results[("sddmm", name)] = row(
+                "bcsr_sddmm", ms=ms, plain_ms=plain, bound_ms=bound_ms,
+                bound_by=bound_by, dense_ms=dense_ms, library_ms=lib,
+                **lib_note)
 
         # ---- B1 forward: C = A x^T
+        a0, m0 = ops_[0]
+        err_fwd = _held(
+            f"[timing] forward {name} N={n} x^T view",
+            lambda: bcsr_spmm.bcsr_spmm_nnz_stream(
+                a0.vals, a0.row_ids, a0.col_ids, xs[0], m0.n_block_rows,
+                rowptr=a0.rowptr),
+            ref.bcsr_spmm_ref(a0.vals, a0.row_ids, a0.col_ids, xs[0],
+                              m0.n_block_rows, out_dtype=torch.float32))
         ms = time_ms([lambda a=a, x=x: bcsr_spmm.bcsr_spmm_nnz_stream(
             a.vals, a.row_ids, a.col_ids, x, m.n_block_rows, rowptr=a.rowptr)
             for (a, m), x in zip(ops_, xs)], reps=5)
@@ -446,12 +546,20 @@ def train_timing_phase(smi):
         bound_ms, bound_by = bound(nnzb, 128, 128, K, n, meta.n_block_rows,
                                    dtype)
         results[("fwd", name)] = row(
-            "bcsr_spmm_nnz_stream forward", ms=ms, plain_ms=plain,
+            "bcsr_spmm_nnz_stream forward", max_abs_err=err_fwd, ms=ms,
+            plain_ms=plain,
             bound_ms=bound_ms, bound_by=bound_by, dense_ms=dense_ms,
             library_ms=lib, **({"library_error": lib_err} if lib_err else {}))
         del bsr, xcs
 
         # ---- B1 on the transpose structure: dB = A^T dC
+        err_dx = _held(
+            f"[timing] dB=A^T dC {name} N={n} dC^T view",
+            lambda: bcsr_spmm.bcsr_spmm_nnz_stream(
+                t_vals[0], a0.t_row_ids, a0.t_col_ids, dcs[0],
+                m0.n_block_cols, rowptr=a0.t_rowptr),
+            ref.bcsr_spmm_ref(t_vals[0], a0.t_row_ids, a0.t_col_ids, dcs[0],
+                              m0.n_block_cols, out_dtype=torch.float32))
         ms = time_ms([lambda a=a, m=m, t=t, d=d: bcsr_spmm.bcsr_spmm_nnz_stream(
             t, a.t_row_ids, a.t_col_ids, d, m.n_block_cols,
             rowptr=a.t_rowptr) for (a, m), t, d in zip(ops_, t_vals, dcs)],
@@ -476,28 +584,38 @@ def train_timing_phase(smi):
         bound_ms, bound_by = bound(meta.nnzb_t, 128, 128, M, n,
                                    meta.n_block_cols, dtype)
         results[("dx", name)] = row(
-            "bcsr_spmm_nnz_stream dB=A^T dC", ms=ms, plain_ms=plain,
+            "bcsr_spmm_nnz_stream dB=A^T dC", max_abs_err=err_dx, ms=ms,
+            plain_ms=plain,
             bound_ms=bound_ms, bound_by=bound_by, dense_ms=dense_ms,
             library_ms=lib, **({"library_error": lib_err} if lib_err else {}))
-        del ops_, xs, dcs, t_vals, dense, bsr_t, dccs
+        del ops_, xs, dcs, t_vals, dense, bsr_t, dccs, a0, m0
         torch.cuda.empty_cache()
     return results
 
 
 def timing_phase(smi):
-    """bf16 kernel times at the main path's shapes, rotating over ROTATE
-    layers' weights so that L2 is cold as it is in decode."""
+    """bf16 kernel times at the main path's shapes (decode, N = 1024 and the
+    prefill's N = PREFILL_N), rotating over ROTATE layers' weights so that
+    L2 is cold as it is in decode (ROTATE_LONG at PREFILL_N, where one call
+    moves more bytes than L2 holds).  At each width, and at the 32k
+    prefill's N = ATTN_LONG, the kernel is held to its plain version and to
+    a second call (``_held``)."""
     from repro_torch.kernels import ops
     dtype = torch.bfloat16
     results = {}
     for name, (shape, nnzb) in FULL_WIDTH.items():
-        ops_ = [_operand(7919 + j, shape, (128, 128), nnzb=nnzb, dtype=dtype)
-                for j in range(ROTATE)]
-        for n in (N_SLOTS, 1024):
+        all_ops = [_operand(7919 + j, shape, (128, 128), nnzb=nnzb,
+                            dtype=dtype) for j in range(ROTATE)]
+        for n in (N_SLOTS, 1024, PREFILL_N):
+            ops_ = all_ops[:ROTATE if n < PREFILL_N else ROTATE_LONG]
             bs = [_b(j, shape[1], n, dtype, transposed=True)
-                  for j in range(ROTATE)]
+                  for j in range(len(ops_))]
             row = {"case": f"{name} {shape[0]}x{shape[1]} N={n}",
                    "card": smi}
+            row["max_abs_err"] = _held(
+                f"[timing] {name} N={n} x^T view",
+                lambda: _nnz_stream(ops_[0], bs[0]),
+                _plain(ops_[0], bs[0], out_dtype=torch.float32))
             row["ms"] = time_ms(
                 [lambda o=o, b=b: _nnz_stream(o, b) for o, b in zip(ops_, bs)])
             row["plain_ms"] = time_ms(
@@ -533,6 +651,16 @@ def timing_phase(smi):
                     str(exc).splitlines()[0][:200]
             log("[timing] " + json.dumps(row))
             results[(name, n)] = row
+            del bs
+            torch.cuda.empty_cache()
+        # the prefill_32k cell's width (held, not timed; 512 column tiles)
+        b = _b(0, shape[1], ATTN_LONG, dtype, transposed=True)
+        results[(name, ATTN_LONG)] = {"max_abs_err": _held(
+            f"[timing] {name} N={ATTN_LONG} x^T view",
+            lambda: _nnz_stream(all_ops[0], b),
+            _plain(all_ops[0], b, out_dtype=torch.float32))}
+        del all_ops, b
+        torch.cuda.empty_cache()
     return results
 
 
@@ -701,8 +829,12 @@ def _profile_summary(prof, wall_ms, units, unit):
            f"device_ms_per_{unit}": dev_ms,
            "device_idle_share": (1 - dev_ms * units / wall_ms)
            if dev_ms else None,
+           # B1 and B3 are one tile routine told apart by their entry
+           # source (csrc/spmm_tile.cuh's spmm_kernel<Source, ...>)
            f"nnz_stream_ms_per_{unit}": sum(ms for k, ms in device
-                                            if "nnz_stream" in k),
+                                            if "RowptrSource" in k),
+           f"row_loop_ms_per_{unit}": sum(ms for k, ms in device
+                                          if "ScheduleSource" in k),
            f"sddmm_ms_per_{unit}": sum(ms for k, ms in device
                                        if "sddmm_kernel" in k),
            f"attn_fused_ms_per_{unit}": sum(ms for k, ms in device
@@ -949,6 +1081,13 @@ def restart_phase():
     check(ok, "checkpoint/restart on the card failed")
 
 # ------------------------------------------------------------ row_loop (B3, B4)
+def _b1(arrays, meta, b):
+    from repro_torch.kernels import bcsr_spmm
+    return bcsr_spmm.bcsr_spmm_nnz_stream(
+        arrays.vals, arrays.row_ids, arrays.col_ids, b, meta.n_block_rows,
+        rowptr=arrays.rowptr)
+
+
 def _b3(arrays, meta, b):
     from repro_torch.kernels import bcsr_spmm
     return bcsr_spmm.bcsr_spmm_row_loop(
@@ -981,9 +1120,10 @@ def _b4_plain(arrays, meta, dc, x, out_dtype=None):
 
 def row_loop_parity_phase():
     """B3 and B4 against their plain versions (which read the same schedule
-    arrays): f32 rtol = atol = 1e-4, bf16 out 1e-2 (about one ulp).  Small
-    odd blocks with a ragged N, ``max_bpr`` of 1 (one block a row) and of
-    many; then both full-width FFN structures at N = 4 and N = TRAIN_N, with
+    arrays): f32 rtol = atol = 1e-4, bf16 out 1e-2 (about one ulp); B3
+    bit-stable and bit-equal to B1 on the same entries.  Small
+    odd blocks with a ragged N, ``max_bpr`` of 1 (one block a row), of
+    many and of 300 (LONG_ROWS: the entry-id window refills); then both full-width FFN structures at N = 4 and N = TRAIN_N, with
     the operands as the transposed views the model passes.  Returns the
     largest full-width |err| of B3 and of B4."""
     small = [((64, 64), (8, 8), dict(density=0.6)),
@@ -991,6 +1131,7 @@ def row_loop_parity_phase():
              ((128, 256), (16, 32), dict(density=0.3)),
              ((256, 128), (32, 16), dict(density=0.15)),
              ((96, 160), (16, 16), dict(density=0.4))]
+    small += [(shape, block, dict(density=d)) for shape, block, d in LONG_ROWS]
     cases = [(f"small{shape}{block}", dict(shape=shape, block=block, **kw), n)
              for shape, block, kw in small for n in (8, 33, 100)]
     cases += [(name, dict(shape=shape, block=(128, 128), nnzb=nnzb), n)
@@ -1004,8 +1145,13 @@ def row_loop_parity_phase():
             for view in (False, True):
                 x = _b(1000 + i, meta.n_block_cols * w, n, dtype, view)
                 dc = _b(1100 + i, meta.n_block_rows * h, n, dtype, view)
+                got3 = _b3(arrays, meta, x)
+                same = (torch.equal(got3, _b3(arrays, meta, x))
+                        and torch.equal(got3, _b1(arrays, meta, x)))
+                check(same, f"{B3} is not bit-stable or not bit-equal to "
+                      f"{B1} on the same entries: {name} N={n}")
                 for kname, got, want in (
-                        (B3, _b3(arrays, meta, x),
+                        (B3, got3,
                          _b3_plain(arrays, meta, x, torch.float32)),
                         (B4, _b4(arrays, meta, dc, x),
                          _b4_plain(arrays, meta, dc, x, torch.float32))):
@@ -1070,10 +1216,12 @@ def _sddmm_library(ops_, dcs, xs, meta, shape):
 
 def row_loop_timing_phase(smi):
     """bf16 times of B3 and B4 at both full-width FFN structures, at the
-    decode (N = N_SLOTS) and training (N = TRAIN_N) widths, rotating over
+    decode (N = N_SLOTS) and training (N = TRAIN_N) widths, and of B3 at the
+    prefill's (N = PREFILL_N, over ROTATE_LONG operands), rotating over
     ROTATE layers' operands so that L2 is cold, operands as the transposed
     views the model passes; each beside its plain version, its bound, the
-    dense product and the library call."""
+    dense product and the library call.  B3 is held bit-equal to B1 on the
+    timed operands at each width."""
     from repro_torch.kernels import ops, ref
     dtype = torch.bfloat16
     results = {}
@@ -1084,10 +1232,11 @@ def row_loop_timing_phase(smi):
         meta = ops_[0][1]
         dense = [ops.materialize_dense(a, m) for a, m in ops_]
         bsr = [_bsr_library(a, shape) for a, _ in ops_]
-        for n in (N_SLOTS, TRAIN_N):
-            xs = [_b(j, K, n, dtype, transposed=True) for j in range(ROTATE)]
+        for n in (N_SLOTS, TRAIN_N, PREFILL_N):
+            rotate = ROTATE if n < PREFILL_N else ROTATE_LONG
+            xs = [_b(j, K, n, dtype, transposed=True) for j in range(rotate)]
             dcs = [_b(100 + j, M, n, dtype, transposed=True)
-                   for j in range(ROTATE)]
+                   for j in range(rotate if n < PREFILL_N else 0)]
 
             def row(case, **kw):
                 r = {"case": f"{case} {name} {M}x{K} N={n}",
@@ -1096,6 +1245,9 @@ def row_loop_timing_phase(smi):
                 return r
 
             # ---- B3: C = A x^T through the static schedule
+            a0, m0 = ops_[0]
+            check(torch.equal(_b3(a0, m0, xs[0]), _b1(a0, m0, xs[0])),
+                  f"{B3} is not bit-equal to {B1}: {name} N={n}")
             reps = 20 if n == N_SLOTS else 5
             ms = time_ms([lambda a=a, m=m, x=x: _b3(a, m, x)
                           for (a, m), x in zip(ops_, xs)], reps=reps)
@@ -1121,6 +1273,9 @@ def row_loop_timing_phase(smi):
             del xcs
 
             # ---- B4: dvals = dC x^T at the stored blocks
+            if n == PREFILL_N:      # B3 only: the prefill runs no SDDMM
+                del xs
+                continue
             ms = time_ms([lambda a=a, m=m, d=d, x=x: _b4(a, m, d, x)
                           for (a, m), d, x in zip(ops_, dcs, xs)], reps=reps)
             plain = time_ms([lambda a=a, m=m, d=d, x=x: _b4_plain(a, m, d, x)
@@ -1673,15 +1828,15 @@ def attn_bound(meta, G, L, d, dv):
 def attn_timing_phase(smi, mask_s):
     """B5's ms per launch at one layer's shapes (G = 16, d = 128,
     banded(4096), L = 8192 and 32768), each beside its bound, its plain
-    version (at 8192 only: at 32768 it runs in chunks of instances, held
-    in ``[attn-parity]``), the composed path on the kernels the tuner
-    resolves (launches per call counted; its output held against B5's
-    within carve-out 2, 1e-5), the library call
+    version (at 32768 as ATTN_PLAIN_CHUNK-instance calls covering the
+    G instances, as ``[attn-parity]`` runs it), the composed path on the
+    kernels the tuner resolves (launches per call counted; its output held
+    against B5's within carve-out 2, 1e-5), the library call
     ``scaled_dot_product_attention`` in f32 with the boolean band mask
     (the one PyTorch call that computes the same function) and, for
-    context only, dense causal SDPA in bf16 (a different function).  The
-    plain version at 32768 is timed nowhere.  Eager launches timed with CUDA events: a B5
-    call takes tens of ms, so the host's share is small."""
+    context only, dense causal SDPA in bf16 (a different function).  Eager
+    launches timed with CUDA events: a B5 call takes tens of ms, so the
+    host's share is small."""
     from torch.nn import functional as F
 
     from repro_torch.models import attention as A
@@ -1697,8 +1852,15 @@ def attn_timing_phase(smi, mask_s):
         row["ms"] = time_ms_eager([lambda: _b5(args, kw)], reps=5)
         row["bound_ms"], row["bound_by"] = attn_bound(mt.meta, ATTN_G, L,
                                                       128, 128)
+        # at 32768 the plain version holds ATTN_PLAIN_CHUNK instances a
+        # call (memory): its time is that of the calls that cover all G
+        step = ATTN_G if L == ATTN_SEQ else ATTN_PLAIN_CHUNK
+        chunks = [tuple(t[g:g + step] for t in args[:3]) + args[3:]
+                  for g in range(0, ATTN_G, step)]
         row["plain_ms"] = time_ms_eager(
-            [lambda: _b5_plain(args, kw)], reps=2) if L == ATTN_SEQ else None
+            [lambda c=c: _b5_plain(c, kw) for c in chunks],
+            reps=2) * len(chunks)
+        row["plain_instances_per_call"] = step
         _reset_counts()
         comp = _composed(args, kw, mask, "auto")
         torch.cuda.synchronize()
@@ -1736,6 +1898,89 @@ def attn_timing_phase(smi, mask_s):
         rows[L] = row
         del args, q, k, v, qb, kb, vb
         torch.cuda.empty_cache()
+    return rows
+
+
+def attn_bwd_timing_phase(smi):
+    """f32 times of B1 and B2 at the attention backward's shapes: one head
+    of ``smat-attn-1.3b`` at L = ATTN_SEQ, ``banded(4096)`` in 128x128
+    blocks (1,584 stored), N = d = 128.  B1's context product probs @ V over
+    the mask structure (dQ = dS @ K has its shape) and its dK/dV product
+    P^T @ g over the transpose structure (the blocks of
+    ``ops.transposed_vals``); B2's scores Q K^T (d(probs) = g V^T has its
+    shape).  The probabilities are the composed path's own (B2, then
+    ``block_softmax``).  Each beside its bound (f32 at the 3xTF32 rate),
+    its plain version and, for B1, ``torch.sparse_bsr_tensor @`` in f32;
+    each held against its plain version first (rtol = atol = 1e-4)."""
+    from repro_torch.kernels import bcsr_spmm, ops, ref
+    from repro_torch.models import attention as A
+    L, d = ATTN_SEQ, 128
+    mt = A.mask_tensors(A.banded(4096), L, (128, 128), DEVICE)
+    a, meta = mt.arrays, mt.meta
+    rng = np.random.default_rng(11)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((L, d)).astype(
+        np.float32)).to(DEVICE) for _ in range(4))
+    scores = bcsr_spmm.bcsr_sddmm(q, k, a.row_ids, a.col_ids, 128, 128)
+    probs = A.block_softmax(scores * d ** -0.5, mt.elem_mask, a.row_ids,
+                            meta.n_block_rows, flat_idx=a.sddmm_flat_idx)
+    t_vals = ops.transposed_vals(probs, a.t_perm)
+    f32 = torch.float32
+    cases = {
+        "context": (
+            lambda: bcsr_spmm.bcsr_spmm_nnz_stream(
+                probs, a.row_ids, a.col_ids, v, meta.n_block_rows,
+                rowptr=a.rowptr),
+            lambda: ref.bcsr_spmm_ref(probs, a.row_ids, a.col_ids, v,
+                                      meta.n_block_rows),
+            (torch.sparse_bsr_tensor(a.rowptr, a.col_ids, probs,
+                                     size=(L, L)), v),
+            bound(meta.nnzb, 128, 128, L, d, meta.n_block_rows, f32)),
+        "dK/dV": (
+            lambda: bcsr_spmm.bcsr_spmm_nnz_stream(
+                t_vals, a.t_row_ids, a.t_col_ids, g, meta.n_block_cols,
+                rowptr=a.t_rowptr),
+            lambda: ref.bcsr_spmm_ref(t_vals, a.t_row_ids, a.t_col_ids, g,
+                                      meta.n_block_cols),
+            (torch.sparse_bsr_tensor(a.t_rowptr, a.t_col_ids, t_vals,
+                                     size=(L, L)), g),
+            bound(meta.nnzb_t, 128, 128, L, d, meta.n_block_cols, f32)),
+        "scores": (
+            lambda: bcsr_spmm.bcsr_sddmm(q, k, a.row_ids, a.col_ids, 128,
+                                         128),
+            lambda: ref.bcsr_sddmm_ref(q, k, a.row_ids, a.col_ids, 128, 128),
+            None, sddmm_bound(a, meta, d, f32)),
+    }
+    rows = {}
+    for case, (kernel, plain, lib, (bound_ms, bound_by)) in cases.items():
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        ok = torch.allclose(got, want, rtol=1e-4, atol=1e-4)
+        row = {"case": f"{B2 if case == 'scores' else B1} f32 {case} "
+                       f"banded(4096) L={L} nnzb={meta.nnzb} N={d}",
+               "max_abs_err": err, "rel_err": _rel(got, want),
+               "ms": time_ms([kernel], reps=20),
+               "plain_ms": time_ms([plain], reps=5),
+               "bound_ms": bound_ms, "bound_by": bound_by, "card": smi}
+        if lib is None:
+            row["library_ms"] = None
+            row["library_error"] = "sampled_addmm refuses a BSR mask"
+        else:
+            bsr, rhs = lib
+
+            def check_lib(bsr=bsr, rhs=rhs, want=want):
+                if not torch.allclose(bsr @ rhs, want, rtol=1e-3, atol=1e-3):
+                    raise ValueError("sparse_bsr result differs")
+            row["library_ms"], lib_err = _library(
+                [lambda bsr=bsr, rhs=rhs: bsr @ rhs], check_lib)
+            if lib_err:
+                row["library_error"] = lib_err
+        log("[attn-bwd-timing] " + json.dumps(row))
+        check(ok, f"{case} at the attention backward's shape disagrees "
+              f"with its plain version: max|err| {err:.3g}")
+        rows[case] = row
+    del cases, probs, t_vals, scores
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -2129,8 +2374,10 @@ def main():
     err_b5, carve_out_2, mask_s = phase(attn_parity_phase)
     timed = phase(timing_phase, smi)
     timed_train = phase(train_timing_phase, smi)
+    timed_prefill = phase(train_timing_phase, smi, PREFILL_N)
     timed_rl = phase(row_loop_timing_phase, smi)
     timed_attn = phase(attn_timing_phase, smi, mask_s)
+    timed_bwd = phase(attn_bwd_timing_phase, smi)
     cfg, model, launches, tok_s, stream0 = phase(main_path_phase)
     phase(model_vs_plain_phase, cfg, model)
     phase(profile_phase, cfg, model)
@@ -2159,9 +2406,14 @@ def main():
     decode = {s: timed[(s, N_SLOTS)] for s in FULL_WIDTH}
     fwd = {s: timed_train[("fwd", s)] for s in FULL_WIDTH}
     dx = {s: timed_train[("dx", s)] for s in FULL_WIDTH}
+    pre_fwd = {s: timed_prefill[("fwd", s)] for s in FULL_WIDTH}
+    pre_dx = {s: timed_prefill[("dx", s)] for s in FULL_WIDTH}
     sd = {s: timed_train[("sddmm", s)] for s in FULL_WIDTH}
     rl = {(k, n): {s: timed_rl[(k, s, n)] for s in FULL_WIDTH}
           for k in (B3, B4) for n in (N_SLOTS, TRAIN_N)}
+    rl[(B3, PREFILL_N)] = {s: timed_rl[(B3, s, PREFILL_N)]
+                           for s in FULL_WIDTH}
+    bwd_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     paths = {"serve": launches, "train": train_launches,
              "serve_row_loop": serve_rl_launches,
@@ -2182,14 +2434,28 @@ def main():
     attn_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                  "composed_ms", "composed_launches",
                  "dense_causal_sdpa_bf16_ms")
+    held = [r["max_abs_err"] for r in (*timed.values(),
+                                       *timed_train.values(),
+                                       *timed_prefill.values())
+            if "max_abs_err" in r]
     line = {"kernels": [
-        entry(b1, max(max_err, err_dx), decode,
+        entry(b1, max(max_err, err_dx, *held), decode,
               train_forward={key: mix(fwd, key) for key in keys},
-              train_dB={key: mix(dx, key) for key in keys}),
-        entry(b2, err_b2, sd, dense_ms=mix(sd, "dense_ms")),
+              train_dB={key: mix(dx, key) for key in keys},
+              prefill_forward={key: mix(pre_fwd, key) for key in keys},
+              prefill_dB={key: mix(pre_dx, key) for key in keys},
+              attn_bwd_f32_context={key: timed_bwd["context"][key]
+                                    for key in bwd_keys},
+              attn_bwd_f32_dKdV={key: timed_bwd["dK/dV"][key]
+                                 for key in bwd_keys}),
+        entry(b2, err_b2, sd, dense_ms=mix(sd, "dense_ms"),
+              attn_bwd_f32_scores={key: timed_bwd["scores"][key]
+                                   for key in bwd_keys}),
         entry(b3, max(err_b3, err_lib), rl[(B3, N_SLOTS)],
               train_forward={key: mix(rl[(B3, TRAIN_N)], key)
-                             for key in keys}),
+                             for key in keys},
+              prefill_forward={key: mix(rl[(B3, PREFILL_N)], key)
+                               for key in keys}),
         entry(b4, err_b4, rl[(B4, TRAIN_N)],
               dense_ms=mix(rl[(B4, TRAIN_N)], "dense_ms"),
               decode={key: mix(rl[(B4, N_SLOTS)], key) for key in keys}),
@@ -2211,7 +2477,9 @@ def main():
         f"tokens/s (row_loop).  Autotune winners: "
         f"{ {f'{k[0]} {k[1]} N={k[2]}': v for k, v in winners.items()} }.  "
         f"Kernel times per launch: {B1} and {B3} at the decode shape "
-        f"(N={N_SLOTS}; train_forward and train_dB at N={TRAIN_N}), {B2} and "
+        f"(N={N_SLOTS}; train_forward and train_dB at N={TRAIN_N}, "
+        f"prefill_* at N={PREFILL_N}, attn_bwd_f32_* one head at "
+        f"L={ATTN_SEQ}, N=128), {B2} and "
         f"{B4} at N={TRAIN_N}; each averaged 2:1 over the gate/up and down "
         f"shapes.  {ATTN_ARCH}: prefill {prefilled['prefill_ms']:.3f} ms "
         f"(1 x {ATTN_SEQ}), {prefilled['prefill_32k_ms']:.3f} ms (1 x "

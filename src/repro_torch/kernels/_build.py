@@ -2,7 +2,8 @@
 
 Each source is compiled at first use with ``nvcc`` for ``sm_90a`` into
 ``build/repro_torch/`` at the root of the checkout (``.gitignore`` lists
-``build/``), under a name keyed by a hash of the source, and loaded with
+``build/``), under a name keyed by a hash of the source and the shared
+headers (``csrc/*.cuh``), and loaded with
 ``ctypes``.  The sources have a plain C interface and include no PyTorch
 header, so a build takes seconds.  Nothing is built when a module is
 imported: the wrappers call :func:`load` when they first launch a kernel.
@@ -47,9 +48,14 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """Where ``csrc/<name>.cu`` builds to: the name carries a hash of the
+    source, of every header under ``csrc/`` (a source may include any of
+    them) and of the flags, so an edit to any of them builds anew."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

@@ -31,7 +31,8 @@ _ARGTYPES = {
     ("bcsr_spmm", "bcsr_spmm_nnz_stream"): [
         _C, _C, _C, _C, _C,              # vals rowptr col_ids b out
         _I, _I, _I, _I, _LL, _LL,        # nbr h w N, b's strides
-        _I, _I, _I, _C],                 # bn in_type out_type stream
+        _I, _I, _I, _I,                  # bn bm vec kmajor
+        _I, _I, _C],                     # in_type out_type stream
     ("bcsr_sddmm", "bcsr_sddmm"): [
         _C, _C, _C, _C, _C,              # dc b row_ids col_ids out
         _I, _I, _I, _I,                  # nnzb h w N
@@ -40,7 +41,8 @@ _ARGTYPES = {
     ("bcsr_spmm_row_loop", "bcsr_spmm_row_loop"): [
         _C, _C, _C, _C, _C, _C,          # vals flat_idx flat_col row_len b out
         _I, _I, _I, _I, _I, _LL, _LL,    # nbr max_bpr h w N, b's strides
-        _I, _I, _I, _C],                 # bn in_type out_type stream
+        _I, _I, _I, _I,                  # bn bm vec kmajor
+        _I, _I, _C],                     # in_type out_type stream
     ("bcsr_sddmm_row_loop", "bcsr_sddmm_row_loop"): [
         _C, _C, _C, _C, _C,              # dc b flat_idx flat_col out
         _I, _I, _I, _I, _I,              # nbr max_bpr h w N
@@ -75,6 +77,44 @@ def _tile(bn, n: int) -> int:
         raise ValueError(f"bn={bn} is not a tile the SpMM kernels compile "
                          f"{SPMM_TILES}")
     return bn
+
+
+def spmm_launch_config(n: int, h: int, w: int, dtype, vals_ptr: int,
+                       b_ptr: int, sbk: int, sbn: int):
+    """``(bm, vec, kmajor)`` of one SpMM launch (``csrc/spmm_tile.cuh``), a
+    pure function of the shapes, the strides and the operands' addresses.
+
+    ``bm``: the rows of a block-row one CTA owns -- 16 (one m16 row group,
+    its k steps split over 4 warps; taller blocks take more CTAs) at decode
+    widths (N <= 16) and for blocks of h <= 64; else 128 (8 warps, so each
+    B panel is read once a block-row).  ``kmajor``:
+    B is staged k-major (row-major B) unless its k axis is contiguous
+    (``sbk == 1``: the x^T view, or N = 1).  ``vec``: the widest copy, in
+    bytes, of 16, 8, 4 and the element size, for which both pointers are
+    aligned, the staged axis of B is contiguous, and every staged row start
+    and chunk edge (B's rows or columns, A's and B's block width ``w``)
+    falls on a multiple of it; the element size (a scalar copy) takes any
+    strides."""
+    esize = torch.finfo(dtype).bits // 8
+    bm = 16 if n <= 16 or h <= 64 else 128
+    kmajor = sbk != 1
+    for vec in (16, 8, 4):
+        if vec <= esize:
+            break
+        if vals_ptr % vec or b_ptr % vec or w * esize % vec:
+            continue
+        if kmajor:
+            if sbn == 1 and sbk * esize % vec == 0 and n * esize % vec == 0:
+                return bm, vec, int(kmajor)
+        elif n == 1 or sbn * esize % vec == 0:
+            return bm, vec, int(kmajor)
+    return bm, esize, int(kmajor)
+
+
+def _launch_config(vals: torch.Tensor, b: torch.Tensor):
+    _, h, w = vals.shape
+    return spmm_launch_config(b.shape[1], h, w, b.dtype, vals.data_ptr(),
+                              b.data_ptr(), b.stride(0), b.stride(1))
 
 
 def _check_int32(device, **tensors) -> None:
@@ -150,7 +190,8 @@ def bcsr_spmm_nnz_stream(vals: torch.Tensor, row_ids: torch.Tensor,
         err = fn(vals.data_ptr(), rowptr.data_ptr(), col_ids.data_ptr(),
                  b.data_ptr(), out.data_ptr(), n_block_rows, h, w, N,
                  b.stride(0), b.stride(1), _tile(bn, N),
-                 _TYPE_CODES[vals.dtype], _TYPE_CODES[out_dtype], _stream(b))
+                 *_launch_config(vals, b), _TYPE_CODES[vals.dtype],
+                 _TYPE_CODES[out_dtype], _stream(b))
     if err:
         raise RuntimeError(f"bcsr_spmm_nnz_stream: kernel launch failed with "
                            f"CUDA error {err}")
@@ -242,8 +283,8 @@ def bcsr_spmm_row_loop(vals: torch.Tensor, flat_idx: torch.Tensor,
         err = fn(vals.data_ptr(), flat_idx.data_ptr(), flat_col.data_ptr(),
                  row_len.data_ptr(), b.data_ptr(), out.data_ptr(),
                  n_block_rows, max_bpr, h, w, N, b.stride(0), b.stride(1),
-                 _tile(bn, N), _TYPE_CODES[vals.dtype], _TYPE_CODES[out_dtype],
-                 _stream(b))
+                 _tile(bn, N), *_launch_config(vals, b),
+                 _TYPE_CODES[vals.dtype], _TYPE_CODES[out_dtype], _stream(b))
     if err:
         raise RuntimeError(f"bcsr_spmm_row_loop: kernel launch failed with "
                            f"CUDA error {err}")

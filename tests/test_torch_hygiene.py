@@ -7,7 +7,8 @@
   the CPU unless asked to.  (``optim.adamw`` and ``checkpoint.manager`` take
   no device: they work on the tensors they are given, where those lie.)
 * The kernel wrappers take their plain versions for CPU tensors only, and
-  the build helper says clearly when ``nvcc`` is missing.
+  the build helper says clearly when ``nvcc`` is missing and keys a build
+  by the shared headers too.
 * The library path's entry points (``ops.prepare``, ``init_sparse_linear``,
   the ``Autotuner``'s ``pick`` and ``tune``) default to the card too, and
   the host Jaccard kernel builds beside the CUDA kernels.
@@ -241,6 +242,28 @@ def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
         _build.build("bcsr_spmm")
     assert not (tmp_path / "build").exists() or \
         not any((tmp_path / "build").iterdir())
+
+
+def test_library_path_covers_the_shared_headers(monkeypatch, tmp_path):
+    """A library's name hashes every ``csrc/*.cuh`` beside its source, so an
+    edit to a shared header (``spmm_tile.cuh``) never reuses a stale
+    build; an edit elsewhere in the tree leaves the name alone."""
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "tile.cuh"\nint f();\n')
+    (tmp_path / "tile.cuh").write_text("#pragma once\n")
+    (tmp_path / "notes.txt").write_text("a\n")
+    first = _build.library_path("k")
+    (tmp_path / "notes.txt").write_text("b\n")
+    assert _build.library_path("k") == first
+    (tmp_path / "tile.cuh").write_text("#pragma once\n// edited\n")
+    second = _build.library_path("k")
+    assert second != first and second.name.startswith("libk-")
+    (tmp_path / "k.cu").write_text('#include "tile.cuh"\nint g();\n')
+    assert _build.library_path("k") not in (first, second)
+    # the real sources: both SpMM kernels include the shared tile header
+    for name in ("bcsr_spmm", "bcsr_spmm_row_loop"):
+        src = (PORT / "kernels" / "csrc" / f"{name}.cu").read_text()
+        assert '#include "spmm_tile.cuh"' in src
 
 
 def test_attention_entry_points_default_to_the_card(no_card):

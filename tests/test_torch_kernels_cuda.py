@@ -63,6 +63,110 @@ def test_nnz_stream_kernel_on_card(card, dtype):
                                        atol=tol)
 
 
+def _with_empty_row(h, w, dtype, device, seed=0):
+    """A 3 x 4 grid of h x w blocks whose block-row 1 is empty: B1's
+    operands (vals, row_ids, col_ids, rowptr) and B3's static schedule of
+    the same entries (flat_idx, flat_col, row_len; max_bpr 3)."""
+    cols = [[0, 2, 3], [], [1, 3]]
+    rng = np.random.default_rng(seed)
+    nnzb = sum(map(len, cols))
+    vals = torch.from_numpy(rng.standard_normal((nnzb, h, w)).astype(
+        np.float32)).to(device, dtype)
+    row_ids = [i for i, c in enumerate(cols) for _ in c]
+    rowptr = np.cumsum([0] + [len(c) for c in cols])
+    flat_idx = [rowptr[i] + t if t < len(c) else 0
+                for i, c in enumerate(cols) for t in range(3)]
+    flat_col = [c[t] if t < len(c) else 0
+                for c in cols for t in range(3)]
+
+    def i32(x):
+        return torch.tensor(np.asarray(x), dtype=torch.int32, device=device)
+    return (vals, i32(row_ids), i32(sum(cols, [])), i32(rowptr),
+            i32(flat_idx), i32(flat_col), i32([len(c) for c in cols]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [8, 16, 32, 128])
+@pytest.mark.parametrize("h", [8, 16, 32, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_spmm_tile_kernels_on_card(card, dtype, h, w):
+    """B1 and B3 (one tile routine, ``csrc/spmm_tile.cuh``) on blocks that
+    fill or cut the mma tiles (h, w in 8 .. 128), N from 1 to 2048 (the
+    decode and training row blocks, ragged N edges), B row-major and as the
+    x^T view, at an aligned base and one element off (the narrow copy
+    widths): each against its plain version (f32 rtol = atol = 1e-4, bf16
+    1e-2), two calls bit-equal, B3 bit-equal to B1, the empty block-row all
+    zeros."""
+    dt, tol = getattr(torch, dtype), (1e-4 if dtype == "float32" else 1e-2)
+    vals, row_ids, col_ids, rowptr, flat_idx, flat_col, row_len = \
+        _with_empty_row(h, w, dt, card)
+    rng = np.random.default_rng(h * w)
+    for n in (1, 4, 8, 33, 64, 100, 2048):
+        for view in (False, True):
+            for offset in (0, 1):
+                flat = torch.from_numpy(rng.standard_normal(
+                    4 * w * n + offset).astype(np.float32)).to(card, dt)
+                b = (flat[offset:].view(n, 4 * w).T if view
+                     else flat[offset:].view(4 * w, n))
+                before = dict(bcsr_spmm.LAUNCHES)
+                got, again = (bcsr_spmm.bcsr_spmm_nnz_stream(
+                    vals, row_ids, col_ids, b, 3, rowptr=rowptr)
+                    for _ in range(2))
+                b3 = bcsr_spmm.bcsr_spmm_row_loop(vals, flat_idx, flat_col,
+                                                  row_len, b, 3)
+                assert bcsr_spmm.LAUNCHES["nnz_stream"] == \
+                    before["nnz_stream"] + 2
+                assert bcsr_spmm.LAUNCHES["row_loop"] == \
+                    before["row_loop"] + 1
+                want = ref.bcsr_spmm_ref(vals, row_ids, col_ids, b, 3,
+                                         out_dtype=torch.float32).to(dt)
+                case = (n, view, offset, bcsr_spmm._launch_config(vals, b))
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=tol, atol=tol, msg=str(case))
+                assert torch.equal(got, again), case
+                assert torch.equal(got, b3), case
+                assert bool((got[h:2 * h] == 0).all()), case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [(8, 8), (128, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_spmm_tile_long_rows_on_card(card, dtype, block):
+    """Block-rows of 300 entries, more than two windows of the entry ids the
+    tile routine stages at once (``spmm_tile::kWin`` = 128), so the window
+    refill runs: B1 and B3 against the plain version (f32 rtol = atol =
+    1e-4, bf16 1e-2), two calls bit-equal, B3 bit-equal to B1, both B
+    layouts, at an aligned base and one element off."""
+    dt, tol = getattr(torch, dtype), (1e-4 if dtype == "float32" else 1e-2)
+    h, w = block
+    ta = tb.random_bcsr(0, (2 * h, 300 * w), block, 1.0)
+    arrays, meta = tops.prepare(ta, dt, device=card)
+    assert meta.max_bpr == 300
+    rng = np.random.default_rng(h)
+    for n in (4, 64, 100):
+        for view in (False, True):
+            for offset in (0, 1):
+                flat = torch.from_numpy(rng.standard_normal(
+                    300 * w * n + offset).astype(np.float32)).to(card, dt)
+                b = (flat[offset:].view(n, 300 * w).T if view
+                     else flat[offset:].view(300 * w, n))
+                got, again = (bcsr_spmm.bcsr_spmm_nnz_stream(
+                    arrays.vals, arrays.row_ids, arrays.col_ids, b, 2,
+                    rowptr=arrays.rowptr) for _ in range(2))
+                b3 = bcsr_spmm.bcsr_spmm_row_loop(
+                    arrays.vals, arrays.flat_idx, arrays.flat_col,
+                    arrays.row_len, b, 2)
+                want = ref.bcsr_spmm_ref(arrays.vals, arrays.row_ids,
+                                         arrays.col_ids, b, 2,
+                                         out_dtype=torch.float32).to(dt)
+                case = (n, view, offset,
+                        bcsr_spmm._launch_config(arrays.vals, b))
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=tol, atol=tol, msg=str(case))
+                assert torch.equal(got, again), case
+                assert torch.equal(got, b3), case
+
+
 @pytest.mark.cuda
 def test_smoke_model_decode_kernel_matches_plain(card):
     """One f32 decode step of ``smat-ffn-1.3b:smoke`` through the kernel and

@@ -266,6 +266,140 @@ def test_tile_n_covers_n(n):
     assert bn >= n or bn == 64
 
 
+def _vec_ok(vec, n, w, esize, vals_ptr, b_ptr, sbk, sbn, kmajor):
+    """The kernels' own check of a copy width (``spmm_tile::vec_ok``)."""
+    if vec == esize:
+        return True
+    if vec < esize or vals_ptr % vec or b_ptr % vec or w * esize % vec:
+        return False
+    if kmajor:
+        return sbn == 1 and sbk * esize % vec == 0 and n * esize % vec == 0
+    return sbk == 1 and (n == 1 or sbn * esize % vec == 0)
+
+
+# (N, h, w, dtype, vals_ptr, b_ptr, sbk, sbn) -> (bm, vec bytes, kmajor)
+LAUNCH_CASES = [
+    ((4, 128, 128, "bfloat16", 0, 0, 1, 2048), (16, 16, 0)),   # decode x^T
+    ((2048, 128, 128, "bfloat16", 0, 0, 1, 2048), (128, 16, 0)),  # training
+    ((8192, 128, 128, "bfloat16", 0, 0, 8192, 1), (128, 16, 1)),  # row-major
+    ((128, 128, 128, "float32", 0, 0, 128, 1), (128, 16, 1)),  # attn bwd
+    ((64, 64, 64, "float32", 0, 0, 64, 1), (16, 16, 1)),
+    ((1024, 32, 16, "bfloat16", 0, 0, 1024, 1), (16, 16, 1)),  # short block
+    ((33, 16, 16, "bfloat16", 0, 0, 33, 1), (16, 2, 1)),       # odd rows
+    ((100, 16, 32, "bfloat16", 0, 0, 100, 1), (16, 8, 1)),
+    ((100, 64, 32, "bfloat16", 0, 0, 100, 1), (16, 8, 1)),
+    ((100, 16, 16, "float32", 0, 0, 100, 1), (16, 16, 1)),
+    ((33, 16, 16, "float32", 0, 0, 33, 1), (16, 4, 1)),
+    ((64, 128, 128, "bfloat16", 0, 2, 64, 1), (128, 2, 1)),    # base + 1
+    ((64, 128, 128, "bfloat16", 0, 2, 1, 128), (128, 2, 0)),
+    ((64, 128, 128, "float32", 0, 4, 1, 128), (128, 4, 0)),
+    ((64, 128, 128, "bfloat16", 8, 0, 1, 128), (128, 8, 0)),   # vals + 8 B
+    ((64, 128, 128, "bfloat16", 4, 0, 1, 128), (128, 4, 0)),
+    ((1, 128, 128, "bfloat16", 0, 0, 1, 1), (16, 16, 0)),      # one token
+    ((1, 128, 128, "bfloat16", 0, 0, 1, 5), (16, 16, 0)),
+    ((64, 8, 4, "bfloat16", 0, 0, 1, 4), (16, 8, 0)),          # w = 4
+    ((64, 8, 4, "float32", 0, 0, 1, 4), (16, 16, 0)),
+    ((64, 16, 16, "bfloat16", 0, 0, 3, 7), (16, 2, 1)),        # both strided
+    ((64, 16, 16, "float32", 0, 0, 2, 64), (16, 4, 1)),
+]
+
+
+@pytest.mark.parametrize("args,want", LAUNCH_CASES,
+                         ids=[str(i) for i in range(len(LAUNCH_CASES))])
+def test_spmm_launch_config_is_a_pure_function_of_the_operands(args, want):
+    """The wrapper's BM, copy width and B staging from shape, strides and
+    addresses alone: BM 16 at decode widths (N <= 16) and for h <= 64, else
+    128; B k-major unless its k axis is contiguous; the widest copy whose
+    every row start and chunk edge is aligned, which the kernels' own check
+    (``spmm_tile::vec_ok``) also accepts."""
+    n, h, w, dtype, vals_ptr, b_ptr, sbk, sbn = args
+    dt = getattr(torch, dtype)
+    got = bcsr_spmm.spmm_launch_config(n, h, w, dt, vals_ptr, b_ptr, sbk,
+                                       sbn)
+    assert got == want
+    bm, vec, kmajor = got
+    esize = torch.finfo(dt).bits // 8
+    assert _vec_ok(vec, n, w, esize, vals_ptr, b_ptr, sbk, sbn, kmajor)
+    assert not any(_vec_ok(v, n, w, esize, vals_ptr, b_ptr, sbk, sbn,
+                           kmajor) for v in (16, 8, 4) if v > vec)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_spmm_launch_config_of_tensors(dtype):
+    """On real tensors: the x^T view, row-major B, and B one element into
+    its storage (the narrow copy; the wrapper never copies B)."""
+    dt = getattr(torch, dtype)
+    esize = torch.finfo(dt).bits // 8
+    vals = torch.zeros((3, 128, 128), dtype=dt)
+    flat = torch.zeros(1 + 512 * 64, dtype=dt)
+    view = flat[:512 * 64].view(64, 512).T
+    assert bcsr_spmm._launch_config(vals, view) == (128, 16, 0)
+    row_major = flat[:512 * 64].view(512, 64)
+    assert bcsr_spmm._launch_config(vals, row_major) == (128, 16, 1)
+    shifted = flat[1:].view(512, 64)
+    assert shifted.data_ptr() % 16 == esize
+    assert bcsr_spmm._launch_config(vals, shifted) == (128, esize, 1)
+    assert bcsr_spmm._launch_config(vals, shifted[:, :4]) == (16, esize, 1)
+
+
+def _tf32(x: torch.Tensor, rounding: str) -> torch.Tensor:
+    """x rounded to TF32 (10 mantissa bits): the low 13 bits of the f32
+    mantissa masked off, after adding half of their range for ``rna``
+    (round to nearest, ties away: the kernels' ``cvt.rna.tf32.f32``)."""
+    bits = x.view(torch.int32)
+    if rounding == "rna":
+        bits = bits + 0x1000
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def _3xtf32(vals, b, product, rounding):
+    """The f32 kernels' 3xTF32 scheme on the CPU: each operand split into
+    hi = tf32(x) and lo = tf32(x - hi); lo*hi + hi*lo + hi*hi, each product
+    summed in f64 (the dropped lo*lo term is the scheme's own error)."""
+    def split(x):
+        hi = _tf32(x, rounding)
+        return hi.double(), _tf32(x - hi, rounding).double()
+    (ahi, alo), (bhi, blo) = split(vals), split(b)
+    return (product(alo, bhi) + product(ahi, blo) + product(ahi, bhi))
+
+
+@pytest.mark.parametrize("rounding", ["rna", "truncate"])
+@pytest.mark.parametrize("L,block,window,d", [
+    (256, (16, 16), 64, 32), (500, (32, 32), 128, 64),
+    (640, (64, 64), 256, 128), (512, (128, 128), 256, 128)])
+def test_3xtf32_split_meets_carve_out_2(rounding, L, block, window, d):
+    """At small attention-backward shapes (the composed path's own
+    probabilities over a banded mask; the context product P V and the
+    dK/dV product P^T g) the 3xTF32 scheme stays within 1e-5 x max|C| of
+    the exact product: carve-out 2's tolerance (ROADMAP C), met before the
+    card is used.  One TF32 product alone does not meet it."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention as A
+    mt = A.mask_tensors(A.banded(window), L, block, "cpu")
+    a, meta = mt.arrays, mt.meta
+    rng = np.random.default_rng(L)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(
+        (meta.n_block_rows * block[0], d)).astype(np.float32))
+        for _ in range(4))
+    scores = ref.bcsr_sddmm_ref(q, k, a.row_ids, a.col_ids, *block)
+    probs = A.block_softmax(scores * d ** -0.5, mt.elem_mask, a.row_ids,
+                            meta.n_block_rows, flat_idx=a.sddmm_flat_idx)
+    t_vals = tops.transposed_vals(probs, a.t_perm)
+    for vals, rows, cols, n_rows, rhs in (
+            (probs, a.row_ids, a.col_ids, meta.n_block_rows, v),
+            (t_vals, a.t_row_ids, a.t_col_ids, meta.n_block_cols, g)):
+        def product(x, y, rows=rows, cols=cols, n_rows=n_rows):
+            return ref.bcsr_spmm_ref(x, rows, cols, y, n_rows,
+                                     out_dtype=torch.float64)
+        exact = product(vals.double(), rhs.double())
+        emulated = _3xtf32(vals, rhs, product, rounding).float().double()
+        scale = exact.abs().max().item()
+        assert (emulated - exact).abs().max().item() <= 1e-5 * scale
+        one = product(_tf32(vals, rounding).double(),
+                      _tf32(rhs, rounding).double())
+        assert (one - exact).abs().max().item() > 1e-5 * scale
+
+
 def test_device_rowptr_matches_host():
     ta = tb.random_bcsr(4, (160, 96), (16, 16), 0.08).ensure_nonempty_rows()
     got = bcsr_spmm.rowptr_from_rows(torch.from_numpy(ta.row_ids),
