@@ -4,8 +4,9 @@
 
 It builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
 (one ``nvcc`` per source, all at once), checks with ``cuobjdump -sass`` that
-the SpMM kernels run on the tensor cores and with ``ptxas`` that their bf16
-instantiations do not spill, holds each kernel against its plain PyTorch
+B1, B2, B3 and B5 run on the tensor cores and with ``ptxas`` that they do
+not spill (bf16 instances; every instance of the f32 B5), holds each kernel
+against its plain PyTorch
 version at small odd shapes and at the main paths' shapes, and times it
 (decode, training and prefill widths, and the attention backward's f32
 products).  Then it drives the main paths of ``smat-ffn-1.3b`` at full width
@@ -15,10 +16,12 @@ and trains a few steps through ``train.loop.train``, each through the
 streamed kernels (``nnz_stream``) and through the static-schedule ones
 (``row_loop``), checks that every sparse FFN product (forward, dB and
 dvals) went through the kernels, and that the outputs agree with the plain
-path.  Last it drives the SMaT library path (CSR -> BCSR -> Jaccard reorder
--> spmm) on the paper's suite of matrices, ``mip1`` at its published size,
-and the autotuner's measured sweep.  Every phase checks its results; any
-failure exits non-zero before the last line.
+path.  Then it drives the SMaT library path (CSR -> BCSR -> Jaccard
+reorder -> spmm) on the paper's suite of matrices, ``mip1`` at its
+published size, and the autotuner's measured sweep; last block-sparse
+attention (``smat-attn-1.3b``: kernel B5 and the composed backward on
+B1/B2) through prefill, serving and training.  Every phase checks its
+results; any failure exits non-zero before the last line.
 
 The line before the last lists every ported kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the rest
@@ -89,6 +92,9 @@ KERNELS = [{
     "module": "bcsr_attn",
 }]
 B1, B2, B3, B4, B5 = (k["name"] for k in KERNELS)
+# kernels on the tensor cores: [build] requires HMMA/HGMMA in their SASS and
+# no register spills (bf16 instances; every instance of B5)
+TENSOR_CORE_KERNELS = (B1, B2, B3, B5)
 
 N_SLOTS, CACHE_LEN = 4, 256
 # training: the JAX package's train_4k cell (4096 x 256 over a pod) cut to
@@ -152,12 +158,14 @@ def build_phase():
         hgmma = len(re.findall(r"\bHGMMA\b", sass))
         log(f"[build] {k['source']}: {hmma} HMMA, {hgmma} HGMMA instructions "
             f"(cuobjdump -sass)")
-        if k["name"] in (B1, B3):
+        if k["name"] in TENSOR_CORE_KERNELS:
             check(hmma + hgmma > 0, f"{k['name']} has no tensor-core "
                   "instruction (HMMA/HGMMA) in its SASS")
+            every = k["name"] == B5       # B5 is f32 only: all instances
             spilled = [(fn, st) for fn, st in _spills(info["log"])
-                       if "__nv_bfloat16" in fn and st]
-            check(not spilled, f"{k['name']}: bf16 instantiations spill "
+                       if (every or "__nv_bfloat16" in fn) and st]
+            check(not spilled, f"{k['name']}: "
+                  f"{'its' if every else 'bf16'} instantiations spill "
                   f"registers: {spilled}")
     log(f"[build] all kernels built in {time.perf_counter() - t0:.2f}s")
 
@@ -219,11 +227,11 @@ def _plain(op, b, out_dtype=None):
                              op["nbr"], out_dtype=out_dtype)
 
 
-def _held(what, fn, want):
-    """B1's bf16 result at a main-path width against its plain version (the
-    plain f32 result ``want`` cast to bf16, rtol = atol = 1e-2, as
-    ``[parity]``) and against a second call, bit for bit; the timing phases
-    call it on the operands they time.  Returns max|err|."""
+def _held(what, fn, want, name=B1):
+    """A kernel's bf16 result at a main-path width against its plain
+    version (the plain f32 result ``want`` cast to bf16, rtol = atol =
+    1e-2, as ``[parity]``) and against a second call, bit for bit; the
+    timing phases call it on the operands they time.  Returns max|err|."""
     got, again = fn(), fn()
     want = want.to(got.dtype)
     torch.cuda.synchronize()
@@ -231,9 +239,9 @@ def _held(what, fn, want):
     stable = torch.equal(got, again)
     ok = torch.allclose(got.float(), want.float(), rtol=1e-2,
                         atol=1e-2) and stable
-    log(f"{what}: {B1} vs plain max|err|={err:.3g} tol=1e-2 bit-stable "
+    log(f"{what}: {name} vs plain max|err|={err:.3g} tol=1e-2 bit-stable "
         f"{stable} {'ok' if ok else 'FAIL'}")
-    check(ok, f"{what}: {B1} disagrees with its plain version or with "
+    check(ok, f"{what}: {name} disagrees with its plain version or with "
           "itself")
     return err
 
@@ -313,54 +321,86 @@ def _prepared(seed, shape, block, nnzb=None, density=None,
     return ops.prepare(a, dtype, device=DEVICE)
 
 
+def _sddmm_ok(got, want):
+    """(ok, max|err|, tolerance text) of B2 against its plain version: bf16
+    rtol = atol = 1e-2 (about one ulp); f32 (3xTF32, whose tensor-core sums
+    truncate) carve-out 2, max|err| <= 1e-5 x max|plain| (ROADMAP C)."""
+    err = (got.float() - want.float()).abs().max().item()
+    if got.dtype == torch.bfloat16:
+        return (torch.allclose(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2), err, "1e-2")
+    scale = want.abs().max().item()
+    return err <= 1e-5 * scale, err, f"1e-5 x {scale:.3g}"
+
+
 def sddmm_parity_phase():
-    """B2 against its plain version (f32 rtol = atol = 1e-4, bf16 1e-2)
-    at the small odd shapes with N in {8, 33, 100} and at both full-width
-    shapes with N in {64, 2048}, dC and B row-major and as transposed
-    views.  Then B1 on the transpose structure (dB = A^T dC) at the
-    full-width backward shapes.  Returns the largest full-width |err| of
-    B2 and of B1's backward use."""
+    """B2 against its plain version (``_sddmm_ok``: bf16 1e-2, f32 carve-out
+    2) and against a second call, bit for bit: at the small odd shapes with
+    N in {8, 33, 100}, dC and B each row-major or as the transposed view
+    (every pairing of the two majorities) at an aligned base and one
+    element off (the narrow copies); at both full-width shapes with N in
+    {64, TRAIN_N, PREFILL_N} (the FFN training's and the attention
+    training's widths), both row-major and as the views.  Then B1 on the
+    transpose structure (dB = A^T dC) at the full-width backward shapes
+    (rtol = atol = 1e-4 in f32, 1e-2 in bf16).  Returns the largest
+    full-width |err| of B2 and of B1's backward use."""
     from repro_torch.kernels import bcsr_spmm, ops, ref
     small = [((64, 64), (8, 8), 0.5), ((128, 256), (16, 32), 0.3),
-             ((256, 128), (32, 16), 0.15), ((96, 160), (16, 16), 0.4)]
+             ((256, 128), (32, 16), 0.15), ((96, 160), (16, 16), 0.4),
+             ((384, 256), (128, 128), 0.4)]
     cases = [(f"small{shape}{block}", dict(shape=shape, block=block,
                                            density=d), n)
              for shape, block, d in small for n in (8, 33, 100)]
     cases += [(name, dict(shape=shape, block=(128, 128), nnzb=nnzb), n)
               for name, (shape, nnzb) in FULL_WIDTH.items()
-              for n in (64, TRAIN_N)]
+              for n in (64, TRAIN_N, PREFILL_N)]
     err_b2 = err_dx = 0.0
+    n_cases, widths = 0, set()
     for i, (name, spec, n) in enumerate(cases):
         h, w = spec["block"]
-        M, K = spec["shape"]
-        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+        full = name in FULL_WIDTH
+        layouts = ([(False, False, 0), (True, True, 0)] if full else
+                   [(dv, bv, off) for dv in (False, True)
+                    for bv in (False, True) for off in (0, 1)])
+        for dtype in (torch.float32, torch.bfloat16):
             arrays, meta = _prepared(500 + i, dtype=dtype, **spec)
-            for transposed in (False, True):
-                # transposed: views, as x^T and the cotangent of C^T
-                # reach the kernels in training
-                dc = _b(600 + i, meta.n_block_rows * h, n, dtype, transposed)
-                x = _b(700 + i, meta.n_block_cols * w, n, dtype, transposed)
+            for dc_view, b_view, offset in layouts:
+                # views: as x^T and the cotangent of C^T reach the kernels
+                # in training
+                dc = _b(600 + i, meta.n_block_rows * h, n, dtype, dc_view,
+                        offset)
+                x = _b(700 + i, meta.n_block_cols * w, n, dtype, b_view,
+                       offset)
+                _, vec, ak, bk = bcsr_spmm.sddmm_launch_config(
+                    n, h, w, dtype, dc.data_ptr(), x.data_ptr(),
+                    *dc.stride(), *x.stride())
                 got = bcsr_spmm.bcsr_sddmm(dc, x, arrays.row_ids,
                                            arrays.col_ids, h, w)
+                again = bcsr_spmm.bcsr_sddmm(dc, x, arrays.row_ids,
+                                             arrays.col_ids, h, w)
                 want = ref.bcsr_sddmm_ref(dc, x, arrays.row_ids,
                                           arrays.col_ids, h, w,
                                           out_dtype=torch.float32).to(dtype)
                 torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                ok = torch.allclose(got.float(), want.float(), rtol=tol,
-                                    atol=tol)
-                if name in FULL_WIDTH:
+                ok, err, tol = _sddmm_ok(got, want)
+                stable = torch.equal(got, again)
+                n_cases += 1
+                widths.add(vec)
+                if full:
                     err_b2 = max(err_b2, err)
-                log(f"[parity] bcsr_sddmm {name} N={n} {str(dtype)[6:]} "
-                    f"{'views' if transposed else 'row-major'} "
-                    f"max|err|={err:.3g} (max|plain|="
-                    f"{want.float().abs().max().item():.3g}) tol={tol} "
-                    f"{'ok' if ok else 'FAIL'}")
-                check(ok, f"bcsr_sddmm disagrees with its plain version: "
-                      f"{name} N={n}")
-                if name not in FULL_WIDTH:
+                if full or not (ok and stable):
+                    log(f"[sddmm-parity] {B2} {name} N={n} {str(dtype)[6:]} "
+                        f"dC {'view' if dc_view else 'row-major'}, B "
+                        f"{'view' if b_view else 'row-major'}, offset="
+                        f"{offset} vec={vec}B ak={ak} bk={bk} max|err|="
+                        f"{err:.3g} tol={tol} bit-stable {stable} "
+                        f"{'ok' if ok and stable else 'FAIL'}")
+                check(ok and stable, f"{B2} disagrees with its plain version "
+                      f"or with itself: {name} N={n} {dtype}")
+                if not full:
                     continue
                 # B1's second use: dB = A^T dC over the transpose structure
+                tol = 1e-4 if dtype == torch.float32 else 1e-2
                 t_vals = ops.transposed_vals(arrays.vals, arrays.t_perm)
                 got = bcsr_spmm.bcsr_spmm_nnz_stream(
                     t_vals, arrays.t_row_ids, arrays.t_col_ids, dc,
@@ -373,11 +413,18 @@ def sddmm_parity_phase():
                 ok = torch.allclose(got.float(), want.float(), rtol=tol,
                                     atol=tol)
                 err_dx = max(err_dx, err)
-                log(f"[parity] bcsr_spmm_nnz_stream A^T {name} N={n} "
-                    f"{str(dtype)[6:]} {'view' if transposed else 'row-major'}"
+                log(f"[sddmm-parity] {B1} A^T {name} N={n} "
+                    f"{str(dtype)[6:]} {'view' if dc_view else 'row-major'}"
                     f" max|err|={err:.3g} tol={tol} {'ok' if ok else 'FAIL'}")
                 check(ok, f"nnz_stream on the transpose structure disagrees "
                       f"with its plain version: {name} N={n}")
+                del t_vals
+            del arrays, dc, x, got, again, want
+        torch.cuda.empty_cache()
+    log(f"[sddmm-parity] {n_cases} {B2} cases ok and bit-stable (small odd "
+        f"blocks with both majorities of each operand, copy widths run: "
+        f"{sorted(widths)} bytes; full width at N = 64, {TRAIN_N}, "
+        f"{PREFILL_N})")
     return err_b2, err_dx
 
 
@@ -472,9 +519,10 @@ def train_timing_phase(smi, n=TRAIN_N):
     B1 forward (C = A x^T) and B1 on the transpose structure (dB = A^T dC),
     each beside its plain version, its bound, the dense product and the
     library call.  Operands enter as the transposed views training
-    passes.  At n = PREFILL_N (ROTATE_LONG operands: one call moves more
-    than L2 holds) only B1's two products are timed.  B1's two products are
-    also held to their plain versions and to a second call (``_held``)."""
+    passes.  At n = PREFILL_N (the attention training's FFN width) it
+    rotates over ROTATE_LONG operands: one call moves more than L2 holds.
+    Each kernel is also held to its plain version and to a second call on
+    the operands it is timed on (``_held``)."""
     from repro_torch.kernels import bcsr_spmm, ops, ref
     dtype = torch.bfloat16
     rotate = ROTATE if n < PREFILL_N else ROTATE_LONG
@@ -495,26 +543,32 @@ def train_timing_phase(smi, n=TRAIN_N):
             log("[timing] " + json.dumps(r))
             return r
 
-        # ---- B2: dvals = dC x^T at the stored blocks
-        if n < PREFILL_N:
-            ms = time_ms([lambda a=a, d=d, x=x: bcsr_spmm.bcsr_sddmm(
-                d, x, a.row_ids, a.col_ids, 128, 128)
-                for (a, _), d, x in zip(ops_, dcs, xs)], reps=10)
-            plain = time_ms([lambda a=a, d=d, x=x: ref.bcsr_sddmm_ref(
-                d, x, a.row_ids, a.col_ids, 128, 128)
-                for (a, _), d, x in zip(ops_, dcs, xs)], reps=5)
-            dense_ms = time_ms([lambda a=a, d=d, x=x:
-                                ref.bcsr_sddmm_dense_ref(
-                                    d, x, a.row_ids, a.col_ids, 128, 128)
-                                for (a, _), d, x in zip(ops_, dcs, xs)],
-                               reps=5)
-            # the yardstick: PyTorch's sampled product on the same operands
-            lib, lib_note = _sddmm_library(ops_, dcs, xs, meta, shape)
-            bound_ms, bound_by = sddmm_bound(arrays0, meta, n, dtype)
-            results[("sddmm", name)] = row(
-                "bcsr_sddmm", ms=ms, plain_ms=plain, bound_ms=bound_ms,
-                bound_by=bound_by, dense_ms=dense_ms, library_ms=lib,
-                **lib_note)
+        # ---- B2: dvals = dC x^T at the stored blocks (N = PREFILL_N: the
+        # attention training's FFN)
+        err_b2 = _held(
+            f"[timing] dvals {name} N={n} dC^T, x^T views",
+            lambda: bcsr_spmm.bcsr_sddmm(dcs[0], xs[0], arrays0.row_ids,
+                                         arrays0.col_ids, 128, 128),
+            ref.bcsr_sddmm_ref(dcs[0], xs[0], arrays0.row_ids,
+                               arrays0.col_ids, 128, 128,
+                               out_dtype=torch.float32), name=B2)
+        ms = time_ms([lambda a=a, d=d, x=x: bcsr_spmm.bcsr_sddmm(
+            d, x, a.row_ids, a.col_ids, 128, 128)
+            for (a, _), d, x in zip(ops_, dcs, xs)], reps=10)
+        plain = time_ms([lambda a=a, d=d, x=x: ref.bcsr_sddmm_ref(
+            d, x, a.row_ids, a.col_ids, 128, 128)
+            for (a, _), d, x in zip(ops_, dcs, xs)], reps=5)
+        dense_ms = time_ms([lambda a=a, d=d, x=x:
+                            ref.bcsr_sddmm_dense_ref(
+                                d, x, a.row_ids, a.col_ids, 128, 128)
+                            for (a, _), d, x in zip(ops_, dcs, xs)], reps=5)
+        # the yardstick: PyTorch's sampled product on the same operands
+        lib, lib_note = _sddmm_library(ops_, dcs, xs, meta, shape)
+        bound_ms, bound_by = sddmm_bound(arrays0, meta, n, dtype)
+        results[("sddmm", name)] = row(
+            "bcsr_sddmm", max_abs_err=err_b2, ms=ms, plain_ms=plain,
+            bound_ms=bound_ms, bound_by=bound_by, dense_ms=dense_ms,
+            library_ms=lib, **lib_note)
 
         # ---- B1 forward: C = A x^T
         a0, m0 = ops_[0]
@@ -1676,7 +1730,9 @@ ATTN_PLAIN_CHUNK = 4    # instances a plain B5 call holds at 32768 tokens
 
 def _attn_case(mask, L, block, d, dv, G, cap, seed):
     """Operands of one B5 call: q, k, v drawn from a numpy seed, the mask's
-    cached device tensors; returns (mask tensors, args, keywords)."""
+    cached device tensors; returns (mask tensors, args, keywords).  The
+    keywords carry the mask's cached bits (``ebits``), as the model passes
+    them; ``_b5_plain`` reads the f32 ``emask`` instead."""
     from repro_torch.models import attention as A
     mt = A.mask_tensors(mask, L, block, DEVICE)
     rng = np.random.default_rng(seed)
@@ -1684,7 +1740,7 @@ def _attn_case(mask, L, block, d, dv, G, cap, seed):
         np.float32)).to(DEVICE) for n in (d, d, dv))
     kw = dict(n_block_rows=mt.meta.n_block_rows,
               n_block_cols=mt.meta.n_block_cols, block=tuple(block),
-              scale=d ** -0.5, cap=cap)
+              scale=d ** -0.5, cap=cap, ebits=mt.ebits)
     return mt, (q, k, v, mt.emask, mt.arrays.sddmm_flat_idx,
                 mt.arrays.flat_col), kw
 
@@ -1696,7 +1752,8 @@ def _b5(args, kw):
 
 def _b5_plain(args, kw):
     from repro_torch.kernels import ref
-    return ref.bcsr_attn_fused_ref(*args, **kw)
+    return ref.bcsr_attn_fused_ref(*args, **{k: v for k, v in kw.items()
+                                             if k != "ebits"})
 
 
 def _rel(got, want):
@@ -1811,13 +1868,14 @@ def attn_parity_phase():
 
 
 def attn_bound(meta, G, L, d, dv):
-    """(bound_ms, bound_by) of one B5 call: q, k, v, the element mask and
-    the schedule read once, out written once (f32); the useful work is
-    Q K^T and P V once per stored block per instance, 2 operations per
-    multiply-add, over the f32 FMA peak."""
+    """(bound_ms, bound_by) of one B5 call: q, k, v, the element bitmask
+    (``ebits``: one bit an element, the sentinel block included) and the
+    schedule read once, out written once (f32); the useful work is Q K^T
+    and P V once per stored block per instance, 2 operations per
+    multiply-add, over the f32-accurate (3xTF32) peak."""
     h, w = meta.block
-    nbytes = (4 * G * L * (2 * d + 2 * dv) + 4 * meta.nnzb * h * w
-              + 8 * meta.n_block_rows * meta.max_bpr)
+    nbytes = (4 * G * L * (2 * d + 2 * dv) + 4 * (meta.nnzb + 1) * h
+              * -(-w // 32) + 8 * meta.n_block_rows * meta.max_bpr)
     flops = G * meta.nnzb * 2 * h * w * (d + dv)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[torch.float32]
@@ -1889,6 +1947,8 @@ def attn_timing_phase(smi, mask_s):
                                               timer=time_ms_eager)
         if lib_err:
             row["library_error"] = lib_err
+        else:
+            row["faster_than_library"] = row["ms"] < row["library_ms"]
         del allowed
         qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
         row["dense_causal_sdpa_bf16_ms"] = time_ms_eager(
@@ -1910,8 +1970,10 @@ def attn_bwd_timing_phase(smi):
     ``ops.transposed_vals``); B2's scores Q K^T (d(probs) = g V^T has its
     shape).  The probabilities are the composed path's own (B2, then
     ``block_softmax``).  Each beside its bound (f32 at the 3xTF32 rate),
-    its plain version and, for B1, ``torch.sparse_bsr_tensor @`` in f32;
-    each held against its plain version first (rtol = atol = 1e-4)."""
+    its plain version and the library: ``torch.sparse_bsr_tensor @`` in
+    f32 for B1, ``torch.sparse.sampled_addmm`` over the element CSR of the
+    stored blocks for B2 (``_sddmm_library``); each held against its plain
+    version (rtol = atol = 1e-4) and a second call, bit for bit."""
     from repro_torch.kernels import bcsr_spmm, ops, ref
     from repro_torch.models import attention as A
     L, d = ATTN_SEQ, 128
@@ -1952,19 +2014,25 @@ def attn_bwd_timing_phase(smi):
     }
     rows = {}
     for case, (kernel, plain, lib, (bound_ms, bound_by)) in cases.items():
-        got, want = kernel(), plain()
+        got, again, want = kernel(), kernel(), plain()
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        ok = torch.allclose(got, want, rtol=1e-4, atol=1e-4)
+        stable = torch.equal(got, again)
+        ok = torch.allclose(got, want, rtol=1e-4, atol=1e-4) and stable
         row = {"case": f"{B2 if case == 'scores' else B1} f32 {case} "
                        f"banded(4096) L={L} nnzb={meta.nnzb} N={d}",
                "max_abs_err": err, "rel_err": _rel(got, want),
+               "bit_stable": stable,
                "ms": time_ms([kernel], reps=20),
                "plain_ms": time_ms([plain], reps=5),
                "bound_ms": bound_ms, "bound_by": bound_by, "card": smi}
+        row["faster_than_plain"] = row["ms"] < row["plain_ms"]
         if lib is None:
-            row["library_ms"] = None
-            row["library_error"] = "sampled_addmm refuses a BSR mask"
+            # torch.sparse.sampled_addmm over the element CSR of the stored
+            # blocks (it refuses a BSR mask)
+            row["library_ms"], note = _sddmm_library(
+                [(a, meta)], [q], [k], meta, (L, L))
+            row.update(note)
         else:
             bsr, rhs = lib
 
@@ -2434,10 +2502,14 @@ def main():
     attn_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                  "composed_ms", "composed_launches",
                  "dense_causal_sdpa_bf16_ms")
-    held = [r["max_abs_err"] for r in (*timed.values(),
-                                       *timed_train.values(),
-                                       *timed_prefill.values())
-            if "max_abs_err" in r]
+    held = [r["max_abs_err"] for key, r in (*timed.items(),
+                                            *timed_train.items(),
+                                            *timed_prefill.items())
+            if "max_abs_err" in r and key[0] != "sddmm"]
+    held_b2 = [timed_train[("sddmm", s)]["max_abs_err"] for s in FULL_WIDTH]
+    held_b2 += [timed_prefill[("sddmm", s)]["max_abs_err"]
+                for s in FULL_WIDTH]
+    sd_pre = {s: timed_prefill[("sddmm", s)] for s in FULL_WIDTH}
     line = {"kernels": [
         entry(b1, max(max_err, err_dx, *held), decode,
               train_forward={key: mix(fwd, key) for key in keys},
@@ -2448,7 +2520,8 @@ def main():
                                     for key in bwd_keys},
               attn_bwd_f32_dKdV={key: timed_bwd["dK/dV"][key]
                                  for key in bwd_keys}),
-        entry(b2, err_b2, sd, dense_ms=mix(sd, "dense_ms"),
+        entry(b2, max(err_b2, *held_b2), sd, dense_ms=mix(sd, "dense_ms"),
+              prefill_width={key: mix(sd_pre, key) for key in keys},
               attn_bwd_f32_scores={key: timed_bwd["scores"][key]
                                    for key in bwd_keys}),
         entry(b3, max(err_b3, err_lib), rl[(B3, N_SLOTS)],
@@ -2480,8 +2553,9 @@ def main():
         f"(N={N_SLOTS}; train_forward and train_dB at N={TRAIN_N}, "
         f"prefill_* at N={PREFILL_N}, attn_bwd_f32_* one head at "
         f"L={ATTN_SEQ}, N=128), {B2} and "
-        f"{B4} at N={TRAIN_N}; each averaged 2:1 over the gate/up and down "
-        f"shapes.  {ATTN_ARCH}: prefill {prefilled['prefill_ms']:.3f} ms "
+        f"{B4} at N={TRAIN_N} ({B2}'s prefill_width at N={PREFILL_N}, "
+        f"the attention training's FFN); each averaged 2:1 over the gate/up "
+        f"and down shapes.  {ATTN_ARCH}: prefill {prefilled['prefill_ms']:.3f} ms "
         f"(1 x {ATTN_SEQ}), {prefilled['prefill_32k_ms']:.3f} ms (1 x "
         f"{ATTN_LONG}, peak {prefilled['prefill_32k_peak_gb']:.2f} GB); "
         f"serving {tok_s_attn:.1f} tok/s; training "

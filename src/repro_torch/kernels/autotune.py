@@ -207,17 +207,21 @@ register_variant(KernelVariant(
 
 
 # Attention family (``models.attention.resolve_attn_impl`` under
-# ``backend="auto"``): kernel B5, one launch of three passes, against the
+# ``backend="auto"``): kernel B5, one launch of two passes, against the
 # composed SDDMM -> softmax -> SpMM triple.  These are attention-level
 # variants: their ``backend`` strings ("fused" / "composed") are resolved
 # there, not by ``ops``.  B5 contracts over the whole head width and has no
 # N tile; the composed model uses the SDDMM and SpMM kernels' own tiles.
+_PEAK_3XTF32 = 495e12 / 3   # f32 products as three TF32 tensor-core ones
+
+
 def _t_attn_fused(meta: ops.SparseMeta, n: int, bn: int) -> float:
-    # one launch, three passes (max / denom / accumulate) over the static
-    # (block-row x slot) schedule
+    # one launch over each block-row's live slots (sentinel slots are
+    # skipped): Q K^T twice (the row max, then the softmax sums) and z V
+    # once, f32 operands on the tensor cores as 3xTF32
     h, w = meta.block
-    n_e = meta.n_block_rows * max(meta.max_bpr, 1) * 3
-    return pm.spmm_model_time(n_e, h, w, n)
+    return pm.spmm_model_time(3 * meta.nnzb, h, w, n, bytes_per_el=4,
+                              peak_flops=_PEAK_3XTF32)
 
 
 def _t_attn_composed(meta: ops.SparseMeta, n: int, bn: int) -> float:
@@ -235,7 +239,7 @@ register_variant(KernelVariant(
     bn_candidates=NO_TILE, model_time=_t_attn_fused,
     supported=lambda meta: meta.max_bpr > 0,
     description="CUDA kernel B5: SDDMM + block softmax + SpMM in one launch "
-                "(three passes, no scores in device memory)"))
+                "(two passes, no scores in device memory)"))
 register_variant(KernelVariant(
     name="attn_composed", backend="composed", op="attn",
     bn_candidates=NO_TILE, model_time=_t_attn_composed,

@@ -7,12 +7,13 @@ wrapper.
 of block-sparse attention in one launch, over the static (block-row x
 slot) schedule of the mask (``ops._sddmm_row_loop_schedule``: padding slots
 hold the sentinel entry ``nnzb``).  The kernel is
-``csrc/bcsr_attn.cu``; its header says how it is laid out and what bounds
-it (operations: at smat-attn-1.3b's full width about 213 GFLOP of f32 FMA
-per launch, 3.2 ms on an H100 SXM).  The wrapper dispatches on the device
-of its operands: a CPU tensor goes to the plain version
-``ref.bcsr_attn_fused_ref``, a CUDA tensor launches the kernel or raises --
-it never falls back.
+``csrc/bcsr_attn.cu``; its header says how it is laid out (two passes over
+a row's live slots, Q K^T and z V as 3xTF32 on the tensor cores, the mask
+as one bit per element) and what bounds it (operations: at smat-attn-1.3b's
+full width about 213 GFLOP per launch, 1.29 ms on an H100 SXM at the
+3xTF32 rate).  The wrapper dispatches on the device of its operands: a CPU
+tensor goes to the plain version ``ref.bcsr_attn_fused_ref``, a CUDA tensor
+launches the kernel or raises -- it never falls back.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch.nn import functional as F
 
 from repro_torch.kernels import _build, ref
 
@@ -31,9 +33,9 @@ MAX_D = 256        # widest q/k row and v row the kernel holds
 MAX_W = 128        # widest mask block the kernel holds
 
 _C, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = ([_C] * 7 +        # q k v emask flat_idx flat_col out
+_ARGTYPES = ([_C] * 7 +        # q k v ebits flat_idx flat_col out
              [_I] * 10 +       # G lq lk d dv nbr max_bpr h w nnzb
-             [_F, _F, _I, _C])  # scale cap use_cap stream
+             [_F, _F, _I, _I, _C])  # scale cap use_cap vec stream
 
 
 def _lib():
@@ -44,8 +46,40 @@ def _lib():
     return fn
 
 
-def _check(q, k, v, emask, flat_idx, flat_col, n_block_rows, n_block_cols,
-           block) -> int:
+def pack_emask(emask: torch.Tensor) -> torch.Tensor:
+    """The element mask ``[nnzb, h, w]`` (nonzero = valid) packed one bit
+    per element, as kernel B5 reads it: ``[nnzb + 1, h, ceil(w / 32)]``
+    int32, bit ``c % 32`` of word ``c // 32`` holding element ``c`` of a
+    row (bits past ``w`` zero), and an all-zero block appended for the
+    sentinel entry ``nnzb``.  At 8,192 tokens in 128x128 blocks that is
+    3.2 MB a layer in place of the f32 mask's 104 MB.
+    ``ref.unpack_ebits`` inverts it.
+
+    >>> import torch
+    >>> from repro_torch.kernels import bcsr_attn, ref
+    >>> em = torch.zeros(1, 2, 40)
+    >>> em[0, 0, 0] = em[0, 1, 31] = em[0, 1, 33] = 1
+    >>> bits = bcsr_attn.pack_emask(em)
+    >>> bits.shape, bits.dtype
+    (torch.Size([2, 2, 2]), torch.int32)
+    >>> bits[0].tolist()
+    [[1, 0], [-2147483648, 2]]
+    >>> bool((ref.unpack_ebits(bits, 40)[:1] == (em != 0)).all())
+    True
+    """
+    nnzb, h, w = emask.shape
+    words = -(-w // 32)
+    bits = F.pad(emask != 0, (0, 32 * words - w)).reshape(nnzb, h, words, 32)
+    weight = torch.ones(32, dtype=torch.int64, device=emask.device) << \
+        torch.arange(32, device=emask.device)
+    packed = (bits.to(torch.int64) * weight).sum(-1)     # [0, 2**32)
+    packed = torch.where(packed >= 2 ** 31, packed - 2 ** 32, packed)
+    return torch.cat([packed.to(torch.int32),
+                      packed.new_zeros((1, h, words), dtype=torch.int32)])
+
+
+def _check(q, k, v, emask, ebits, flat_idx, flat_col, n_block_rows,
+           n_block_cols, block) -> int:
     """Argument checks of the kernel path; returns ``max_bpr``."""
     h, w = block
     dev = q.device
@@ -53,7 +87,8 @@ def _check(q, k, v, emask, flat_idx, flat_col, n_block_rows, n_block_cols,
         if t.device != dev or t.dtype != torch.float32:
             raise ValueError(f"{name} must be a float32 tensor on {dev}, "
                              f"got {t.dtype} on {t.device}")
-    for name, t in (("flat_idx", flat_idx), ("flat_col", flat_col)):
+    for name, t in (("flat_idx", flat_idx), ("flat_col", flat_col),
+                    ("ebits", ebits)):
         if t.device != dev or t.dtype != torch.int32 or \
                 not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous int32 tensor on "
@@ -69,6 +104,11 @@ def _check(q, k, v, emask, flat_idx, flat_col, n_block_rows, n_block_cols,
             not emask.is_contiguous():
         raise ValueError(f"emask must be a contiguous [nnzb, {h}, {w}] "
                          f"tensor, got {tuple(emask.shape)}")
+    words = -(-w // 32)
+    if tuple(ebits.shape) != (emask.shape[0] + 1, h, words):
+        raise ValueError(f"ebits must be [nnzb + 1, {h}, {words}] (the "
+                         f"sentinel block included), got "
+                         f"{tuple(ebits.shape)}")
     max_bpr = flat_idx.shape[0] // max(n_block_rows, 1)
     if flat_idx.shape != (n_block_rows * max_bpr,) or max_bpr < 1 or \
             flat_col.shape != flat_idx.shape:
@@ -90,7 +130,8 @@ def bcsr_attn_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     emask: torch.Tensor, flat_idx: torch.Tensor,
                     flat_col: torch.Tensor, *, n_block_rows: int,
                     n_block_cols: int, block, scale: float,
-                    cap: Optional[float] = None, out_dtype=None) -> torch.Tensor:
+                    cap: Optional[float] = None, out_dtype=None,
+                    ebits: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused block-sparse attention over a static BCSR mask schedule.
 
     q, k, v   ``[G, Lq, d]`` / ``[G, Lk, d]`` / ``[G, Lk, dv]``, G folded
@@ -103,9 +144,15 @@ def bcsr_attn_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     flat_col  ``[nbr * max_bpr]`` block-col per (block-row, slot).
     scale     applied to the scores before the optional ``cap`` tanh
               soft-clip, as ``models.attention.block_softmax`` does.
+    ebits     optional ``pack_emask(emask)``, the mask the kernel reads
+              (``models.attention.mask_tensors`` caches it); packed here
+              from ``emask`` when not given.
 
     Returns ``[G, Lq, dv]`` in ``out_dtype`` (default ``q.dtype``); query
-    rows with no valid element get an all-zero context.  Ragged ``Lq``,
+    rows with no valid element get an all-zero context.  The row max is
+    taken over all of a row's slots first; then exp(logit - max) is summed
+    and multiplied by V together, and the context divided by the sum once
+    at the end.  Ragged ``Lq``,
     ``Lk`` and contraction widths need no padded copies: the kernel stages
     what lies past them as zeros.  The kernel takes float32 operands (the
     attention's contract) with d, dv <= 256 and a block width <= 128.
@@ -138,25 +185,30 @@ def bcsr_attn_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.bcsr_attn_fused_ref(
             q, k, v, emask, flat_idx, flat_col, n_block_rows=n_block_rows,
             n_block_cols=n_block_cols, block=block, scale=scale, cap=cap,
-            out_dtype=out_dtype)
+            out_dtype=out_dtype, ebits=ebits)
     if q.device.type != "cuda":
         raise ValueError(f"bcsr_attn_fused: no kernel for device {q.device}")
-    max_bpr = _check(q, k, v, emask, flat_idx, flat_col, n_block_rows,
-                     n_block_cols, block)
+    if ebits is None:
+        ebits = pack_emask(emask)
+    max_bpr = _check(q, k, v, emask, ebits, flat_idx, flat_col,
+                     n_block_rows, n_block_cols, block)
     h, w = block
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     G, Lq, d = q.shape
     Lk, dv = v.shape[1], v.shape[2]
+    # 16-byte copies where every row of q, k and v starts aligned
+    vec = 16 if (d % 4 == 0 and dv % 4 == 0 and
+                 all(t.data_ptr() % 16 == 0 for t in (q, k, v))) else 4
     out = torch.empty((G, Lq, dv), dtype=torch.float32, device=q.device)
     if G and Lq and n_block_rows:
         with torch.cuda.device(q.device):
             err = _lib()(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), emask.data_ptr(),
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), ebits.data_ptr(),
                 flat_idx.data_ptr(), flat_col.data_ptr(), out.data_ptr(),
                 G, Lq, Lk, d, dv, n_block_rows, max_bpr, h, w,
                 emask.shape[0], float(scale),
                 float(cap) if cap is not None else 0.0, int(cap is not None),
-                torch.cuda.current_stream(q.device).cuda_stream)
+                vec, torch.cuda.current_stream(q.device).cuda_stream)
         if err:
             raise RuntimeError(f"bcsr_attn_fused: kernel launch failed with "
                                f"CUDA error {err}")

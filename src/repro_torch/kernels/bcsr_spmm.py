@@ -23,6 +23,7 @@ LAUNCHES = {"nnz_stream": 0, "row_loop": 0, "sddmm": 0, "sddmm_row_loop": 0}
 
 SPMM_TILES = (8, 16, 32, 64)     # the N tiles the SpMM kernels compile
 SDDMM_TILES = (32,)              # the N chunk of the SDDMM kernels
+SDDMM_TILE = (64, 64)            # the output tile one B2 CTA owns
 
 _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _C, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -37,6 +38,7 @@ _ARGTYPES = {
         _C, _C, _C, _C, _C,              # dc b row_ids col_ids out
         _I, _I, _I, _I,                  # nnzb h w N
         _LL, _LL, _LL, _LL,              # dc's strides, b's strides
+        _I, _I, _I,                      # vec ak bk
         _I, _I, _C],                     # in_type out_type stream
     ("bcsr_spmm_row_loop", "bcsr_spmm_row_loop"): [
         _C, _C, _C, _C, _C, _C,          # vals flat_idx flat_col row_len b out
@@ -115,6 +117,41 @@ def _launch_config(vals: torch.Tensor, b: torch.Tensor):
     _, h, w = vals.shape
     return spmm_launch_config(b.shape[1], h, w, b.dtype, vals.data_ptr(),
                               b.data_ptr(), b.stride(0), b.stride(1))
+
+
+def sddmm_launch_config(n: int, h: int, w: int, dtype, dc_ptr: int,
+                        b_ptr: int, sdm: int, sdn: int, sbk: int, sbn: int):
+    """``(tile, vec, ak, bk)`` of one B2 launch (``csrc/sddmm_tile.cuh``),
+    a pure function of the shapes, the strides and the operands' addresses.
+
+    ``tile``: the ``(rows, cols)`` of a stored block one CTA owns,
+    ``SDDMM_TILE`` (a 128 x 128 block takes four CTAs).  ``ak`` / ``bk``:
+    dC / B staged k-major -- along its row axis -- unless its N axis is
+    contiguous (``sdn == 1`` / ``sbn == 1``; the FFN backward's transposed
+    views take k-major, the attention backward's row-major Q and K not).
+    ``vec``: the widest copy, in bytes, of 16, 8, 4 and the element size,
+    for which both pointers are aligned, each operand's staged axis is
+    contiguous, and every staged row start and edge (the block's h or w
+    rows, N) falls on a multiple of it; the element size (a scalar copy)
+    takes any strides."""
+    esize = torch.finfo(dtype).bits // 8
+    ak, bk = int(sdn != 1), int(sbn != 1)
+
+    def fits(vec, ptr, rows, sr, sk, kmaj):
+        if ptr % vec:
+            return False
+        if kmaj:
+            return sr == 1 and rows * esize % vec == 0 and \
+                (n == 1 or sk * esize % vec == 0)
+        return n * esize % vec == 0 and sr * esize % vec == 0
+
+    for vec in (16, 8, 4):
+        if vec <= esize:
+            break
+        if fits(vec, dc_ptr, h, sdm, sdn, ak) and \
+                fits(vec, b_ptr, w, sbk, sbn, bk):
+            return SDDMM_TILE, vec, ak, bk
+    return SDDMM_TILE, esize, ak, bk
 
 
 def _check_int32(device, **tensors) -> None:
@@ -205,9 +242,10 @@ def bcsr_sddmm(dc: torch.Tensor, b: torch.Tensor, row_ids: torch.Tensor,
     """dvals[s] = dC[block row_ids[s]] @ B[block col_ids[s]]^T, [nnzb, h, w]:
     the sparse weight gradient, computed only at the stored blocks.  ``dc``
     is [M, N] with M a multiple of h, ``b`` is [K, N] with K a multiple of
-    w; both may be strided views.  Accumulated in float32 over N; the
-    result is a new contiguous tensor in ``out_dtype`` (default
-    ``dc.dtype``)."""
+    w; both may be strided views, each staged along its contiguous axis
+    (``sddmm_launch_config``).  Accumulated in float32 over N (f32 operands
+    as 3xTF32 on the tensor cores); the result is a new contiguous tensor
+    in ``out_dtype`` (default ``dc.dtype``)."""
     out_dtype = out_dtype or dc.dtype
     if dc.device.type == "cpu":
         return ref.bcsr_sddmm_ref(dc, b, row_ids, col_ids, h, w,
@@ -229,12 +267,16 @@ def bcsr_sddmm(dc: torch.Tensor, b: torch.Tensor, row_ids: torch.Tensor,
     out = torch.empty((nnzb, h, w), dtype=out_dtype, device=dc.device)
     if nnzb == 0:
         return out
+    _, vec, ak, bk = sddmm_launch_config(
+        N, h, w, dc.dtype, dc.data_ptr(), b.data_ptr(), *dc.stride(),
+        *b.stride())
     fn = _lib("bcsr_sddmm", "bcsr_sddmm")
     with torch.cuda.device(dc.device):
         err = fn(dc.data_ptr(), b.data_ptr(), row_ids.data_ptr(),
                  col_ids.data_ptr(), out.data_ptr(), nnzb, h, w, N,
                  dc.stride(0), dc.stride(1), b.stride(0), b.stride(1),
-                 _TYPE_CODES[dc.dtype], _TYPE_CODES[out_dtype], _stream(dc))
+                 vec, ak, bk, _TYPE_CODES[dc.dtype], _TYPE_CODES[out_dtype],
+                 _stream(dc))
     if err:
         raise RuntimeError(f"bcsr_sddmm: kernel launch failed with CUDA "
                            f"error {err}")

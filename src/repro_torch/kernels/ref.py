@@ -10,8 +10,9 @@ jnp path), and the oracles the kernels are held against on the card.
 the kernels, padding slots and sentinel included, so the CPU tests pin that
 logic.  ``spmm_dense_ref`` and ``bcsr_sddmm_dense_ref`` are the ``dense``
 backends.  ``bcsr_attn_fused_ref`` is the fused block-sparse attention
-kernel's twin: its three passes over the mask schedule.  Products
-accumulate in float32.
+kernel's twin: its two passes over the mask schedule (the row max, then
+the denominator and the context together, divided once at the end).
+Products accumulate in float32.
 """
 from __future__ import annotations
 
@@ -135,22 +136,33 @@ def spmm_dense_ref(a_dense: torch.Tensor, b: torch.Tensor,
     return out.to(out_dtype or b.dtype)
 
 
+def unpack_ebits(ebits: torch.Tensor, w: int) -> torch.Tensor:
+    """The bool element mask ``[..., h, w]`` of ``bcsr_attn.pack_emask``'s
+    words ``[..., h, ceil(w / 32)]`` int32 (bit ``c % 32`` of word
+    ``c // 32`` is element ``c``)."""
+    shift = torch.arange(32, dtype=torch.int32, device=ebits.device)
+    bits = (ebits.unsqueeze(-1) >> shift) & 1
+    return bits.reshape(*ebits.shape[:-1], -1)[..., :w] != 0
+
+
 def bcsr_attn_fused_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         emask: torch.Tensor, flat_idx: torch.Tensor,
                         flat_col: torch.Tensor, *, n_block_rows: int,
                         n_block_cols: int, block, scale: float,
-                        cap: Optional[float] = None,
-                        out_dtype=None) -> torch.Tensor:
+                        cap: Optional[float] = None, out_dtype=None,
+                        ebits: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused block-sparse attention (``bcsr_attn.bcsr_attn_fused``) in
     plain PyTorch, vectorised over (instance, block-row, slot): K, V and the
     element mask are gathered through ``flat_col`` and ``flat_idx`` (a
     padding slot's entry is the sentinel ``nnzb``, an all-zero mask block).
-    Pass 0 takes the row max over every slot (clamped >= -1e30), pass 1 the
-    denominator sum of exp(logit - max) (clamped >= 1e-30), pass 2 the
-    context (exp(logit - max) / denominator) @ V, as the kernel does.
+    The kernel's two passes: the row max over every slot (clamped >=
+    -1e30); then z = exp(logit - max) where the mask allows it, its row sum
+    (clamped >= 1e-30) and z @ V, and the context (z @ V) / sum.
 
     q [G, Lq, d], k [G, Lk, d], v [G, Lk, dv], emask [nnzb, h, w] 0/1,
-    flat_idx / flat_col [nbr * max_bpr]; returns [G, Lq, dv].
+    flat_idx / flat_col [nbr * max_bpr]; returns [G, Lq, dv].  ``ebits``,
+    when given, is the mask packed one bit per element with the sentinel
+    block (``bcsr_attn.pack_emask``), and is read in place of ``emask``.
     """
     G, Lq, d = q.shape
     Lk, dv = v.shape[1], v.shape[2]
@@ -161,8 +173,11 @@ def bcsr_attn_fused_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kb = F.pad(k.float(), (0, 0, 0, nbc * w - Lk)).reshape(G, nbc, w, d)
     vb = F.pad(v.float(), (0, 0, 0, nbc * w - Lk)).reshape(G, nbc, w, dv)
     col = flat_col.long().reshape(nbr, max_bpr)
-    em = F.pad(emask.float(), (0, 0, 0, 0, 0, 1))        # + the sentinel
-    em = (em[flat_idx.long()] != 0).reshape(nbr, max_bpr, h, w)
+    if ebits is not None:                                # + the sentinel
+        em = unpack_ebits(ebits[flat_idx.long()], w)
+    else:
+        em = F.pad(emask.float(), (0, 0, 0, 0, 0, 1))[flat_idx.long()] != 0
+    em = em.reshape(nbr, max_bpr, h, w)
     s = torch.einsum("gihd,gitwd->githw", qb, kb[:, col]) * scale
     if cap is not None:
         s = cap * torch.tanh(s / cap)
@@ -170,6 +185,5 @@ def bcsr_attn_fused_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = logits.amax(dim=(2, 4)).clamp_min(-1e30)         # [G, nbr, h]
     z = torch.where(em, torch.exp(logits - m[:, :, None, :, None]), 0.0)
     denom = z.sum(dim=4).sum(dim=2).clamp_min(1e-30)     # [G, nbr, h]
-    p = z / denom[:, :, None, :, None]
-    ctx = torch.einsum("githw,gitwe->gihe", p, vb[:, col])
+    ctx = torch.einsum("githw,gitwe->gihe", z, vb[:, col]) / denom[..., None]
     return ctx.reshape(G, nbr * h, dv)[:, :Lq].to(out_dtype or q.dtype)

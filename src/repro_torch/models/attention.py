@@ -9,9 +9,10 @@ static block mask.  This module builds the second one from the public ops:
     ctx    = ops.spmm(mask<-probs, V)     # probs @ V over the same structure
 
 or, with ``backend="fused"`` (or ``"auto"`` picking it), as ONE launch of
-kernel B5 (``kernels.bcsr_attn.bcsr_attn_fused``), which recomputes the
-score blocks in three passes and writes no score or probability block to
-device memory.  Its backward recomputes the composed path and
+kernel B5 (``kernels.bcsr_attn.bcsr_attn_fused``), which computes the
+score blocks in two passes (the row max, then the softmax sums and the
+context together) and writes no score or probability block to device
+memory.  Its backward recomputes the composed path and
 differentiates it, one head at a time: SpMM and SDDMM are mutual duals, so
 d(ctx)/d{Q,K,V} runs on their kernels.
 
@@ -163,11 +164,13 @@ class MaskTensors(NamedTuple):
     """A mask's tensors on one device.  ``arrays`` is ``ops.prepare``'s
     ``SparseArrays`` with ``vals`` holding ``emask`` (the composed path
     replaces them with probabilities); ``arrays.sddmm_flat_idx`` and
-    ``arrays.flat_col`` are the schedule kernel B5 reads."""
+    ``arrays.flat_col`` are the schedule kernel B5 reads, and ``ebits`` its
+    mask."""
     arrays: ops.SparseArrays
     meta: ops.SparseMeta
     emask: torch.Tensor        # [nnzb, h, w] f32 0/1
     elem_mask: torch.Tensor    # [nnzb, h, w] bool, emask != 0
+    ebits: torch.Tensor        # [nnzb + 1, h, ceil(w/32)] int32: packed emask
 
 
 def mask_tensors(spec: AttnMaskSpec, seq_len: int, block: Tuple[int, int],
@@ -175,8 +178,9 @@ def mask_tensors(spec: AttnMaskSpec, seq_len: int, block: Tuple[int, int],
     """The mask's tensors on ``device``, built once by ``ops.prepare`` and
     cached per ``(spec, seq_len, block, device)``: an eager call would
     otherwise upload the f32 element mask again every time (about 104 MB a
-    layer at 8,192 tokens in 128x128 blocks).  ``"cuda"`` names the current
-    card, so it shares the entry of ``"cuda:<index>"``."""
+    layer at 8,192 tokens in 128x128 blocks) and pack its bits for B5
+    (``bcsr_attn.pack_emask``, 3.2 MB).  ``"cuda"`` names the current card,
+    so it shares the entry of ``"cuda:<index>"``."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -191,7 +195,8 @@ def _mask_tensors(spec: AttnMaskSpec, seq_len: int, block: Tuple[int, int],
     # valid = stored-and-allowed AND not a padding entry, in place of vals
     emask = ((arrays.vals > 0.5) &
              arrays.real_mask[:, None, None]).to(torch.float32)
-    return MaskTensors(arrays._replace(vals=emask), meta, emask, emask != 0)
+    return MaskTensors(arrays._replace(vals=emask), meta, emask, emask != 0,
+                       bcsr_attn.pack_emask(emask))
 
 
 # ============================================================= sparse layer
@@ -290,7 +295,8 @@ def _fused_heads(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
     return bcsr_attn.bcsr_attn_fused(
         qf, kf, vf, mt.emask, mt.arrays.sddmm_flat_idx, mt.arrays.flat_col,
         n_block_rows=meta.n_block_rows, n_block_cols=meta.n_block_cols,
-        block=meta.block, scale=scale, cap=cap, out_dtype=torch.float32)
+        block=meta.block, scale=scale, cap=cap, out_dtype=torch.float32,
+        ebits=mt.ebits)
 
 
 class _AttnFused(torch.autograd.Function):

@@ -183,6 +183,86 @@ def test_b5_plain_equals_jax_interpret_kernel(mask, L, cap):
     assert bcsr_attn.LAUNCHES == before
 
 
+@pytest.mark.parametrize("mask", list(MASKS))
+@pytest.mark.parametrize("L", [64, 61])
+def test_pack_emask_round_trips_on_jax_masks(mask, L):
+    """B5's bitmask of the JAX package's element masks: one bit an element
+    (int32 words, [nnzb + 1, h, ceil(w / 32)]), unpacked exactly back to
+    the mask, the sentinel block all zeros, and the port's cached
+    ``mask_tensors(...).ebits`` the same words."""
+    jm, tm = MASKS[mask]
+    emask, *_ = JA._fused_inputs(jm, L, BLOCK)
+    bits = bcsr_attn.pack_emask(torch.from_numpy(emask))
+    nnzb, h, w = emask.shape
+    assert bits.dtype == torch.int32 and bits.shape == (nnzb + 1, h, 1)
+    back = ref.unpack_ebits(bits, w)
+    np.testing.assert_array_equal(back[:nnzb].numpy(), emask != 0)
+    assert not back[nnzb].any()
+    assert torch.equal(A.mask_tensors(tm, L, BLOCK, "cpu").ebits, bits)
+
+
+@pytest.mark.parametrize("w", [1, 31, 32, 33, 64, 100, 128])
+def test_pack_emask_round_trips_every_bit_position(w):
+    """Random masks across one to four words a row, bit 31 included (the
+    int32 sign bit): unpack(pack(emask)) == emask exactly."""
+    rng = np.random.default_rng(w)
+    em = torch.from_numpy((rng.random((3, 5, w)) < 0.5).astype(np.float32))
+    bits = bcsr_attn.pack_emask(em)
+    assert bits.shape == (4, 5, -(-w // 32))
+    assert torch.equal(ref.unpack_ebits(bits, w)[:3], em != 0)
+    assert not ref.unpack_ebits(bits, w)[3].any()
+
+
+@pytest.mark.parametrize("mask", ["banded", "local_global",
+                                  "blockwise_causal"])
+@pytest.mark.parametrize("L", [64, 61])
+@pytest.mark.parametrize("cap", [None, 30.0])
+def test_b5_plain_reading_ebits_equals_jax_interpret_kernel(mask, L, cap):
+    """B5's plain version fed the packed bits (as the kernel reads its
+    mask) and following the kernel's two passes equals the JAX
+    interpret-mode kernel within 1e-5, with and without ``cap``; the
+    wrapper passes the bits through on the CPU."""
+    jm, tm = MASKS[mask]
+    emask, flat_idx, flat_col, meta = JA._fused_inputs(jm, L, BLOCK)
+    rng = np.random.default_rng(L)
+    q, k, v = (rng.standard_normal((4, L, 8)).astype(np.float32)
+               for _ in range(3))
+    kw = dict(n_block_rows=meta.n_block_rows, n_block_cols=meta.n_block_cols,
+              block=BLOCK, scale=8 ** -0.5, cap=cap)
+    want = np.asarray(jbk.bcsr_attn_fused(
+        *map(jnp.asarray, (q, k, v)), emask, flat_idx, flat_col,
+        interpret=True, **kw))
+    mt = A.mask_tensors(tm, L, BLOCK, "cpu")
+    bits = bcsr_attn.pack_emask(torch.from_numpy(emask))
+    assert torch.equal(mt.ebits, bits)
+    args = (*_t(q, k, v), mt.emask, mt.arrays.sddmm_flat_idx,
+            mt.arrays.flat_col)
+    got = ref.bcsr_attn_fused_ref(*args, ebits=bits, **kw)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(bcsr_attn.bcsr_attn_fused(*args, ebits=bits, **kw),
+                       got)
+    # the bits stand in for the mask: a zeroed f32 mask changes nothing
+    assert torch.equal(ref.bcsr_attn_fused_ref(
+        *args[:3], torch.zeros_like(args[3]), *args[4:], ebits=bits, **kw),
+        got)
+
+
+def test_b5_kernel_path_checks_the_bitmask():
+    """The kernel path's argument checks (run before any launch) refuse a
+    bitmask without the sentinel block or of the wrong dtype."""
+    tm = MASKS["banded"][1]
+    mt = A.mask_tensors(tm, 64, BLOCK, "cpu")
+    q = torch.zeros(2, 64, 8)
+    args = (q, q, q, mt.emask)
+    sched = (mt.arrays.sddmm_flat_idx, mt.arrays.flat_col,
+             mt.meta.n_block_rows, mt.meta.n_block_cols, BLOCK)
+    assert bcsr_attn._check(*args, mt.ebits, *sched) == mt.meta.max_bpr
+    with pytest.raises(ValueError, match="sentinel"):
+        bcsr_attn._check(*args, mt.ebits[:-1], *sched)
+    with pytest.raises(ValueError, match="ebits"):
+        bcsr_attn._check(*args, mt.ebits.long(), *sched)
+
+
 def test_b5_empty_block_row_zero_context():
     """JAX's test_fused_empty_block_row_zero_context on the port's plain
     version, against JAX's interpret-mode kernel."""

@@ -7,6 +7,9 @@ is not installed:
 
 Tolerances: f32 rtol = atol = 1e-4 (the kernel's FMA order differs from the
 plain einsum); bf16 out 1e-2, about one bf16 ulp of the plain f32 result.
+B2 in f32 over long contractions (3xTF32, whose tensor-core sums truncate)
+and B5 against the composed path: carve-out 2, 1e-5 x the largest |value|
+(ROADMAP C); B5 against its plain version 1e-4 x max|plain|.
 The f32 training step: loss rtol 1e-5, every gradient max|diff| <= 1e-4 x
 its max|grad| (f32 sums of a few hundred products in another order)."""
 import dataclasses
@@ -221,6 +224,95 @@ def test_sddmm_kernel_on_card(card, dtype):
                                            rtol=tol, atol=tol)
 
 
+def _strided(rng, rows, n, dt, device, view, offset):
+    """A [rows, n] operand: row-major, or the transposed view training
+    passes (its row axis contiguous), ``offset`` elements into its storage
+    (a misaligned base: a narrower copy)."""
+    flat = torch.from_numpy(rng.standard_normal(rows * n + offset).astype(
+        np.float32)).to(device, dt)[offset:]
+    return flat.view(n, rows).T if view else flat.view(rows, n)
+
+
+def _held_sddmm(got, want, case=None):
+    """B2 against its plain version: bf16 rtol = atol = 1e-2 (about one
+    ulp); f32 carve-out 2, max|diff| <= 1e-5 x max|plain|."""
+    if got.dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                                   atol=1e-2, msg=str(case))
+    else:
+        err = (got - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item(), (case, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b_view", [False, True])
+@pytest.mark.parametrize("dc_view", [False, True])
+@pytest.mark.parametrize("block", [(16, 16), (24, 40), (128, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sddmm_tile_on_card(card, dtype, block, dc_view, b_view):
+    """B2 (the tile routine of ``csrc/sddmm_tile.cuh``) with each operand
+    row-major or as the transposed view (both majorities of each, in every
+    pairing), on blocks that fill or cut the 64 x 64 tile, ragged N (from
+    1 to 2048, with partial N chunks), at an aligned base and one element
+    off (the narrow copy widths): against its plain version, two calls
+    bit-equal, one launch counted each.  bf16: rtol = atol = 1e-2, about
+    one ulp.  f32 (3xTF32, whose tensor-core sums truncate): carve-out 2,
+    max|diff| <= 1e-5 x max|plain| (ROADMAP C): over N = 2048 terms an
+    element near zero is off by more than 1e-4 of itself."""
+    dt = getattr(torch, dtype)
+    h, w = block
+    ta = tb.random_bcsr(1, (4 * h, 5 * w), block, 0.4).ensure_nonempty_rows()
+    row_ids = torch.from_numpy(ta.row_ids).to(card)
+    col_ids = torch.from_numpy(ta.col_ids).to(card)
+    rng = np.random.default_rng(h + w)
+    for n in (1, 8, 33, 100, 2048):
+        for offset in (0, 1):
+            dc = _strided(rng, 4 * h, n, dt, card, dc_view, offset)
+            b = _strided(rng, 5 * w, n, dt, card, b_view, offset)
+            before = bcsr_spmm.LAUNCHES["sddmm"]
+            got, again = (bcsr_spmm.bcsr_sddmm(dc, b, row_ids, col_ids, h, w)
+                          for _ in range(2))
+            assert bcsr_spmm.LAUNCHES["sddmm"] == before + 2
+            want = ref.bcsr_sddmm_ref(dc, b, row_ids, col_ids, h, w,
+                                      out_dtype=torch.float32).to(dt)
+            case = (n, offset, bcsr_spmm.sddmm_launch_config(
+                n, h, w, dt, dc.data_ptr(), b.data_ptr(), *dc.stride(),
+                *b.stride()))
+            _held_sddmm(got, want, case)
+            assert torch.equal(got, again), case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sddmm_main_path_widths_on_card(card, dtype):
+    """B2 at the widths the main paths run it: the FFN backward's 112
+    blocks of 128x128 at N = 2048 with dC and B as the transposed views
+    (bf16), and the attention backward's banded(4096) mask at L = 8192, N
+    = 128, row-major Q and K (f32, where it also meets rtol = atol =
+    1e-4); against its plain version (``_held_sddmm``), bit-stable."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(5)
+    if dtype == "bfloat16":
+        ta = tb.random_bcsr_exact(3, (8192, 2048), (128, 128), 112)
+        row_ids = torch.from_numpy(ta.row_ids).to(card)
+        col_ids = torch.from_numpy(ta.col_ids).to(card)
+        dc = _strided(rng, 8192, 2048, dt, card, True, 0)
+        b = _strided(rng, 2048, 2048, dt, card, True, 0)
+    else:
+        mt = A.mask_tensors(A.banded(4096), 8192, (128, 128), card)
+        row_ids, col_ids = mt.arrays.row_ids, mt.arrays.col_ids
+        dc = _strided(rng, 8192, 128, dt, card, False, 0)
+        b = _strided(rng, 8192, 128, dt, card, False, 0)
+    got, again = (bcsr_spmm.bcsr_sddmm(dc, b, row_ids, col_ids, 128, 128)
+                  for _ in range(2))
+    want = ref.bcsr_sddmm_ref(dc, b, row_ids, col_ids, 128, 128,
+                              out_dtype=torch.float32).to(dt)
+    _held_sddmm(got, want)
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, again)
+
+
 def _train_grads(cfg, model, batch, backend):
     cfg_b = dataclasses.replace(cfg, ffn_sparsity=dataclasses.replace(
         cfg.ffn_sparsity, backend=backend))
@@ -381,3 +473,34 @@ def test_smoke_attention_train_step_kernels_match_plain(card):
     for name, g in grads_p.items():
         err = (grads_k[name] - g).abs().max().item()
         assert err <= 1e-4 * g.abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block,d", [((16, 16), 32), ((128, 128), 128)])
+def test_attn_fused_reads_the_bitmask_on_card(card, block, d):
+    """B5 fed the mask's cached bits (``mask_tensors(...).ebits``, as the
+    model calls it) equals B5 packing ``emask`` itself, bit for bit, and
+    its plain version reading the f32 mask within 1e-4 x max|plain|; and
+    it stays within carve-out 2 (1e-5 x max|composed|) of the composed path
+    on the card's kernels (B2 -> block_softmax -> B1), which divides by the
+    denominator before the product with V.  The 16x16 blocks of the
+    ``:smoke`` model and the 128x128 blocks of the full width; ragged L."""
+    L = 1000 if block[0] == 16 else 2000
+    mask = A.banded(200 if block[0] == 16 else 700)
+    mt = A.mask_tensors(mask, L, block, card)
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, L, d)).astype(
+        np.float32)).to(card) for _ in range(3))
+    args = (q, k, v, mt.emask, mt.arrays.sddmm_flat_idx, mt.arrays.flat_col)
+    kw = dict(n_block_rows=mt.meta.n_block_rows,
+              n_block_cols=mt.meta.n_block_cols, block=block,
+              scale=d ** -0.5)
+    got = bcsr_attn.bcsr_attn_fused(*args, ebits=mt.ebits, **kw)
+    assert torch.equal(got, bcsr_attn.bcsr_attn_fused(*args, **kw))
+    want = ref.bcsr_attn_fused_ref(*args, **kw)
+    assert (got - want).abs().max().item() <= \
+        1e-4 * want.abs().max().item()
+    comp = A._composed_heads(q, k, v, A.AttnSparsitySpec(
+        mask=mask, block=block, backend="nnz_stream"), d ** -0.5, None)
+    assert (got - comp).abs().max().item() <= \
+        1e-5 * comp.abs().max().item()

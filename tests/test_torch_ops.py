@@ -400,6 +400,215 @@ def test_3xtf32_split_meets_carve_out_2(rounding, L, block, window, d):
         assert (one - exact).abs().max().item() > 1e-5 * scale
 
 
+def _sddmm_vec_ok(vec, n, h, w, esize, dc_ptr, b_ptr, sdm, sdn, sbk, sbn,
+                  ak, bk):
+    """B2's own check of a copy width (``sddmm_tile::vec_ok``)."""
+    if vec == esize:
+        return True
+
+    def one(ptr, rows, sr, sk, kmaj):
+        if ptr % vec:
+            return False
+        if kmaj:
+            return sr == 1 and rows * esize % vec == 0 and \
+                (n == 1 or sk * esize % vec == 0)
+        return sk == 1 and n * esize % vec == 0 and sr * esize % vec == 0
+    return vec > esize and one(dc_ptr, h, sdm, sdn, ak) and \
+        one(b_ptr, w, sbk, sbn, bk)
+
+
+# (N, h, w, dtype, dc_ptr, b_ptr, sdm, sdn, sbk, sbn) -> (vec bytes, ak, bk)
+SDDMM_LAUNCH_CASES = [
+    ((2048, 128, 128, "bfloat16", 0, 0, 1, 2048, 1, 2048), (16, 1, 1)),  # FFN
+    ((128, 128, 128, "float32", 0, 0, 128, 1, 128, 1), (16, 0, 0)),  # attn
+    ((8192, 128, 128, "bfloat16", 0, 0, 1, 8192, 1, 8192), (16, 1, 1)),
+    ((2048, 128, 128, "bfloat16", 0, 0, 2048, 1, 1, 2048), (16, 0, 1)),
+    ((2048, 128, 128, "float32", 0, 0, 1, 2048, 2048, 1), (16, 1, 0)),
+    ((33, 16, 16, "bfloat16", 0, 0, 33, 1, 33, 1), (2, 0, 0)),    # ragged N
+    ((33, 16, 16, "float32", 0, 0, 33, 1, 33, 1), (4, 0, 0)),
+    ((33, 16, 16, "float32", 0, 0, 1, 160, 1, 96), (16, 1, 1)),   # views
+    ((100, 16, 32, "bfloat16", 0, 0, 100, 1, 100, 1), (8, 0, 0)),
+    ((100, 24, 40, "bfloat16", 0, 0, 1, 96, 1, 200), (16, 1, 1)),  # ragged h
+    ((64, 12, 16, "bfloat16", 0, 0, 1, 48, 1, 64), (8, 1, 1)),
+    ((64, 6, 16, "bfloat16", 0, 0, 1, 24, 1, 64), (4, 1, 1)),
+    ((64, 16, 20, "float32", 0, 0, 64, 1, 64, 1), (16, 0, 0)),    # ragged w
+    ((64, 16, 20, "float32", 0, 0, 1, 64, 1, 100), (16, 1, 1)),
+    ((64, 16, 10, "float32", 0, 0, 1, 64, 1, 50), (8, 1, 1)),
+    ((64, 128, 128, "bfloat16", 2, 0, 64, 1, 64, 1), (2, 0, 0)),  # dc + 1
+    ((64, 128, 128, "bfloat16", 0, 8, 64, 1, 64, 1), (8, 0, 0)),  # b + 8 B
+    ((64, 128, 128, "float32", 4, 0, 1, 128, 1, 128), (4, 1, 1)),
+    ((1, 128, 128, "bfloat16", 0, 0, 1, 1, 1, 1), (2, 0, 0)),     # N = 1
+    ((1, 128, 128, "bfloat16", 0, 0, 1, 7, 1, 5), (16, 1, 1)),
+    ((64, 16, 16, "bfloat16", 0, 0, 3, 7, 64, 1), (2, 1, 0)),     # strided
+    ((64, 16, 16, "float32", 0, 0, 2, 64, 64, 1), (4, 1, 0)),
+]
+
+
+@pytest.mark.parametrize("args,want", SDDMM_LAUNCH_CASES,
+                         ids=[str(i) for i in range(len(SDDMM_LAUNCH_CASES))])
+def test_sddmm_launch_config_is_a_pure_function_of_the_operands(args, want):
+    """B2's tile, copy width and operand staging from shape, strides and
+    addresses alone: each operand staged k-major (its row axis) unless its
+    N axis is contiguous, for both majorities of each; the widest copy that
+    B2's own check (``sddmm_tile::vec_ok``) accepts, over ragged h, w and
+    N and unaligned pointers; one 64 x 64 tile."""
+    n, h, w, dtype, dc_ptr, b_ptr, sdm, sdn, sbk, sbn = args
+    dt = getattr(torch, dtype)
+    tile, vec, ak, bk = bcsr_spmm.sddmm_launch_config(
+        n, h, w, dt, dc_ptr, b_ptr, sdm, sdn, sbk, sbn)
+    assert (vec, ak, bk) == want and tile == (64, 64)
+    esize = torch.finfo(dt).bits // 8
+    ok = [v for v in (16, 8, 4, esize) if _sddmm_vec_ok(
+        v, n, h, w, esize, dc_ptr, b_ptr, sdm, sdn, sbk, sbn, ak, bk)]
+    assert vec == max(ok)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sddmm_launch_config_of_tensors(dtype):
+    """On real tensors: the FFN backward's transposed views (both operands
+    k-major), the attention backward's row-major Q and K, the two mixed,
+    and operands one element into their storage (narrow copies; the
+    wrapper never copies an operand)."""
+    dt = getattr(torch, dtype)
+    esize = torch.finfo(dt).bits // 8
+    flat = torch.zeros(1 + 512 * 64, dtype=dt)
+    row_major, view = flat[:512 * 64].view(512, 64), \
+        flat[:512 * 64].view(64, 512).T
+
+    def cfg(dc, b, h=128, w=128):
+        return bcsr_spmm.sddmm_launch_config(
+            dc.shape[1], h, w, dt, dc.data_ptr(), b.data_ptr(), *dc.stride(),
+            *b.stride())[1:]
+    assert cfg(view, view) == (16, 1, 1)
+    assert cfg(row_major, row_major) == (16, 0, 0)
+    assert cfg(view, row_major) == (16, 1, 0)
+    assert cfg(row_major, view) == (16, 0, 1)
+    shifted = flat[1:].view(512, 64)
+    assert shifted.data_ptr() % 16 == esize
+    assert cfg(shifted, row_major) == (esize, 0, 0)
+    assert cfg(view, flat[1:].view(64, 512).T) == (esize, 1, 1)
+
+
+def _b2_3xtf32(dc, b, row_ids, col_ids, block, rounding):
+    """B2's f32 products emulated: dC and B split as B1 splits (hi =
+    tf32(x), lo = tf32(x - hi)), lo*hi + hi*lo + hi*hi in f64."""
+    def split(x):
+        hi = _tf32(x, rounding)
+        return hi.double(), _tf32(x - hi, rounding).double()
+    from repro_torch.kernels import ref
+    (dhi, dlo), (bhi, blo) = split(dc), split(b)
+
+    def sd(x, y):
+        return ref.bcsr_sddmm_ref(x, y, row_ids, col_ids, *block,
+                                  out_dtype=torch.float64)
+    return sd(dlo, bhi) + sd(dhi, blo) + sd(dhi, bhi)
+
+
+@pytest.mark.parametrize("rounding", ["rna", "truncate"])
+@pytest.mark.parametrize("L,block,window,d", [
+    (256, (16, 16), 64, 32), (500, (32, 32), 128, 64),
+    (512, (128, 128), 256, 128)])
+def test_3xtf32_sddmm_meets_carve_out_2(rounding, L, block, window, d):
+    """B2's 3xTF32 products at small attention-backward shapes (the
+    scores Q K^T over a banded mask) and at an FFN-backward shape (dvals,
+    N = 2048 tokens) stay within 1e-5 x max|dvals| of the exact product:
+    carve-out 2 (ROADMAP C).  One TF32 product alone does not meet it."""
+    from repro_torch.models import attention as A
+    mt = A.mask_tensors(A.banded(window), L, block, "cpu")
+    a, meta = mt.arrays, mt.meta
+    rng = np.random.default_rng(L)
+    q, k = (torch.from_numpy(rng.standard_normal(
+        (meta.n_block_rows * block[0], d)).astype(np.float32))
+        for _ in range(2))
+    ffn = tb.random_bcsr_exact(2, (512, 256), (128, 128), 4)
+    dc, x = (torch.from_numpy(rng.standard_normal((m, 2048)).astype(
+        np.float32)) for m in (512, 256))
+    for lhs, rhs, rows, cols, blk in (
+            (q, k, a.row_ids, a.col_ids, block),
+            (dc, x, torch.from_numpy(ffn.row_ids),
+             torch.from_numpy(ffn.col_ids), (128, 128))):
+        from repro_torch.kernels import ref
+        exact = ref.bcsr_sddmm_ref(lhs.double(), rhs.double(), rows, cols,
+                                   *blk, out_dtype=torch.float64)
+        emulated = _b2_3xtf32(lhs, rhs, rows, cols, blk,
+                              rounding).float().double()
+        scale = exact.abs().max().item()
+        assert (emulated - exact).abs().max().item() <= 1e-5 * scale
+        one = ref.bcsr_sddmm_ref(_tf32(lhs, rounding).double(),
+                                 _tf32(rhs, rounding).double(), rows, cols,
+                                 *blk, out_dtype=torch.float64)
+        assert (one - exact).abs().max().item() > 1e-5 * scale
+
+
+def _b5_split(x):
+    """B5's split: hi rounded to TF32 to nearest (an integer add and mask),
+    lo = x - hi, which the tensor cores read truncated to TF32."""
+    hi = _tf32(x, "rna")
+    return hi.double(), _tf32(x - hi, "truncate").double()
+
+
+@pytest.mark.parametrize("mask,L,block,d", [
+    ("banded", 256, (16, 16), 32), ("local_global", 500, (32, 32), 64),
+    ("banded", 512, (128, 128), 128)])
+def test_3xtf32_b5_meets_carve_out_2(mask, L, block, d):
+    """B5's two products in its order, emulated on the CPU: S = Q K^T and
+    z V as lo*hi + hi*lo + hi*hi of B5's split, z = exp(S - max) over the
+    row's slots, the context (z V) / sum(z); within 1e-5 x max|context| of
+    the exact (f64) two-pass attention -- carve-out 2 -- where one TF32
+    product alone is not."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention as A
+    spec = {"banded": A.banded(L // 4),
+            "local_global": A.local_global(64, 20)}[mask]
+    mt = A.mask_tensors(spec, L, block, "cpu")
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, L, d)).astype(
+        np.float32)) for _ in range(3))
+    kw = dict(n_block_rows=mt.meta.n_block_rows,
+              n_block_cols=mt.meta.n_block_cols, block=block,
+              scale=d ** -0.5)
+    args = (mt.emask, mt.arrays.sddmm_flat_idx, mt.arrays.flat_col)
+
+    def attention(product):
+        """ref.bcsr_attn_fused_ref's two passes with its einsums replaced
+        by ``product(x, y, spec)``, in f64."""
+        import torch.nn.functional as F
+        G, h, w = 1, *block
+        nbr, nbc = kw["n_block_rows"], kw["n_block_cols"]
+        max_bpr = args[1].shape[0] // nbr
+        qb = F.pad(q, (0, 0, 0, nbr * h - L)).reshape(G, nbr, h, d)
+        kb = F.pad(k, (0, 0, 0, nbc * w - L)).reshape(G, nbc, w, d)
+        vb = F.pad(v, (0, 0, 0, nbc * w - L)).reshape(G, nbc, w, d)
+        col = args[2].long().reshape(nbr, max_bpr)
+        em = (F.pad(args[0], (0, 0, 0, 0, 0, 1))[args[1].long()] != 0
+              ).reshape(nbr, max_bpr, h, w)
+        s = product(qb, kb[:, col], "gihd,gitwd->githw") * kw["scale"]
+        logits = torch.where(em, s, -2.0e38)
+        m = logits.amax(dim=(2, 4)).clamp_min(-1e30)
+        z = torch.where(em, torch.exp(logits - m[:, :, None, :, None]), 0.0)
+        den = z.sum(dim=4).sum(dim=2).clamp_min(1e-30)
+        ctx = product(z.float(), vb[:, col], "githw,gitwe->gihe")
+        return (ctx / den[..., None]).reshape(G, nbr * h, d)[:, :L]
+
+    def exact(x, y, eq):
+        return torch.einsum(eq, x.double(), y.double())
+
+    def three(x, y, eq):
+        (xh, xl), (yh, yl) = _b5_split(x), _b5_split(y)
+        return (torch.einsum(eq, xl, yh) + torch.einsum(eq, xh, yl) +
+                torch.einsum(eq, xh, yh))
+
+    def one(x, y, eq):
+        return torch.einsum(eq, _tf32(x, "rna").double(),
+                            _tf32(y, "rna").double())
+    want = attention(exact)
+    assert torch.allclose(want.float(), ref.bcsr_attn_fused_ref(
+        q, k, v, *args, **kw), rtol=1e-5, atol=1e-5)
+    scale = want.abs().max().item()
+    assert (attention(three) - want).abs().max().item() <= 1e-5 * scale
+    assert (attention(one) - want).abs().max().item() > 1e-5 * scale
+
+
 def test_device_rowptr_matches_host():
     ta = tb.random_bcsr(4, (160, 96), (16, 16), 0.08).ensure_nonempty_rows()
     got = bcsr_spmm.rowptr_from_rows(torch.from_numpy(ta.row_ids),
