@@ -4,8 +4,8 @@
 
 It builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
 (one ``nvcc`` per source, all at once), checks with ``cuobjdump -sass`` that
-B1, B2, B3 and B5 run on the tensor cores and with ``ptxas`` that they do
-not spill (bf16 instances; every instance of the f32 B5), holds each kernel
+all five run on the tensor cores and with ``ptxas`` that they do not spill
+(bf16 instances; every instance of the f32 B5), holds each kernel
 against its plain PyTorch
 version at small odd shapes and at the main paths' shapes, and times it
 (decode, training and prefill widths, and the attention backward's f32
@@ -94,7 +94,7 @@ KERNELS = [{
 B1, B2, B3, B4, B5 = (k["name"] for k in KERNELS)
 # kernels on the tensor cores: [build] requires HMMA/HGMMA in their SASS and
 # no register spills (bf16 instances; every instance of B5)
-TENSOR_CORE_KERNELS = (B1, B2, B3, B5)
+TENSOR_CORE_KERNELS = (B1, B2, B3, B4, B5)
 
 N_SLOTS, CACHE_LEN = 4, 256
 # training: the JAX package's train_4k cell (4096 x 256 over a pod) cut to
@@ -322,7 +322,8 @@ def _prepared(seed, shape, block, nnzb=None, density=None,
 
 
 def _sddmm_ok(got, want):
-    """(ok, max|err|, tolerance text) of B2 against its plain version: bf16
+    """(ok, max|err|, tolerance text) of B2 or B4 against its plain
+    version: bf16
     rtol = atol = 1e-2 (about one ulp); f32 (3xTF32, whose tensor-core sums
     truncate) carve-out 2, max|err| <= 1e-5 x max|plain| (ROADMAP C)."""
     err = (got.float() - want.float()).abs().max().item()
@@ -884,13 +885,20 @@ def _profile_summary(prof, wall_ms, units, unit):
            "device_idle_share": (1 - dev_ms * units / wall_ms)
            if dev_ms else None,
            # B1 and B3 are one tile routine told apart by their entry
-           # source (csrc/spmm_tile.cuh's spmm_kernel<Source, ...>)
-           f"nnz_stream_ms_per_{unit}": sum(ms for k, ms in device
-                                            if "RowptrSource" in k),
-           f"row_loop_ms_per_{unit}": sum(ms for k, ms in device
-                                          if "ScheduleSource" in k),
-           f"sddmm_ms_per_{unit}": sum(ms for k, ms in device
-                                       if "sddmm_kernel" in k),
+           # source (csrc/spmm_tile.cuh's spmm_kernel<Source, ...>), B2 and
+           # B4 another (csrc/sddmm_tile.cuh's sddmm_kernel<Source, ...>)
+           f"nnz_stream_ms_per_{unit}": sum(
+               ms for k, ms in device
+               if "spmm_kernel" in k and "RowptrSource" in k),
+           f"row_loop_ms_per_{unit}": sum(
+               ms for k, ms in device
+               if "spmm_kernel" in k and "ScheduleSource" in k),
+           f"sddmm_ms_per_{unit}": sum(
+               ms for k, ms in device
+               if "sddmm_kernel" in k and "EntrySource" in k),
+           f"sddmm_row_loop_ms_per_{unit}": sum(
+               ms for k, ms in device
+               if "sddmm_kernel" in k and "ScheduleSource" in k),
            f"attn_fused_ms_per_{unit}": sum(ms for k, ms in device
                                             if "attn_fused" in k),
            f"top_device_ms_per_{unit}": [[k[:80], ms]
@@ -1174,12 +1182,17 @@ def _b4_plain(arrays, meta, dc, x, out_dtype=None):
 
 def row_loop_parity_phase():
     """B3 and B4 against their plain versions (which read the same schedule
-    arrays): f32 rtol = atol = 1e-4, bf16 out 1e-2 (about one ulp); B3
-    bit-stable and bit-equal to B1 on the same entries.  Small
-    odd blocks with a ragged N, ``max_bpr`` of 1 (one block a row), of
-    many and of 300 (LONG_ROWS: the entry-id window refills); then both full-width FFN structures at N = 4 and N = TRAIN_N, with
-    the operands as the transposed views the model passes.  Returns the
-    largest full-width |err| of B3 and of B4."""
+    arrays) and against a second call, bit for bit: B3 f32 rtol = atol =
+    1e-4, bf16 out 1e-2 (about one ulp), and bit-equal to B1 on the same
+    entries; B4 as B2 (``_sddmm_ok``: bf16 1e-2, f32 carve-out 2) and
+    bit-equal to B2 on the same entries.  Small odd blocks with a ragged N,
+    ``max_bpr`` of 1 (one block a row), of many and of 300 (LONG_ROWS: the
+    entry-id window refills), operands row-major and as the transposed
+    views, at an aligned base and one element off (the narrow copies);
+    then both full-width FFN structures (384 and 144 slots for 112 blocks)
+    at N = 4 and N = TRAIN_N, with the operands as the transposed views the
+    model passes.  Returns the largest full-width |err| of B3 and of B4."""
+    from repro_torch.kernels import bcsr_spmm
     small = [((64, 64), (8, 8), dict(density=0.6)),
              ((64, 64), (8, 8), dict(nnzb=8)),            # max_bpr 1
              ((128, 256), (16, 32), dict(density=0.3)),
@@ -1192,39 +1205,63 @@ def row_loop_parity_phase():
               for name, (shape, nnzb) in FULL_WIDTH.items()
               for n in (N_SLOTS, TRAIN_N)]
     err_b3 = err_b4 = 0.0
+    n_cases, widths = 0, set()
     for i, (name, spec, n) in enumerate(cases):
         h, w = spec["block"]
+        full = name in FULL_WIDTH
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
             arrays, meta = _prepared(900 + i, dtype=dtype, **spec)
             for view in (False, True):
-                x = _b(1000 + i, meta.n_block_cols * w, n, dtype, view)
-                dc = _b(1100 + i, meta.n_block_rows * h, n, dtype, view)
-                got3 = _b3(arrays, meta, x)
-                same = (torch.equal(got3, _b3(arrays, meta, x))
-                        and torch.equal(got3, _b1(arrays, meta, x)))
-                check(same, f"{B3} is not bit-stable or not bit-equal to "
-                      f"{B1} on the same entries: {name} N={n}")
-                for kname, got, want in (
-                        (B3, got3,
-                         _b3_plain(arrays, meta, x, torch.float32)),
-                        (B4, _b4(arrays, meta, dc, x),
-                         _b4_plain(arrays, meta, dc, x, torch.float32))):
-                    want = want.to(dtype)
+                for offset in ((0,) if full else (0, 1)):
+                    x = _b(1000 + i, meta.n_block_cols * w, n, dtype, view,
+                           offset)
+                    dc = _b(1100 + i, meta.n_block_rows * h, n, dtype, view,
+                            offset)
+                    got3 = _b3(arrays, meta, x)
+                    same = (torch.equal(got3, _b3(arrays, meta, x))
+                            and torch.equal(got3, _b1(arrays, meta, x)))
+                    check(same, f"{B3} is not bit-stable or not bit-equal to "
+                          f"{B1} on the same entries: {name} N={n}")
+                    got4 = _b4(arrays, meta, dc, x)
+                    same4 = (torch.equal(got4, _b4(arrays, meta, dc, x))
+                             and torch.equal(got4, bcsr_spmm.bcsr_sddmm(
+                                 dc, x, arrays.row_ids, arrays.col_ids, h,
+                                 w)))
+                    check(same4, f"{B4} is not bit-stable or not bit-equal "
+                          f"to {B2} on the same entries: {name} N={n} "
+                          f"offset={offset}")
+                    _, vec, _, _ = bcsr_spmm.sddmm_launch_config(
+                        n, h, w, dtype, dc.data_ptr(), x.data_ptr(),
+                        *dc.stride(), *x.stride())
+                    widths.add(vec)
+                    want3 = _b3_plain(arrays, meta, x,
+                                      torch.float32).to(dtype)
+                    want4 = _b4_plain(arrays, meta, dc, x,
+                                      torch.float32).to(dtype)
                     torch.cuda.synchronize()
-                    err = (got.float() - want.float()).abs().max().item()
-                    ok = got.shape == want.shape and torch.allclose(
-                        got.float(), want.float(), rtol=tol, atol=tol)
-                    if name in FULL_WIDTH:
-                        if kname == B3:
-                            err_b3 = max(err_b3, err)
-                        else:
-                            err_b4 = max(err_b4, err)
-                    log(f"[row_loop-parity] {kname} {name} max_bpr="
-                        f"{meta.max_bpr} N={n} {str(dtype)[6:]} "
-                        f"{'views' if view else 'row-major'} max|err|="
-                        f"{err:.3g} tol={tol} {'ok' if ok else 'FAIL'}")
-                    check(ok, f"{kname} disagrees with its plain version: "
-                          f"{name} N={n}")
+                    err3 = (got3.float() - want3.float()).abs().max().item()
+                    ok3 = torch.allclose(got3.float(), want3.float(),
+                                         rtol=tol, atol=tol)
+                    ok4, err4, tol4 = _sddmm_ok(got4, want4)
+                    ok4 = ok4 and got4.shape == (meta.nnzb, h, w)
+                    n_cases += 1
+                    if full:
+                        err_b3, err_b4 = max(err_b3, err3), max(err_b4, err4)
+                    for kname, ok, err, t in ((B3, ok3, err3, tol),
+                                              (B4, ok4, err4, tol4)):
+                        if full or not ok:
+                            log(f"[row_loop-parity] {kname} {name} max_bpr="
+                                f"{meta.max_bpr} N={n} {str(dtype)[6:]} "
+                                f"{'views' if view else 'row-major'} offset="
+                                f"{offset} max|err|={err:.3g} tol={t} "
+                                f"bit-stable, == {B1 if kname == B3 else B2}"
+                                f" {'ok' if ok else 'FAIL'}")
+                        check(ok, f"{kname} disagrees with its plain version:"
+                              f" {name} N={n} offset={offset}")
+    log(f"[row_loop-parity] {n_cases} cases ok: {B3} == {B1} and {B4} == "
+        f"{B2} bitwise, both bit-stable (small odd blocks at N in 8, 33, "
+        f"100, B4 copy widths run: {sorted(widths)} bytes; full width at "
+        f"N = {N_SLOTS}, {TRAIN_N})")
     return err_b3, err_b4
 
 
@@ -1270,13 +1307,15 @@ def _sddmm_library(ops_, dcs, xs, meta, shape):
 
 def row_loop_timing_phase(smi):
     """bf16 times of B3 and B4 at both full-width FFN structures, at the
-    decode (N = N_SLOTS) and training (N = TRAIN_N) widths, and of B3 at the
-    prefill's (N = PREFILL_N, over ROTATE_LONG operands), rotating over
-    ROTATE layers' operands so that L2 is cold, operands as the transposed
-    views the model passes; each beside its plain version, its bound, the
-    dense product and the library call.  B3 is held bit-equal to B1 on the
-    timed operands at each width."""
-    from repro_torch.kernels import ops, ref
+    decode (N = N_SLOTS), training (N = TRAIN_N) and prefill widths (N =
+    PREFILL_N, over ROTATE_LONG operands: the attention training's FFN runs
+    its SDDMM there), rotating over ROTATE layers' operands so that L2 is
+    cold, operands as the transposed views the model passes; each beside
+    its plain version, its bound, the dense product and the library call,
+    B4 also beside B2 on the same operands.  On the timed operands at each
+    width B3 is held bit-equal to B1, and B4 bit-equal to B2 and to its
+    plain version and a second call (``_held``)."""
+    from repro_torch.kernels import bcsr_spmm, ops, ref
     dtype = torch.bfloat16
     results = {}
     for name, (shape, nnzb) in FULL_WIDTH.items():
@@ -1290,7 +1329,7 @@ def row_loop_timing_phase(smi):
             rotate = ROTATE if n < PREFILL_N else ROTATE_LONG
             xs = [_b(j, K, n, dtype, transposed=True) for j in range(rotate)]
             dcs = [_b(100 + j, M, n, dtype, transposed=True)
-                   for j in range(rotate if n < PREFILL_N else 0)]
+                   for j in range(rotate)]
 
             def row(case, **kw):
                 r = {"case": f"{case} {name} {M}x{K} N={n}",
@@ -1326,12 +1365,20 @@ def row_loop_timing_phase(smi):
                 **({"library_error": lib_err} if lib_err else {}))
             del xcs
 
-            # ---- B4: dvals = dC x^T at the stored blocks
-            if n == PREFILL_N:      # B3 only: the prefill runs no SDDMM
-                del xs
-                continue
+            # ---- B4: dvals = dC x^T at the stored blocks, beside B2
+            check(torch.equal(_b4(a0, m0, dcs[0], xs[0]),
+                              bcsr_spmm.bcsr_sddmm(dcs[0], xs[0], a0.row_ids,
+                                                   a0.col_ids, 128, 128)),
+                  f"{B4} is not bit-equal to {B2}: {name} N={n}")
+            err = _held(f"[row_loop-timing] dvals {name} N={n} dC^T, x^T "
+                        f"views", lambda: _b4(a0, m0, dcs[0], xs[0]),
+                        _b4_plain(a0, m0, dcs[0], xs[0], torch.float32),
+                        name=B4)
             ms = time_ms([lambda a=a, m=m, d=d, x=x: _b4(a, m, d, x)
                           for (a, m), d, x in zip(ops_, dcs, xs)], reps=reps)
+            b2_ms = time_ms([lambda a=a, d=d, x=x: bcsr_spmm.bcsr_sddmm(
+                d, x, a.row_ids, a.col_ids, 128, 128)
+                for (a, _), d, x in zip(ops_, dcs, xs)], reps=reps)
             plain = time_ms([lambda a=a, m=m, d=d, x=x: _b4_plain(a, m, d, x)
                              for (a, m), d, x in zip(ops_, dcs, xs)],
                             reps=reps)
@@ -1341,9 +1388,10 @@ def row_loop_timing_phase(smi):
             lib, lib_note = _sddmm_library(ops_, dcs, xs, meta, shape)
             bound_ms, bound_by = sddmm_bound(ops_[0][0], meta, n, dtype)
             results[(B4, name, n)] = row(
-                B4, ms=ms, plain_ms=plain, bound_ms=bound_ms,
-                bound_by=bound_by, dense_ms=dense_ms, library_ms=lib,
-                **lib_note)
+                B4, max_abs_err=err, ms=ms, b2_ms=b2_ms, plain_ms=plain,
+                bound_ms=bound_ms, bound_by=bound_by, dense_ms=dense_ms,
+                library_ms=lib, slots=m0.n_block_rows * m0.max_bpr,
+                live_slots=m0.nnzb, **lib_note)
             del xs, dcs
         del ops_, dense, bsr
         torch.cuda.empty_cache()
@@ -1422,8 +1470,14 @@ def train_row_loop_phase(cfg, smi, losses_nnz):
     """TRAIN_STEPS full-width AdamW steps with ``backend="row_loop"`` (2 x
     1024 tokens, bf16, no remat): per step exactly 72 B3 (forward), 72 B1
     (dB over the transpose structure) and 72 B4 (dvals), no B2; each loss
-    within 1e-2 of the ``nnz_stream`` run's."""
+    within 1e-2 of the ``nnz_stream`` run's.  Then a ``torch.profiler``
+    window of one step after a warm-up step, as ``[train-profile]``."""
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch import steps as st
+    from repro_torch.models import transformer as T
     from repro_torch.optim import adamw
     from repro_torch.train import loop
     cfg_rl = _with_backend(cfg, "row_loop")
@@ -1451,6 +1505,25 @@ def train_row_loop_phase(cfg, smi, losses_nnz):
     check(all(np.isfinite(res.losses)) and max(diffs) <= 1e-2,
           "row_loop training losses differ from nnz_stream's")
     check(launches == want, f"row_loop training launch counts {launches}")
+
+    opt_cfg = adamw.AdamWConfig(total_steps=TRAIN_STEPS)
+    model = T.init_params(cfg_rl, seed=0, device=DEVICE)
+    opt_state = adamw.init(dict(model.named_parameters()))
+    batch = loop.batch_to_device(make_batch(cfg_rl, shape, 0), DEVICE)
+    step = st.make_train_step(cfg_rl, opt_cfg, remat="none")
+    model, opt_state, _ = step(model, opt_state, batch)      # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model, opt_state, metrics = step(model, opt_state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    log("[train-row_loop-profile] " + json.dumps(
+        {"train_steps": 1, "card": smi,
+         **_profile_summary(prof, wall_ms, 1, "step")}))
+    del model, opt_state, batch, prof
     torch.cuda.empty_cache()
     return launches, {"step_ms": step_ms,
                       "tokens_per_s": TRAIN_N / step_ms * 1e3}
@@ -1962,18 +2035,21 @@ def attn_timing_phase(smi, mask_s):
 
 
 def attn_bwd_timing_phase(smi):
-    """f32 times of B1 and B2 at the attention backward's shapes: one head
-    of ``smat-attn-1.3b`` at L = ATTN_SEQ, ``banded(4096)`` in 128x128
+    """f32 times of B1, B2 and B4 at the attention backward's shapes: one
+    head of ``smat-attn-1.3b`` at L = ATTN_SEQ, ``banded(4096)`` in 128x128
     blocks (1,584 stored), N = d = 128.  B1's context product probs @ V over
     the mask structure (dQ = dS @ K has its shape) and its dK/dV product
     P^T @ g over the transpose structure (the blocks of
     ``ops.transposed_vals``); B2's scores Q K^T (d(probs) = g V^T has its
-    shape).  The probabilities are the composed path's own (B2, then
+    shape), and B4's over the mask's static schedule (2,112 slots, 528 of
+    them padding: the ``row_loop`` backend's), held bit-equal to B2's.  The
+    probabilities are the composed path's own (B2, then
     ``block_softmax``).  Each beside its bound (f32 at the 3xTF32 rate),
     its plain version and the library: ``torch.sparse_bsr_tensor @`` in
     f32 for B1, ``torch.sparse.sampled_addmm`` over the element CSR of the
-    stored blocks for B2 (``_sddmm_library``); each held against its plain
-    version (rtol = atol = 1e-4) and a second call, bit for bit."""
+    stored blocks for B2 and B4 (``_sddmm_library``); each held against
+    its plain version (rtol = atol = 1e-4) and a second call, bit for
+    bit."""
     from repro_torch.kernels import bcsr_spmm, ops, ref
     from repro_torch.models import attention as A
     L, d = ATTN_SEQ, 128
@@ -1989,7 +2065,7 @@ def attn_bwd_timing_phase(smi):
     f32 = torch.float32
     cases = {
         "context": (
-            lambda: bcsr_spmm.bcsr_spmm_nnz_stream(
+            B1, lambda: bcsr_spmm.bcsr_spmm_nnz_stream(
                 probs, a.row_ids, a.col_ids, v, meta.n_block_rows,
                 rowptr=a.rowptr),
             lambda: ref.bcsr_spmm_ref(probs, a.row_ids, a.col_ids, v,
@@ -1998,7 +2074,7 @@ def attn_bwd_timing_phase(smi):
                                      size=(L, L)), v),
             bound(meta.nnzb, 128, 128, L, d, meta.n_block_rows, f32)),
         "dK/dV": (
-            lambda: bcsr_spmm.bcsr_spmm_nnz_stream(
+            B1, lambda: bcsr_spmm.bcsr_spmm_nnz_stream(
                 t_vals, a.t_row_ids, a.t_col_ids, g, meta.n_block_cols,
                 rowptr=a.t_rowptr),
             lambda: ref.bcsr_spmm_ref(t_vals, a.t_row_ids, a.t_col_ids, g,
@@ -2007,22 +2083,36 @@ def attn_bwd_timing_phase(smi):
                                      size=(L, L)), g),
             bound(meta.nnzb_t, 128, 128, L, d, meta.n_block_cols, f32)),
         "scores": (
-            lambda: bcsr_spmm.bcsr_sddmm(q, k, a.row_ids, a.col_ids, 128,
-                                         128),
+            B2, lambda: bcsr_spmm.bcsr_sddmm(q, k, a.row_ids, a.col_ids, 128,
+                                             128),
             lambda: ref.bcsr_sddmm_ref(q, k, a.row_ids, a.col_ids, 128, 128),
+            None, sddmm_bound(a, meta, d, f32)),
+        "scores row_loop": (
+            B4, lambda: bcsr_spmm.bcsr_sddmm_row_loop(
+                q, k, a.sddmm_flat_idx, a.flat_col, meta.n_block_rows,
+                meta.nnzb, 128, 128),
+            lambda: ref.bcsr_sddmm_row_loop_ref(
+                q, k, a.sddmm_flat_idx, a.flat_col, meta.n_block_rows,
+                meta.nnzb, 128, 128),
             None, sddmm_bound(a, meta, d, f32)),
     }
     rows = {}
-    for case, (kernel, plain, lib, (bound_ms, bound_by)) in cases.items():
+    for case, (kname, kernel, plain, lib, (bound_ms, bound_by)) in \
+            cases.items():
         got, again, want = kernel(), kernel(), plain()
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         stable = torch.equal(got, again)
         ok = torch.allclose(got, want, rtol=1e-4, atol=1e-4) and stable
-        row = {"case": f"{B2 if case == 'scores' else B1} f32 {case} "
+        extra = {}
+        if kname == B4:
+            extra = {"equal_to_b2": torch.equal(got, scores),
+                     "slots": meta.n_block_rows * meta.max_bpr}
+            ok = ok and extra["equal_to_b2"]
+        row = {"case": f"{kname} f32 {case} "
                        f"banded(4096) L={L} nnzb={meta.nnzb} N={d}",
                "max_abs_err": err, "rel_err": _rel(got, want),
-               "bit_stable": stable,
+               "bit_stable": stable, **extra,
                "ms": time_ms([kernel], reps=20),
                "plain_ms": time_ms([plain], reps=5),
                "bound_ms": bound_ms, "bound_by": bound_by, "card": smi}
@@ -2045,7 +2135,8 @@ def attn_bwd_timing_phase(smi):
                 row["library_error"] = lib_err
         log("[attn-bwd-timing] " + json.dumps(row))
         check(ok, f"{case} at the attention backward's shape disagrees "
-              f"with its plain version: max|err| {err:.3g}")
+              f"with its plain version (or {B4} with {B2}): max|err| "
+              f"{err:.3g}")
         rows[case] = row
     del cases, probs, t_vals, scores
     torch.cuda.empty_cache()
@@ -2478,9 +2569,7 @@ def main():
     pre_dx = {s: timed_prefill[("dx", s)] for s in FULL_WIDTH}
     sd = {s: timed_train[("sddmm", s)] for s in FULL_WIDTH}
     rl = {(k, n): {s: timed_rl[(k, s, n)] for s in FULL_WIDTH}
-          for k in (B3, B4) for n in (N_SLOTS, TRAIN_N)}
-    rl[(B3, PREFILL_N)] = {s: timed_rl[(B3, s, PREFILL_N)]
-                           for s in FULL_WIDTH}
+          for k in (B3, B4) for n in (N_SLOTS, TRAIN_N, PREFILL_N)}
     bwd_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     paths = {"serve": launches, "train": train_launches,
@@ -2529,9 +2618,17 @@ def main():
                              for key in keys},
               prefill_forward={key: mix(rl[(B3, PREFILL_N)], key)
                                for key in keys}),
-        entry(b4, err_b4, rl[(B4, TRAIN_N)],
+        entry(b4, max(err_b4, *(rl[(B4, n)][s]["max_abs_err"]
+                                for n in (N_SLOTS, TRAIN_N, PREFILL_N)
+                                for s in FULL_WIDTH)),
+              rl[(B4, TRAIN_N)],
               dense_ms=mix(rl[(B4, TRAIN_N)], "dense_ms"),
-              decode={key: mix(rl[(B4, N_SLOTS)], key) for key in keys}),
+              b2_ms=mix(rl[(B4, TRAIN_N)], "b2_ms"),
+              decode={key: mix(rl[(B4, N_SLOTS)], key) for key in keys},
+              prefill_width={key: mix(rl[(B4, PREFILL_N)], key)
+                             for key in (*keys, "b2_ms")},
+              attn_bwd_f32_scores={key: timed_bwd["scores row_loop"][key]
+                                   for key in bwd_keys}),
         {"name": b5["name"], "route": b5["route"], "source": b5["source"],
          "replaces": b5["replaces"],
          "launches": sum(c[B5] for c in paths.values()),
@@ -2553,7 +2650,7 @@ def main():
         f"(N={N_SLOTS}; train_forward and train_dB at N={TRAIN_N}, "
         f"prefill_* at N={PREFILL_N}, attn_bwd_f32_* one head at "
         f"L={ATTN_SEQ}, N=128), {B2} and "
-        f"{B4} at N={TRAIN_N} ({B2}'s prefill_width at N={PREFILL_N}, "
+        f"{B4} at N={TRAIN_N} (their prefill_width at N={PREFILL_N}, "
         f"the attention training's FFN); each averaged 2:1 over the gate/up "
         f"and down shapes.  {ATTN_ARCH}: prefill {prefilled['prefill_ms']:.3f} ms "
         f"(1 x {ATTN_SEQ}), {prefilled['prefill_32k_ms']:.3f} ms (1 x "

@@ -169,7 +169,10 @@ def _t_sddmm_stream(meta: ops.SparseMeta, n: int, bn: int) -> float:
 
 def _t_sddmm_row_loop(meta: ops.SparseMeta, n: int, bn: int) -> float:
     # static schedule: every (block-row, slot) pair pays its product, even
-    # the padding slots that land in the sentinel output block
+    # the padding slots that land in the sentinel output block.  That is
+    # the JAX package's cost, kept so that the analytic picks follow its
+    # model; on the card B4's padding slots only read their entry and exit,
+    # and tune()'s measured sweep sees that
     h, w = meta.block
     n_e = meta.n_block_rows * max(meta.max_bpr, 1) * _n_tiles(n, bn)
     return pm.spmm_model_time(n_e, h, w, bn)

@@ -23,7 +23,7 @@ LAUNCHES = {"nnz_stream": 0, "row_loop": 0, "sddmm": 0, "sddmm_row_loop": 0}
 
 SPMM_TILES = (8, 16, 32, 64)     # the N tiles the SpMM kernels compile
 SDDMM_TILES = (32,)              # the N chunk of the SDDMM kernels
-SDDMM_TILE = (64, 64)            # the output tile one B2 CTA owns
+SDDMM_TILE = (64, 64)            # the output tile one B2 or B4 CTA owns
 
 _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _C, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -47,8 +47,9 @@ _ARGTYPES = {
         _I, _I, _C],                     # in_type out_type stream
     ("bcsr_sddmm_row_loop", "bcsr_sddmm_row_loop"): [
         _C, _C, _C, _C, _C,              # dc b flat_idx flat_col out
-        _I, _I, _I, _I, _I,              # nbr max_bpr h w N
+        _I, _I, _I, _I, _I, _I,          # nbr max_bpr nnzb h w N
         _LL, _LL, _LL, _LL,              # dc's strides, b's strides
+        _I, _I, _I,                      # vec ak bk
         _I, _I, _C],                     # in_type out_type stream
 }
 
@@ -121,8 +122,9 @@ def _launch_config(vals: torch.Tensor, b: torch.Tensor):
 
 def sddmm_launch_config(n: int, h: int, w: int, dtype, dc_ptr: int,
                         b_ptr: int, sdm: int, sdn: int, sbk: int, sbn: int):
-    """``(tile, vec, ak, bk)`` of one B2 launch (``csrc/sddmm_tile.cuh``),
-    a pure function of the shapes, the strides and the operands' addresses.
+    """``(tile, vec, ak, bk)`` of one B2 or B4 launch
+    (``csrc/sddmm_tile.cuh``), a pure function of the shapes, the strides
+    and the operands' addresses.
 
     ``tile``: the ``(rows, cols)`` of a stored block one CTA owns,
     ``SDDMM_TILE`` (a 128 x 128 block takes four CTAs).  ``ak`` / ``bk``:
@@ -152,6 +154,21 @@ def sddmm_launch_config(n: int, h: int, w: int, dtype, dc_ptr: int,
                 fits(vec, b_ptr, w, sbk, sbn, bk):
             return SDDMM_TILE, vec, ak, bk
     return SDDMM_TILE, esize, ak, bk
+
+
+def sddmm_launch_args(dc: torch.Tensor, b: torch.Tensor, h: int, w: int,
+                      out_dtype) -> tuple:
+    """The launch arguments B2 and B4 share, in the order of their C
+    interfaces after the entry list or schedule: ``(h, w, N, sdm, sdn, sbk,
+    sbn, vec, ak, bk, in_type, out_type)``, with ``vec, ak, bk`` from
+    ``sddmm_launch_config``.  A pure function of the operands' shapes,
+    strides, types and addresses; it reads no element."""
+    n = dc.shape[1]
+    _, vec, ak, bk = sddmm_launch_config(
+        n, h, w, dc.dtype, dc.data_ptr(), b.data_ptr(), *dc.stride(),
+        *b.stride())
+    return (h, w, n, *dc.stride(), *b.stride(), vec, ak, bk,
+            _TYPE_CODES[dc.dtype], _TYPE_CODES[out_dtype])
 
 
 def _check_int32(device, **tensors) -> None:
@@ -267,16 +284,11 @@ def bcsr_sddmm(dc: torch.Tensor, b: torch.Tensor, row_ids: torch.Tensor,
     out = torch.empty((nnzb, h, w), dtype=out_dtype, device=dc.device)
     if nnzb == 0:
         return out
-    _, vec, ak, bk = sddmm_launch_config(
-        N, h, w, dc.dtype, dc.data_ptr(), b.data_ptr(), *dc.stride(),
-        *b.stride())
     fn = _lib("bcsr_sddmm", "bcsr_sddmm")
     with torch.cuda.device(dc.device):
         err = fn(dc.data_ptr(), b.data_ptr(), row_ids.data_ptr(),
-                 col_ids.data_ptr(), out.data_ptr(), nnzb, h, w, N,
-                 dc.stride(0), dc.stride(1), b.stride(0), b.stride(1),
-                 vec, ak, bk, _TYPE_CODES[dc.dtype], _TYPE_CODES[out_dtype],
-                 _stream(dc))
+                 col_ids.data_ptr(), out.data_ptr(), nnzb,
+                 *sddmm_launch_args(dc, b, h, w, out_dtype), _stream(dc))
     if err:
         raise RuntimeError(f"bcsr_sddmm: kernel launch failed with CUDA "
                            f"error {err}")
@@ -341,10 +353,13 @@ def bcsr_sddmm_row_loop(dc: torch.Tensor, b: torch.Tensor,
     """dvals [nnzb, h, w] through the static schedule: slot t of block-row
     i computes dC[block i] @ B[block flat_col[i * max_bpr + t]]^T into
     entry ``flat_idx[i * max_bpr + t]``, where a padding slot's entry is the
-    sentinel ``nnzb`` (``ops._sddmm_row_loop_schedule``).  The kernel writes
-    an ``[nnzb + 1, h, w]`` buffer; the sentinel entry is sliced off.
-    ``dc`` [M, N] and ``b`` [K, N] may be strided views; accumulated in
-    float32 over N."""
+    sentinel ``nnzb`` (``ops._sddmm_row_loop_schedule``).  On the card a
+    padding slot computes and writes nothing, so the result is allocated
+    as ``[nnzb, h, w]`` (the TPU kernel writes the sentinel and slices it
+    off: the same values).  ``dc`` [M, N] and ``b`` [K, N] may be strided
+    views, staged as B2 stages them (``sddmm_launch_args``); accumulated
+    in float32 over N (f32 operands as 3xTF32), bit-equal to
+    ``bcsr_sddmm`` on every stored entry."""
     out_dtype = out_dtype or dc.dtype
     if dc.device.type == "cpu":
         return ref.bcsr_sddmm_row_loop_ref(dc, b, flat_idx, flat_col,
@@ -368,17 +383,17 @@ def bcsr_sddmm_row_loop(dc: torch.Tensor, b: torch.Tensor,
                          f"{tuple(flat_idx.shape)}, flat_col "
                          f"{tuple(flat_col.shape)}, n_block_rows "
                          f"{n_block_rows}")
-    out = torch.empty((nnzb + 1, h, w), dtype=out_dtype, device=dc.device)
+    out = torch.empty((nnzb, h, w), dtype=out_dtype, device=dc.device)
     if flat_idx.numel():
         fn = _lib("bcsr_sddmm_row_loop", "bcsr_sddmm_row_loop")
         with torch.cuda.device(dc.device):
             err = fn(dc.data_ptr(), b.data_ptr(), flat_idx.data_ptr(),
                      flat_col.data_ptr(), out.data_ptr(), n_block_rows,
-                     max_bpr, h, w, N, dc.stride(0), dc.stride(1),
-                     b.stride(0), b.stride(1), _TYPE_CODES[dc.dtype],
-                     _TYPE_CODES[out_dtype], _stream(dc))
+                     max_bpr, nnzb, *sddmm_launch_args(dc, b, h, w,
+                                                       out_dtype),
+                     _stream(dc))
         if err:
             raise RuntimeError(f"bcsr_sddmm_row_loop: kernel launch failed "
                                f"with CUDA error {err}")
         LAUNCHES["sddmm_row_loop"] += 1
-    return out[:nnzb]
+    return out

@@ -40,11 +40,12 @@ struct EntrySource {
   const int* row_ids;
   const int* col_ids;
 
-  __device__ void get(int b, long long& e, long long& row,
+  __device__ bool get(int b, long long& e, long long& row,
                       long long& col) const {
     e = b;
     row = row_ids[b];
     col = col_ids[b];
+    return true;
   }
 };
 

@@ -1,8 +1,11 @@
-// The block-sparse SDDMM tile of kernel B2 (bcsr_sddmm.cu, `bcsr_sddmm`),
-// for NVIDIA Hopper (sm_90a): out[e] = dC[block row] @ B[block col]^T for
-// one stored block, contracted over the token axis N.  The kernel differs
-// from a later user of this routine only in where a CTA's (output entry,
-// dC block-row, B block-col) come from: a `Source`, as spmm_tile.cuh's.
+// The block-sparse SDDMM tile of kernels B2 (bcsr_sddmm.cu, `bcsr_sddmm`)
+// and B4 (bcsr_sddmm_row_loop.cu, `bcsr_sddmm_row_loop`), for NVIDIA Hopper
+// (sm_90a): out[e] = dC[block row] @ B[block col]^T for one stored block,
+// contracted over the token axis N.  The two kernels differ only in where
+// a CTA's (output entry, dC block-row, B block-col) come from: a `Source`,
+// as spmm_tile.cuh's -- B2's names stored entry blockIdx.x, B4's reads slot
+// blockIdx.x of the static schedule and has no work on a padding slot.  So
+// B4 gives B2's bits on every stored entry.
 //
 // CTA layout.  One CTA owns one [BM = 64, BW = 64] tile of one stored block
 // (rows r0 .. r0 + 63 from blockIdx.y, columns c0 .. c0 + 63 from
@@ -60,7 +63,7 @@ constexpr int kCStride = kBW + 8;  // f32 epilogue rows
 struct Args {
   const void* dc;     // [M, N], strides (sdm, sdn) in elements
   const void* b;      // [K, N], strides (sbk, sbn) in elements
-  void* out;          // [entries, h, w], contiguous
+  void* out;          // [stored entries, h, w], contiguous
   int h, w, n;
   long long sdm, sdn, sbk, sbn;
   int vec;            // copy width in bytes: 16, 8, 4 (or 2 for bf16)
@@ -317,7 +320,9 @@ __device__ __forceinline__ void store_tile(const float* c_s, const Args& g,
 // ------------------------------------------------------------------ the CTA
 // Grid (entries, ceil(h / 64), ceil(w / 64)), kThreads threads, Layout::
 // kSmemBytes of dynamic shared memory.  src.get(blockIdx.x, e, row, col)
-// names the output entry, the dC block-row and the B block-col.
+// names the output entry, the dC block-row and the B block-col, and
+// returns false where the CTA has no work (the same for all its threads):
+// the CTA then returns before its first load and its first __syncthreads.
 template <class Source, typename T, bool AK, bool BK>
 __global__ void __launch_bounds__(kThreads, 4)
 sddmm_kernel(const Source src, const Args g) {
@@ -326,7 +331,7 @@ sddmm_kernel(const Source src, const Args g) {
   T* ring = reinterpret_cast<T*>(smem);
 
   long long e, row, col;
-  src.get(blockIdx.x, e, row, col);
+  if (!src.get(blockIdx.x, e, row, col)) return;
   const int r0 = blockIdx.y * kBM, c0 = blockIdx.z * kBW;
   const int rows = min(kBM, g.h - r0), cols = min(kBW, g.w - c0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -434,7 +439,8 @@ cudaError_t launch_major(const Source& src, const Args& g, int entries,
             : launch_one<Source, T, false, false>(src, g, entries, st);
 }
 
-// Launch one SDDMM over `entries` CTAs' worth of blocks.  Type codes: 0 =
+// Launch one SDDMM over `entries` sources (B2's stored entries, B4's
+// schedule slots), each a column of CTAs over the block.  Type codes: 0 =
 // float32, 1 = bfloat16 (`dc` and `b` share in_type).  `ak` / `bk`: dC /
 // B staged k-major (their row axis contiguous).  Returns the launch's
 // cudaError_t (0 = launched); cudaErrorInvalidValue for a copy width or

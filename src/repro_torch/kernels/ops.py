@@ -151,8 +151,10 @@ def _sddmm_row_loop_schedule(row_ids: np.ndarray, col_ids: np.ndarray,
                              n_block_rows: int, max_bpr: int):
     """``(flat_idx, flat_col)`` of the static SDDMM schedule: per (row,
     slot), the OUTPUT entry and its block-col.  Padding slots point at the
-    sentinel entry ``nnzb`` (the kernel computes and discards their
-    product -- the static waste of the ``row_loop`` family).  Equal to
+    sentinel entry ``nnzb``: the TPU kernel computes and discards their
+    product (the static waste of the ``row_loop`` family); on the card
+    kernel B4 exits on them before any load, and the plain version
+    computes them and drops the sentinel.  Equal to
     ``repro.kernels.ops._sddmm_row_loop_schedule``."""
     flat_idx, flat_col, row_len = _row_loop_schedule(
         row_ids, col_ids, n_block_rows, max_bpr)

@@ -8,7 +8,8 @@
   no device: they work on the tensors they are given, where those lie.)
 * The kernel wrappers take their plain versions for CPU tensors only, and
   the build helper says clearly when ``nvcc`` is missing and keys a build
-  by the shared headers too.
+  by the shared headers too; each wrapper's ctypes argument list matches
+  its kernel's C prototype.
 * The library path's entry points (``ops.prepare``, ``init_sparse_linear``,
   the ``Autotuner``'s ``pick`` and ``tune``) default to the card too, and
   the host Jaccard kernel builds beside the CUDA kernels.
@@ -16,8 +17,10 @@
   under ``backend="auto"``, the mask's device tensors), and kernel B5's
   wrapper takes its plain version for CPU tensors only."""
 import ast
+import ctypes
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -260,10 +263,41 @@ def test_library_path_covers_the_shared_headers(monkeypatch, tmp_path):
     assert second != first and second.name.startswith("libk-")
     (tmp_path / "k.cu").write_text('#include "tile.cuh"\nint g();\n')
     assert _build.library_path("k") not in (first, second)
-    # the real sources: both SpMM kernels include the shared tile header
-    for name in ("bcsr_spmm", "bcsr_spmm_row_loop"):
+    # the real sources: both SpMM kernels include the shared tile header,
+    # both SDDMM kernels theirs
+    for name, header in (("bcsr_spmm", "spmm_tile.cuh"),
+                         ("bcsr_spmm_row_loop", "spmm_tile.cuh"),
+                         ("bcsr_sddmm", "sddmm_tile.cuh"),
+                         ("bcsr_sddmm_row_loop", "sddmm_tile.cuh")):
         src = (PORT / "kernels" / "csrc" / f"{name}.cu").read_text()
-        assert '#include "spmm_tile.cuh"' in src
+        assert f'#include "{header}"' in src
+
+
+C_INTERFACES = [(source, symbol, types)
+                for (source, symbol), types in bcsr_spmm._ARGTYPES.items()]
+C_INTERFACES.append(("bcsr_attn", "bcsr_attn_fused", bcsr_attn._ARGTYPES))
+
+
+@pytest.mark.parametrize("source,symbol,types", C_INTERFACES,
+                         ids=[s for _, s, _ in C_INTERFACES])
+def test_c_interfaces_match_their_argtypes(source, symbol, types):
+    """Each wrapper's ctypes argument list matches the C prototype in its
+    source, parameter by parameter (a pointer is ``c_void_p``, ``int``
+    ``c_int``, ``long long`` ``c_longlong``, ``float`` ``c_float``): the
+    kernels build only on the card, so a mismatch would show there first,
+    as garbage arguments."""
+    src = (PORT / "kernels" / "csrc" / f"{source}.cu").read_text()
+    m = re.search(r'extern "C" int ' + symbol + r"\((.*?)\)\s*\{", src,
+                  re.S)
+    assert m, f"no C entry point {symbol} in {source}.cu"
+    params = [" ".join(p.split()) for p in m.group(1).split(",")]
+
+    def ctype(param):
+        if "*" in param:
+            return ctypes.c_void_p
+        return {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+                "float": ctypes.c_float}[param.rsplit(" ", 1)[0]]
+    assert [ctype(p) for p in params] == list(types), params
 
 
 def test_attention_entry_points_default_to_the_card(no_card):

@@ -7,8 +7,8 @@ is not installed:
 
 Tolerances: f32 rtol = atol = 1e-4 (the kernel's FMA order differs from the
 plain einsum); bf16 out 1e-2, about one bf16 ulp of the plain f32 result.
-B2 in f32 over long contractions (3xTF32, whose tensor-core sums truncate)
-and B5 against the composed path: carve-out 2, 1e-5 x the largest |value|
+B2 and B4 in f32 (3xTF32, whose tensor-core sums truncate over long
+contractions) and B5 against the composed path: carve-out 2, 1e-5 x the largest |value|
 (ROADMAP C); B5 against its plain version 1e-4 x max|plain|.
 The f32 training step: loss rtol 1e-5, every gradient max|diff| <= 1e-4 x
 its max|grad| (f32 sums of a few hundred products in another order)."""
@@ -352,7 +352,10 @@ def test_smoke_train_step_kernel_matches_plain(card):
 def test_row_loop_kernels_on_card(card, dtype):
     """B3 and B4 against their plain versions (which read the same schedule
     arrays): odd blocks, max_bpr of 1 and of many, ragged N, operands
-    row-major and as transposed views."""
+    row-major and as transposed views.  B3: f32 rtol = atol = 1e-4, bf16
+    1e-2.  B4 (B2's tile routine): bf16 1e-2, f32 carve-out 2 (B2's
+    3xTF32, ``_held_sddmm``); two calls bit-equal, and bit-equal to B2 on
+    the same entries."""
     dt, tol = getattr(torch, dtype), (1e-4 if dtype == "float32" else 1e-2)
     rng = np.random.default_rng(1)
     operands = [tb.random_bcsr(0, s, b, d) for s, b, d in SHAPES]
@@ -378,19 +381,71 @@ def test_row_loop_kernels_on_card(card, dtype):
                     out_dtype=torch.float32).to(dt)
                 torch.testing.assert_close(got.float(), want.float(),
                                            rtol=tol, atol=tol)
-                got = bcsr_spmm.bcsr_sddmm_row_loop(
+                got, again = (bcsr_spmm.bcsr_sddmm_row_loop(
                     dc, x, arrays.sddmm_flat_idx, arrays.flat_col,
-                    meta.n_block_rows, meta.nnzb, h, w)
+                    meta.n_block_rows, meta.nnzb, h, w) for _ in range(2))
                 want = ref.bcsr_sddmm_row_loop_ref(
                     dc, x, arrays.sddmm_flat_idx, arrays.flat_col,
                     meta.n_block_rows, meta.nnzb, h, w,
                     out_dtype=torch.float32).to(dt)
-                torch.testing.assert_close(got.float(), want.float(),
-                                           rtol=tol, atol=tol)
+                _held_sddmm(got, want, (n, view))
+                assert torch.equal(got, again)
+                assert torch.equal(got, bcsr_spmm.bcsr_sddmm(
+                    dc, x, arrays.row_ids, arrays.col_ids, h, w))
                 assert bcsr_spmm.LAUNCHES["row_loop"] == \
                     before["row_loop"] + 1
                 assert bcsr_spmm.LAUNCHES["sddmm_row_loop"] == \
-                    before["sddmm_row_loop"] + 1
+                    before["sddmm_row_loop"] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [(16, 16), (24, 40), (128, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sddmm_row_loop_padding_slots_on_card(card, dtype, block):
+    """B4 on a schedule that is mostly padding: 8 block-rows, row 0 with
+    300 entries (LONG_ROWS), row 1 empty, the others 1 or 2, so max_bpr is
+    300, about 8x the mean, and 2,091 of 2,400 slots hold the sentinel.
+    Padding slots write nothing, so the result is [nnzb, h, w] and equals
+    B2 on the same entries bit for bit; against its plain version (bf16
+    1e-2, f32 carve-out 2), two calls bit-equal, one launch counted each.
+    dC and B each row-major or as the transposed view (both majorities of
+    each), at an aligned base and one element off; N from 1 to 2048."""
+    dt = getattr(torch, dtype)
+    h, w = block
+    rng = np.random.default_rng(h + w)
+    cols = [list(range(300)), []] + [
+        sorted(rng.choice(300, 1 + i % 2, replace=False).tolist())
+        for i in range(6)]
+    row_ids = np.asarray([i for i, c in enumerate(cols) for _ in c],
+                         np.int32)
+    col_ids = np.asarray(sum(cols, []), np.int32)
+    nbr, nnzb = len(cols), len(row_ids)
+    flat_idx, flat_col = tops._sddmm_row_loop_schedule(row_ids, col_ids,
+                                                       nbr, 300)
+    assert (flat_idx == nnzb).sum() == nbr * 300 - nnzb == 2091
+    r, c, fi, fc = (torch.from_numpy(a).to(card)
+                    for a in (row_ids, col_ids, flat_idx, flat_col))
+    for n in (1, 33, 2048):
+        for dc_view in (False, True):
+            for b_view in (False, True):
+                for offset in (0, 1):
+                    dc = _strided(rng, nbr * h, n, dt, card, dc_view, offset)
+                    b = _strided(rng, 300 * w, n, dt, card, b_view, offset)
+                    before = bcsr_spmm.LAUNCHES["sddmm_row_loop"]
+                    got, again = (bcsr_spmm.bcsr_sddmm_row_loop(
+                        dc, b, fi, fc, nbr, nnzb, h, w) for _ in range(2))
+                    assert bcsr_spmm.LAUNCHES["sddmm_row_loop"] == \
+                        before + 2
+                    want = ref.bcsr_sddmm_row_loop_ref(
+                        dc, b, fi, fc, nbr, nnzb, h, w,
+                        out_dtype=torch.float32).to(dt)
+                    case = (n, dc_view, b_view, offset,
+                            bcsr_spmm.sddmm_launch_args(dc, b, h, w, dt))
+                    assert got.shape == (nnzb, h, w), case
+                    _held_sddmm(got, want, case)
+                    assert torch.equal(got, again), case
+                    assert torch.equal(got, bcsr_spmm.bcsr_sddmm(
+                        dc, b, r, c, h, w)), case
 
 
 @pytest.mark.cuda

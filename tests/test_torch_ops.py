@@ -489,30 +489,61 @@ def test_sddmm_launch_config_of_tensors(dtype):
     assert cfg(view, flat[1:].view(64, 512).T) == (esize, 1, 1)
 
 
-def _b2_3xtf32(dc, b, row_ids, col_ids, block, rounding):
-    """B2's f32 products emulated: dC and B split as B1 splits (hi =
-    tf32(x), lo = tf32(x - hi)), lo*hi + hi*lo + hi*hi in f64."""
-    def split(x):
-        hi = _tf32(x, rounding)
-        return hi.double(), _tf32(x - hi, rounding).double()
-    from repro_torch.kernels import ref
-    (dhi, dlo), (bhi, blo) = split(dc), split(b)
-
-    def sd(x, y):
-        return ref.bcsr_sddmm_ref(x, y, row_ids, col_ids, *block,
-                                  out_dtype=torch.float64)
-    return sd(dlo, bhi) + sd(dhi, blo) + sd(dhi, bhi)
+# (operands, offset in elements) -> each a dC / B pair of the main paths:
+# the FFN backward's transposed views of the cotangent and of x, and the
+# attention backward's row-major Q and K
+SDDMM_ARG_CASES = [(name, offset) for name in ("ffn_views", "attn_rows")
+                   for offset in (0, 1)]
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,offset", SDDMM_ARG_CASES,
+                         ids=[f"{n}+{o}" for n, o in SDDMM_ARG_CASES])
+def test_b2_and_b4_share_their_launch_arguments(name, offset, dtype):
+    """Both SDDMM wrappers pass ``bcsr_spmm.sddmm_launch_args`` to their
+    kernels: B4 stages its operands as B2 does, so it gets B2's ``(vec,
+    ak, bk)`` from ``sddmm_launch_config`` and, on the same entries, B2's
+    bits.  On CPU tensors: the shapes, the strides as given (no copy), the
+    type codes, and the copy width falling to the element size one element
+    off."""
+    dt = getattr(torch, dtype)
+    esize = torch.finfo(dt).bits // 8
+    h = w = 128
+    n = 2048 if name == "ffn_views" else 128
+    flat = torch.zeros(offset + 3 * h * n, dtype=dt)
+    if name == "ffn_views":         # dC^T [2h, n] and x^T [h, n] views
+        dc = flat[offset:offset + 2 * h * n].view(n, 2 * h).T
+        b = flat[offset + 2 * h * n:].view(n, h).T
+    else:                            # row-major Q [2h, d] and K [h, d]
+        dc = flat[offset:offset + 2 * h * n].view(2 * h, n)
+        b = flat[offset + 2 * h * n:].view(h, n)
+    args = bcsr_spmm.sddmm_launch_args(dc, b, h, w, torch.float32)
+    tile, vec, ak, bk = bcsr_spmm.sddmm_launch_config(
+        n, h, w, dt, dc.data_ptr(), b.data_ptr(), *dc.stride(), *b.stride())
+    assert args == (h, w, n, *dc.stride(), *b.stride(), vec, ak, bk,
+                    1 if dtype == "bfloat16" else 0, 0)
+    assert (ak, bk) == ((1, 1) if name == "ffn_views" else (0, 0))
+    assert vec == (esize if offset else 16)
+
+
+@pytest.mark.parametrize("schedule", ["entries", "row_loop"])
 @pytest.mark.parametrize("rounding", ["rna", "truncate"])
 @pytest.mark.parametrize("L,block,window,d", [
     (256, (16, 16), 64, 32), (500, (32, 32), 128, 64),
     (512, (128, 128), 256, 128)])
-def test_3xtf32_sddmm_meets_carve_out_2(rounding, L, block, window, d):
-    """B2's 3xTF32 products at small attention-backward shapes (the
-    scores Q K^T over a banded mask) and at an FFN-backward shape (dvals,
-    N = 2048 tokens) stay within 1e-5 x max|dvals| of the exact product:
-    carve-out 2 (ROADMAP C).  One TF32 product alone does not meet it."""
+def test_3xtf32_sddmm_meets_carve_out_2(schedule, rounding, L, block, window,
+                                        d):
+    """B2's 3xTF32 products (``schedule="entries"``) and B4's (the same
+    products over the live slots of a ``row_loop`` schedule whose
+    ``max_bpr`` is padded by 3, as a merged meta pads it: many padding
+    slots) at small attention-backward shapes (the scores Q K^T over a
+    banded mask) and at an FFN-backward shape (dvals, N = 2048 tokens)
+    stay within 1e-5 x max|dvals| of the exact product: carve-out 2
+    (ROADMAP C).  B4's also stay within it of the JAX package's
+    ``bcsr_sddmm_row_loop`` in Pallas interpret mode.  One TF32 product
+    alone does not meet it."""
+    from repro.kernels import bcsr_spmm as jpk
+    from repro_torch.kernels import ref
     from repro_torch.models import attention as A
     mt = A.mask_tensors(A.banded(window), L, block, "cpu")
     a, meta = mt.arrays, mt.meta
@@ -527,16 +558,35 @@ def test_3xtf32_sddmm_meets_carve_out_2(rounding, L, block, window, d):
             (q, k, a.row_ids, a.col_ids, block),
             (dc, x, torch.from_numpy(ffn.row_ids),
              torch.from_numpy(ffn.col_ids), (128, 128))):
-        from repro_torch.kernels import ref
-        exact = ref.bcsr_sddmm_ref(lhs.double(), rhs.double(), rows, cols,
-                                   *blk, out_dtype=torch.float64)
-        emulated = _b2_3xtf32(lhs, rhs, rows, cols, blk,
-                              rounding).float().double()
+        def entries(x, y, rows=rows, cols=cols, blk=blk):
+            return ref.bcsr_sddmm_ref(x, y, rows, cols, *blk,
+                                      out_dtype=torch.float64)
+        product = entries
+        if schedule == "row_loop":
+            nbr, nnzb = lhs.shape[0] // blk[0], rows.shape[0]
+            max_bpr = int(np.bincount(rows.numpy(), minlength=nbr).max()) + 3
+            flat_idx, flat_col = tops._sddmm_row_loop_schedule(
+                rows.numpy(), cols.numpy(), nbr, max_bpr)
+            assert (flat_idx == nnzb).sum() >= 3 * nbr
+
+            def product(x, y, fi=torch.from_numpy(flat_idx),
+                        fc=torch.from_numpy(flat_col), nbr=nbr, nnzb=nnzb,
+                        blk=blk):
+                return ref.bcsr_sddmm_row_loop_ref(
+                    x, y, fi, fc, nbr, nnzb, *blk, out_dtype=torch.float64)
+        exact = entries(lhs.double(), rhs.double())
+        emulated = _3xtf32(lhs, rhs, product, rounding).float().double()
         scale = exact.abs().max().item()
         assert (emulated - exact).abs().max().item() <= 1e-5 * scale
-        one = ref.bcsr_sddmm_ref(_tf32(lhs, rounding).double(),
-                                 _tf32(rhs, rounding).double(), rows, cols,
-                                 *blk, out_dtype=torch.float64)
+        if schedule == "row_loop":
+            tpu = torch.from_numpy(np.array(jpk.bcsr_sddmm_row_loop(
+                jnp.asarray(lhs.numpy()), jnp.asarray(rhs.numpy()),
+                jnp.asarray(flat_idx), jnp.asarray(flat_col), nbr, nnzb,
+                *blk, interpret=True))).double()
+            assert (emulated - tpu).abs().max().item() <= \
+                1e-5 * tpu.abs().max().item()
+        one = product(_tf32(lhs, rounding).double(),
+                      _tf32(rhs, rounding).double())
         assert (one - exact).abs().max().item() > 1e-5 * scale
 
 
