@@ -20,8 +20,10 @@ path.  Then it drives the SMaT library path (CSR -> BCSR -> Jaccard
 reorder -> spmm) on the paper's suite of matrices, ``mip1`` at its
 published size, and the autotuner's measured sweep; last block-sparse
 attention (``smat-attn-1.3b``: kernel B5 and the composed backward on
-B1/B2) through prefill, serving and training.  Every phase checks its
-results; any failure exits non-zero before the last line.
+B1/B2) through prefill, serving and training, and its decode through the
+paged block-sparse KV cache (``[prefill-attn]``, ``[serve-attn-paged]``,
+``[paged-vs-full]``) and the observability layer (``[obs]``).  Every phase
+checks its results; any failure exits non-zero before the last line.
 
 The line before the last lists every ported kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the rest
@@ -729,11 +731,11 @@ def _requests(cfg):
                     max_new_tokens=NEW_TOKENS) for r in range(N_REQUESTS)]
 
 
-def _greedy_oracle(cfg, model, prompt, n_new):
+def _greedy_oracle(cfg, model, prompt, n_new, cache_len=CACHE_LEN):
     """A direct decode_step loop: request 0 in row 0 of an N_SLOTS-row batch
     (pad elsewhere), as the engine runs it, so row 0 sees the same shapes."""
     from repro_torch.models import transformer as T
-    cache = T.init_cache(cfg, N_SLOTS, CACHE_LEN, device=DEVICE)
+    cache = T.init_cache(cfg, N_SLOTS, cache_len, device=DEVICE)
     toks = torch.zeros(N_SLOTS, dtype=torch.int64, device=DEVICE)
     out, pos = [], 0
     for t in prompt:
@@ -910,17 +912,14 @@ def _profile_summary(prof, wall_ms, units, unit):
     return row
 
 
-def profile_phase(cfg, model):
-    """Where a decode call's time goes: ``torch.profiler`` over
-    PROFILE_STEPS engine steps of the full-width engine (4 slots decoding
-    together, one decode call per step).  Prints device ms per call by
-    kernel, the host's busiest ops, and the device's idle share of the
-    window (1 - device time / wall time; the profiler's own host cost
-    inflates the wall time a little)."""
+def _serve_profile(cfg, model, cache_len):
+    """``torch.profiler`` over PROFILE_STEPS engine steps of 4 slots
+    decoding together (one decode call a step), after 2 steps of warm-up:
+    the ``[profile]`` row of one decode call."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.engine import ServeEngine
-    engine = ServeEngine(cfg, model, n_slots=N_SLOTS, cache_len=CACHE_LEN,
+    engine = ServeEngine(cfg, model, n_slots=N_SLOTS, cache_len=cache_len,
                          device=DEVICE)
     for r in _requests(cfg)[:N_SLOTS]:
         engine.enqueue(r)
@@ -936,9 +935,21 @@ def profile_phase(cfg, model):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     calls = engine.decode_calls - calls0
-    row = {"decode_calls": calls, **_profile_summary(prof, wall_ms, calls,
-                                                     "call")}
-    log("[profile] " + json.dumps(row))
+    row = {"decode_calls": calls,
+           **_profile_summary(prof, wall_ms, calls, "call")}
+    del engine, prof
+    torch.cuda.empty_cache()
+    return row
+
+
+def profile_phase(cfg, model):
+    """Where a decode call's time goes: ``torch.profiler`` over
+    PROFILE_STEPS engine steps of the full-width engine (4 slots decoding
+    together, one decode call per step; ``_serve_profile``).  Prints device
+    ms per call by kernel, the host's busiest ops, and the device's idle
+    share of the window (1 - device time / wall time; the profiler's own
+    host cost inflates the wall time a little)."""
+    log("[profile] " + json.dumps(_serve_profile(cfg, model, CACHE_LEN)))
 
 
 # ------------------------------------------------------------ training path
@@ -1797,6 +1808,10 @@ ATTN_ARCH = "smat-attn-1.3b"
 ATTN_G, ATTN_SEQ = 16, 8192
 ATTN_LONG = 32768     # configs.base.SHAPES["prefill_32k"].seq_len
 ATTN_DECODE = 16                       # decode steps after the prefill
+# the decode cache after an ATTN_SEQ-token prefill, and [serve-attn-paged]'s:
+# banded(4096) in 128-wide pages gives 65 pages, 33 read a step
+ATTN_CACHE = ATTN_SEQ + 128
+PAGED_POSITIONS = (0, 127, 4096, 8191)   # [paged-vs-full]'s decode positions
 ATTN_TRAIN_STEPS = 3
 ATTN_PLAIN_CHUNK = 4    # instances a plain B5 call holds at 32768 tokens
 
@@ -2144,13 +2159,25 @@ def attn_bwd_timing_phase(smi):
 
 
 def _attn_cfg(**attn_kw):
-    """smat-attn-1.3b with the attention spec's fields replaced; decode
-    takes the dense-bias path (``paged_decode="off"``: paged KV is ROADMAP
-    A6)."""
+    """smat-attn-1.3b with the attention spec's fields replaced.  Decode
+    keeps the registered ``paged_decode="auto"`` unless a phase passes
+    ``paged_decode="off"``: at ATTN_CACHE it reads KV through the mask's
+    page table (65 pages, 33 a step); at CACHE_LEN (2 pages, both touched)
+    "auto" keeps the dense bias."""
     from repro_torch.configs import get_config
     cfg = get_config(ATTN_ARCH)
     return dataclasses.replace(cfg, attn_sparsity=dataclasses.replace(
-        cfg.attn_sparsity, paged_decode="off", **attn_kw))
+        cfg.attn_sparsity, **attn_kw))
+
+
+def _page_grid(cfg, cache_len):
+    """(pages, pages read a step) of ``cfg``'s paged decode at
+    ``cache_len``, or None where it decodes through the dense bias."""
+    from repro_torch.models import layers as L
+    table = L._decode_pages(cfg, cfg.sliding_window, cache_len)
+    if table is None:
+        return None
+    return cache_len // cfg.attn_sparsity.block[1], table[0].shape[1]
 
 
 def prefill_attn_phase(smi):
@@ -2160,14 +2187,19 @@ def prefill_attn_phase(smi):
     its last-position logits against the plain path (attention and FFN on
     ``xla``) within max(2e-2, 2 x the plain path's own noise: FFN ``dense``
     against ``xla``, as ``[model]``); then ATTN_DECODE decode steps from that
-    cache (72 B1 and no B5 a call: decode applies the mask as a bias),
-    each step's logits against the plain path decoding from a copy of the
-    cache, by the same rule; the prefill again in float32, where
+    cache (ATTN_CACHE: 72 B1 and no B5 a call) through paged KV (the
+    registered ``paged_decode="auto"``: 65 pages, 33 read a step; the
+    ``models.paged_decode`` sentinel shows the branch ran), each step's
+    logits against the plain path decoding through the dense bias
+    (``"off"``) from a copy of the cache, by the same rule; the same steps
+    through the kernels and the dense bias, from another copy, give ms per
+    step and launches paged and "off"; the prefill again in float32, where
     the logits hold to the plain path's within 2e-2; then one timed
     32768-token prefill (the prefill_32k cell cut from global batch 32 to
     1 on one card): ms and peak memory."""
     from repro_torch.launch import steps as st
     from repro_torch.models import transformer as T
+    from repro_torch.obs import shapemon
     cfg = _attn_cfg()
     t0 = time.perf_counter()
     model = T.init_params(cfg, seed=0, device=DEVICE)
@@ -2180,7 +2212,10 @@ def prefill_attn_phase(smi):
     rng = np.random.default_rng(0)
     tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, size=(1, ATTN_SEQ))).to(DEVICE)
-    cache_len = ATTN_SEQ + 128
+    cache_len = ATTN_CACHE
+    grid = _page_grid(cfg, cache_len)
+    check(grid is not None and grid[1] < grid[0],
+          f"paged_decode='auto' does not page at cache {cache_len}: {grid}")
     prefill = st.make_prefill_step(cfg, cache_len)
     prefill(model, {"tokens": tokens[:, :4096]})   # first-call set-up
     torch.cuda.synchronize()
@@ -2195,8 +2230,8 @@ def prefill_attn_phase(smi):
     ref_logits = {}
     for ffn in ("dense", "xla"):        # the plain path: FFN on xla
         cfg_p = dataclasses.replace(
-            _attn_cfg(backend="xla"), ffn_sparsity=dataclasses.replace(
-                cfg.ffn_sparsity, backend=ffn))
+            _attn_cfg(backend="xla", paged_decode="off"),
+            ffn_sparsity=dataclasses.replace(cfg.ffn_sparsity, backend=ffn))
         ref_logits[ffn] = st.make_prefill_step(cfg_p, cache_len)(
             model, {"tokens": tokens})[0].float()
     err = (logits - ref_logits["xla"]).abs().max().item()
@@ -2216,9 +2251,12 @@ def prefill_attn_phase(smi):
 
     decode = st.make_decode_step(cfg)
     cache0 = {n: t.clone() for n, t in cache.items()}
+    cache_off = {n: t.clone() for n, t in cache.items()}
     tok = logits.argmax(-1)
     fed, step_logits_k = [tok], []
     _reset_counts()
+    shapemon.reset("models.paged_decode")
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     for s in range(ATTN_DECODE):
         step_logits, cache = decode(model, cache, tok, ATTN_SEQ + s)
@@ -2228,12 +2266,30 @@ def prefill_attn_phase(smi):
     torch.cuda.synchronize()
     dt_dec = time.perf_counter() - t0
     counts_dec = _read_counts()
+    paged_sigs = shapemon.trace_count("models.paged_decode")
     want_dec = _counts(**{B1: 3 * cfg.n_layers * ATTN_DECODE})
     out = [int(t[0]) for t in fed[1:]]
-    # the plain path (FFN on xla) decodes from a copy of the same cache,
-    # fed the kernel path's tokens: every step's logits within max(2e-2,
-    # 2 x the plain path's own decode noise, FFN dense against xla), and
-    # its greedy tokens compared
+    check(paged_sigs == 1, f"the paged decode branch saw {paged_sigs} input "
+          "signatures over the decode steps; want 1 (it ran, at one shape)")
+    # the same steps through the kernels and the dense bias ("off"), fed
+    # the same tokens from a copy of the cache: ms per step and launches
+    decode_off = st.make_decode_step(_attn_cfg(paged_decode="off"))
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(ATTN_DECODE):
+        _, cache_off = decode_off(model, cache_off, fed[s], ATTN_SEQ + s)
+    torch.cuda.synchronize()
+    dt_off = time.perf_counter() - t0
+    counts_off = _read_counts()
+    check(shapemon.trace_count("models.paged_decode") == 1 and
+          counts_off == want_dec, f"the 'off' decode paged, or launched "
+          f"{counts_off} != {want_dec}")
+    del cache_off
+    # the plain path (FFN on xla, the dense bias) decodes from a copy of
+    # the same cache, fed the kernel path's tokens: every step's logits
+    # within max(2e-2, 2 x the plain path's own decode noise, FFN dense
+    # against xla), and its greedy tokens compared
     plain_steps = {}
     for ffn in ("dense", "xla"):
         dec_p = st.make_decode_step(dataclasses.replace(
@@ -2255,11 +2311,17 @@ def prefill_attn_phase(smi):
                for lp, t in zip(plain_steps["xla"], out))
     log(f"[prefill-attn] {ATTN_DECODE} decode steps from the cache "
         f"(positions {ATTN_SEQ}..{ATTN_SEQ + ATTN_DECODE - 1}, cache "
-        f"{cache_len}, mask bias): tokens {out}; {dt_dec * 1e3:.3f} ms; "
-        f"launches {counts_dec}, expected {want_dec}; against the plain "
-        f"path from a copy of the cache: max|dlogit| {dec_err:.4g}, plain's "
-        f"own noise {dec_noise:.4g}, tolerance {dec_tol:.4g}; same greedy "
-        f"token {same}/{ATTN_DECODE}")
+        f"{cache_len}, paged KV: {grid[0]} pages, {grid[1]} read a step, "
+        f"block-row {ATTN_SEQ // cfg.attn_sparsity.block[0]}): tokens {out}; "
+        f"paged {dt_dec * 1e3:.3f} ms ({dt_dec * 1e3 / ATTN_DECODE:.3f} ms "
+        f"a step), dense bias 'off' {dt_off * 1e3:.3f} ms "
+        f"({dt_off * 1e3 / ATTN_DECODE:.3f} ms a step), host clock, "
+        f"synchronised; launches paged {counts_dec}, 'off' {counts_off}, "
+        f"expected {want_dec} each; paged_decode signatures {paged_sigs}; "
+        f"against the plain path ('off', FFN xla) from a copy of the cache: "
+        f"max|dlogit| {dec_err:.4g}, plain's own noise {dec_noise:.4g}, "
+        f"tolerance {dec_tol:.4g}; same greedy token {same}/{ATTN_DECODE}; "
+        f"{smi}")
     check(counts_dec == want_dec and all(0 <= t < cfg.vocab_size
                                          for t in out),
           f"decode after prefill: launches {counts_dec} or tokens {out}")
@@ -2326,18 +2388,24 @@ def prefill_attn_phase(smi):
           f"32k prefill: launches {counts_long} or logits not finite")
     del model, long_logits
     torch.cuda.empty_cache()
-    return counts, {"prefill_ms": dt * 1e3, "prefill_32k_ms": dt_long * 1e3,
-                    "prefill_32k_peak_gb": peak}
+    return counts, counts_dec, {
+        "prefill_ms": dt * 1e3, "prefill_32k_ms": dt_long * 1e3,
+        "prefill_32k_peak_gb": peak,
+        "decode_ms_per_step": {"paged": dt_dec * 1e3 / ATTN_DECODE,
+                               "off": dt_off * 1e3 / ATTN_DECODE}}
 
 
 def serve_attn_phase():
     """ServeEngine with smat-attn-1.3b at full width (4 slots, cache 256, 8
     requests): prompts go token by token through decode calls, which apply
-    the mask as a bias, so each call launches 72 B1 and no B5; the engine's
-    stream equals a direct ``decode_step`` loop."""
+    the mask as a bias (at 256 the registered "auto" reads both pages, so
+    it keeps the dense bias), so each call launches 72 B1 and no B5; the
+    engine's stream equals a direct ``decode_step`` loop."""
     from repro_torch.models import transformer as T
     from repro_torch.serve.engine import ServeEngine
     cfg = _attn_cfg()
+    check(_page_grid(cfg, CACHE_LEN) is None,
+          f"paged_decode='auto' pages at cache {CACHE_LEN}")
     model = T.init_params(cfg, seed=0, device=DEVICE)
     warm = ServeEngine(cfg, model, n_slots=N_SLOTS, cache_len=CACHE_LEN,
                        device=DEVICE)
@@ -2358,8 +2426,8 @@ def serve_attn_phase():
     want = _counts(**{B1: 3 * cfg.n_layers * engine.decode_calls})
     log(f"[serve-attn] {len(streams)} requests, {n_tok} new tokens, "
         f"{engine.decode_calls} decode calls in {dt:.3f}s: {n_tok / dt:.1f} "
-        f"tok/s; paged_kv {engine.paged_kv}; launches {launches}, expected "
-        f"{want}")
+        f"tok/s; paged KV {engine.paged_kv.report()['groups'][0]['paged']}; "
+        f"launches {launches}, expected {want}")
     check(sorted(streams) == list(range(N_REQUESTS)) and all(
         len(v) == NEW_TOKENS for v in streams.values()),
         "attention serving: requests missing or short")
@@ -2373,6 +2441,213 @@ def serve_attn_phase():
     del model, engine, warm
     torch.cuda.empty_cache()
     return launches, n_tok / dt
+
+
+def serve_attn_paged_phase(smi):
+    """ServeEngine with smat-attn-1.3b as registered (paged_decode="auto")
+    at full width: 4 slots, cache ATTN_CACHE (a 6.5 GB KV cache), the 8
+    requests of 16 + 16 tokens.  ``engine.paged_kv`` is set and its report
+    printed (the group paged, 65 pages, 33 read a step, resident and
+    offload bytes); every decode call launches 72 B1 and no B5; the stream
+    equals a direct ``decode_step`` loop at the same cache; the decode call
+    (``engine.step_sentinel``) and the paged branch each see one input
+    signature over the run.  Prints tok/s and the ``[profile]`` row of a
+    decode call, paged and "off" (launches, device ms, idle share)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.obs import shapemon
+    from repro_torch.serve.engine import ServeEngine
+    cfg = _attn_cfg()
+    grid = _page_grid(cfg, ATTN_CACHE)
+    check(grid is not None and grid[1] < grid[0],
+          f"paged_decode='auto' does not page at cache {ATTN_CACHE}")
+    model = T.init_params(cfg, seed=0, device=DEVICE)
+    warm = ServeEngine(cfg, model, n_slots=N_SLOTS, cache_len=ATTN_CACHE,
+                       device=DEVICE)
+    list(warm.generate(_requests(cfg)[:1]))
+    del warm
+    torch.cuda.empty_cache()
+    engine = ServeEngine(cfg, model, n_slots=N_SLOTS, cache_len=ATTN_CACHE,
+                         device=DEVICE)
+    check(engine.paged_kv is not None, "the engine built no paged KV cache")
+    report = engine.paged_kv.report()
+    row = report["groups"][0]
+    log(f"[serve-attn-paged] {cfg.name}, {N_SLOTS} slots, cache "
+        f"{ATTN_CACHE}: paged KV report {json.dumps(report)}")
+    check(row["paged"] and (row["n_pages"], row["pages_touched_per_step"])
+          == grid, f"paged KV report {row} != the page grid {grid}")
+    requests = _requests(cfg)
+    _reset_counts()
+    shapemon.reset("models.paged_decode")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streams = {}
+    for rid, tok in engine.generate(requests):
+        streams.setdefault(rid, []).append(tok)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _read_counts()
+    calls = engine.decode_calls
+    sigs = {"serve.masked_step": engine.step_sentinel.count,
+            "models.paged_decode": shapemon.trace_count(
+                "models.paged_decode")}
+    n_tok = sum(len(v) for v in streams.values())
+    want = _counts(**{B1: 3 * cfg.n_layers * calls})
+    log(f"[serve-attn-paged] {len(streams)} requests, {n_tok} new tokens, "
+        f"{calls} decode calls in {dt:.3f}s: {n_tok / dt:.1f} tok/s, "
+        f"{dt * 1e3 / calls:.3f} ms a call (host clock, synchronised); "
+        f"launches {launches}, expected {want} ({3 * cfg.n_layers} {B1} and "
+        f"no {B5} a call); input signatures {sigs}; {smi}")
+    check(sorted(streams) == list(range(N_REQUESTS)) and all(
+        len(v) == NEW_TOKENS for v in streams.values()),
+        "paged serving: requests missing or short")
+    check(launches == want and calls > 0,
+          f"paged serving launch counts {launches} != {want}")
+    check(sigs == {"serve.masked_step": 1, "models.paged_decode": 1},
+          f"paged serving saw input signatures {sigs}; want one each")
+    del engine
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        oracle = _greedy_oracle(cfg, model, requests[0].prompt, NEW_TOKENS,
+                                ATTN_CACHE)
+    log(f"[serve-attn-paged] request 0: engine {streams[0]}; decode_step "
+        f"loop {oracle}")
+    check(streams[0] == oracle, "paged engine stream != decode_step loop")
+    torch.cuda.empty_cache()
+    profiles = {mode: _serve_profile(_attn_cfg(paged_decode=mode), model,
+                                     ATTN_CACHE) for mode in ("auto", "off")}
+    for mode, prof_row in profiles.items():
+        log(f"[serve-attn-paged-profile] " + json.dumps(
+            {"paged_decode": mode, "cache_len": ATTN_CACHE, "card": smi,
+             **prof_row}))
+    return model, launches, {"tok_s": n_tok / dt, "decode_calls": calls,
+                             "signatures": sigs, "profile": {
+                                 mode: {k: r.get(k) for k in (
+                                     "kernel_launches_per_call",
+                                     "wall_ms_per_call",
+                                     "device_ms_per_call",
+                                     "device_idle_share")}
+                                 for mode, r in profiles.items()}}
+
+
+def paged_vs_full_phase():
+    """smat-attn-1.3b in float32 at full width, 2 layers: ``_paged_decode``
+    over the mask's page table equals, bit for bit, the same call over the
+    full page table (every page in every row, all live) at positions
+    PAGED_POSITIONS, batch 4, cache ATTN_CACHE (the pin the JAX package
+    holds inside itself); and a 2-layer engine with ``paged_decode="force"``
+    emits the same greedy tokens as one with "off" (8 requests)."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine
+    cfg = dataclasses.replace(_attn_cfg(paged_decode="force"), n_layers=2,
+                              dtype="float32")
+    h, w = cfg.attn_sparsity.block
+    pages, live = A.decode_page_tensors(L._sparse_mask(cfg, None),
+                                        ATTN_CACHE, (h, w), DEVICE)
+    n_pages = ATTN_CACHE // w
+    full = torch.arange(n_pages, device=DEVICE).expand(pages.shape[0], -1)
+    full = full.contiguous()
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    B, H, KV, dh = N_SLOTS, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.randn((B, 1, H, dh), generator=g, device=DEVICE)
+    kc, vc = (torch.randn((B, ATTN_CACHE, KV, dh), generator=g,
+                          device=DEVICE) for _ in range(2))
+    worst = []
+    for pos in PAGED_POSITIONS:
+        got = L._paged_decode(cfg, q, kc, vc, pos, None, None, dh ** -0.5,
+                              pages=pages, live=live)
+        ref = L._paged_decode(cfg, q, kc, vc, pos, None, None, dh ** -0.5,
+                              pages=full, live=torch.ones_like(full,
+                                                               dtype=bool))
+        worst.append((pos, bool(torch.equal(got, ref)),
+                      (got - ref).abs().max().item(),
+                      bool(torch.isfinite(got).all())))
+    log(f"[paged-vs-full] float32, batch {B}, cache {ATTN_CACHE}: table "
+        f"{tuple(pages.shape)} against the full {n_pages}-page table, "
+        f"(position, bitwise equal, max|diff|, finite): {worst}")
+    check(all(eq and fin for _, eq, _, fin in worst),
+          "paged decode != the full-table fold")
+    del q, kc, vc
+    model = T.init_params(cfg, seed=0, device=DEVICE)
+    streams = {}
+    for mode in ("force", "off"):
+        engine = ServeEngine(dataclasses.replace(
+            cfg, attn_sparsity=dataclasses.replace(
+                cfg.attn_sparsity, paged_decode=mode)), model,
+            n_slots=N_SLOTS, cache_len=ATTN_CACHE, device=DEVICE)
+        check((engine.paged_kv.report()["groups"][0]["paged"]) ==
+              (mode == "force"), f"paged_decode={mode} paged wrongly")
+        streams[mode] = {}
+        for rid, tok in engine.generate(_requests(cfg)):
+            streams[mode].setdefault(rid, []).append(tok)
+        del engine
+    same = sum(streams["force"][r] == streams["off"][r]
+               for r in range(N_REQUESTS))
+    log(f"[paged-vs-full] 2-layer float32 engine, cache {ATTN_CACHE}: "
+        f"'force' and 'off' give equal greedy streams for {same}/"
+        f"{N_REQUESTS} requests; request 0 {streams['force'][0]}")
+    check(streams["force"] == streams["off"],
+          "paged and dense-bias engines emit different tokens")
+    del model
+    torch.cuda.empty_cache()
+
+
+OBS_NAMES = ("serve.step", "serve.admit", "train.step", "ops.dispatch",
+             "autotune.pick")
+
+
+def obs_phase(model):
+    """The observability layer on the card: the 8-request serving run of
+    smat-attn-1.3b (``model``, cache CACHE_LEN) with tracing off and under
+    ``trace.capture()`` (wall time of each printed, no bound), then one
+    training step of a 2-layer full-width smat-attn-1.3b (1 x 1024 tokens;
+    its attention backward resolves ``backend="auto"``) under capture.
+    Prints each event name and its count; the serving and training events
+    OBS_NAMES must all be there."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.obs import trace
+    from repro_torch.optim import adamw
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import loop
+    cfg = _attn_cfg()
+    walls = {}
+    for mode in ("off", "capture"):
+        engine = ServeEngine(cfg, model, n_slots=N_SLOTS,
+                             cache_len=CACHE_LEN, device=DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "off":
+            check(not trace.enabled(), "tracing is on (REPRO_TRACE set?)")
+            n_tok = len(list(engine.generate(_requests(cfg))))
+        else:
+            with trace.capture() as cap:
+                n_tok = len(list(engine.generate(_requests(cfg))))
+        torch.cuda.synchronize()
+        walls[mode] = (time.perf_counter() - t0, n_tok, engine.decode_calls)
+        del engine
+    serve_events = cap.events
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    with trace.capture() as cap_train:
+        res = loop.train(cfg2, ShapeCell("chip", "train", 1024, 1),
+                         device=DEVICE, total_steps=1,
+                         opt_cfg=adamw.AdamWConfig(total_steps=1))
+    counts = {}
+    for e in serve_events + cap_train.events:
+        counts[e.name] = counts.get(e.name, 0) + 1
+    log(f"[obs] serving run, {walls['off'][1]} tokens in "
+        f"{walls['off'][2]} decode calls: {walls['off'][0] * 1e3:.3f} ms "
+        f"with tracing off, {walls['capture'][0] * 1e3:.3f} ms under "
+        f"trace.capture() ({len(serve_events)} records); one training step "
+        f"(2 layers, 1 x 1024, loss {res.losses[0]:.5f}): "
+        f"{len(cap_train.events)} records")
+    log(f"[obs] event counts {json.dumps(dict(sorted(counts.items())))}")
+    missing = [n for n in OBS_NAMES if n not in counts]
+    check(not missing and walls["off"][1] == walls["capture"][1],
+          f"[obs] events missing: {missing}")
+    torch.cuda.empty_cache()
+    return {"serve_ms_off": walls["off"][0] * 1e3,
+            "serve_ms_capture": walls["capture"][0] * 1e3}
 
 
 def _attn_train_counts(cfg, per_step_b5):
@@ -2552,8 +2827,15 @@ def main():
     phase(restart_phase)
     mip1_perm, err_lib, _ = phase(library_phase, smi)
     winners = phase(autotune_phase, mip1_perm, smi)
-    prefill_attn_launches, prefilled = phase(prefill_attn_phase, smi)
+    prefill_attn_launches, paged_dec_launches, prefilled = phase(
+        prefill_attn_phase, smi)
     serve_attn_launches, tok_s_attn = phase(serve_attn_phase)
+    attn_model, serve_paged_launches, served_paged = phase(
+        serve_attn_paged_phase, smi)
+    obs_walls = phase(obs_phase, attn_model)
+    del attn_model
+    torch.cuda.empty_cache()
+    phase(paged_vs_full_phase)
     train_attn_launches, trained_attn = phase(train_attn_phase, smi)
     phase(train_attn_vs_plain_phase)
 
@@ -2576,7 +2858,9 @@ def main():
              "serve_row_loop": serve_rl_launches,
              "train_row_loop": train_rl_launches,
              "prefill_attn": prefill_attn_launches,
+             "prefill_attn_paged_decode": paged_dec_launches,
              "serve_attn": serve_attn_launches,
+             "serve_attn_paged": serve_paged_launches,
              "train_attn": train_attn_launches}
 
     def entry(k, err, rows, **extra):
@@ -2599,8 +2883,17 @@ def main():
     held_b2 += [timed_prefill[("sddmm", s)]["max_abs_err"]
                 for s in FULL_WIDTH]
     sd_pre = {s: timed_prefill[("sddmm", s)] for s in FULL_WIDTH}
+    # the paged decode path (no kernel of its own: it runs B1 in the FFN):
+    # its decode calls, input signatures and launches, paged against "off"
+    paged_decode = {
+        "serve_attn_paged_decode_calls": served_paged["decode_calls"],
+        "serve_attn_paged_signatures": served_paged["signatures"],
+        "prefill_attn_decode_steps": ATTN_DECODE,
+        "decode_ms_per_step_after_prefill": prefilled["decode_ms_per_step"],
+        "serve_profile_per_call": served_paged["profile"]}
     line = {"kernels": [
         entry(b1, max(max_err, err_dx, *held), decode,
+              paged_decode=paged_decode,
               train_forward={key: mix(fwd, key) for key in keys},
               train_dB={key: mix(dx, key) for key in keys},
               prefill_forward={key: mix(pre_fwd, key) for key in keys},
@@ -2655,7 +2948,10 @@ def main():
         f"and down shapes.  {ATTN_ARCH}: prefill {prefilled['prefill_ms']:.3f} ms "
         f"(1 x {ATTN_SEQ}), {prefilled['prefill_32k_ms']:.3f} ms (1 x "
         f"{ATTN_LONG}, peak {prefilled['prefill_32k_peak_gb']:.2f} GB); "
-        f"serving {tok_s_attn:.1f} tok/s; training "
+        f"serving {tok_s_attn:.1f} tok/s (cache {CACHE_LEN}, dense bias), "
+        f"{served_paged['tok_s']:.1f} tok/s (cache {ATTN_CACHE}, paged KV); "
+        f"serving run with tracing off {obs_walls['serve_ms_off']:.3f} ms, "
+        f"under capture {obs_walls['serve_ms_capture']:.3f} ms; training "
         f"{trained_attn['step_ms']:.3f} ms per step, "
         f"{trained_attn['tokens_per_s']:.1f} tokens/s, peak "
         f"{trained_attn['peak_gb']:.2f} GB; {B5} per launch at G={ATTN_G}, "

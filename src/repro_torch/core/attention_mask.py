@@ -103,9 +103,10 @@ class AttnSparsitySpec:
     block softmax -> SpMM path on it.  ``bn`` is the JAX package's TPU tile,
     kept for config parity and not read: the kernels take their own tiles.
     ``shards > 0`` (the partitioned score structure, ROADMAP A5) raises.
-    ``paged_decode`` gates the serving decode path: ``"off"`` keeps the
-    dense-bias decode; where ``"auto"`` or ``"force"`` resolve a page table,
-    decode raises until paged KV is ported (ROADMAP A6)."""
+    ``paged_decode`` gates the serving decode path: ``"auto"`` reads KV
+    through the mask's page table where that reads fewer pages than the
+    cache holds, ``"force"`` wherever pages tile the cache, ``"off"`` keeps
+    the dense-bias decode (``models.layers._decode_pages``)."""
     mask: AttnMaskSpec = dataclasses.field(default_factory=blockwise_causal)
     block: Tuple[int, int] = (16, 16)
     backend: str = "auto"   # fused | auto | nnz_stream | row_loop | xla | dense

@@ -24,6 +24,7 @@ import numpy as np
 PEAK_FLOPS_BF16 = 989e12     # bf16 tensor-core FLOP/s
 HBM_BW = 3.35e12             # HBM3 bytes/s
 NVLINK_BW = 450e9            # NVLink bytes/s per direction (900 GB/s total)
+PCIE_BW = 64e9               # PCIe Gen5 x16 host link, bytes/s per direction
 
 # A100-SXM4-40GB constants (the paper's platform, for cross-checks)
 A100_PEAK_FP16_TC = 312e12

@@ -46,6 +46,8 @@ from repro_torch.core import bcsr as bcsr_lib
 from repro_torch.core import perf_model as pm
 from repro_torch.kernels import bcsr_spmm as pk
 from repro_torch.kernels import ops
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 # the pre-registry default -- the baseline every pick must beat; bn 0 is
 # "no explicit tile": the kernel takes its own (``bcsr_spmm.tile_n``)
@@ -611,10 +613,18 @@ class Autotuner:
                          device=device_name(device))
         hit = self.get_shards(fp, max_shards)
         if hit is not None:
+            obs_trace.event("autotune.pick_shards", key=fp.key(),
+                            max_shards=max_shards, n_shards=hit.n_shards,
+                            source=hit.source, cache_hit=True)
+            obs_metrics.counter("autotune.cache_hit", kind="shards").inc()
             return hit
         choice = analytic_shard_choice(meta, n, max_shards=max_shards,
                                        n_chunks=n_chunks, op=op)
         self._shards[shard_entry_key(fp, max_shards)] = choice
+        obs_trace.event("autotune.pick_shards", key=fp.key(),
+                        max_shards=max_shards, n_shards=choice.n_shards,
+                        source=choice.source, cache_hit=False)
+        obs_metrics.counter("autotune.cache_miss", kind="shards").inc()
         return choice
 
     def __len__(self) -> int:
@@ -627,9 +637,17 @@ class Autotuner:
         fp = fingerprint(meta, n, op=op, device=device_name(device))
         hit = self.get(fp)
         if hit is not None:
+            obs_trace.event("autotune.pick", key=fp.key(), op=op,
+                            variant=hit.variant, bn=hit.bn,
+                            source=hit.source, cache_hit=True)
+            obs_metrics.counter("autotune.cache_hit", op=op).inc()
             return hit
         choice = analytic_choice(meta, n, op=op)
         self.put(fp, choice, persist=False)
+        obs_trace.event("autotune.pick", key=fp.key(), op=op,
+                        variant=choice.variant, bn=choice.bn,
+                        source=choice.source, cache_hit=False)
+        obs_metrics.counter("autotune.cache_miss", op=op).inc()
         return choice
 
     # ------------------------------------------------------------- tuning
@@ -716,7 +734,9 @@ class Autotuner:
         cand.setdefault(f"{dv}/bn{DEFAULT_BN}", (dv, DEFAULT_BN))
 
         timings: Dict[str, float] = {}
-        with torch.inference_mode():
+        with torch.inference_mode(), obs_trace.span(
+                "autotune.tune", key=fp.key(), op=op,
+                n_candidates=len(cand)):
             for label, (name, bn) in cand.items():
                 fn = _mk_fn(get_variant(name).backend, bn)
                 for _ in range(max(warmup, 1)):
@@ -735,6 +755,10 @@ class Autotuner:
         choice = KernelChoice(name, bn, source="measured",
                               predicted_us=timings[best_label] * 1e6)
         self.put(fp, choice, persist=True)
+        obs_trace.event("autotune.tuned", key=fp.key(), op=op,
+                        variant=choice.variant, bn=choice.bn,
+                        n_candidates=len(timings))
+        obs_metrics.counter("autotune.tuned", op=op).inc()
         return choice, timings
 
 

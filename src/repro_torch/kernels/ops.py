@@ -48,6 +48,8 @@ from repro_torch.core import bcsr as bcsr_lib
 from repro_torch.core import permute as permute_lib
 from repro_torch.kernels import bcsr_spmm as pk
 from repro_torch.kernels import ref
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 
 # ---------------------------------------------------------------------- types
@@ -198,56 +200,69 @@ def _prepare_sparse_host(a: bcsr_lib.BCSR, *, reorder: str,
                          max_candidates: Optional[int], n_shards: int):
     """Host-side (numpy) portion of ``prepare_sparse``: permute, pad,
     build the transpose structure and the ``row_loop`` schedules, and
-    compute the static meta.  Returns ``(host_arrays_dict, meta)``.  (The
-    JAX package also records trace spans and metrics here; ``obs`` is not
-    ported yet.)"""
-    a, row_perm_np = permute_lib.permute_bcsr(
-        a, reorder, tau=tau, max_candidates=max_candidates,
-        n_shards=n_shards, granularity=reorder_granularity)
+    compute the static meta.  Returns ``(host_arrays_dict, meta)``.  Records
+    the JAX package's ``prepare.reorder`` and ``prepare.meta`` spans, the
+    ``prepare.nnzb_reduction_pct`` and ``prepare.nnzb`` gauges and the
+    ``prepare.done`` event."""
+    nnzb_in = a.nnzb
+    with obs_trace.span("prepare.reorder", scheme=reorder,
+                        granularity=reorder_granularity):
+        a, row_perm_np = permute_lib.permute_bcsr(
+            a, reorder, tau=tau, max_candidates=max_candidates,
+            n_shards=n_shards, granularity=reorder_granularity)
+    if nnzb_in:
+        obs_metrics.gauge("prepare.nnzb_reduction_pct", scheme=reorder).set(
+            round(100.0 * (nnzb_in - a.nnzb) / nnzb_in, 2))
     # padding entries are tagged explicitly by ensure_nonempty_rows (before
     # its lexsort), so genuinely-zero original blocks keep real_mask=True
-    a_p, real_mask = a.ensure_nonempty_rows(return_mask=True)
+    with obs_trace.span("prepare.meta"):
+        a_p, real_mask = a.ensure_nonempty_rows(return_mask=True)
 
-    # ---- transpose structure (entries of A^T in A^T row-major order) ----
-    order = np.lexsort((a_p.row_ids, a_p.col_ids))
-    t_perm = order.astype(np.int32)
-    t_row_ids = a_p.col_ids[order].astype(np.int32)
-    t_col_ids = a_p.row_ids[order].astype(np.int32)
-    # pad A^T's empty block-rows with the sentinel zero block (index nnzb)
-    n_brows_t = a_p.n_block_cols
-    present = np.zeros(n_brows_t, dtype=bool)
-    present[t_row_ids] = True
-    empty = np.flatnonzero(~present).astype(np.int32)
-    if empty.size:
-        t_perm = np.concatenate(
-            [t_perm, np.full(empty.size, a_p.nnzb, np.int32)])
-        t_row_ids = np.concatenate([t_row_ids, empty])
-        t_col_ids = np.concatenate([t_col_ids,
-                                    np.zeros(empty.size, np.int32)])
-        order_t = np.lexsort((t_col_ids, t_row_ids))
-        t_perm, t_row_ids, t_col_ids = (
-            t_perm[order_t], t_row_ids[order_t], t_col_ids[order_t])
+        # ---- transpose structure (entries of A^T in A^T row-major order) --
+        order = np.lexsort((a_p.row_ids, a_p.col_ids))
+        t_perm = order.astype(np.int32)
+        t_row_ids = a_p.col_ids[order].astype(np.int32)
+        t_col_ids = a_p.row_ids[order].astype(np.int32)
+        # pad A^T's empty block-rows with the sentinel zero block (index
+        # nnzb)
+        n_brows_t = a_p.n_block_cols
+        present = np.zeros(n_brows_t, dtype=bool)
+        present[t_row_ids] = True
+        empty = np.flatnonzero(~present).astype(np.int32)
+        if empty.size:
+            t_perm = np.concatenate(
+                [t_perm, np.full(empty.size, a_p.nnzb, np.int32)])
+            t_row_ids = np.concatenate([t_row_ids, empty])
+            t_col_ids = np.concatenate([t_col_ids,
+                                        np.zeros(empty.size, np.int32)])
+            order_t = np.lexsort((t_col_ids, t_row_ids))
+            t_perm, t_row_ids, t_col_ids = (
+                t_perm[order_t], t_row_ids[order_t], t_col_ids[order_t])
 
-    max_bpr, pad_pct, cv_pct = a_p.dispatch_stats()
-    host = {
-        "vals": a_p.vals,
-        "row_ids": a_p.row_ids,
-        "col_ids": a_p.col_ids,
-        "real_mask": real_mask,
-        "t_perm": t_perm,
-        "t_row_ids": t_row_ids,
-        "t_col_ids": t_col_ids,
-        "row_perm": row_perm_np,
-        "inv_perm": permute_lib.invert_perm(row_perm_np),
-        **port_fields(a_p.row_ids, a_p.col_ids, t_row_ids, a_p.n_block_rows,
-                      n_brows_t, max_bpr),
-    }
+        max_bpr, pad_pct, cv_pct = a_p.dispatch_stats()
+        host = {
+            "vals": a_p.vals,
+            "row_ids": a_p.row_ids,
+            "col_ids": a_p.col_ids,
+            "real_mask": real_mask,
+            "t_perm": t_perm,
+            "t_row_ids": t_row_ids,
+            "t_col_ids": t_col_ids,
+            "row_perm": row_perm_np,
+            "inv_perm": permute_lib.invert_perm(row_perm_np),
+            **port_fields(a_p.row_ids, a_p.col_ids, t_row_ids,
+                          a_p.n_block_rows, n_brows_t, max_bpr),
+        }
     meta = SparseMeta(shape=a_p.shape, block=a_p.block,
                       n_block_rows=a_p.n_block_rows,
                       n_block_cols=a_p.n_block_cols,
                       nnzb=a_p.nnzb, nnzb_t=int(t_row_ids.shape[0]),
                       max_bpr=max_bpr, padding_ratio_pct=pad_pct,
                       bpr_cv_pct=cv_pct, reorder=reorder)
+    obs_trace.event("prepare.done", shape=meta.shape, block=meta.block,
+                    nnzb=meta.nnzb, nnzb_t=meta.nnzb_t,
+                    max_bpr=meta.max_bpr, reorder=reorder)
+    obs_metrics.gauge("prepare.nnzb", scheme=reorder).set(meta.nnzb)
     return host, meta
 
 
@@ -579,6 +594,10 @@ def resolve_backend(backend: str, bn: Optional[int], meta: SparseMeta,
         raise ValueError(
             f"bn={bn} is not an N tile the {backend} {op} kernel compiles; "
             f"want None or one of {kernel_tiles(backend, op)}")
+    # host-side dispatch record (static info only)
+    obs_trace.event("ops.dispatch", op=op, backend=backend, bn=bn, n=n,
+                    nnzb=meta.nnzb, max_bpr=meta.max_bpr)
+    obs_metrics.counter("ops.dispatch", op=op, backend=backend).inc()
     return backend, bn
 
 

@@ -5,6 +5,13 @@ tokens/s and how many times each CUDA kernel was launched.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smat-ffn-1.3b
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch smat-ffn-1.3b:smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch smat-attn-1.3b:smoke --device cpu --cache-len 64
+
+With block-sparse attention whose page table saves pages at this cache
+length (the second line: 3 of 4 pages a step), decode reads KV through the
+paged gather and the CLI prints the paged cache's resident and offloaded
+bytes.
 """
 from __future__ import annotations
 
@@ -64,6 +71,12 @@ def main(argv=None):
     print(f"[serve] scheduler: {engine.scheduler.step_idx} engine steps, "
           f"{engine.scheduler.prefix_hits} prefix-cache hits "
           f"({engine.scheduler.prefix_tokens_reused} tokens reused)")
+    if engine.paged_kv is not None:
+        rep = engine.paged_kv.report()
+        print(f"[serve] paged KV: resident "
+              f"{rep['resident_bytes_total']} B, offloaded "
+              f"{rep['offload_bytes_total']} B over "
+              f"{len(rep['groups'])} layer group(s)")
     launched = {name: n for launches in counters
                 for name, n in launches.items()}
     print(f"[serve] kernel launches: {sum(launched.values())} ("

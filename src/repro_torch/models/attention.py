@@ -24,9 +24,9 @@ seq_len, block, device)`` by ``ops.prepare`` (``mask_tensors``), so a call
 moves no mask to the card.
 
 Left out, each to its ROADMAP item: the row-sharded score structure
-(``shards > 0``, A5; the composed path raises), the paged KV decode (A6),
-``attention_mask_report`` (its caller is the dry-run, A10) and
-``merged_attention_meta`` (no caller yet).
+(``shards > 0``, A5; the composed path raises), ``attention_mask_report``
+(its caller is the dry-run, A10) and ``merged_attention_meta`` (no caller
+yet).
 """
 from __future__ import annotations
 
@@ -84,6 +84,24 @@ def decode_page_table(spec: AttnMaskSpec, seq_len: int,
     pages.setflags(write=False)
     live.setflags(write=False)
     return pages, live, meta
+
+
+def decode_page_tensors(spec: AttnMaskSpec, seq_len: int,
+                        block: Tuple[int, int], device):
+    """``decode_page_table``'s ``(pages, live)`` as tensors on ``device``
+    (``pages`` int64, the index type of a gather), built once and cached
+    per ``(spec, seq_len, block, device)`` as ``mask_tensors`` caches the
+    mask, so a paged decode call copies nothing from the host."""
+    return _decode_page_tensors(spec, seq_len, tuple(block),
+                                _cache_device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_page_tensors(spec: AttnMaskSpec, seq_len: int,
+                         block: Tuple[int, int], device: torch.device):
+    pages, live, _ = decode_page_table(spec, seq_len, block)
+    return (torch.from_numpy(pages.astype(np.int64)).to(device),
+            torch.from_numpy(live.copy()).to(device))
 
 
 # ======================================================== mask BCSR pipeline
@@ -181,10 +199,16 @@ def mask_tensors(spec: AttnMaskSpec, seq_len: int, block: Tuple[int, int],
     layer at 8,192 tokens in 128x128 blocks) and pack its bits for B5
     (``bcsr_attn.pack_emask``, 3.2 MB).  ``"cuda"`` names the current card,
     so it shares the entry of ``"cuda:<index>"``."""
+    return _mask_tensors(spec, seq_len, tuple(block), _cache_device(device))
+
+
+def _cache_device(device) -> torch.device:
+    """``device`` as a per-device cache key: ``"cuda"`` names the current
+    card, so it keys the same entry as ``"cuda:<index>"``."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    return _mask_tensors(spec, seq_len, tuple(block), device)
+    return device
 
 
 @functools.lru_cache(maxsize=None)

@@ -31,6 +31,7 @@ from repro_torch.core.sparse_linear import (SparseLinear,
                                             init_sparse_linear,
                                             merge_sparse_metas,
                                             sparse_linear_meta)
+from repro_torch.obs import shapemon
 
 # chunk size for q-blocked (O(L*chunk) memory) attention
 Q_CHUNK = 1024
@@ -149,8 +150,8 @@ def _decode_pages(cfg, window, cache_len):
     paged KV path applies, else None (dense-bias decode).
     ``AttnSparsitySpec.paged_decode``: "auto" requires a strict page saving
     (``max_bpr < n_pages``), "force" only that pages tile the cache, "off"
-    disables.  The paged path itself is ROADMAP A6: ``attention`` raises
-    where this returns a table."""
+    disables.  Where this returns a table, ``attention`` decodes through
+    ``_paged_decode``."""
     sparse = getattr(cfg, "attn_sparsity", None)
     if sparse is None:
         return None
@@ -168,6 +169,71 @@ def _decode_pages(cfg, window, cache_len):
     if mode != "force" and meta.max_bpr >= cache_len // w:
         return None                 # no page saving: keep the dense bias
     return pages, live
+
+
+@shapemon.monitor(name="models.paged_decode")
+def _paged_decode(cfg, q, kc, vc, pos, window, cap, scale, *,
+                  pages, live):
+    """One-token decode attention reading KV through the mask page table
+    (``attention.decode_page_table``) instead of biasing the dense cache:
+    the twin of the JAX package's ``_paged_decode``.
+
+    ``pages`` [nbr, P] (int64) and ``live`` [nbr, P] (bool) lie on the
+    cache's device (``attention.decode_page_tensors`` caches them per
+    device, so a call copies nothing from the host).  Only the P pages of
+    block-row ``pos // block_h`` are gathered; softmax combines them as a
+    SEQUENTIAL per-page fold in ascending page order (exact max, then each
+    page's partial context and denominator added page by page, the
+    denominator riding as one extra column of the context so a page costs
+    one add).  A page absent from the table contributes exactly 0.0 and
+    never attains the max, and inserting exact zeros into a sequential add
+    chain changes no bit — so in float32 this path equals, bit for bit,
+    the same call over the FULL page table (``arange(n_pages)`` in every
+    row, all live).  That needs every per-page term to come out the same
+    whatever P is: the scores and partial contexts are elementwise
+    products summed over one axis (``dh``, then ``w``), whose reduction
+    order depends on that axis alone, not a batched matmul, whose kernel
+    choice may depend on the batch count.  Never fold with ``sum`` or
+    ``cumsum`` (not a sequential chain on the card).
+
+    Positions are taken as ``page * w + offset``: the paged path assumes
+    the ring has not wrapped (``pos < cache_len``), which the serving
+    scheduler enforces at admission (``len(prompt) + max_new_tokens <=
+    cache_len``).  ``pos`` is a Python int; ``shapemon`` counts the input
+    signatures (shapes, dtypes, devices, types), so a decode run at one
+    shape counts one whatever positions it walks."""
+    from repro_torch.models import attention as A
+    spec = _sparse_mask(cfg, window)
+    B, _, H, dh = q.shape
+    Sc, KV = kc.shape[1], kc.shape[2]
+    h, w = cfg.attn_sparsity.block
+    n_pages = Sc // w
+    row = min(max(pos // h, 0), pages.shape[0] - 1)
+    cols, alive = pages[row], live[row]                   # [P] views
+    P = int(cols.shape[0])
+    kp = kc.view(B, n_pages, w, KV, dh).index_select(1, cols)  # [B,P,w,KV,dh]
+    vp = vc.view(B, n_pages, w, KV, dh).index_select(1, cols)
+    k_pos = (cols[:, None] * w + torch.arange(
+        w, dtype=cols.dtype, device=cols.device)).reshape(-1)    # [P*w]
+    q_pos = torch.full((1,), pos, dtype=torch.int64, device=q.device)
+    bias = (_mask_bias(q_pos, k_pos, window) +
+            A.decode_mask_bias(spec, q_pos, k_pos))[0].reshape(P, w)
+    bias = torch.where(alive[:, None], bias, NEG_INF)
+    rep = H // KV
+    qg = q.reshape(B, KV, rep, dh).float()                # L == 1 squeezed
+    # bf16 operands are widened inside the products (exactly)
+    scores = (kp[:, :, :, :, None, :] * qg[:, None, None]).sum(-1) * scale
+    scores = softcap(scores, cap)                         # [B,P,w,KV,rep]
+    biased = scores + bias[None, :, :, None, None]
+    m = biased.amax(dim=(1, 2), keepdim=True)             # exact any order
+    z = torch.exp(biased - m)
+    partial = (z[..., None] * vp[:, :, :, :, None, :]).sum(2)  # [B,P,KV,rep,dh]
+    terms = torch.cat([partial, z.sum(2)[..., None]], dim=-1)  # + page sum
+    acc = torch.zeros_like(terms[:, 0])
+    for p in range(P):      # sequential add chain, ascending page order
+        acc = acc + terms[:, p]
+    ctx = acc[..., :dh] / acc[..., dh:]
+    return ctx.reshape(B, 1, H, dh)
 
 
 def _sparse_attention(cfg, q, k, v, window, cap, scale):
@@ -195,9 +261,9 @@ def attention(cfg, p, x, *, window=None, cache=None, pos=None,
     ``slot_mask`` [B] is True (all rows when it is None).
 
     With ``cfg.attn_sparsity`` set, train/prefill score the static BCSR
-    mask (``models.attention``) and decode applies the SAME mask spec as a
-    positional bias.  Where the spec's ``paged_decode`` resolves a page
-    table, decode raises: paged KV is ROADMAP A6."""
+    mask (``models.attention``) and decode applies the SAME mask spec:
+    through the paged KV gather (``_paged_decode``) where the spec's
+    ``paged_decode`` resolves a page table, else as a positional bias."""
     B, L, D = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     theta = rope_theta or cfg.rope_theta
@@ -242,21 +308,25 @@ def attention(cfg, p, x, *, window=None, cache=None, pos=None,
             v_new = torch.where(keep, v_new, vc[:, slot])
         kc[:, slot] = k_new
         vc[:, slot] = v_new
-        j = torch.arange(Sc, dtype=torch.int64, device=x.device)
-        k_pos = pos - ((pos - j) % Sc)       # ring-buffer slot positions
-        q_pos = torch.full((1,), pos, dtype=torch.int64, device=x.device)
-        bias = _mask_bias(q_pos, k_pos, window)          # [1, Sc]
-        if sparse is not None:
-            if _decode_pages(cfg, window, Sc) is not None:
-                raise NotImplementedError(
-                    "paged KV decode (AttnSparsitySpec.paged_decode resolved "
-                    "a page table for this cache) is not ported yet: ROADMAP "
-                    "A6; pass paged_decode='off' for the dense-bias decode")
-            # the decode twin of the block-sparse score mask
+        table = None if sparse is None else _decode_pages(cfg, window, Sc)
+        if table is not None:
+            # paged KV: gather only the mask row's pages (serve.paged_kv)
             from repro_torch.models import attention as A
-            bias = bias + A.decode_mask_bias(_sparse_mask(cfg, window),
-                                             q_pos, k_pos)
-        ctx = _sdpa(q, kc, vc, bias[None].expand(B, 1, Sc), cap, scale)
+            pages, live = A.decode_page_tensors(
+                _sparse_mask(cfg, window), Sc, tuple(sparse.block), kc.device)
+            ctx = _paged_decode(cfg, q, kc, vc, pos, window, cap, scale,
+                                pages=pages, live=live)
+        else:
+            j = torch.arange(Sc, dtype=torch.int64, device=x.device)
+            k_pos = pos - ((pos - j) % Sc)   # ring-buffer slot positions
+            q_pos = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+            bias = _mask_bias(q_pos, k_pos, window)      # [1, Sc]
+            if sparse is not None:
+                # the decode twin of the block-sparse score mask
+                from repro_torch.models import attention as A
+                bias = bias + A.decode_mask_bias(_sparse_mask(cfg, window),
+                                                 q_pos, k_pos)
+            ctx = _sdpa(q, kc, vc, bias[None].expand(B, 1, Sc), cap, scale)
 
     y = _dense(ctx.reshape(B, L, h * dh).to(x.dtype), p.wo)
     return y, cache

@@ -15,12 +15,20 @@ which saves a full copy of the cache per step.  The engine runs under
 ``torch.inference_mode()``.
 
 Prompts are fed token by token through decode calls, so a model with
-block-sparse attention (``cfg.attn_sparsity``) is served through the
-dense-bias decode, which applies the same mask as a positional bias; kernel
-B5 runs in training and in ``transformer.prefill``, never here.  The JAX
-engine's paged block-sparse KV cache (``PagedKVCache``) is ROADMAP A6:
-``self.paged_kv`` stays None until it is ported, and a spec whose
-``paged_decode`` resolves a page table raises in decode.
+block-sparse attention (``cfg.attn_sparsity``) is served through the decode
+path, which applies the same mask the train/prefill path scores: through
+the paged KV gather (``models.layers._paged_decode``) where the spec's
+``paged_decode`` resolves a page table for the cache, else as a positional
+bias; kernel B5 runs in training and in ``transformer.prefill``, never
+here.  ``self.paged_kv`` (``serve.paged_kv.PagedKVCache``) carries the
+paged cache's placement accounting.
+
+Every decode call has one input signature whatever the slots do (the batch
+is always ``n_slots`` rows, ``pos`` a Python int): the call is wrapped by a
+``shapemon`` sentinel named ``serve.masked_step``
+(``engine.step_sentinel``), which counts the signatures it sees.  Each
+step is a ``serve.step`` span and moves the ``serve.steps`` and
+``serve.tokens`` counters (``repro_torch.obs``).
 """
 from __future__ import annotations
 
@@ -32,6 +40,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import shapemon
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.scheduler import Scheduler, SchedulerConfig
 
 # decode-cache batch axis by leaf name: attn k/v [n_layers, B, S, KV, dh]
@@ -67,11 +78,13 @@ class Request:
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, *, n_slots: int = 4,
                  cache_len: int = 256, seed: int = 0,
-                 prefix_cache: bool = True, device="cuda"):
+                 prefix_cache: bool = True, placement=None, device="cuda"):
         """``params`` is the ``Transformer`` (``transformer.init_params``)
         on ``device``.  ``seed`` seeds the sampling of requests with a
         temperature above 0.  ``prefix_cache`` enables cross-slot KV reuse
-        for shared prompt prefixes."""
+        for shared prompt prefixes.  ``placement`` is the paged KV cache's
+        ``serve.paged_kv.PagePlacementSpec`` (its default: all pages on
+        the card)."""
         self.device = T.resolve_device(device)
         if params.embed.device != self.device:
             raise ValueError(f"the model is on {params.embed.device}, the "
@@ -88,9 +101,24 @@ class ServeEngine:
         self.scheduler = Scheduler(SchedulerConfig(
             n_slots=n_slots, cache_len=cache_len,
             prefix_cache=bool(prefix_cache) and prefix_ok))
+        self.paged_kv = None
+        if getattr(cfg, "attn_sparsity", None) is not None and \
+                cfg.layout == "attn_mlp":
+            from repro_torch.serve.paged_kv import PagedKVCache
+            self.paged_kv = PagedKVCache(cfg, cache_len, n_slots,
+                                         placement=placement)
         self.done: Dict[int, Request] = {}
         self.decode_calls = 0          # model decode calls so far
-        self.paged_kv = None           # paged KV: ROADMAP A6
+
+        def _masked_step(params, cache, tokens, pos, slot_mask):
+            return T.decode_step(cfg, params, cache, tokens, pos,
+                                 slot_mask=slot_mask)
+
+        # the signature sentinel: "slot masks keep shapes static" is the
+        # count staying at 1 over a whole run (tests/test_torch_obs.py)
+        self._decode = shapemon.monitor(_masked_step,
+                                        name="serve.masked_step")
+        self.step_sentinel = self._decode.sentinel
 
     # ---------------------------------------------------------------- admin
     def enqueue(self, req: Request) -> None:
@@ -118,6 +146,13 @@ class ServeEngine:
         """Admit pending requests, run one decode call per position group of
         active slots, and return the tokens sampled this step as
         ``[(rid, token)]``."""
+        with obs_trace.span("serve.step", step=self.scheduler.step_idx):
+            produced = self._step_inner()
+        obs_metrics.counter("serve.steps").inc()
+        obs_metrics.counter("serve.tokens").inc(len(produced))
+        return produced
+
+    def _step_inner(self) -> List[Tuple[int, object]]:
         for adm in self.scheduler.admit():
             if adm["reuse"] > 0 and adm["src"] != adm["slot"]:
                 _copy_slot(self.cache, adm["src"], adm["slot"])
@@ -126,9 +161,9 @@ class ServeEngine:
             mask = np.zeros(self.n_slots, bool)
             for slot, _, _ in entries:
                 mask[slot] = True
-            logits, self.cache = T.decode_step(
-                self.cfg, self.params, self.cache, self._slot_tokens(entries),
-                int(pos), slot_mask=torch.from_numpy(mask).to(self.device))
+            logits, self.cache = self._decode(
+                self.params, self.cache, self._slot_tokens(entries),
+                int(pos), torch.from_numpy(mask).to(self.device))
             self.decode_calls += 1
             need = [e for e in entries if e[2]]
             if need:

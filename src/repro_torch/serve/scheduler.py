@@ -2,9 +2,10 @@
 
 Pure host-side policy (python/numpy): the engine executes whatever this
 module decides, so every scheduling decision is deterministic in the
-request trace alone.  It is the JAX package's scheduler less its ``obs``
-events and metrics, which return when ``obs`` is ported; ``self.trace``
-is kept exactly, so the two packages' traces compare equal.
+request trace alone.  It is the JAX package's scheduler: ``self.trace``,
+its ``serve.<event>`` obs events and its ``serve.*`` metrics are kept
+exactly, so the two packages' traces and deterministic payloads compare
+equal.
 
 States per slot: FREE (no request) -> PREFILL (fed < len(prompt) - 1)
 -> DECODE (sampling) -> FREE again on completion.  Prefill is
@@ -43,6 +44,9 @@ from __future__ import annotations
 import dataclasses
 from collections import deque
 from typing import List, Optional
+
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,11 +87,13 @@ class Scheduler:
         self.prefix_tokens_reused = 0
 
     def _emit(self, event: str, **fields) -> dict:
-        """THE scheduler trace emitter: the record lands in ``self.trace``.
-        (The JAX package also sends it out as a ``serve.<event>`` obs
-        event; that returns with the ``obs`` port.)"""
+        """THE scheduler trace emitter: one record, two views.  The record
+        lands in ``self.trace`` (a private per-instance list, so it never
+        depends on ``REPRO_TRACE``) and goes out as a ``serve.<event>`` obs
+        event (spans, wall clock, exporters)."""
         rec = {"event": event, "step": self.step_idx, **fields}
         self.trace.append(rec)
+        obs_trace.event(f"serve.{event}", **rec)
         return rec
 
     # ------------------------------------------------------------- admission
@@ -136,10 +142,13 @@ class Scheduler:
                     reuse, src = 0, -1
             self.slots[slot] = _Slot(req=req, fed=reuse,
                                      admitted_step=self.step_idx)
+            obs_metrics.counter("serve.admit").inc()
             self.written[slot] = keys[:reuse]
             if reuse > 0:
                 self.prefix_hits += 1
                 self.prefix_tokens_reused += reuse
+                obs_metrics.counter("serve.prefix_hit").inc()
+                obs_metrics.counter("serve.prefix_tokens_reused").inc(reuse)
             out.append(self._emit("admit", rid=req.rid, slot=slot,
                                   reuse=reuse, src=src))
         return out
@@ -176,6 +185,9 @@ class Scheduler:
         if len(st.req.out_tokens) >= st.req.max_new_tokens:
             self._emit("finish", rid=st.req.rid, slot=slot,
                        n_out=len(st.req.out_tokens))
+            obs_metrics.counter("serve.finish").inc()
+            obs_metrics.histogram("serve.latency_steps").observe(
+                self.step_idx - st.admitted_step)
             self.slots[slot] = None
             return True
         return False

@@ -8,9 +8,11 @@ device:
   * straggler watchdog — EWMA of step times; steps slower than
     ``straggler_factor`` x EWMA are logged with their step index.
 
-There is no mesh: the port trains on one card, so nothing is sharded.  The
-JAX loop's trace spans and metrics (``repro.obs``) are left out until the
-observability modules are ported (ROADMAP A8).
+There is no mesh: the port trains on one card, so nothing is sharded.  Each
+step emits the JAX loop's ``train.step`` timed event (the loss in its
+args, the step time in its wall-clock field) and updates the
+``train.steps``, ``train.loss``, ``train.step_time_us`` and
+``train.stragglers`` metrics (``repro_torch.obs``).
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.data.pipeline import DataConfig, make_batch
 from repro_torch.launch import steps as st
 from repro_torch.models import transformer as T
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import adamw
 
 log = logging.getLogger("repro_torch.train")
@@ -94,11 +98,20 @@ def train(cfg: ModelConfig, shape: ShapeCell, *, device="cuda",
             dt = time.time() - t0
             losses.append(loss)
             times.append(dt)
+            # the loss is deterministic for a fixed seed, so it rides in
+            # the event args; the step time is wall clock and stays in the
+            # metrics (report-only histogram) and the dur field
+            obs_trace.timed_event("train.step", dt * 1e6,
+                                  step=step, loss=loss)
+            obs_metrics.counter("train.steps").inc()
+            obs_metrics.gauge("train.loss").set(loss)
+            obs_metrics.histogram("train.step_time_us").observe(dt * 1e6)
             if ewma is None:
                 ewma = dt
             else:
                 if dt > straggler_factor * ewma:
                     stragglers.append(step)
+                    obs_metrics.counter("train.stragglers").inc()
                     log.warning("straggler suspected at step %d: "
                                 "%.2fs vs EWMA %.2fs", step, dt, ewma)
                 ewma = 0.9 * ewma + 0.1 * dt

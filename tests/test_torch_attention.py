@@ -549,18 +549,49 @@ def test_smoke_prefill_then_decode_matches_jax_loop(pair):
     assert toks_t == toks_j
 
 
-def test_resolved_page_table_raises_naming_a6(pair):
+def test_resolved_page_table_decodes_paged_and_matches_jax(pair,
+                                                           monkeypatch):
     """With the registered paged_decode="auto", the :smoke view resolves a
-    page table at cache 64 (banded(32), block 16: 3 of 4 pages); paged KV
-    is ROADMAP A6, so decode raises instead of decoding densely."""
-    _, tcfg, _, _, model = pair
-    cfg = dataclasses.replace(tcfg, attn_sparsity=dataclasses.replace(
-        tcfg.attn_sparsity, paged_decode="auto"))
-    assert TL._decode_pages(cfg, None, 64) is not None
-    cache = T.init_cache(cfg, 1, 64, device="cpu")
-    with torch.inference_mode(), pytest.raises(NotImplementedError,
-                                               match="A6"):
-        T.decode_step(cfg, model, cache, torch.tensor([3]), 0)
+    page table at cache 64 (banded(32), block 16: 3 of 4 pages), and decode
+    reads KV through it: a 40-token prefill, then 8 greedy decode steps,
+    against the JAX prefill + decode_step loop with the same mode, whose
+    ``_paged_decode`` is unlocked test-side (ROADMAP C1): logits within 1e-4
+    at every step, identical tokens, and the paged branch taken."""
+    from repro.obs import jaxmon
+    from repro_torch.obs import shapemon
+    monkeypatch.setattr(jaxmon, "_trace_active",
+                        lambda: not jax._src.core.trace_state_clean())
+    jcfg, tcfg, jparams, _, model = pair
+    jcfg, tcfg = (dataclasses.replace(c, attn_sparsity=dataclasses.replace(
+        c.attn_sparsity, paged_decode="auto")) for c in (jcfg, tcfg))
+    assert TL._decode_pages(tcfg, None, 64) is not None
+    assert JL._decode_pages(jcfg, None, 64) is not None
+    prompt = np.random.default_rng(2).integers(0, tcfg.vocab_size,
+                                               size=(1, 40), dtype=np.int32)
+    j_logits, j_cache = JT.prefill(jcfg, jparams,
+                                   {"tokens": jnp.asarray(prompt)}, 64)
+    shapemon.reset("models.paged_decode")
+    with torch.inference_mode():
+        t_logits, t_cache = T.prefill(tcfg, model, {
+            "tokens": torch.from_numpy(prompt).long()}, 64)
+        tok_j = int(np.asarray(j_logits)[0, -1].argmax())
+        tok_t = int(t_logits[0, -1].argmax())
+        toks_j, toks_t = [tok_j], [tok_t]
+        for pos in range(40, 48):
+            j_logits, j_cache = JT.decode_step(
+                jcfg, jparams, j_cache, jnp.asarray([tok_j], jnp.int32),
+                jnp.asarray(pos, jnp.int32))
+            t_logits, t_cache = T.decode_step(tcfg, model, t_cache,
+                                              torch.tensor([tok_t]), pos)
+            np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits),
+                                       rtol=1e-4, atol=1e-4,
+                                       err_msg=f"pos {pos}")
+            tok_j = int(np.asarray(j_logits)[0].argmax())
+            tok_t = int(t_logits[0].argmax())
+            toks_j.append(tok_j)
+            toks_t.append(tok_t)
+    assert toks_t == toks_j
+    assert shapemon.trace_count("models.paged_decode") == 1
 
 
 @pytest.mark.parametrize("module", ["repro_torch.core.attention_mask",

@@ -15,7 +15,10 @@
   the host Jaccard kernel builds beside the CUDA kernels.
 * So do block-sparse attention's (``smat-attn-1.3b``, ``resolve_attn_impl``
   under ``backend="auto"``, the mask's device tensors), and kernel B5's
-  wrapper takes its plain version for CPU tensors only."""
+  wrapper takes its plain version for CPU tensors only.
+* So do the paged KV cache's tables and the engine that pages; no
+  ``repro_torch.obs`` call sits inside an autograd ``Function``'s
+  ``forward``/``backward``, and the kernel wrappers import no obs module."""
 import ast
 import ctypes
 import dataclasses
@@ -344,3 +347,52 @@ def test_attn_wrapper_takes_the_plain_version_on_cpu(monkeypatch):
         n_block_rows=4, n_block_cols=4, block=(8, 8), scale=0.25)
     assert calls == [0.25] and out.shape == (2, 32, 8)
     assert bcsr_attn.LAUNCHES == before
+
+
+def test_no_obs_call_sits_in_an_autograd_function_body():
+    """The port's form of the JAX lint rule R7: ``repro_torch.obs`` names
+    appear in no ``forward``/``backward`` of a ``torch.autograd.Function``,
+    and the kernel wrappers import no obs module."""
+    wrappers = {"bcsr_spmm.py", "bcsr_attn.py", "ref.py", "_build.py"}
+    checked = []
+    for path in sorted(PORT.rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        obs_names = set()
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom) and (node.module or "") \
+                    .startswith("repro_torch.obs"):
+                obs_names |= {a.asname or a.name for a in node.names}
+            elif isinstance(node, ast.Import):
+                obs_names |= {a.asname or a.name for a in node.names
+                              if a.name.startswith("repro_torch.obs")}
+        if path.parent.name == "kernels" and path.name in wrappers:
+            assert not obs_names, f"{path.name} imports {obs_names}"
+        for cls in (n for n in ast.walk(tree) if isinstance(n, ast.ClassDef)):
+            if not any(ast.unparse(b).endswith("Function") for b in cls.bases):
+                continue
+            for fn in cls.body:
+                if isinstance(fn, ast.FunctionDef) and fn.name in (
+                        "forward", "backward"):
+                    checked.append(f"{cls.name}.{fn.name}")
+                    used = {n.id for n in ast.walk(fn)
+                            if isinstance(n, ast.Name)} & obs_names
+                    assert not used, (f"{path.relative_to(ROOT)}: "
+                                      f"{cls.name}.{fn.name} uses {used}")
+
+    # ops' _Spmm and _Sddmm, attention's _AttnFused: forward and backward
+    assert len(checked) >= 6, checked
+
+
+def test_paged_kv_entry_points_default_to_the_card(no_card):
+    """The paged KV cache's tables and an engine on smat-attn-1.3b (whose
+    decode pages) default to the card and raise without one."""
+    from repro_torch.serve.paged_kv import PagedKVCache
+    cfg = get_config("smat-attn-1.3b:smoke")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagedKVCache(cfg, 64, 2).table_leaves()
+    assert PagedKVCache(cfg, 64, 2).table_leaves(device="cpu")
+    model = T.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(cfg, model, cache_len=64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_cli.main(["--arch", "smat-attn-1.3b:smoke", "--cache-len", "64"])

@@ -559,3 +559,62 @@ def test_attn_fused_reads_the_bitmask_on_card(card, block, d):
         mask=mask, block=block, backend="nnz_stream"), d ** -0.5, None)
     assert (got - comp).abs().max().item() <= \
         1e-5 * comp.abs().max().item()
+
+
+def _paged_cfg(paged, mask=None):
+    cfg = get_config("smat-attn-1.3b:smoke")
+    kw = {"paged_decode": paged}
+    if mask is not None:
+        kw["mask"] = mask
+    return dataclasses.replace(cfg, dtype="float32", attn_sparsity=(
+        dataclasses.replace(cfg.attn_sparsity, **kw)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", [A.banded(24), A.local_global(16, 8),
+                                  A.blockwise_causal()])
+def test_paged_decode_equals_its_full_table_on_card(card, mask):
+    """The paged decode over the mask's page table equals, bit for bit in
+    float32, the same call over the full page table, at every position of
+    a 64-slot cache (block 16), on the card as on the CPU."""
+    from repro_torch.models import layers as L
+    cfg = _paged_cfg("force", mask)
+    pages, live = A.decode_page_tensors(L._sparse_mask(cfg, None), 64,
+                                        (16, 16), card)
+    full = torch.arange(4, device=card).expand(pages.shape[0], -1)
+    full = full.contiguous()
+    g = torch.Generator(device=card).manual_seed(0)
+    q = torch.randn((3, 1, cfg.n_heads, cfg.head_dim), generator=g,
+                    device=card)
+    kc, vc = (torch.randn((3, 64, cfg.n_kv_heads, cfg.head_dim),
+                          generator=g, device=card) for _ in range(2))
+    for pos in range(64):
+        got = L._paged_decode(cfg, q, kc, vc, pos, None, None, 0.25,
+                              pages=pages, live=live)
+        want = L._paged_decode(cfg, q, kc, vc, pos, None, None, 0.25,
+                               pages=full, live=torch.ones_like(
+                                   full, dtype=torch.bool))
+        assert torch.equal(got, want), f"pos {pos}"
+
+
+@pytest.mark.cuda
+def test_paged_engine_matches_off_on_card(card):
+    """A float32 smat-attn-1.3b:smoke engine (cache 64: 3 of 4 pages a step)
+    through paged KV and through the dense bias ("off"): equal greedy
+    streams, one decode signature each."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    model = T.init_params(_paged_cfg("auto"), seed=0, device=card)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 512, size=n, dtype=np.int32)
+               for n in (9, 3, 14, 6, 11)]
+    streams = {}
+    for mode in ("auto", "off"):
+        eng = ServeEngine(_paged_cfg(mode), model, n_slots=2, cache_len=64,
+                          device=card)
+        assert eng.paged_kv.report()["groups"][0]["paged"] == (mode == "auto")
+        streams[mode] = {}
+        for rid, tok in eng.generate([Request(i, p, max_new_tokens=5)
+                                      for i, p in enumerate(prompts)]):
+            streams[mode].setdefault(rid, []).append(tok)
+        assert eng.step_sentinel.count == 1
+    assert streams["auto"] == streams["off"]

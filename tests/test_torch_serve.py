@@ -168,9 +168,10 @@ def test_serve_cli_on_cpu(capsys):
 @pytest.mark.parametrize("n_slots", [1, 3])
 def test_attention_engine_matches_jax_decode_oracle(n_slots):
     """smat-attn-1.3b:smoke (block-sparse attention; decode applies the
-    mask as a bias, ``paged_decode="off"``: paged KV is ROADMAP A6) through
-    the port's engine against a JAX ``decode_step`` loop: identical greedy
-    tokens over a 40-token prompt, past the banded(32) window."""
+    mask as a bias, ``paged_decode="off"``: the paged path is held in
+    ``test_torch_paged_kv.py``) through the port's engine against a JAX
+    ``decode_step`` loop: identical greedy tokens over a 40-token prompt,
+    past the banded(32) window."""
     arch = "smat-attn-1.3b:smoke"
 
     def off(cfg):
