@@ -22,8 +22,13 @@ published size, and the autotuner's measured sweep; last block-sparse
 attention (``smat-attn-1.3b``: kernel B5 and the composed backward on
 B1/B2) through prefill, serving and training, and its decode through the
 paged block-sparse KV cache (``[prefill-attn]``, ``[serve-attn-paged]``,
-``[paged-vs-full]``) and the observability layer (``[obs]``).  Every phase
-checks its results; any failure exits non-zero before the last line.
+``[paged-vs-full]``) and the observability layer (``[obs]``).  The
+partitioned SpMM path (``launch.dist_spmm``) runs in ``[dist-parity]``,
+``[dist-timing]``, ``[serve-sharded]``, ``[train-sharded]``,
+``[prefill-attn-sharded]`` (``shards=4``: every shard's product on the
+same kernels, counted by family) and ``[dist-mesh]`` (a one-rank nccl
+mesh).  Every phase checks its results; any failure exits non-zero before
+the last line.
 
 The line before the last lists every ported kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the rest
@@ -821,13 +826,7 @@ def model_vs_plain_phase(cfg, model):
     from repro_torch.models import transformer as T
 
     def first_step(cfg_, model_, backend):
-        cfg_b = dataclasses.replace(cfg_, ffn_sparsity=dataclasses.replace(
-            cfg_.ffn_sparsity, backend=backend))
-        cache = T.init_cache(cfg_b, N_SLOTS, CACHE_LEN, device=DEVICE)
-        toks = torch.as_tensor([r.prompt[0] for r in _requests(cfg_)[:N_SLOTS]],
-                               device=DEVICE).long()
-        logits, _ = T.decode_step(cfg_b, model_, cache, toks, 0)
-        return logits.float()
+        return _first_logits(_with_backend(cfg_, backend), model_)
 
     with torch.inference_mode():
         a = first_step(cfg, model, "nnz_stream")
@@ -2787,6 +2786,569 @@ def train_attn_vs_plain_phase():
     torch.cuda.empty_cache()
 
 
+# ------------------------------------- the partitioned SpMM path (A5)
+DIST_SHARDS = (1, 2, 4, 8)
+DIST_N = (N_SLOTS, TRAIN_N)            # decode and training widths
+DIST_CHUNKS = (1, 2, 4)
+SHARDED_S = 4                          # [serve-sharded], [train-sharded]
+
+
+def _ffn_spec(**kw):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("smat-ffn-1.3b").ffn_sparsity,
+                               **kw)
+
+
+def _ffn_pattern(name, j=0):
+    """Host BCSR of layer ``j``'s ``gate`` (``gate_up`` shape) or ``down``
+    weight of smat-ffn-1.3b, as ``init_mlp`` draws it."""
+    from repro_torch.core import sparse_linear as SL
+    from repro_torch.models import layers as L
+    (out_dim, in_dim), _ = FULL_WIDTH[name]
+    seed = L.mlp_seed(j) + (0 if name == "gate_up" else 2)
+    return SL._pattern_for(seed, in_dim, out_dim, _ffn_spec())
+
+
+def _ffn_sharded(a, n_shards, dtype):
+    """The partition ``SparsitySpec(shards=n_shards)`` builds of ``a``:
+    the dims-only per-shard budgets (``shard_shapes``), as the model."""
+    from repro_torch.core import sparse_linear as SL
+    from repro_torch.launch import dist_spmm
+    out_dim, in_dim = a.shape
+    rps, nnzb_ps, _ = SL.shard_shapes(_ffn_spec(), out_dim, in_dim,
+                                      n_shards=n_shards)
+    return dist_spmm.prepare_sharded(a, n_shards, rows_per_shard=rps,
+                                     nnzb_per_shard=nnzb_ps, dtype=dtype,
+                                     device=DEVICE)
+
+
+def _family(counts):
+    """(spmm family B1 + B3, sddmm family B2 + B4) of a launch count."""
+    return counts[B1] + counts[B3], counts[B2] + counts[B4]
+
+
+def _op_ok(got, want):
+    """The op rule of a sharded product against the unsharded one: bf16
+    rtol = atol = 1e-2 (about one ulp), f32 1e-4."""
+    tol = 1e-2 if got.dtype == torch.bfloat16 else 1e-4
+    return torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _sharded_grads(arrays, smeta, b, backend, n_chunks, weight):
+    """(out, dvals, dB) of one in-process sharded product with the fixed
+    cotangent ``weight``."""
+    from repro_torch.launch import dist_spmm
+    vals = arrays.vals.detach().clone().requires_grad_()
+    bb = b.detach().clone().requires_grad_()
+    out = dist_spmm.spmm_sharded(arrays._replace(vals=vals), smeta, bb,
+                                 backend=backend, n_chunks=n_chunks)
+    out.backward(weight.to(out.dtype))
+    return out.detach(), vals.grad, bb.grad
+
+
+def dist_parity_phase():
+    """The partitioned product on the card at the full-width FFN shapes
+    (seed-0 layer patterns, the model's dims-only budgets), S in {1, 2, 4,
+    8}, bf16 and f32, N = 4 and 2048 (the x^T view), backends
+    ``nnz_stream``, ``row_loop`` and ``auto``: the in-process
+    ``spmm_sharded`` against the unsharded ``ops.spmm`` (bf16 1e-2, f32
+    1e-4; whether the bits agree is printed), each shard's kernel against
+    its plain version on the shard's operands (as ``[parity]``), and
+    chunked (``n_chunks`` 1, 2, 4) == unchunked bit for bit in the forward
+    and in the gradients of ``vals`` and B.  Then a ``split_heavy_rows``
+    operand with a block-row split in three: against the unsharded product
+    (a combine with a fragment dropped or doubled must fail that rule) and
+    bit-stable over two runs, forward and gradients."""
+    from repro_torch.core import bcsr as B
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import dist_spmm
+    worst = {}
+    for name in FULL_WIDTH:
+        a = _ffn_pattern(name)
+        for dtype in (torch.bfloat16, torch.float32):
+            arrays0, meta0 = ops.prepare(a, dtype, device=DEVICE)
+            for S in DIST_SHARDS:
+                arrays, smeta = _ffn_sharded(a, S, dtype)
+                blocks = S * smeta.nnzb_per_shard
+                for n in DIST_N:
+                    b = _b(n, a.shape[1], n, dtype, transposed=True)
+                    weight = torch.from_numpy(np.random.default_rng(n)
+                                              .standard_normal(
+                        (a.shape[0], n)).astype(np.float32)).to(DEVICE)
+                    want = ops.spmm(arrays0, meta0, b)
+                    for backend in ("nnz_stream", "row_loop", "auto"):
+                        picks = dist_spmm._resolve_shard_choices(
+                            smeta, n, backend, None, DEVICE)
+                        base = _sharded_grads(arrays, smeta, b, backend, 1,
+                                              weight)
+                        ok = _op_ok(base[0], want)
+                        bits = torch.equal(base[0], want)
+                        err = (base[0].float() - want.float()).abs().max() \
+                            .item()
+                        # each shard's kernel against its plain version
+                        vals_ext = dist_spmm._vals_ext(arrays.vals)
+                        run = dist_spmm._Run(smeta, (), 1)
+                        shard_err = 0.0
+                        for s, (be, bn) in enumerate(picks):
+                            arr = run._shard(arrays, s, vals_ext)
+                            m = smeta.shard_metas[s]
+                            got_s = ops._fwd_impl(ops.SpmmConfig(be, bn),
+                                                  m, arr, b)
+                            plain = ref.bcsr_spmm_row_loop_ref(
+                                arr.vals, arr.flat_idx, arr.flat_col,
+                                arr.row_len, b, m.n_block_rows,
+                                out_dtype=torch.float32) \
+                                if be == "row_loop" else ref.bcsr_spmm_ref(
+                                arr.vals, arr.row_ids, arr.col_ids, b,
+                                m.n_block_rows, out_dtype=torch.float32)
+                            ok = ok and _op_ok(got_s, plain)
+                            shard_err = max(shard_err, (
+                                got_s.float() - plain).abs().max().item())
+                        chunk_bits = True
+                        for k in DIST_CHUNKS[1:]:
+                            got = _sharded_grads(arrays, smeta, b, backend,
+                                                 k, weight)
+                            chunk_bits = chunk_bits and all(
+                                torch.equal(g, w) for g, w in zip(got, base))
+                        ok = ok and chunk_bits and bool(
+                            torch.isfinite(base[1].float()).all())
+                        key = (name, str(dtype)[6:], S, n, backend)
+                        worst[key] = err
+                        log(f"[dist-parity] {name} {str(dtype)[6:]} S={S} "
+                            f"N={n} {backend}: picks "
+                            f"{sorted(set(picks))}; {blocks} blocks "
+                            f"streamed (unsharded {meta0.nnzb}); vs "
+                            f"unsharded max|err|={err:.3g} bits equal "
+                            f"{bits}; shards vs plain max|err|="
+                            f"{shard_err:.3g}; chunked {DIST_CHUNKS[1:]} == "
+                            f"unchunked (fwd, dvals, dB) bitwise "
+                            f"{chunk_bits} {'ok' if ok else 'FAIL'}")
+                        check(ok, f"[dist-parity] {key} failed")
+                    del b, weight
+                del arrays
+            del arrays0
+            torch.cuda.empty_cache()
+    # a block-row of 60 blocks over 4 shards: cap ceil(90 / 4) = 23, so it
+    # splits in three fragments of 20 (split_dst repeats its rows twice)
+    dense = np.zeros((16 * 128, 64 * 128), np.float32)
+    rng = np.random.default_rng(11)
+    dense[::128, ::4096] = 1.0
+    dense[128:256, :60 * 128] = rng.standard_normal((128, 60 * 128))
+    a = B.from_dense(dense, (128, 128))
+    for dtype in (torch.bfloat16, torch.float32):
+        arrays, smeta = dist_spmm.prepare_sharded(
+            a, 4, split_heavy_rows=True, dtype=dtype, device=DEVICE)
+        arrays0, meta0 = ops.prepare(a, dtype, device=DEVICE)
+        b = _b(3, a.shape[1], 64, dtype, transposed=True)
+        weight = torch.ones((a.shape[0], 64), device=DEVICE)
+        first = _sharded_grads(arrays, smeta, b, "nnz_stream", 2, weight)
+        again = _sharded_grads(arrays, smeta, b, "nnz_stream", 2, weight)
+        stable = all(torch.equal(g, w) for g, w in zip(first, again))
+        # against the unsharded product: f32 rtol = atol = 1e-4; bf16
+        # 2e-2 x max|product| -- each fragment's partial sum is rounded to
+        # bf16 before the fragments are added (as in the JAX package), so
+        # where they cancel the error is an ulp of the partials, not of
+        # the sum
+        want = ops.spmm(arrays0, meta0, b, out_dtype=torch.float32)
+        scale = want.abs().max().item()
+
+        def close(out):
+            if dtype == torch.float32:
+                return torch.allclose(out.float(), want, rtol=1e-4,
+                                      atol=1e-4)
+            return (out.float() - want).abs().max().item() <= 2e-2 * scale
+
+        rule = ("rtol = atol = 1e-4" if dtype == torch.float32
+                else f"2e-2 x {scale:.4g}")
+        err = (first[0].float() - want).abs().max().item()
+        # planted faults in the combine, which the rule must reject: the
+        # second extra fragment of every split row dropped, and the first
+        # added twice
+        dst = arrays.split_dst.cpu().numpy()
+        firsts = torch.as_tensor(np.sort(np.unique(dst, return_index=True)[1]),
+                                 device=DEVICE)
+        src1, dst1 = arrays.split_src[firsts], arrays.split_dst[firsts]
+        planted = {}
+        for fault, (src, dst_) in {
+                "dropped": (src1, dst1),
+                "doubled": (torch.cat([arrays.split_src, src1]),
+                            torch.cat([arrays.split_dst, dst1]))}.items():
+            bad = dist_spmm.spmm_sharded(
+                arrays._replace(split_src=src, split_dst=dst_), smeta, b,
+                backend="nnz_stream", n_chunks=2)
+            planted[fault] = ((bad.float() - want).abs().max().item(),
+                              close(bad))
+        ok = (stable and close(first[0]) and smeta.n_split_fragments == 2
+              and not any(caught for _, caught in planted.values()))
+        log(f"[dist-parity] split_heavy_rows {str(dtype)[6:]}: "
+            f"{smeta.n_split_fragments} extra fragments, vs unsharded "
+            f"max|err|={err:.3g} ({rule}; max|product| {scale:.4g}); "
+            f"planted faults max|err| " + ", ".join(
+                f"{f} {e:.3g} ({'passes: FAIL' if c else 'rejected'})"
+                for f, (e, c) in planted.items()) +
+            f"; bit-stable over two runs (fwd, dvals, dB) {stable} "
+            f"{'ok' if ok else 'FAIL'}")
+        check(ok, "[dist-parity] split rows disagree or are not stable")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def dist_timing_phase(smi):
+    """ms and launches a product of the in-process partitioned product at
+    S in {1, 2, 4, 8} against the unsharded B1 (``ops.spmm``), bf16, at
+    N = 4 and 2048 over ROTATE layers' weights (L2 cold as in
+    ``[timing]``): device ms (``time_ms``: a CUDA graph of the calls) and
+    the eager ms with the host's issue cost.  Then ``tune_shard_count``
+    on the gate/up shape at N = 2048 (``max_shards`` 8): its measured
+    winner beside the analytic pick."""
+    from repro_torch.kernels import autotune, ops
+    from repro_torch.launch import dist_spmm
+    dtype = torch.bfloat16
+    rows = {}
+    for name, (shape, nnzb) in FULL_WIDTH.items():
+        pats = [_ffn_pattern(name, j) for j in range(ROTATE)]
+        flat = [ops.prepare(a, dtype, device=DEVICE) for a in pats]
+        for n in DIST_N:
+            bs = [_b(j, shape[1], n, dtype, transposed=True)
+                  for j in range(ROTATE)]
+            bnd, bnd_by = bound(nnzb, 128, 128, shape[1], n,
+                                shape[0] // 128, dtype)
+            fns = [lambda a_=a_, m=m, b=b: ops.spmm(a_, m, b)
+                   for (a_, m), b in zip(flat, bs)]
+            row = {"case": f"{name} N={n}", "card": smi,
+                   "unsharded_ms": time_ms(fns),
+                   "unsharded_eager_ms": time_ms_eager(fns),
+                   "bound_ms": bnd, "bound_by": bnd_by}
+            for S in DIST_SHARDS:
+                shd = [_ffn_sharded(a, S, dtype) for a in pats]
+                fns = [lambda s_=s_, b=b: dist_spmm.spmm_sharded(
+                    s_[0], s_[1], b, backend="nnz_stream",
+                    n_chunks=_ffn_spec().shard_chunks)
+                       for s_, b in zip(shd, bs)]
+                _reset_counts()
+                fns[0]()
+                launches = _read_counts()[B1]
+                row[f"S{S}"] = {"ms": time_ms(fns),
+                                "eager_ms": time_ms_eager(fns),
+                                "launches": launches,
+                                "blocks": S * shd[0][1].nnzb_per_shard}
+                del shd
+            log("[dist-timing] " + json.dumps(row))
+            rows[(name, n)] = row
+            del bs
+            torch.cuda.empty_cache()
+        del flat
+    a = _ffn_pattern("gate_up")
+    meta = ops.prepare_sparse_meta(a)
+    analytic = autotune.analytic_shard_choice(meta, TRAIN_N, max_shards=8)
+    measured = dist_spmm.tune_shard_count(
+        a, TRAIN_N, max_shards=8, backend="nnz_stream", dtype=dtype,
+        iters=5, tuner=autotune.Autotuner(), device=DEVICE)
+    log(f"[dist-timing] tune_shard_count gate/up N={TRAIN_N} max_shards 8: "
+        f"measured winner S={measured.n_shards} "
+        f"({measured.predicted_us:.1f} us); analytic pick "
+        f"S={analytic.n_shards} ({analytic.predicted_us:.1f} us "
+        f"predicted); {smi}")
+    rows["tune"] = {"measured": measured.n_shards,
+                    "analytic": analytic.n_shards}
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _sharded_cfg(cfg, n_shards=SHARDED_S, **kw):
+    return dataclasses.replace(cfg, ffn_sparsity=dataclasses.replace(
+        cfg.ffn_sparsity, shards=n_shards, backend="auto", **kw))
+
+
+def _first_logits(cfg, model):
+    """Logits of the first decode step of 4 prompts (``[model]``'s)."""
+    from repro_torch.models import transformer as T
+    cache = T.init_cache(cfg, N_SLOTS, CACHE_LEN, device=DEVICE)
+    toks = torch.as_tensor([r.prompt[0] for r in _requests(cfg)[:N_SLOTS]],
+                           device=DEVICE).long()
+    return T.decode_step(cfg, model, cache, toks, 0)[0].float()
+
+
+def serve_sharded_phase(cfg, model0, smi):
+    """``smat-ffn-1.3b`` at full width and depth with
+    ``SparsitySpec(shards=4, backend="auto")`` and the default
+    ``shard_chunks=2`` (same seed: the same weights as ``model0``), served
+    through ``ServeEngine`` as ``[main]``: tok/s; exactly 24 x 3 x 4 x 2 =
+    576 spmm-family launches (B1 + B3) and nothing else a decode call;
+    engine == ``decode_step`` loop; the first decode step's logits against
+    the unsharded model within max(2e-2, 2 x the plain path's noise, FFN
+    ``dense`` against ``xla`` on the unsharded model); the per-shard picks;
+    and a ``torch.profiler`` row of a decode call."""
+    from repro_torch.launch import dist_spmm
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine
+    cfg_s = _sharded_cfg(cfg)
+    t0 = time.perf_counter()
+    model = T.init_params(cfg_s, seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    metas = L.mlp_sparse_metas(cfg_s.ffn_sparsity, cfg.d_model, cfg.d_ff,
+                               (0,), torch.device(DEVICE))
+    for label, m in zip(("gate/up", "down"), metas):
+        picks = dist_spmm._resolve_shard_choices(m, N_SLOTS, "auto", None,
+                                                 DEVICE)
+        log(f"[serve-sharded] {label}: S={m.n_shards}, {m.rows_per_shard} "
+            f"block-rows and {m.nnzb_per_shard} entries a shard, per-shard "
+            f"max_bpr {[sm.max_bpr for sm in m.shard_metas]}; picks at "
+            f"N={N_SLOTS}: {list(picks)}")
+    warm = ServeEngine(cfg_s, model, n_slots=N_SLOTS, cache_len=CACHE_LEN,
+                       device=DEVICE)
+    list(warm.generate(_requests(cfg)[:1]))
+    engine = ServeEngine(cfg_s, model, n_slots=N_SLOTS, cache_len=CACHE_LEN,
+                         device=DEVICE)
+    requests = _requests(cfg)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streams = {}
+    for rid, tok in engine.generate(requests):
+        streams.setdefault(rid, []).append(tok)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _read_counts()
+    n_tok = sum(len(v) for v in streams.values())
+    per_call = 3 * cfg.n_layers * SHARDED_S * cfg_s.ffn_sparsity.shard_chunks
+    spmm_n, sddmm_n = _family(launches)
+    log(f"[serve-sharded] built in {build_s:.1f}s; {len(streams)} requests, "
+        f"{n_tok} new tokens, {engine.decode_calls} decode calls in "
+        f"{dt:.3f}s: {n_tok / dt:.1f} tok/s, {dt * 1e3 / engine.decode_calls:.3f}"
+        f" ms a call (host clock, synchronised); launches {launches}: "
+        f"{spmm_n} spmm-family, expected {per_call} a call x "
+        f"{engine.decode_calls}; {smi}")
+    check(sorted(streams) == list(range(N_REQUESTS)) and all(
+        len(v) == NEW_TOKENS for v in streams.values()),
+        "sharded serving: requests missing or short")
+    check(spmm_n == per_call * engine.decode_calls > 0 and sddmm_n == 0 and
+          launches[B5] == 0, f"sharded serving launch counts {launches}")
+    with torch.inference_mode():
+        oracle = _greedy_oracle(cfg_s, model, requests[0].prompt, NEW_TOKENS)
+        got = _first_logits(cfg_s, model)
+        want = _first_logits(cfg, model0)
+        noise = (_first_logits(_with_backend(cfg, "dense"), model0) -
+                 _first_logits(_with_backend(cfg, "xla"), model0)).abs() \
+            .max().item()
+    check(streams[0] == oracle, "sharded engine stream != decode_step loop")
+    err = (got - want).abs().max().item()
+    tol = max(2e-2, 2 * noise)
+    ok = bool(torch.isfinite(got).all()) and err <= tol
+    log(f"[serve-sharded] request 0: engine {streams[0]}; decode_step loop "
+        f"{oracle}; first-step logits vs the unsharded model: max|dlogit|="
+        f"{err:.4g}, plain's own noise {noise:.4g}, tolerance {tol:.4g}, "
+        f"same argmax in {(got.argmax(-1) == want.argmax(-1)).sum().item()}"
+        f"/{N_SLOTS} rows {'ok' if ok else 'FAIL'}")
+    check(ok, "sharded model logits disagree with the unsharded model's")
+    calls = engine.decode_calls
+    del warm, engine
+    row = _serve_profile(cfg_s, model, CACHE_LEN)
+    log("[serve-sharded-profile] " + json.dumps({"card": smi, **row}))
+    del model
+    torch.cuda.empty_cache()
+    return launches, {"tok_s": n_tok / dt, "ms_per_call": dt * 1e3 / calls,
+                      "profile": row}
+
+
+def train_sharded_phase(cfg, smi, losses_nnz):
+    """TRAIN_STEPS full-width AdamW steps of 2 x 1024 tokens with
+    ``SparsitySpec(shards=4, backend="auto")`` through ``train.loop.train``:
+    ms a step, tokens/s, the losses beside ``[train]``'s; per step exactly
+    576 spmm-family launches forward (24 x 3 x 4 shards x 2 chunks) + 288
+    for dB (B1), and 288 sddmm-family (dvals): the backward re-runs no
+    forward product.  A ``torch.profiler`` row of one step; then one
+    2-layer f32 step, sharded against unsharded from the same weights:
+    loss rtol 1e-5, every gradient within 1e-4 x its max|grad|."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch import steps as st
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    cfg_s = _sharded_cfg(cfg)
+    shape = ShapeCell("chip", "train", TRAIN_SEQ, TRAIN_BATCH)
+    opt_cfg = adamw.AdamWConfig(total_steps=TRAIN_STEPS)
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    res = loop.train(cfg_s, shape, device=DEVICE, total_steps=TRAIN_STEPS,
+                     opt_cfg=opt_cfg, remat="none")
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    steady = res.step_times[1:]
+    step_ms = 1e3 * sum(steady) / len(steady)
+    per_layer = 3 * SHARDED_S
+    want_spmm = (per_layer * cfg_s.ffn_sparsity.shard_chunks + per_layer) * \
+        cfg.n_layers * TRAIN_STEPS
+    want_sddmm = per_layer * cfg.n_layers * TRAIN_STEPS
+    spmm_n, sddmm_n = _family(launches)
+    diffs = [abs(x - y) for x, y in zip(res.losses, losses_nnz)]
+    log(f"[train-sharded] losses {res.losses}; [train]'s {losses_nnz}; "
+        f"max|diff| {max(diffs):.3g}")
+    log(f"[train-sharded] step ms {[round(1e3 * t, 3) for t in res.step_times]}"
+        f"; steady {step_ms:.3f} ms = {TRAIN_N / step_ms * 1e3:.1f} tokens/s; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+        f"launches {launches}: spmm-family {spmm_n} (expected {want_spmm}), "
+        f"sddmm-family {sddmm_n} (expected {want_sddmm}); {smi}")
+    check(res.final_step == TRAIN_STEPS and all(np.isfinite(res.losses)),
+          "sharded training did not finish with finite losses")
+    check(spmm_n == want_spmm and sddmm_n == want_sddmm and
+          launches[B5] == 0, f"sharded training launch counts {launches}")
+
+    model = T.init_params(cfg_s, seed=0, device=DEVICE)
+    opt_state = adamw.init(dict(model.named_parameters()))
+    batch = loop.batch_to_device(make_batch(cfg_s, shape, 0), DEVICE)
+    step = st.make_train_step(cfg_s, opt_cfg, remat="none")
+    model, opt_state, _ = step(model, opt_state, batch)      # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model, opt_state, metrics = step(model, opt_state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    row = {"train_steps": 1, "card": smi,
+           **_profile_summary(prof, wall_ms, 1, "step")}
+    log("[train-sharded-profile] " + json.dumps(row))
+    del model, opt_state, prof
+
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    out = {}
+    for label, c in (("sharded", _sharded_cfg(cfg32)), ("unsharded", cfg32)):
+        m = T.init_params(c, seed=0, device=DEVICE)
+        loss, _ = T.train_loss(c, m, batch, remat="none")
+        loss.backward()
+        out[label] = (float(loss.detach()), {
+            n: p.grad.clone() for n, p in m.named_parameters()})
+        del m
+    (loss_s, g_s), (loss_u, g_u) = out["sharded"], out["unsharded"]
+    worst = max(((g_s[n] - g).abs().max().item() /
+                 max(g.abs().max().item(), 1e-30), n) for n, g in g_u.items())
+    ok = abs(loss_s - loss_u) <= 1e-5 * abs(loss_u) and worst[0] <= 1e-4 \
+        and set(g_s) == set(g_u)
+    log(f"[train-sharded] f32 2-layer full width, sharded vs unsharded: loss "
+        f"{loss_s:.7f} vs {loss_u:.7f} (rtol 1e-5); worst gradient "
+        f"max|diff|/max|grad| = {worst[0]:.3g} at {worst[1]} (tolerance "
+        f"1e-4) {'ok' if ok else 'FAIL'}")
+    check(ok, "f32 sharded training step disagrees with the unsharded one")
+    del batch, out
+    torch.cuda.empty_cache()
+    return launches, {"step_ms": step_ms,
+                      "tokens_per_s": TRAIN_N / step_ms * 1e3,
+                      "losses": res.losses, "profile": row}
+
+
+def prefill_attn_sharded_phase(smi):
+    """smat-attn-1.3b at full width and depth with
+    ``AttnSparsitySpec(shards=4)`` (always composed): one 8,192-token
+    prefill, exactly 24 x 16 x 4 = 1,536 context products on the
+    spmm-family kernels (plus the FFN's 72 B1) and 384 score SDDMMs; its
+    last-position logits against the ``shards=0`` composed prefill (the
+    same kernels, unpartitioned) within max(2e-2, 2 x that path's own
+    noise: FFN ``dense`` against ``nnz_stream``)."""
+    from repro_torch.launch import steps as st
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+    cfg = _attn_cfg(shards=4)
+    check(A.resolve_attn_impl(cfg.attn_sparsity, ATTN_SEQ, cfg.head_dim,
+                              device=DEVICE) == "composed",
+          "shards > 0 must run the composed path")
+    model = T.init_params(cfg, seed=0, device=DEVICE)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(1, ATTN_SEQ))).to(DEVICE)
+    t0 = time.perf_counter()
+    A.mask_sharded(cfg.attn_sparsity.mask, ATTN_SEQ,
+                   tuple(cfg.attn_sparsity.block), 4, DEVICE)
+    part_s = time.perf_counter() - t0
+    prefill = st.make_prefill_step(cfg, ATTN_SEQ)
+    prefill(model, {"tokens": tokens})                 # first-call set-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    logits = prefill(model, {"tokens": tokens})[0].float()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _read_counts()
+    spmm_n, sddmm_n = _family(counts)
+    want_spmm = cfg.n_layers * cfg.n_heads * 4 + 3 * cfg.n_layers
+    want_sddmm = cfg.n_layers * cfg.n_heads
+    refs = {}
+    for ffn in ("nnz_stream", "dense"):
+        c = dataclasses.replace(_attn_cfg(backend="nnz_stream"),
+                                ffn_sparsity=dataclasses.replace(
+                                    cfg.ffn_sparsity, backend=ffn))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refs[ffn] = st.make_prefill_step(c, ATTN_SEQ)(
+            model, {"tokens": tokens})[0].float()
+        torch.cuda.synchronize()
+        if ffn == "nnz_stream":
+            dt0 = time.perf_counter() - t0
+    err = (logits - refs["nnz_stream"]).abs().max().item()
+    noise = (refs["dense"] - refs["nnz_stream"]).abs().max().item()
+    tol = max(2e-2, 2 * noise)
+    ok = bool(torch.isfinite(logits).all()) and err <= tol and \
+        spmm_n == want_spmm and sddmm_n == want_sddmm and counts[B5] == 0
+    log(f"[prefill-attn-sharded] 1 x {ATTN_SEQ} tokens, shards=4 (mask "
+        f"partition built in {part_s:.2f}s): {dt * 1e3:.3f} ms (host clock, "
+        f"synchronised; the shards=0 composed prefill {dt0 * 1e3:.3f} ms); "
+        f"launches {counts}: spmm-family {spmm_n} (expected "
+        f"{want_spmm}), sddmm-family {sddmm_n} (expected {want_sddmm}); "
+        f"logits vs the shards=0 composed prefill max|dlogit|={err:.4g}, "
+        f"its own noise {noise:.4g}, tolerance {tol:.4g} "
+        f"{'ok' if ok else 'FAIL'}; {smi}")
+    check(ok, "[prefill-attn-sharded] failed")
+    del model, refs
+    torch.cuda.empty_cache()
+    return counts, {"prefill_ms": dt * 1e3, "unsharded_ms": dt0 * 1e3}
+
+
+def dist_mesh_phase():
+    """A one-rank ``nccl`` group on the card: ``spmm_sharded`` through a
+    ``(1,)`` ``"spmm"`` mesh, bit for bit equal to the in-process S = 1
+    run (forward and both gradients), at the gate/up shape in bf16, N =
+    64.  This runs the collectives' code path on the card; the multi-rank
+    mode is held on the CPU (``tests/test_torch_dist_mesh.py``)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import dist_spmm
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = dist_spmm.make_spmm_mesh(1)
+        a = _ffn_pattern("gate_up")
+        arrays, smeta = _ffn_sharded(a, 1, torch.bfloat16)
+        b = _b(5, a.shape[1], 64, torch.bfloat16, transposed=True)
+        weight = torch.ones((a.shape[0], 64), device=DEVICE)
+        local = _sharded_grads(arrays, smeta, b, "auto", 2, weight)
+        vals = arrays.vals.detach().clone().requires_grad_()
+        bb = b.detach().clone().requires_grad_()
+        with dist_spmm.use_spmm_mesh(mesh):
+            out = dist_spmm.spmm_sharded(
+                arrays._replace(vals=vals), smeta, bb, backend="auto",
+                mesh=dist_spmm.current_spmm_mesh(), n_chunks=2)
+        out.backward(weight.to(out.dtype))
+        same = [torch.equal(g, w) for g, w in
+                zip((out.detach(), vals.grad, bb.grad), local)]
+        log(f"[dist-mesh] one-rank nccl mesh {mesh}: forward, dvals, dB "
+            f"bitwise equal to in-process {same} "
+            f"{'ok' if all(same) else 'FAIL'}")
+        check(all(same), "[dist-mesh] mesh mode differs from in-process")
+    finally:
+        dist.destroy_process_group()
+
+
 def main():
     t_start = time.perf_counter()
 
@@ -2810,6 +3372,8 @@ def main():
     timed_train = phase(train_timing_phase, smi)
     timed_prefill = phase(train_timing_phase, smi, PREFILL_N)
     timed_rl = phase(row_loop_timing_phase, smi)
+    phase(dist_parity_phase)
+    timed_dist = phase(dist_timing_phase, smi)
     timed_attn = phase(attn_timing_phase, smi, mask_s)
     timed_bwd = phase(attn_bwd_timing_phase, smi)
     cfg, model, launches, tok_s, stream0 = phase(main_path_phase)
@@ -2817,10 +3381,14 @@ def main():
     phase(profile_phase, cfg, model)
     serve_rl_launches, tok_s_rl = phase(serve_row_loop_phase, cfg, model,
                                         stream0)
+    serve_sh_launches, served_sh = phase(serve_sharded_phase, cfg, model,
+                                         smi)
     del model
     torch.cuda.empty_cache()
     train_launches, trained = phase(train_phase, cfg, smi)
     train_rl_launches, trained_rl = phase(train_row_loop_phase, cfg, smi,
+                                          trained["losses"])
+    train_sh_launches, trained_sh = phase(train_sharded_phase, cfg, smi,
                                           trained["losses"])
     phase(train_vs_plain_phase, cfg)
     phase(train_row_loop_vs_plain_phase, cfg)
@@ -2829,6 +3397,8 @@ def main():
     winners = phase(autotune_phase, mip1_perm, smi)
     prefill_attn_launches, paged_dec_launches, prefilled = phase(
         prefill_attn_phase, smi)
+    prefill_sh_launches, prefilled_sh = phase(prefill_attn_sharded_phase,
+                                              smi)
     serve_attn_launches, tok_s_attn = phase(serve_attn_phase)
     attn_model, serve_paged_launches, served_paged = phase(
         serve_attn_paged_phase, smi)
@@ -2838,6 +3408,7 @@ def main():
     phase(paged_vs_full_phase)
     train_attn_launches, trained_attn = phase(train_attn_phase, smi)
     phase(train_attn_vs_plain_phase)
+    phase(dist_mesh_phase)
 
     # a layer runs each kernel twice on the gate/up shape for every once on
     # the down shape: the line's times are that mix, per launch
@@ -2861,7 +3432,10 @@ def main():
              "prefill_attn_paged_decode": paged_dec_launches,
              "serve_attn": serve_attn_launches,
              "serve_attn_paged": serve_paged_launches,
-             "train_attn": train_attn_launches}
+             "train_attn": train_attn_launches,
+             "serve_sharded": serve_sh_launches,
+             "train_sharded": train_sh_launches,
+             "prefill_attn_sharded": prefill_sh_launches}
 
     def entry(k, err, rows, **extra):
         by_path = {path: counts[k["name"]] for path, counts in paths.items()}
@@ -2894,6 +3468,9 @@ def main():
     line = {"kernels": [
         entry(b1, max(max_err, err_dx, *held), decode,
               paged_decode=paged_decode,
+              sharded_in_process={
+                  f"{k[0]} N={k[1]}": v for k, v in timed_dist.items()
+                  if k != "tune"},
               train_forward={key: mix(fwd, key) for key in keys},
               train_dB={key: mix(dx, key) for key in keys},
               prefill_forward={key: mix(pre_fwd, key) for key in keys},
@@ -2955,7 +3532,14 @@ def main():
         f"{trained_attn['step_ms']:.3f} ms per step, "
         f"{trained_attn['tokens_per_s']:.1f} tokens/s, peak "
         f"{trained_attn['peak_gb']:.2f} GB; {B5} per launch at G={ATTN_G}, "
-        f"L={ATTN_SEQ} (at_32768: L={ATTN_LONG}); whole run "
+        f"L={ATTN_SEQ} (at_32768: L={ATTN_LONG}).  Partitioned path "
+        f"(S={SHARDED_S}, shard_chunks 2, auto): serving "
+        f"{served_sh['tok_s']:.1f} tok/s, training "
+        f"{trained_sh['step_ms']:.3f} ms per step, "
+        f"{trained_sh['tokens_per_s']:.1f} tokens/s, attention prefill "
+        f"{prefilled_sh['prefill_ms']:.3f} ms; tune_shard_count winner "
+        f"S={timed_dist['tune']['measured']} (analytic "
+        f"S={timed_dist['tune']['analytic']}); whole run "
         f"{time.perf_counter() - t_start:.1f}s")
     print(json.dumps(line))
     print(smi)

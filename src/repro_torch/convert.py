@@ -12,7 +12,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.sparse_linear import SHARDED_JAX_FIELDS
 from repro_torch.kernels import ops
+from repro_torch.launch import dist_spmm
 from repro_torch.models import transformer as T
 
 
@@ -27,14 +29,28 @@ def _put(target: torch.Tensor, value) -> None:
 def _put_sparse(sparse, layer, i: int) -> None:
     """Layer ``i`` of a JAX sparse linear tree into a ``SparseLinear``: the
     JAX fields by name, then the port's own (``ops.PORT_FIELDS``) rebuilt
-    from them."""
-    missing = set(ops.SparseArrays._fields) - set(ops.PORT_FIELDS) - \
-        set(layer)
+    from them; for a partitioned layer (``shard_*`` leaves, stacked
+    ``[n_layers, S, ...]``) each shard's, through
+    ``dist_spmm.shard_port_fields``."""
+    sharded = "shard_src" in layer
+    if sharded:
+        want = {"vals", *SHARDED_JAX_FIELDS}
+    else:
+        want = set(ops.SparseArrays._fields) - set(ops.PORT_FIELDS)
+    missing = want - set(layer)
     if missing:
         raise KeyError(f"the JAX layer lacks {sorted(missing)}")
     for field, value in layer.items():
         _put(getattr(sparse, field), value[i])
     meta = sparse.meta
+    if sharded:
+        rebuilt = dist_spmm.shard_port_fields(
+            np.asarray(layer["shard_row_ids"][i]),
+            np.asarray(layer["shard_col_ids"][i]),
+            np.asarray(layer["shard_t_row_ids"][i]), meta)
+        for field, value in rebuilt.items():
+            _put(getattr(sparse, "shard_" + field), value)
+        return
     rebuilt = ops.port_fields(
         np.asarray(layer["row_ids"][i]), np.asarray(layer["col_ids"][i]),
         np.asarray(layer["t_row_ids"][i]), meta.n_block_rows,

@@ -102,7 +102,8 @@ class AttnSparsitySpec:
     ``pallas``, ``row_loop``, ``xla``, ``dense``) runs the composed SDDMM ->
     block softmax -> SpMM path on it.  ``bn`` is the JAX package's TPU tile,
     kept for config parity and not read: the kernels take their own tiles.
-    ``shards > 0`` (the partitioned score structure, ROADMAP A5) raises.
+    ``shards > 0`` runs the context product over the mask's row partition
+    (``launch.dist_spmm``), on the composed path.
     ``paged_decode`` gates the serving decode path: ``"auto"`` reads KV
     through the mask's page table where that reads fewer pages than the
     cache holds, ``"force"`` wherever pages tile the cache, ``"off"`` keeps

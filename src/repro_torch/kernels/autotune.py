@@ -422,8 +422,10 @@ def analytic_choice(meta: ops.SparseMeta, n: int,
 
 
 # ----------------------------------------------------------- shard-count axis
-# Candidate shard counts of the partitioned path (not ported yet: ROADMAP
-# A5), 1 = unsharded; the analytic choice and its cache are here already.
+# Candidate shard counts of the partitioned path (``launch.dist_spmm``:
+# ``resolve_n_shards`` reads the pick, ``tune_shard_count`` measures it);
+# 1 = one shard.  A partitioned operand's per-shard metas carry
+# ``n_shards``, so ``pick`` and ``tune`` key each shard's kernel apart.
 SHARD_CANDIDATES = (1, 2, 4, 8)
 
 _T_INIT = 5e-6        # per-launch latency (matches pm.spmm_model_time)

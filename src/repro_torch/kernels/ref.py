@@ -68,8 +68,14 @@ def bcsr_spmm_row_loop_ref(vals: torch.Tensor, flat_idx: torch.Tensor,
     live = (slot[None, :] < row_len[:, None]).reshape(-1)    # [nbr*max_bpr]
     a = vals[flat_idx.long()].float() * live[:, None, None]
     gathered = b.reshape(K // w, w, N)[flat_col.long()].float()
-    prod = torch.einsum("shw,swn->shn", a, gathered)
-    out = prod.reshape(n_block_rows, max_bpr, h, N).sum(1)
+    prod = torch.einsum("shw,swn->shn", a, gathered).reshape(
+        n_block_rows, max_bpr, h, N)
+    # a row's slots added one by one in slot order, as the kernel does: a
+    # ``sum`` over the slot axis groups its terms by the tensor's width on
+    # the CPU, so column panels of B would not give the same bits
+    out = prod.new_zeros((n_block_rows, h, N))
+    for t in range(max_bpr):
+        out += prod[:, t]
     return out.reshape(n_block_rows * h, N).to(out_dtype or b.dtype)
 
 

@@ -23,10 +23,11 @@ package's, and the device tensors of a mask are built once per ``(spec,
 seq_len, block, device)`` by ``ops.prepare`` (``mask_tensors``), so a call
 moves no mask to the card.
 
-Left out, each to its ROADMAP item: the row-sharded score structure
-(``shards > 0``, A5; the composed path raises), ``attention_mask_report``
-(its caller is the dry-run, A10) and ``merged_attention_meta`` (no caller
-yet).
+``AttnSparsitySpec(shards=S)`` runs the context product over the row
+partition of the mask (``launch.dist_spmm``, ``_mask_sharded``), always on
+the composed path.  Left out, each to its ROADMAP item:
+``attention_mask_report`` (its caller is the dry-run, A10) and
+``merged_attention_meta`` (no caller yet).
 """
 from __future__ import annotations
 
@@ -97,6 +98,7 @@ def decode_page_tensors(spec: AttnMaskSpec, seq_len: int,
 
 
 @functools.lru_cache(maxsize=None)
+@torch.inference_mode(False)
 def _decode_page_tensors(spec: AttnMaskSpec, seq_len: int,
                          block: Tuple[int, int], device: torch.device):
     pages, live, _ = decode_page_table(spec, seq_len, block)
@@ -211,7 +213,11 @@ def _cache_device(device) -> torch.device:
     return device
 
 
+# the cached tensors are built outside inference mode (``inference_mode(
+# False)``), so a cache entry first made while serving can still be saved
+# for a backward later in the process
 @functools.lru_cache(maxsize=None)
+@torch.inference_mode(False)
 def _mask_tensors(spec: AttnMaskSpec, seq_len: int, block: Tuple[int, int],
                   device: torch.device) -> MaskTensors:
     arrays, meta = ops.prepare(attention_mask_bcsr(spec, seq_len, block),
@@ -263,18 +269,54 @@ def block_softmax(scores: torch.Tensor, elem_mask: torch.Tensor,
     return z / denom[rows][:, :, None]
 
 
-def _check_unsharded(spec: AttnSparsitySpec) -> None:
-    if spec.shards > 0:
-        raise NotImplementedError(
-            "AttnSparsitySpec.shards > 0 (the row-sharded score structure "
-            "through dist_spmm) is not ported yet: ROADMAP A5")
+def mask_sharded(spec: AttnMaskSpec, seq_len: int, block: Tuple[int, int],
+                 n_shards: int, device):
+    """Row partition of the mask structure (``launch.dist_spmm``): the
+    context SpMM's operand split over block-rows by the LPT balancer, as
+    ``(ShardedArrays, ShardedMeta)`` on ``device``, built once per
+    ``(spec, seq_len, block, n_shards, device)`` as ``mask_tensors``
+    caches the mask.  The flat probabilities the SDDMM gives drop into its
+    ``vals`` untouched: both sides come from the same padded host BCSR,
+    so the global entry order is shared."""
+    return _mask_sharded(spec, seq_len, tuple(block), int(n_shards),
+                         _cache_device(device))
+
+
+@functools.lru_cache(maxsize=None)
+@torch.inference_mode(False)
+def _mask_sharded(spec: AttnMaskSpec, seq_len: int, block: Tuple[int, int],
+                  n_shards: int, device: torch.device):
+    from repro_torch.launch import dist_spmm  # local: layering
+    host, smeta = dist_spmm._prepare_sharded_host(
+        attention_mask_bcsr(spec, seq_len, block), n_shards)
+    meta = attention_mask_meta(spec, seq_len, block)
+    if smeta.nnzb != meta.nnzb:   # same padded entry list by construction
+        raise AssertionError(
+            f"sharded/unsharded mask entry counts diverged: "
+            f"{smeta.nnzb} vs {meta.nnzb}")
+    return (dist_spmm.sharded_tensors(host, smeta, torch.float32, device),
+            smeta)
 
 
 def _context_spmm(probs: torch.Tensor, arrays: ops.SparseArrays,
                   meta: ops.SparseMeta, v: torch.Tensor,
                   spec: AttnSparsitySpec) -> torch.Tensor:
-    """ctx = probs @ V over the mask structure (unsharded)."""
-    _check_unsharded(spec)
+    """ctx = probs @ V over the mask structure: unsharded, or through the
+    ``dist_spmm`` row partition when ``spec.shards > 0`` (over the ambient
+    spmm mesh when its ``spmm`` axis has ``spec.shards`` ranks, else
+    in-process, as the JAX package falls back)."""
+    if spec.shards > 0:
+        from repro_torch.launch import dist_spmm  # local: layering
+        sharr, smeta = mask_sharded(spec.mask, meta.shape[0], meta.block,
+                                    spec.shards, probs.device)
+        mesh = dist_spmm.current_spmm_mesh()
+        if mesh is not None:
+            from repro_torch.launch.mesh import axis_sizes
+            if axis_sizes(mesh).get(dist_spmm.AXIS_ROW) != spec.shards:
+                mesh = None     # incompatible ambient mesh: in-process
+        return dist_spmm.spmm_sharded(
+            sharr._replace(vals=probs), smeta, v, backend=spec.backend,
+            mesh=mesh)
     return ops.spmm(arrays._replace(vals=probs), meta, v,
                     backend=spec.backend)
 
@@ -388,7 +430,8 @@ def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Each (batch, head) instance is SDDMM -> block softmax -> SpMM, either
     as three dispatches or, when ``resolve_attn_impl`` picks the fused path,
     as one launch of kernel B5, whose backward differentiates the composed
-    path.  ``shards > 0`` raises (ROADMAP A5).
+    path.  ``shards > 0`` runs the context product over the mask's row
+    partition (composed).
 
     >>> import numpy as np, torch
     >>> from repro_torch.models import attention as A
@@ -404,7 +447,6 @@ def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     True
     """
     B, L, H, d = q.shape
-    _check_unsharded(spec)
     scale = float(d ** -0.5 if scale is None else scale)
     cap = None if cap is None else float(cap)
     qf, kf, vf = (t.transpose(1, 2).reshape(B * H, L, d).float()

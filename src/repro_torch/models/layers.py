@@ -371,8 +371,9 @@ def mlp_seed(seed_hint: int) -> int:
 
 
 class MLP(nn.Module):
-    """Gated MLP: block-sparse ``gate``/``up``/``down`` (``SparseLinear``)
-    when ``cfg.ffn_sparsity`` is set, else dense ``w_gate``/``w_up``/
+    """Gated MLP: block-sparse ``gate``/``up``/``down`` (``SparseLinear``,
+    partitioned when ``cfg.ffn_sparsity.shards`` is set) when
+    ``cfg.ffn_sparsity`` is set, else dense ``w_gate``/``w_up``/
     ``w_down``."""
 
     def __init__(self, cfg, *, dtype, device, generator=None, d_ff=None,
@@ -407,17 +408,19 @@ def init_mlp(cfg, generator, dtype, *, device, d_ff=None,
 
 
 @functools.lru_cache(maxsize=None)
-def mlp_sparse_metas(spec, d: int, f: int, seed_hints: tuple):
+def mlp_sparse_metas(spec, d: int, f: int, seed_hints: tuple,
+                     device="cuda"):
     """True structure metas of a sparse MLP whose layers were built with
-    ``seed_hints``, merged (``merge_sparse_metas``).  Returns
-    ``(meta_in, meta_out)``: gate and up share ``d -> f``, down is
-    ``f -> d``."""
+    ``seed_hints``, merged (``merge_sparse_metas``; ``ShardedMeta``s shard
+    by shard).  Returns ``(meta_in, meta_out)``: gate and up share
+    ``d -> f``, down is ``f -> d``.  ``device`` keys ``shards="auto"``."""
     metas_in, metas_out = [], []
     for hint in seed_hints:
         seed = mlp_seed(hint)
-        metas_in.append(sparse_linear_meta(seed, d, f, spec))        # gate
-        metas_in.append(sparse_linear_meta(seed + 1, d, f, spec))    # up
-        metas_out.append(sparse_linear_meta(seed + 2, f, d, spec))   # down
+        for s, i, o, out in ((seed, d, f, metas_in),           # gate
+                             (seed + 1, d, f, metas_in),       # up
+                             (seed + 2, f, d, metas_out)):     # down
+            out.append(sparse_linear_meta(s, i, o, spec, device=device))
     return merge_sparse_metas(metas_in), merge_sparse_metas(metas_out)
 
 
@@ -432,7 +435,7 @@ def mlp(cfg, p, x, d_ff=None, seed_hints=(0,)):
             getattr(p, "gate", None), SparseLinear):
         d, f = cfg.d_model, d_ff or cfg.d_ff
         meta_in, meta_out = mlp_sparse_metas(cfg.ffn_sparsity, d, f,
-                                             tuple(seed_hints))
+                                             tuple(seed_hints), x.device)
         g = apply_sparse_linear(p.gate.params(), meta_in, x, cfg.ffn_sparsity)
         u = apply_sparse_linear(p.up.params(), meta_in, x, cfg.ffn_sparsity)
         return apply_sparse_linear(p.down.params(), meta_out, act(g) * u,

@@ -26,12 +26,18 @@ paged cache's placement accounting.
 Every decode call has one input signature whatever the slots do (the batch
 is always ``n_slots`` rows, ``pos`` a Python int): the call is wrapped by a
 ``shapemon`` sentinel named ``serve.masked_step``
-(``engine.step_sentinel``), which counts the signatures it sees.  Each
+(``engine.step_sentinel``), which counts the signatures it sees.
+
+A model whose sparse FFN is partitioned (``SparsitySpec(shards=...)``)
+decodes in-process on one card; ``spmm_mesh`` runs every decode call under
+``launch.dist_spmm.use_spmm_mesh``, so each sparse product runs over that
+mesh (every rank of it runs the same engine).  Each
 step is a ``serve.step`` span and moves the ``serve.steps`` and
 ``serve.tokens`` counters (``repro_torch.obs``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, Iterator, List, Optional, Tuple
 
@@ -78,13 +84,16 @@ class Request:
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, *, n_slots: int = 4,
                  cache_len: int = 256, seed: int = 0,
-                 prefix_cache: bool = True, placement=None, device="cuda"):
+                 prefix_cache: bool = True, placement=None, spmm_mesh=None,
+                 device="cuda"):
         """``params`` is the ``Transformer`` (``transformer.init_params``)
         on ``device``.  ``seed`` seeds the sampling of requests with a
         temperature above 0.  ``prefix_cache`` enables cross-slot KV reuse
         for shared prompt prefixes.  ``placement`` is the paged KV cache's
         ``serve.paged_kv.PagePlacementSpec`` (its default: all pages on
-        the card)."""
+        the card).  ``spmm_mesh``: a mesh for the partitioned sparse FFN
+        (``dist_spmm.make_spmm_mesh``); None runs partitioned layers
+        in-process (the same math)."""
         self.device = T.resolve_device(device)
         if params.embed.device != self.device:
             raise ValueError(f"the model is on {params.embed.device}, the "
@@ -93,6 +102,7 @@ class ServeEngine:
         self.params = params
         self.n_slots = n_slots
         self.cache_len = cache_len
+        self.spmm_mesh = spmm_mesh
         self.generator = torch.Generator().manual_seed(seed)
         with torch.inference_mode():
             self.cache = T.init_cache(cfg, n_slots, cache_len,
@@ -140,6 +150,12 @@ class ServeEngine:
         probs = torch.softmax(torch.from_numpy(logits) / temperature, dim=-1)
         return int(torch.multinomial(probs, 1, generator=self.generator))
 
+    def _mesh_scope(self):
+        if self.spmm_mesh is None:
+            return contextlib.nullcontext()
+        from repro_torch.launch import dist_spmm  # local: layering
+        return dist_spmm.use_spmm_mesh(self.spmm_mesh)
+
     # ----------------------------------------------------------------- step
     @torch.inference_mode()
     def step(self) -> List[Tuple[int, object]]:
@@ -161,9 +177,10 @@ class ServeEngine:
             mask = np.zeros(self.n_slots, bool)
             for slot, _, _ in entries:
                 mask[slot] = True
-            logits, self.cache = self._decode(
-                self.params, self.cache, self._slot_tokens(entries),
-                int(pos), torch.from_numpy(mask).to(self.device))
+            with self._mesh_scope():
+                logits, self.cache = self._decode(
+                    self.params, self.cache, self._slot_tokens(entries),
+                    int(pos), torch.from_numpy(mask).to(self.device))
             self.decode_calls += 1
             need = [e for e in entries if e[2]]
             if need:

@@ -386,16 +386,50 @@ def test_resolve_attn_impl_rules_equal_jax():
                 assert t == j, (backend, shards)
 
 
-def test_sharded_scores_raise_naming_a5():
-    q, k, v = _t(*_qkv(64))
-    spec = A.AttnSparsitySpec(mask=A.banded(24), block=BLOCK,
-                              backend="fused", shards=2)
+@pytest.fixture
+def jax_oracle(monkeypatch):
+    """Unlock the monitored JAX functions (ROADMAP C1), test-side only."""
+    from repro.obs import jaxmon
+    monkeypatch.setattr(jaxmon, "_trace_active",
+                        lambda: not jax._src.core.trace_state_clean())
+
+
+@pytest.mark.parametrize("shards", [2, 3])
+def test_sharded_scores_raise_naming_a5(jax_oracle, shards):
+    """(The name dates from before the partitioned path, when this raised.)
+    ``AttnSparsitySpec(shards=S)`` runs composed, the context product over
+    the mask's row partition: forward and gradients against JAX's sharded
+    attention within 1e-5, and the partition's host data equal to JAX's
+    ``_mask_sharded``."""
+    jm, tm = MASKS["banded"]
+    q, k, v = _qkv(64, seed=5)
+    jspec = JA.AttnSparsitySpec(mask=jm, block=BLOCK, backend="xla",
+                                shards=shards)
+    spec = A.AttnSparsitySpec(mask=tm, block=BLOCK, backend="fused",
+                              shards=shards)
     assert A.resolve_attn_impl(spec, 64, 8, device="cpu") == "composed"
-    with pytest.raises(NotImplementedError, match="A5"):
-        A.block_sparse_attention(q, k, v, spec)
-    with pytest.raises(NotImplementedError, match="A5"):
-        A._composed_heads(q[0].transpose(0, 1), k[0].transpose(0, 1),
-                          v[0].transpose(0, 1), spec, 0.5, None)
+    sharr, smeta = A.mask_sharded(tm, 64, BLOCK, shards, "cpu")
+    j_sharr, j_smeta = JA._mask_sharded(jm, 64, BLOCK, shards)
+    assert dataclasses.asdict(smeta) == dataclasses.asdict(j_smeta)
+    for name in j_sharr._fields:
+        np.testing.assert_array_equal(getattr(sharr, name).numpy(),
+                                      np.asarray(getattr(j_sharr, name)),
+                                      err_msg=name)
+    assert A.mask_sharded(tm, 64, BLOCK, shards, "cpu")[0] is sharr
+
+    def jloss(q, k, v):
+        return jnp.sum(JA.block_sparse_attention(q, k, v, jspec) ** 2)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    want = JA.block_sparse_attention(jq, jk, jv, jspec)
+    want_g = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+    tq, tk, tv = _t(q, k, v, grad=True)
+    out = A.block_sparse_attention(tq, tk, tv, spec)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+    (out ** 2).sum().backward()
+    for got, w in zip((tq.grad, tk.grad, tv.grad), want_g):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
 
 
 def test_attn_pick_and_key_equal_jax_plus_device():
@@ -513,6 +547,47 @@ def test_smoke_forward_logits_match_jax(pair):
                                rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(float(t_loss), float(j_loss), rtol=1e-4,
                                atol=1e-4)
+
+
+def test_sharded_smoke_forward_and_grads_match_jax(jax_oracle):
+    """smat-attn-1.3b:smoke with ``AttnSparsitySpec(shards=2)`` (the
+    context products over the mask's row partition, composed), float32:
+    logits within 1e-4 of JAX's forward, and every gradient within 1e-4 x
+    its max|grad| of ``jax.grad``."""
+    def sharded(cfg):
+        return dataclasses.replace(_off(cfg), attn_sparsity=dataclasses.replace(
+            cfg.attn_sparsity, shards=2, paged_decode="off"))
+    jcfg, tcfg = sharded(jax_get_config(ARCH + ":smoke")), \
+        sharded(get_config(ARCH + ":smoke"))
+    jparams = JT.init_params(jcfg, seed=0)
+    model = convert.params_from_jax(tcfg, jax.tree.map(np.asarray, jparams),
+                                    "cpu")
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, tcfg.vocab_size, size=(2, 40), dtype=np.int32)
+    labels = rng.integers(0, tcfg.vocab_size, size=(2, 40), dtype=np.int32)
+
+    def jloss(p):
+        logits, _, _ = JT.forward(jcfg, p, {"tokens": jnp.asarray(tokens)})
+        return JT.lm_loss(jcfg, logits, jnp.asarray(labels)), logits
+    (j_loss, j_logits), j_grads = jax.value_and_grad(
+        jloss, has_aux=True, allow_int=True)(
+        jparams)
+    t_logits, _, _ = model({"tokens": torch.from_numpy(tokens).long()})
+    t_loss = T.lm_loss(tcfg, t_logits, torch.from_numpy(labels))
+    t_loss.backward()
+    np.testing.assert_allclose(t_logits.detach().numpy(),
+                               np.asarray(j_logits), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(float(t_loss), float(j_loss), rtol=1e-4)
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        leaf = j_grads[parts[0]]
+        if parts[0] == "blocks":
+            for key in parts[2:]:
+                leaf = leaf[key]
+            leaf = leaf[int(parts[1])]
+        want = np.asarray(leaf)
+        err = np.abs(p.grad.numpy() - want).max()
+        assert err <= 1e-4 * max(np.abs(want).max(), 1e-30), (name, err)
 
 
 def test_smoke_prefill_then_decode_matches_jax_loop(pair):

@@ -18,7 +18,9 @@
   wrapper takes its plain version for CPU tensors only.
 * So do the paged KV cache's tables and the engine that pages; no
   ``repro_torch.obs`` call sits inside an autograd ``Function``'s
-  ``forward``/``backward``, and the kernel wrappers import no obs module."""
+  ``forward``/``backward``, and the kernel wrappers import no obs module.
+* So do the partitioned path's (``dist_spmm.prepare_sharded``,
+  ``make_spmm_mesh``, an engine given an ``spmm_mesh``)."""
 import ast
 import ctypes
 import dataclasses
@@ -396,3 +398,31 @@ def test_paged_kv_entry_points_default_to_the_card(no_card):
         ServeEngine(cfg, model, cache_len=64)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_cli.main(["--arch", "smat-attn-1.3b:smoke", "--cache-len", "64"])
+
+
+def test_partitioned_entry_points_default_to_the_card(no_card):
+    """``prepare_sharded``, ``make_spmm_mesh`` and ``ServeEngine(spmm_mesh=
+    ...)`` default to the card and raise without one; asked for the CPU,
+    the first two run (the mesh then wants its process group)."""
+    from repro_torch.launch import dist_spmm
+    a = tb.random_bcsr_exact(0, (64, 64), (8, 8), 16)
+    # torch without CUDA raises AssertionError, torch with it RuntimeError
+    with pytest.raises((RuntimeError, AssertionError)):
+        dist_spmm.prepare_sharded(a, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dist_spmm.make_spmm_mesh(2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dist_spmm.resolve_n_shards(a)
+    arrays, _ = dist_spmm.prepare_sharded(a, 2, device="cpu")
+    assert all(t.device.type == "cpu" for t in arrays if t is not None)
+    with pytest.raises(ValueError, match="spmm mesh needs 2 ranks"):
+        dist_spmm.make_spmm_mesh(2, device_type="cpu")
+    cfg = dataclasses.replace(get_config("smat-ffn-1.3b:smoke"),
+                              ffn_sparsity=dataclasses.replace(
+                                  get_config("smat-ffn-1.3b:smoke")
+                                  .ffn_sparsity, shards=2))
+    model = T.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(cfg, model, spmm_mesh=object())
+    engine = ServeEngine(cfg, model, cache_len=16, device="cpu")
+    assert engine.spmm_mesh is None

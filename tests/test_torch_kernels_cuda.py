@@ -618,3 +618,47 @@ def test_paged_engine_matches_off_on_card(card):
             streams[mode].setdefault(rid, []).append(tok)
         assert eng.step_sentinel.count == 1
     assert streams["auto"] == streams["off"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("backend", ["nnz_stream", "row_loop", "auto"])
+def test_sharded_spmm_on_card(card, dtype, backend):
+    """The partitioned product through the kernels (``launch.dist_spmm``,
+    in-process, S = 4 over a ragged structure): against the unsharded
+    product (f32 1e-4, bf16 1e-2), chunked == unchunked bit for bit in the
+    forward and both gradients, and S x chunks spmm-family launches a
+    forward, S dB (B1) and S dvals (B2 or B4) launches a backward."""
+    from repro_torch.launch import dist_spmm
+    dt, tol = getattr(torch, dtype), (1e-4 if dtype == "float32" else 1e-2)
+    a = tb.random_bcsr(0, (23 * 16 + 5, 160), (16, 16), 0.3)
+    arrays, smeta = dist_spmm.prepare_sharded(a, 4, dtype=dt, device=card)
+    arrays0, meta0 = tops.prepare(a, dt, device=card)
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (160, 64)).astype(np.float32)).to(card, dt)
+    weight = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (a.shape[0], 64)).astype(np.float32)).to(card, dt)
+
+    def run(n_chunks):
+        vals = arrays.vals.clone().requires_grad_()
+        bb = b.clone().requires_grad_()
+        before = dict(bcsr_spmm.LAUNCHES)
+        out = dist_spmm.spmm_sharded(arrays._replace(vals=vals), smeta, bb,
+                                     backend=backend, n_chunks=n_chunks)
+        fwd = {k: v - before[k] for k, v in bcsr_spmm.LAUNCHES.items()}
+        out.backward(weight)
+        total = {k: v - before[k] for k, v in bcsr_spmm.LAUNCHES.items()}
+        return (out.detach(), vals.grad, bb.grad), fwd, total
+
+    base, fwd, total = run(1)
+    want = tops.spmm(arrays0, meta0, b)
+    torch.testing.assert_close(base[0].float(), want.float(), rtol=tol,
+                               atol=tol)
+    assert fwd["nnz_stream"] + fwd["row_loop"] == 4
+    assert total["nnz_stream"] + total["row_loop"] == 8
+    assert total["sddmm"] + total["sddmm_row_loop"] == 4
+    for n_chunks in (2, 4):
+        got, fwd, _ = run(n_chunks)
+        assert fwd["nnz_stream"] + fwd["row_loop"] == 4 * n_chunks
+        for g, w in zip(got, base):
+            assert torch.equal(g, w), n_chunks

@@ -134,14 +134,62 @@ def test_config_fields_equal_except_backend(arch):
 
 
 def test_unported_configs_raise():
-    # block-sparse attention is ported; its row-sharded score structure is
-    # not (ROADMAP A5): the config builds, the forward raises
-    tcfg = get_config("smat-attn-1.3b:smoke")
+    # a shards=2 attention config (the row-sharded score structure, A5)
+    # runs, and gives the logits of its shards=0 twin on the same weights;
+    # the ssd layout is not ported and raises
+    tcfg = dataclasses.replace(get_config("smat-attn-1.3b:smoke"),
+                               dtype="float32")
     cfg = dataclasses.replace(tcfg, attn_sparsity=dataclasses.replace(
         tcfg.attn_sparsity, shards=2))
     model = T.init_params(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
-        model({"tokens": torch.zeros((1, 8), dtype=torch.long)})
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, 40))).long()
+    with torch.inference_mode():
+        logits, _, _ = model({"tokens": tokens})
+        plain, _, _ = T.forward(tcfg, model, {"tokens": tokens})
+    assert logits.shape == (1, 40, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    np.testing.assert_allclose(logits.numpy(), plain.numpy(), rtol=1e-5,
+                               atol=1e-5)
     with pytest.raises(NotImplementedError, match="not ported"):
         T.Transformer(dataclasses.replace(get_config(ARCH + ":smoke"),
                                           layout="ssd"), device="cpu")
+
+
+@pytest.fixture
+def jax_oracle(monkeypatch):
+    """Unlock the monitored JAX functions (ROADMAP C1), test-side only."""
+    from repro.obs import jaxmon
+    monkeypatch.setattr(jaxmon, "_trace_active",
+                        lambda: not jax._src.core.trace_state_clean())
+
+
+def test_sharded_ffn_logits_match_jax(jax_oracle):
+    """``smat-ffn-1.3b:smoke`` with ``SparsitySpec(shards=2)`` in both
+    packages, the JAX weights (the partition's ``shard_*`` leaves too)
+    loaded through ``convert.params_from_jax``: logits and loss within
+    1e-4 of JAX's forward."""
+    jcfg, tcfg = _cfgs()
+    jcfg = dataclasses.replace(jcfg, ffn_sparsity=dataclasses.replace(
+        jcfg.ffn_sparsity, shards=2))
+    tcfg = dataclasses.replace(tcfg, ffn_sparsity=dataclasses.replace(
+        tcfg.ffn_sparsity, shards=2))
+    jparams = JT.init_params(jcfg, seed=0)
+    model = convert.params_from_jax(tcfg, _to_numpy(jparams), "cpu")
+    assert "shard_src" in jparams["blocks"]["mlp"]["gate"]
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, tcfg.vocab_size, size=(2, 12), dtype=np.int32)
+    labels = rng.integers(0, tcfg.vocab_size, size=(2, 12), dtype=np.int32)
+    j_logits, _, _ = JT.forward(jcfg, jparams, {"tokens": jnp.asarray(tokens)})
+    j_loss = JT.lm_loss(jcfg, j_logits, jnp.asarray(labels))
+    with torch.inference_mode():
+        t_logits, _, _ = model({"tokens": torch.from_numpy(tokens).long()})
+        t_loss = T.lm_loss(tcfg, t_logits, torch.from_numpy(labels))
+    np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(float(t_loss), float(j_loss), rtol=1e-4,
+                               atol=1e-4)
+    gate = model.blocks[1].mlp.gate
+    np.testing.assert_array_equal(
+        gate.shard_src.numpy(),
+        np.asarray(jparams["blocks"]["mlp"]["gate"]["shard_src"][1]))

@@ -186,3 +186,27 @@ def test_attention_engine_matches_jax_decode_oracle(n_slots):
     oracle = _jax_greedy(jcfg, jparams, prompt, 4)
     got = _serve(tcfg, model, [(0, prompt)], n_slots, 4)[0]
     assert got == oracle, (got, oracle)
+
+
+@pytest.mark.parametrize("n_slots", [1, 3])
+def test_sharded_engine_matches_jax_decode_oracle(monkeypatch, n_slots):
+    """``smat-ffn-1.3b:smoke`` with ``SparsitySpec(shards=2)`` through the
+    port's engine (the partitioned FFN in-process) against a JAX
+    ``decode_step`` loop over JAX's ``spmm_sharded`` (unlocked as in
+    ``jax_oracle``, ROADMAP C1): identical greedy tokens."""
+    from repro.obs import jaxmon
+    monkeypatch.setattr(jaxmon, "_trace_active",
+                        lambda: not jax._src.core.trace_state_clean())
+
+    def sharded(cfg):
+        return dataclasses.replace(cfg, dtype="float32",
+                                   ffn_sparsity=dataclasses.replace(
+                                       cfg.ffn_sparsity, shards=2))
+    jcfg, tcfg = sharded(jax_get_config(ARCH)), sharded(get_config(ARCH))
+    jparams = JT.init_params(jcfg, seed=0)
+    model = convert.params_from_jax(tcfg, jax.tree.map(np.asarray, jparams),
+                                    "cpu")
+    prompt, max_new = [58, 93, 70, 61, 52], 4
+    oracle = _jax_greedy(jcfg, jparams, prompt, max_new)
+    got = _serve(tcfg, model, [(0, prompt)], n_slots, max_new)[0]
+    assert got == oracle, (got, oracle)

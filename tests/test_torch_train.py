@@ -226,6 +226,23 @@ def test_attention_train_trajectory_matches_jax():
                 ShapeCell("t", "train", 64, 2))
 
 
+def test_sharded_train_trajectory_matches_jax(monkeypatch):
+    """The 4-step trajectory of ``smat-ffn-1.3b:smoke`` with
+    ``SparsitySpec(shards=2)`` (default ``shard_chunks=2``) in both
+    packages: the port's partitioned product and its unchunked backward,
+    JAX's ``spmm_sharded`` (unlocked as in ``jax_oracle``, ROADMAP C1)."""
+    from repro.obs import jaxmon
+    monkeypatch.setattr(jaxmon, "_trace_active",
+                        lambda: not jax._src.core.trace_state_clean())
+    jcfg, tcfg = _cfgs()
+    jcfg = dataclasses.replace(jcfg, ffn_sparsity=dataclasses.replace(
+        jcfg.ffn_sparsity, shards=2))
+    tcfg = dataclasses.replace(tcfg, ffn_sparsity=dataclasses.replace(
+        tcfg.ffn_sparsity, shards=2))
+    jparams = JT.init_params(jcfg, seed=0)
+    _trajectory(jcfg, tcfg, jparams, jax.tree.map(np.asarray, jparams))
+
+
 def test_remat_full_matches_none():
     _, tcfg = _cfgs()
     batch = loop.batch_to_device(_batch_np(tcfg, 1), "cpu")
