@@ -27,8 +27,13 @@ partitioned SpMM path (``launch.dist_spmm``) runs in ``[dist-parity]``,
 ``[dist-timing]``, ``[serve-sharded]``, ``[train-sharded]``,
 ``[prefill-attn-sharded]`` (``shards=4``: every shard's product on the
 same kernels, counted by family) and ``[dist-mesh]`` (a one-rank nccl
-mesh).  Every phase checks its results; any failure exits non-zero before
-the last line.
+mesh).  Right after ``[build]``, ``[analysis]`` runs the static contract
+analyzer (``python -m repro_torch.analysis --all``), holds every kernel
+instantiation's shared-memory formula to the library's own query and its
+registers (``cuobjdump -res-usage``) to the H100's limits, launches B5 at
+its largest ``max_bpr`` and one past it, and runs the
+``REPRO_VERIFY_LAUNCH=1`` hook on the main paths.  Every phase checks its
+results; any failure exits non-zero before the last line.
 
 The line before the last lists every ported kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the rest
@@ -153,8 +158,14 @@ def build_phase():
         info = _build.BUILD_INFO[k["build"]]
         ptxas = [ln.strip() for ln in info["log"].splitlines()
                  if "registers" in ln or "spill" in ln]
+        # a library found built carries its report (``_build.log_path``):
+        # the spill check below never reads an empty one
+        check(_spills(info["log"]), f"{k['name']}: no ptxas -v report "
+              f"for {_build.library_path(k['build'])}")
+        warm = " (built before: its kept ptxas report)" \
+            if not info["seconds"] else ""
         log(f"[build] {k['source']} -> {_build.library_path(k['build'])} in "
-            f"{info['seconds']:.2f}s")
+            f"{info['seconds']:.2f}s{warm}")
         for ln in ptxas:
             log(f"[build]   {ln}")
         # the tensor cores: count the SASS matrix instructions
@@ -191,6 +202,393 @@ def _spills(ptxas_log):
             out.append((fn, int(m.group(1))))
             fn = None
     return out
+
+
+def _ptxas_registers(ptxas_log):
+    """{mangled function name: registers} from ``ptxas -v``'s report."""
+    out, fn = {}, None
+    for ln in ptxas_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn is not None:
+            out[fn] = int(m.group(1))
+            fn = None
+    return out
+
+
+# ------------------------------------------------------------------ analysis
+SPMM_SOURCES = {B1: ("bcsr_spmm", "bcsr_spmm_nnz_stream"),
+                B3: ("bcsr_spmm_row_loop", "bcsr_spmm_row_loop")}
+SDDMM_SOURCES = {B2: ("bcsr_sddmm", "bcsr_sddmm"),
+                 B4: ("bcsr_sddmm_row_loop", "bcsr_sddmm_row_loop")}
+# B5's shared memory is checked at these (d, h, max_bpr), its boundary at
+# these (d, h, w)
+ATTN_SMEM_GRID = [(d, h, mb) for d in (32, 64, 100, 128, 256)
+                  for h in (8, 16, 100, 128) for mb in (1, 33, 13823)]
+ATTN_BOUNDARY = ((128, 128, 128), (64, 16, 16))
+
+
+def _main_instantiations():
+    """The instantiation each kernel runs on its main path (the model's
+    operand layouts): B1/B3 read x^T (k contiguous: n-major staging), BM 16
+    and BN 8 at decode (N = 4; the entry's headline), BM 128 and BN 64 at
+    training (N = 2048); B2/B4 read the transposed cotangent and x^T (both
+    k-major) at training; B5 runs d = h = 128 over smat-attn-1.3b's mask
+    at 8,192 tokens."""
+    from repro_torch.kernels import bcsr_spmm as pk
+    from repro_torch.models import attention as A
+    from repro_torch.configs import get_config
+
+    def spmm(n):
+        bm, _, kmajor = pk.spmm_launch_config(n, 128, 128, torch.bfloat16,
+                                              0, 0, 1, 2048)
+        return {"dtype": "bfloat16", "bm": bm, "bn": pk.tile_n(n),
+                "kmajor": bool(kmajor)}
+    sddmm = {"dtype": "bfloat16", "ak": True, "bk": True}
+    spec = get_config(ATTN_ARCH).attn_sparsity
+    mb = A.attention_mask_meta(spec.mask, ATTN_SEQ, tuple(spec.block)).max_bpr
+    return {B1: {"decode": spmm(N_SLOTS), "train": spmm(TRAIN_N)},
+            B3: {"decode": spmm(N_SLOTS), "train": spmm(TRAIN_N)},
+            B2: {"train": sddmm}, B4: {"train": sddmm},
+            B5: {"prefill": {"d": 128, "h": spec.block[0], "max_bpr": mb}}}
+
+
+def _b5_one_row(d, h, w, max_bpr, seed=0):
+    """Operands of a B5 launch with one block-row of ``max_bpr`` slots: slot
+    0 holds the one stored block (entry 0, block-col 0), every other slot
+    the sentinel entry ``nnzb`` = 1, which the kernel drops from its slot
+    list (``bcsr_attn.cu``: ``idx >= nnzb`` adds nothing).  The shared
+    memory is the schedule length's; the operands stay one block."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    q = torch.randn(1, h, d, generator=g, device=DEVICE)
+    k = torch.randn(1, w, d, generator=g, device=DEVICE)
+    v = torch.randn(1, w, d, generator=g, device=DEVICE)
+    flat_idx = torch.ones(max_bpr, dtype=torch.int32, device=DEVICE)
+    flat_idx[0] = 0
+    flat_col = torch.zeros(max_bpr, dtype=torch.int32, device=DEVICE)
+    args = (q, k, v, torch.ones(1, h, w, device=DEVICE), flat_idx, flat_col)
+    kw = dict(n_block_rows=1, n_block_cols=1, block=(h, w), scale=d ** -0.5)
+    want = torch.softmax(q[0] @ k[0].T * d ** -0.5, dim=-1) @ v[0]
+    return args, kw, want
+
+
+def _row_meta(h, w, slots):
+    """The meta of one block-row of ``slots`` stored blocks: what B5's
+    shared memory sees at that schedule length."""
+    from repro_torch.kernels import ops
+    return ops.SparseMeta(shape=(h, slots * w), block=(h, w),
+                          n_block_rows=1, n_block_cols=slots, nnzb=slots,
+                          nnzb_t=slots, max_bpr=slots)
+
+
+def _hooked(fn, hooked):
+    """``fn()`` with ``REPRO_VERIFY_LAUNCH`` set to 1 or unset."""
+    import os
+    old = os.environ.pop("REPRO_VERIFY_LAUNCH", None)
+    if hooked:
+        os.environ["REPRO_VERIFY_LAUNCH"] = "1"
+    try:
+        return fn()
+    finally:
+        os.environ.pop("REPRO_VERIFY_LAUNCH", None)
+        if old is not None:
+            os.environ["REPRO_VERIFY_LAUNCH"] = old
+
+
+def analysis_phase(smi):
+    """[analysis] the static contract analyzer (``repro_torch.analysis``) on
+    the card: its CLI; every compiled instantiation's shared memory, Python
+    formula against the library's own query; each function's registers,
+    static shared memory and local memory (``cuobjdump -res-usage``,
+    cross-checked with ptxas's registers) against the H100's limits; B5's
+    shared-memory boundary predicted exactly (a launch at the largest
+    ``max_bpr`` that fits, the kernel's refusal one past it); a grid past
+    ``gridDim.y``'s limit flagged on the host; the ``REPRO_VERIFY_LAUNCH``
+    hook on a full-width decode call, a training step and an S = 4 decode
+    call, outputs bit-equal without it; a planted meta refused with no
+    launch.  Returns each kernel's resources at its main path's
+    instantiations, and the hook's checked dispatches."""
+    from repro_torch.analysis import verify_launch as vl
+    from repro_torch.analysis import workspace as ws
+    from repro_torch.analysis.__main__ import main as analysis_main
+    from repro_torch.kernels import _build, bcsr_attn, ops
+    from repro_torch.kernels import bcsr_spmm as pk
+
+    check(analysis_main(["--all"]) == 0,
+          "python -m repro_torch.analysis --all found a violated contract")
+    log("[analysis] python -m repro_torch.analysis --all: 0 findings")
+    props = torch.cuda.get_device_properties(0)
+    for attr, want in (("shared_memory_per_block_optin", ws.H100_SMEM_PER_CTA),
+                       ("shared_memory_per_multiprocessor",
+                        ws.H100_SMEM_PER_SM),
+                       ("regs_per_multiprocessor", ws.H100_REGS_PER_SM),
+                       ("max_threads_per_multi_processor",
+                        ws.H100_THREADS_PER_SM)):
+        got = getattr(props, attr, None)
+        log(f"[analysis] device {attr} = {got} (workspace: {want})")
+        check(got is None or got == want,
+              f"the card's {attr} {got} != analysis.workspace's {want}")
+
+    # every instantiation: the Python formula against the library's query
+    n_inst = 0
+    for name, (src, sym) in SPMM_SOURCES.items():
+        for code, dt in ((0, "float32"), (1, "bfloat16")):
+            for bm in ws.SPMM_ROW_BLOCKS:
+                check(pk.query(src, f"{sym}_threads", bm) ==
+                      ws.spmm_threads(bm), f"{name} threads at BM={bm}")
+                for bn in pk.SPMM_TILES:
+                    for km in (0, 1):
+                        got = pk.query(src, f"{sym}_smem_bytes", code, bm,
+                                       bn, km)
+                        want = ws.spmm_smem_bytes(dt, bm, bn, bool(km))
+                        check(got == want, f"{name} {dt} BM={bm} BN={bn} "
+                              f"kmajor={km}: library {got} B, formula "
+                              f"{want} B")
+                        n_inst += 1
+        check(pk.query(src, f"{sym}_smem_bytes", 1, 64, 64, 0) == -1,
+              f"{name} answers for a row block it does not compile")
+    for name, (src, sym) in SDDMM_SOURCES.items():
+        check(pk.query(src, f"{sym}_threads") == ws.SDDMM_THREADS,
+              f"{name} threads")
+        for code, dt in ((0, "float32"), (1, "bfloat16")):
+            for ak in (0, 1):
+                for bk in (0, 1):
+                    got = pk.query(src, f"{sym}_smem_bytes", code, ak, bk)
+                    want = ws.sddmm_smem_bytes(dt, bool(ak), bool(bk))
+                    check(got == want, f"{name} {dt} ak={ak} bk={bk}: "
+                          f"library {got} B, formula {want} B")
+                    n_inst += 1
+    for d, h, mb in ATTN_SMEM_GRID:
+        got = bcsr_attn.query("bcsr_attn_fused_smem_bytes", d, h, mb)
+        check(got == ws.attn_smem_bytes(d, h, mb),
+              f"{B5} d={d} h={h} max_bpr={mb}: library {got} B, formula "
+              f"{ws.attn_smem_bytes(d, h, mb)} B")
+        check(bcsr_attn.query("bcsr_attn_fused_threads", h) ==
+              ws.attn_threads(h), f"{B5} threads at h={h}")
+    log(f"[analysis] shared memory: the Python formula equals the library's "
+        f"query for all {n_inst} B1-B4 instantiations and "
+        f"{len(ATTN_SMEM_GRID)} B5 (d, h, max_bpr) points")
+
+    # resources: cuobjdump -res-usage against the limits, ptxas cross-check
+    main = _main_instantiations()
+    attn_main = main[B5]["prefill"]
+    resources = {}
+    for k in KERNELS:
+        lib = _build.library_path(k["build"])
+        usage = vl.resource_usage(lib)
+        rows, errs = vl.verify_library_resources(
+            usage, attn_shape=(attn_main["d"], attn_main["h"],
+                               attn_main["max_bpr"]))
+        check(rows, f"{k['name']}: cuobjdump -res-usage lists no kernel")
+        check(not errs, f"{k['name']}: resources over the H100's limits: "
+              f"{errs}")
+        ptx = _ptxas_registers(_build.BUILD_INFO[k["build"]]["log"])
+        for r in rows:
+            check(ptx.get(r["function"]) == r["regs"],
+                  f"{r['function']}: cuobjdump says {r['regs']} registers, "
+                  f"ptxas {ptx.get(r['function'])}")
+            inst = " ".join(f"{key}={r[key]}" for key in
+                            ("dtype", "bm", "bn", "kmajor", "ak", "bk")
+                            if key in r) or " ".join(
+                                f"{key}={val}" for key, val in
+                                attn_main.items())
+            log(f"[analysis] {k['name']} {inst}: "
+                f"smem {r['smem']} B dynamic + {r['static_smem']} B static, "
+                f"regs {r['regs']}, local {r['local']} B, threads "
+                f"{r['threads']}, CTAs/SM {r['ctas_per_sm']}")
+        by_shape = {}
+        for shape, want in main[k["name"]].items():
+            row = next(r for r in rows
+                       if all(r.get(key) == val for key, val in want.items()
+                              if key in r))
+            by_shape[shape] = {"smem_bytes": row["smem"] + row["static_smem"],
+                               "regs": row["regs"],
+                               "ctas_per_sm": row["ctas_per_sm"],
+                               "instantiation": want}
+        resources[k["name"]] = by_shape
+
+    # B5's boundary: the largest max_bpr that fits launches, one more is
+    # refused by the kernel, and the verifier says so first
+    for d, h, w in ATTN_BOUNDARY:
+        limit = ws.attn_max_bpr(d, h)
+        args, kw, want = _b5_one_row(d, h, w, limit)
+        out = bcsr_attn.bcsr_attn_fused(*args, **kw)
+        torch.cuda.synchronize()
+        err = _rel(out[0], want)
+        check(err <= 1e-5, f"{B5} at max_bpr={limit}: {err:.3g} x max|ref|")
+        args1, kw1, _ = _b5_one_row(d, h, w, limit + 1)
+        try:
+            bcsr_attn.bcsr_attn_fused(*args1, **kw1)
+            refused = None
+        except RuntimeError as e:
+            refused = str(e)
+        check(refused is not None and "CUDA error" in refused,
+              f"{B5} at max_bpr={limit + 1} was not refused: {refused}")
+        again = bcsr_attn.bcsr_attn_fused(*args, **kw)  # no stale error
+        torch.cuda.synchronize()
+        check(torch.equal(again, out), f"{B5} after a refusal")
+        ok = vl.verify_launch(_row_meta(h, w, limit), "fused", n=d,
+                              op="attn")
+        bad = vl.verify_launch(_row_meta(h, w, limit + 1), "fused", n=d,
+                               op="attn")
+        check(ok == [] and len(bad) == 1 and "shared memory" in bad[0],
+              f"verify_launch at the {B5} boundary: {ok}, {bad}")
+        log(f"[analysis] {B5} boundary d={d} h={h} w={w}: max_bpr {limit} "
+            f"({ws.attn_smem_bytes(d, h, limit)} B dynamic + "
+            f"{ws.ATTN_STATIC_SMEM} B static) launches ({err:.3g} x "
+            f"max|ref| against softmax(q k^T) v), {limit + 1} refused by "
+            f"the kernel ({refused}); verify_launch flags {limit + 1} only")
+
+    # a grid the card cannot launch, flagged on the host (not launched)
+    from repro_torch.core import bcsr as B
+    meta = ops.prepare_sparse_meta(B.random_bcsr_exact(
+        0, (8192, 2048), (128, 128), 112))
+    edge = ws.H100_GRID_YZ * pk.SPMM_TILES[-1]
+    check(vl.verify_launch(meta, "nnz_stream", n=edge) == [],
+          f"N={edge} flagged")
+    errs = vl.verify_launch(meta, "nnz_stream", n=edge + 1)
+    check(len(errs) == 1 and "gridDim.y=65536" in errs[0],
+          f"N={edge + 1} not flagged: {errs}")
+    log(f"[analysis] grid: {B1} at N={edge + 1} (BN 64) is flagged on the "
+        f"host ({errs[0]}); N={edge} passes")
+
+    hook = _hook_on_main_paths()
+    log(f"[analysis] every check held; {smi}")
+    return resources, hook
+
+
+def _hook_on_main_paths():
+    """The ``REPRO_VERIFY_LAUNCH=1`` hook on the main paths at full width:
+    one ``smat-ffn-1.3b`` decode call, one training step and one
+    ``SparsitySpec(shards=4)`` decode call, each through
+    ``verify_launch.assert_launch_ok`` on every ``ops.dispatch`` and
+    bit-equal to the same call without the hook; then a planted meta (one
+    entry more than its schedule has slots for) raises ``LaunchError``
+    before any launch.  Returns the checked dispatches of each path."""
+    import dataclasses as dc
+
+    from repro_torch.analysis import verify_launch as vl
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as st
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+
+    checked = {"n": 0}
+    assert_ok = vl.assert_launch_ok
+
+    def counting(*args, **kw):
+        checked["n"] += 1
+        return assert_ok(*args, **kw)
+
+    def decode(cfg, model):
+        cache = T.init_cache(cfg, N_SLOTS, CACHE_LEN, device=DEVICE)
+        toks = torch.arange(N_SLOTS, device=DEVICE) * 7 + 1
+        with torch.inference_mode():
+            logits, _ = T.decode_step(cfg, model, cache, toks, 0)
+        torch.cuda.synchronize()
+        return logits
+
+    def both(what, fn, expect):
+        _reset_counts()
+        plain = _hooked(fn, False)
+        launches = _read_counts()
+        checked["n"] = 0
+        _reset_counts()
+        hooked = _hooked(fn, True)
+        check(_read_counts() == launches and
+              sum(launches[name] for name in expect) > 0,
+              f"{what}: launches {launches} without the hook, "
+              f"{_read_counts()} with it")
+        n = checked["n"]
+        check(n > 0, f"{what}: the hook checked no dispatch")
+        return plain, hooked, n, launches
+
+    vl.assert_launch_ok = counting
+    counts = {}
+    try:
+        cfg = get_config("smat-ffn-1.3b")
+        model = T.init_params(cfg, seed=0, device=DEVICE)
+        plain, hooked, n, launches = both(
+            "decode", lambda: decode(cfg, model), (B1,))
+        check(torch.equal(plain, hooked), "decode logits differ under "
+              "REPRO_VERIFY_LAUNCH=1")
+        counts["decode"] = n
+        log(f"[analysis] hook: {cfg.name} decode call ({N_SLOTS} slots) "
+            f"passes the verifier on {n} dispatches; logits bit-equal "
+            f"without the hook; launches {launches}")
+
+        # the planted fault: an operand of the model's shape whose meta
+        # counts one entry more than its schedule has slots for (the entry
+        # would sit on the sentinel): refused before any launch
+        from repro_torch.core import bcsr as B
+        arrays, meta = ops.prepare(B.random_bcsr_exact(
+            3, (8192, 2048), (128, 128), 112), torch.bfloat16,
+            device=DEVICE)
+        bad = dc.replace(meta, nnzb=meta.n_block_rows * meta.max_bpr + 1)
+        x = torch.ones(2048, N_SLOTS, dtype=torch.bfloat16, device=DEVICE)
+        _reset_counts()
+        try:
+            _hooked(lambda: ops.spmm(arrays, bad, x, backend="row_loop"),
+                    True)
+            raised = None
+        except vl.LaunchError as e:
+            raised = str(e)
+        check(raised is not None and "schedule capacity" in raised,
+              f"the planted meta was not refused: {raised}")
+        check(_read_counts() == _counts(), f"the planted meta launched "
+              f"{_read_counts()}")
+        log(f"[analysis] planted meta (nnzb {bad.nnzb} > {meta.n_block_rows}"
+            f" rows x max_bpr {meta.max_bpr}): LaunchError before any "
+            f"launch, counts {_read_counts()}")
+        del model, arrays
+        torch.cuda.empty_cache()
+
+        shape = ShapeCell("chip", "train", TRAIN_SEQ, TRAIN_BATCH)
+        opt_cfg = adamw.AdamWConfig(total_steps=TRAIN_STEPS)
+        batch = loop.batch_to_device(make_batch(cfg, shape, 0), DEVICE)
+
+        def train_step():
+            m = T.init_params(cfg, seed=0, device=DEVICE)
+            opt = adamw.init(dict(m.named_parameters()))
+            step = st.make_train_step(cfg, opt_cfg, remat="none")
+            m, opt, metrics = step(m, opt, batch)
+            torch.cuda.synchronize()
+            return ({k: v.clone() for k, v in metrics.items()},
+                    {k: v.detach().clone() for k, v in m.state_dict().items()})
+        plain, hooked, n, launches = both("train step", train_step, (B2,))
+        same = all(torch.equal(plain[0][k], hooked[0][k]) for k in plain[0])
+        same &= all(torch.equal(plain[1][k], hooked[1][k]) for k in plain[1])
+        check(same, "a training step differs under REPRO_VERIFY_LAUNCH=1")
+        counts["train"] = n
+        log(f"[analysis] hook: {cfg.name} training step ({TRAIN_BATCH} x "
+            f"{TRAIN_SEQ}) passes the verifier on {n} dispatches; loss "
+            f"{float(plain[0]['loss']):.6f}, every parameter after the "
+            f"update bit-equal without the hook; launches {launches}")
+        del plain, hooked
+        torch.cuda.empty_cache()
+
+        cfg_sh = _sharded_cfg(cfg)
+        model = T.init_params(cfg_sh, seed=0, device=DEVICE)
+        plain, hooked, n, launches = both(
+            "sharded decode", lambda: decode(cfg_sh, model), (B1, B3))
+        check(torch.equal(plain, hooked), "S=4 decode logits differ under "
+              "REPRO_VERIFY_LAUNCH=1")
+        counts["decode_sharded"] = n
+        log(f"[analysis] hook: {cfg_sh.name} shards={SHARDED_S} decode call "
+            f"passes the verifier on {n} dispatches; logits bit-equal "
+            f"without the hook; launches {launches}")
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        vl.assert_launch_ok = assert_ok
+    return counts
 
 
 # ------------------------------------------------------------------ operands
@@ -3364,6 +3762,7 @@ def main():
     smi = device_phase()
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     phase(build_phase)
+    resources, hook_counts = phase(analysis_phase, smi)
     max_err = phase(parity_phase)
     err_b2, err_dx = phase(sddmm_parity_phase)
     err_b3, err_b4 = phase(row_loop_parity_phase)
@@ -3510,6 +3909,17 @@ def main():
                             for r in timed_attn.values())),
          "at_32768": {key: timed_attn[ATTN_LONG][key] for key in attn_keys}},
     ]}
+    # each kernel's shared memory, registers and CTAs an SM ([analysis]) at
+    # the instantiation of its headline shape, and at its other main paths'
+    headline = {B1: "decode", B3: "decode", B2: "train", B4: "train",
+                B5: "prefill"}
+    for e in line["kernels"]:
+        res = resources[e["name"]]
+        e.update({key: res[headline[e["name"]]][key]
+                  for key in ("smem_bytes", "regs", "ctas_per_sm")},
+                 resources_by_shape=res)
+    log(f"[main] REPRO_VERIFY_LAUNCH=1 hook: {hook_counts} dispatches "
+        "checked, outputs bit-equal without it")
     log(f"[main] serving: {tok_s:.1f} tok/s (nnz_stream), {tok_s_rl:.1f} "
         f"tok/s (row_loop); training: {trained['step_ms']:.3f} ms per step, "
         f"{trained['tokens_per_s']:.1f} tokens/s (nnz_stream), "

@@ -7,6 +7,9 @@ headers (``csrc/*.cuh``), and loaded with
 ``ctypes``.  The sources have a plain C interface and include no PyTorch
 header, so a build takes seconds.  Nothing is built when a module is
 imported: the wrappers call :func:`load` when they first launch a kernel.
+nvcc's output (``ptxas -v``'s register, shared-memory and spill report)
+is kept beside each library (``log_path``), so a process that finds the
+library built still reads its report.
 """
 from __future__ import annotations
 
@@ -29,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 # name -> {"seconds": build time (0.0 when the library was already built),
-#          "log": nvcc's output, ptxas register/shared-memory report included}
+#          "log": nvcc's output, ptxas register/shared-memory report included
+#                 (read back from ``log_path`` when the library was built)}
 BUILD_INFO: Dict[str, dict] = {}
 
 
@@ -58,12 +62,17 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
+def log_path(name: str) -> Path:
+    """Where nvcc's output for ``library_path(name)`` is kept, beside it."""
+    return library_path(name).with_suffix(".log")
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless a library of this exact source
-    exists; returns the library's path."""
-    out = library_path(name)
-    if out.exists():
-        BUILD_INFO[name] = {"seconds": 0.0, "log": ""}
+    exists with its build log; returns the library's path."""
+    out, log_file = library_path(name), log_path(name)
+    if out.exists() and log_file.exists():
+        BUILD_INFO[name] = {"seconds": 0.0, "log": log_file.read_text()}
         return out
     nvcc = find_nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -76,7 +85,12 @@ def build(name: str) -> Path:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed to build {name}.cu:\n{log}")
-    os.replace(tmp, out)       # atomic: concurrent builders never see half
+    # the log first, then the library, each atomically: a library that
+    # exists always has its log, and concurrent builders never see half
+    tmp_log = log_file.with_suffix(f".{os.getpid()}.tmp.log")
+    tmp_log.write_text(log)
+    os.replace(tmp_log, log_file)
+    os.replace(tmp, out)
     BUILD_INFO[name] = {"seconds": time.perf_counter() - t0, "log": log}
     return out
 

@@ -297,6 +297,14 @@ class Fingerprint:
     device: str = "cpu"  # device name (``device_name``)
 
     def key(self) -> str:
+        """The JAX package's v7 key with ``|dev=<device>`` appended
+        (``analysis.fingerprint_audit.parse_key`` inverts it).  A device
+        name that could not be parsed back -- empty, or holding ``|`` --
+        raises."""
+        if not self.device or "|" in self.device:
+            raise ValueError(
+                f"device name {self.device!r} cannot be keyed: a "
+                "fingerprint's device must be non-empty and hold no '|'")
         h, w = self.block
         return (f"v7|op={self.op}"
                 f"|nbr={self.n_block_rows}|nbc={self.n_block_cols}"

@@ -37,13 +37,27 @@ _ARGTYPES = ([_C] * 7 +        # q k v ebits flat_idx flat_col out
              [_I] * 10 +       # G lq lk d dv nbr max_bpr h w nnzb
              [_F, _F, _I, _I, _C])  # scale cap use_cap vec stream
 
+# the library's queries for the static analyzer (``query``)
+QUERY_ARGTYPES = {"bcsr_attn_fused_smem_bytes": [_I] * 3,   # d h max_bpr
+                  "bcsr_attn_fused_threads": [_I]}          # h
 
-def _lib():
-    fn = _build.load("bcsr_attn").bcsr_attn_fused
+
+def _lib(symbol: str = "bcsr_attn_fused"):
+    fn = getattr(_build.load("bcsr_attn"), symbol)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = QUERY_ARGTYPES.get(symbol, _ARGTYPES)
         fn.restype = ctypes.c_int
     return fn
+
+
+def query(symbol: str, *args) -> int:
+    """Call one of the library's plain C queries: ``bcsr_attn_fused_smem_
+    bytes(d, h, max_bpr)``, the dynamic shared memory of a launch from the
+    constants the launch uses, or ``bcsr_attn_fused_threads(h)``.  No
+    kernel is launched; the library is built on first use (the card's
+    machine only).  ``analysis.workspace.attn_smem_bytes`` is held to it
+    there."""
+    return int(_lib(symbol)(*args))
 
 
 def pack_emask(emask: torch.Tensor) -> torch.Tensor:

@@ -51,6 +51,15 @@ _ARGTYPES = {
         _LL, _LL, _LL, _LL,              # dc's strides, b's strides
         _I, _I, _I,                      # vec ak bk
         _I, _I, _C],                     # in_type out_type stream
+    # each library's queries for the static analyzer (``query``)
+    ("bcsr_spmm", "bcsr_spmm_nnz_stream_smem_bytes"): [_I] * 4,
+    ("bcsr_spmm", "bcsr_spmm_nnz_stream_threads"): [_I],
+    ("bcsr_spmm_row_loop", "bcsr_spmm_row_loop_smem_bytes"): [_I] * 4,
+    ("bcsr_spmm_row_loop", "bcsr_spmm_row_loop_threads"): [_I],
+    ("bcsr_sddmm", "bcsr_sddmm_smem_bytes"): [_I] * 3,
+    ("bcsr_sddmm", "bcsr_sddmm_threads"): [],
+    ("bcsr_sddmm_row_loop", "bcsr_sddmm_row_loop_smem_bytes"): [_I] * 3,
+    ("bcsr_sddmm_row_loop", "bcsr_sddmm_row_loop_threads"): [],
 }
 
 
@@ -62,6 +71,18 @@ def _lib(source: str, symbol: str):
         fn.argtypes = _ARGTYPES[(source, symbol)]
         fn.restype = ctypes.c_int
     return fn
+
+
+def query(source: str, symbol: str, *args) -> int:
+    """Call one of a kernel library's plain C queries: ``<kernel>_smem_bytes
+    (in_type, bm, bn, kmajor)`` (B1, B3) or ``(in_type, ak, bk)`` (B2,
+    B4), the dynamic shared memory of one instantiation from the constants
+    its launch uses (-1 for one it does not compile), and
+    ``<kernel>_threads``.  No kernel is launched; the library is built on
+    first use, so this runs on the card's machine only.  The static
+    analyzer's Python mirrors (``analysis.workspace``) are held to it
+    there."""
+    return int(_lib(source, symbol)(*args))
 
 
 def tile_n(n: int) -> int:
@@ -82,6 +103,13 @@ def _tile(bn, n: int) -> int:
     return bn
 
 
+def spmm_row_block(n: int, h: int) -> int:
+    """The rows of a block-row one B1/B3 CTA owns (``spmm_launch_config``'s
+    ``bm``): 16 at decode widths (N <= 16) and for blocks of h <= 64, else
+    128."""
+    return 16 if n <= 16 or h <= 64 else 128
+
+
 def spmm_launch_config(n: int, h: int, w: int, dtype, vals_ptr: int,
                        b_ptr: int, sbk: int, sbn: int):
     """``(bm, vec, kmajor)`` of one SpMM launch (``csrc/spmm_tile.cuh``), a
@@ -99,7 +127,7 @@ def spmm_launch_config(n: int, h: int, w: int, dtype, vals_ptr: int,
     falls on a multiple of it; the element size (a scalar copy) takes any
     strides."""
     esize = torch.finfo(dtype).bits // 8
-    bm = 16 if n <= 16 or h <= 64 else 128
+    bm = spmm_row_block(n, h)
     kmajor = sbk != 1
     for vec in (16, 8, 4):
         if vec <= esize:

@@ -465,9 +465,23 @@ extern "C" int bcsr_attn_fused(const void* q, const void* k, const void* v,
   cudaError_t err = cudaFuncSetAttribute(
       attn_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess) {
+    // a refused size (past the card's 227 KB, analysis/workspace.py
+    // attn_max_bpr) is this call's error, not the next launch's: clear it
+    cudaGetLastError();
+    return err;
+  }
   dim3 grid(nbr * a.slices, G, cdiv(dv, kDVT));
   attn_fused_kernel<<<grid, 32 * warps, smem,
                       static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();
 }
+
+// The static analyzer's queries (analysis/workspace.py mirrors them): the
+// dynamic shared memory of a launch at these widths and schedule length,
+// bytes, and its threads a CTA.
+extern "C" int bcsr_attn_fused_smem_bytes(int d, int h, int max_bpr) {
+  return static_cast<int>(smem_bytes(d, h, max_bpr));
+}
+
+extern "C" int bcsr_attn_fused_threads(int h) { return 32 * warps_for(h); }

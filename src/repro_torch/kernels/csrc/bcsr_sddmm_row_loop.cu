@@ -86,3 +86,12 @@ extern "C" int bcsr_sddmm_row_loop(const void* dc, const void* b,
   return sddmm_tile::launch(src, g, nbr * max_bpr, ak, bk, in_type, out_type,
                             static_cast<cudaStream_t>(stream));
 }
+
+// The static analyzer's queries (analysis/workspace.py mirrors them):
+// dynamic shared memory of one instantiation, bytes (-1 for one the launch
+// does not take), and threads a CTA.
+extern "C" int bcsr_sddmm_row_loop_smem_bytes(int in_type, int ak, int bk) {
+  return sddmm_tile::smem_bytes(in_type, ak, bk);
+}
+
+extern "C" int bcsr_sddmm_row_loop_threads() { return sddmm_tile::kThreads; }

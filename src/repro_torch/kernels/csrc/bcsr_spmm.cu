@@ -80,3 +80,15 @@ extern "C" int bcsr_spmm_nnz_stream(const void* vals, const void* rowptr,
   return spmm_tile::launch(src, g, nbr, bn, bm, kmajor, in_type, out_type,
                            static_cast<cudaStream_t>(stream));
 }
+
+// The static analyzer's queries (analysis/workspace.py mirrors them):
+// dynamic shared memory of one instantiation, bytes (-1 for one the launch
+// does not take), and threads a CTA.
+extern "C" int bcsr_spmm_nnz_stream_smem_bytes(int in_type, int bm, int bn,
+                                               int kmajor) {
+  return spmm_tile::smem_bytes(in_type, bm, bn, kmajor);
+}
+
+extern "C" int bcsr_spmm_nnz_stream_threads(int bm) {
+  return spmm_tile::threads(bm);
+}

@@ -463,4 +463,24 @@ cudaError_t launch(const Source& src, Args g, int entries, int ak, int bk,
                                              stream);
 }
 
+// ------------------------------------------------------- the C queries
+// The dynamic shared memory (Layout::kSmemBytes) of the instantiation
+// `launch` takes for these codes; -1 for a type it does not take.  Each
+// SDDMM library exports it, with kThreads, as plain C queries for the
+// static analyzer.
+template <typename T>
+int smem_major(int ak, int bk) {
+  if (ak)
+    return bk ? Layout<T, true, true>::kSmemBytes
+              : Layout<T, true, false>::kSmemBytes;
+  return bk ? Layout<T, false, true>::kSmemBytes
+            : Layout<T, false, false>::kSmemBytes;
+}
+
+inline int smem_bytes(int in_type, int ak, int bk) {
+  if (in_type == 0) return smem_major<float>(ak, bk);
+  if (in_type == 1) return smem_major<__nv_bfloat16>(ak, bk);
+  return -1;
+}
+
 }  // namespace sddmm_tile

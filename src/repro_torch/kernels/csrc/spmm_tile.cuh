@@ -568,4 +568,41 @@ cudaError_t launch(const Source& src, Args g, int nbr, int bn, int bm,
   return cudaErrorInvalidValue;
 }
 
+// ------------------------------------------------------- the C queries
+// The dynamic shared memory (Layout::kSmemBytes) and the threads of the
+// instantiation `launch` takes for these codes; -1 for one it does not
+// compile.  Each SpMM library exports them as plain C queries, so that
+// the static analyzer's Python mirrors can be held to them on the card.
+template <typename T, int BM, int BN>
+int smem_of(int kmajor) {
+  return kmajor ? Layout<T, BM, BN, true>::kSmemBytes
+                : Layout<T, BM, BN, false>::kSmemBytes;
+}
+
+template <typename T, int BM>
+int smem_bn(int bn, int kmajor) {
+  switch (bn) {
+    case 8: return smem_of<T, BM, 8>(kmajor);
+    case 16: return smem_of<T, BM, 16>(kmajor);
+    case 32: return smem_of<T, BM, 32>(kmajor);
+    case 64: return smem_of<T, BM, 64>(kmajor);
+    default: return -1;
+  }
+}
+
+inline int smem_bytes(int in_type, int bm, int bn, int kmajor) {
+  if (in_type == 0) {
+    if (bm == 16) return smem_bn<float, 16>(bn, kmajor);
+    if (bm == 128) return smem_bn<float, 128>(bn, kmajor);
+  } else if (in_type == 1) {
+    if (bm == 16) return smem_bn<__nv_bfloat16, 16>(bn, kmajor);
+    if (bm == 128) return smem_bn<__nv_bfloat16, 128>(bn, kmajor);
+  }
+  return -1;
+}
+
+inline int threads(int bm) {
+  return bm == 16 || bm == 128 ? threads_for(bm) : -1;
+}
+
 }  // namespace spmm_tile

@@ -38,6 +38,7 @@ autograd work.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -569,7 +570,9 @@ def resolve_backend(backend: str, bn: Optional[int], meta: SparseMeta,
     ``nnz_stream``.  ``bn`` is the SpMM kernels' N tile: None (or 0) lets
     the kernel choose, otherwise it must be one of ``kernel_tiles(backend,
     op)``.  An explicit ``row_loop`` for a meta without ``max_bpr``
-    raises."""
+    raises.  With ``REPRO_VERIFY_LAUNCH=1`` the resolved launch goes
+    through ``analysis.verify_launch.assert_launch_ok`` first, which
+    raises ``LaunchError`` before any kernel runs."""
     if op not in OPS:
         raise ValueError(f"unknown op {op!r}; want 'spmm' or 'sddmm'")
     if backend == "auto":
@@ -594,6 +597,12 @@ def resolve_backend(backend: str, bn: Optional[int], meta: SparseMeta,
         raise ValueError(
             f"bn={bn} is not an N tile the {backend} {op} kernel compiles; "
             f"want None or one of {kernel_tiles(backend, op)}")
+    if os.environ.get("REPRO_VERIFY_LAUNCH") == "1":
+        # opt-in pre-launch contract check: meta invariants, schedule
+        # capacity, the CUDA grid's limits and the kernel's shared memory
+        # against the H100's, all on the host (repro_torch.analysis)
+        from repro_torch.analysis import verify_launch as _verify_launch
+        _verify_launch.assert_launch_ok(meta, backend, n=n, bn=bn, op=op)
     # host-side dispatch record (static info only)
     obs_trace.event("ops.dispatch", op=op, backend=backend, bn=bn, n=n,
                     nnzb=meta.nnzb, max_bpr=meta.max_bpr)

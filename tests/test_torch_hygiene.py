@@ -281,6 +281,10 @@ def test_library_path_covers_the_shared_headers(monkeypatch, tmp_path):
 C_INTERFACES = [(source, symbol, types)
                 for (source, symbol), types in bcsr_spmm._ARGTYPES.items()]
 C_INTERFACES.append(("bcsr_attn", "bcsr_attn_fused", bcsr_attn._ARGTYPES))
+# the libraries' queries for the static analyzer (``*_smem_bytes``,
+# ``*_threads``) are among ``bcsr_spmm._ARGTYPES``; B5's:
+C_INTERFACES += [("bcsr_attn", symbol, types)
+                 for symbol, types in bcsr_attn.QUERY_ARGTYPES.items()]
 
 
 @pytest.mark.parametrize("source,symbol,types", C_INTERFACES,
@@ -295,7 +299,8 @@ def test_c_interfaces_match_their_argtypes(source, symbol, types):
     m = re.search(r'extern "C" int ' + symbol + r"\((.*?)\)\s*\{", src,
                   re.S)
     assert m, f"no C entry point {symbol} in {source}.cu"
-    params = [" ".join(p.split()) for p in m.group(1).split(",")]
+    params = [" ".join(p.split()) for p in m.group(1).split(",")] \
+        if m.group(1).strip() else []
 
     def ctype(param):
         if "*" in param:
@@ -352,36 +357,18 @@ def test_attn_wrapper_takes_the_plain_version_on_cpu(monkeypatch):
 
 
 def test_no_obs_call_sits_in_an_autograd_function_body():
-    """The port's form of the JAX lint rule R7: ``repro_torch.obs`` names
-    appear in no ``forward``/``backward`` of a ``torch.autograd.Function``,
-    and the kernel wrappers import no obs module."""
-    wrappers = {"bcsr_spmm.py", "bcsr_attn.py", "ref.py", "_build.py"}
-    checked = []
-    for path in sorted(PORT.rglob("*.py")):
-        tree = ast.parse(path.read_text(), filename=str(path))
-        obs_names = set()
-        for node in ast.walk(tree):
-            if isinstance(node, ast.ImportFrom) and (node.module or "") \
-                    .startswith("repro_torch.obs"):
-                obs_names |= {a.asname or a.name for a in node.names}
-            elif isinstance(node, ast.Import):
-                obs_names |= {a.asname or a.name for a in node.names
-                              if a.name.startswith("repro_torch.obs")}
-        if path.parent.name == "kernels" and path.name in wrappers:
-            assert not obs_names, f"{path.name} imports {obs_names}"
-        for cls in (n for n in ast.walk(tree) if isinstance(n, ast.ClassDef)):
-            if not any(ast.unparse(b).endswith("Function") for b in cls.bases):
-                continue
-            for fn in cls.body:
-                if isinstance(fn, ast.FunctionDef) and fn.name in (
-                        "forward", "backward"):
-                    checked.append(f"{cls.name}.{fn.name}")
-                    used = {n.id for n in ast.walk(fn)
-                            if isinstance(n, ast.Name)} & obs_names
-                    assert not used, (f"{path.relative_to(ROOT)}: "
-                                      f"{cls.name}.{fn.name} uses {used}")
-
-    # ops' _Spmm and _Sddmm, attention's _AttnFused: forward and backward
+    """The port's lint rule R7 (``analysis.lint_rules``, ``obs-host-only``)
+    over the port: no ``repro_torch.obs`` call is reachable from a
+    ``forward``/``backward`` of a ``torch.autograd.Function``, and the
+    kernel wrappers import no obs module."""
+    from repro_torch.analysis import lint_rules
+    findings, checked = lint_rules.obs_host_only(str(PORT))
+    assert findings == [], "\n".join(str(f) for f in findings)
+    wrappers = {p.name for p in (PORT / "kernels").glob("*.py")} & \
+        lint_rules.KERNEL_WRAPPERS
+    assert wrappers == lint_rules.KERNEL_WRAPPERS
+    # ops' _Spmm and _Sddmm, attention's _AttnFused, dist_spmm's
+    # _SpmmSharded: forward and backward
     assert len(checked) >= 6, checked
 
 

@@ -662,3 +662,81 @@ def test_sharded_spmm_on_card(card, dtype, backend):
         assert fwd["nnz_stream"] + fwd["row_loop"] == 4 * n_chunks
         for g, w in zip(got, base):
             assert torch.equal(g, w), n_chunks
+
+
+# the static analyzer's mirrors (``analysis.workspace``) against the
+# libraries' own queries, and B5's shared-memory boundary
+SPMM_LIBS = [("bcsr_spmm", "bcsr_spmm_nnz_stream"),
+             ("bcsr_spmm_row_loop", "bcsr_spmm_row_loop")]
+SDDMM_LIBS = [("bcsr_sddmm", "bcsr_sddmm"),
+              ("bcsr_sddmm_row_loop", "bcsr_sddmm_row_loop")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source,symbol", SPMM_LIBS + SDDMM_LIBS,
+                         ids=[s for s, _ in SPMM_LIBS + SDDMM_LIBS])
+def test_smem_queries_equal_the_formulas_on_card(card, source, symbol):
+    """Every compiled instantiation: ``<kernel>_smem_bytes`` (the C++
+    ``Layout::kSmemBytes``) == the Python formula, exactly."""
+    from repro_torch.analysis import workspace as ws
+    q = bcsr_spmm.query
+    for code, dt in ((0, "float32"), (1, "bfloat16")):
+        if (source, symbol) in SPMM_LIBS:
+            for bm in ws.SPMM_ROW_BLOCKS:
+                assert q(source, f"{symbol}_threads", bm) == \
+                    ws.spmm_threads(bm)
+                for bn in bcsr_spmm.SPMM_TILES:
+                    for km in (0, 1):
+                        assert q(source, f"{symbol}_smem_bytes", code, bm,
+                                 bn, km) == \
+                            ws.spmm_smem_bytes(dt, bm, bn, bool(km))
+            assert q(source, f"{symbol}_smem_bytes", code, 64, 64, 0) == -1
+        else:
+            assert q(source, f"{symbol}_threads") == ws.SDDMM_THREADS
+            for ak in (0, 1):
+                for bk in (0, 1):
+                    assert q(source, f"{symbol}_smem_bytes", code, ak,
+                             bk) == ws.sddmm_smem_bytes(dt, bool(ak),
+                                                        bool(bk))
+
+
+@pytest.mark.cuda
+def test_attn_smem_query_equals_the_formula_on_card(card):
+    from repro_torch.analysis import workspace as ws
+    for d in (32, 64, 100, 128, 256):
+        for h in (8, 16, 100, 128):
+            assert bcsr_attn.query("bcsr_attn_fused_threads", h) == \
+                ws.attn_threads(h)
+            for mb in (1, 33, 13823):
+                assert bcsr_attn.query("bcsr_attn_fused_smem_bytes", d, h,
+                                       mb) == ws.attn_smem_bytes(d, h, mb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,h,w", [(128, 128, 128), (64, 16, 16)])
+def test_attn_max_bpr_boundary_on_card(card, d, h, w):
+    """B5 launches at ``workspace.attn_max_bpr`` slots and is refused one
+    slot past it (a one-row schedule: slot 0 holds the one stored block,
+    the others the sentinel the kernel drops, so the operands stay one
+    block); a refusal leaves no error behind for the next launch.  The
+    result against softmax(q k^T) v: 1e-5 x max|ref| (3xTF32)."""
+    from repro_torch.analysis import workspace as ws
+    g = torch.Generator(device=card).manual_seed(0)
+    q, k, v = (torch.randn(1, n, d, generator=g, device=card)
+               for n in (h, w, w))
+    want = torch.softmax(q[0] @ k[0].T * d ** -0.5, dim=-1) @ v[0]
+
+    def launch(slots):
+        flat_idx = torch.ones(slots, dtype=torch.int32, device=card)
+        flat_idx[0] = 0
+        return bcsr_attn.bcsr_attn_fused(
+            q, k, v, torch.ones(1, h, w, device=card), flat_idx,
+            torch.zeros(slots, dtype=torch.int32, device=card),
+            n_block_rows=1, n_block_cols=1, block=(h, w), scale=d ** -0.5)
+    limit = ws.attn_max_bpr(d, h)
+    out = launch(limit)
+    torch.cuda.synchronize()
+    assert (out[0] - want).abs().max() <= 1e-5 * want.abs().max()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        launch(limit + 1)
+    assert torch.equal(launch(limit), out)
