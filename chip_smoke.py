@@ -32,7 +32,11 @@ analyzer (``python -m repro_torch.analysis --all``), holds every kernel
 instantiation's shared-memory formula to the library's own query and its
 registers (``cuobjdump -res-usage``) to the H100's limits, launches B5 at
 its largest ``max_bpr`` and one past it, and runs the
-``REPRO_VERIFY_LAUNCH=1`` hook on the main paths.  Every phase checks its
+``REPRO_VERIFY_LAUNCH=1`` hook on the main paths.  Last, ``[dryrun]`` runs
+``launch.dryrun --all`` and holds every timed path's analytic roofline
+(``launch.roofline``) under its measured time and its exact argument bytes
+under its measured peak memory, and ``[examples]`` runs the three example
+twins (``examples/torch_*.py``) on the card.  Every phase checks its
 results; any failure exits non-zero before the last line.
 
 The line before the last lists every ported kernel as JSON; the last line is
@@ -1177,6 +1181,7 @@ def main_path_phase():
     requests = _requests(cfg)
     _reset_counts()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     streams = {}
     for rid, tok in engine.generate(requests):
@@ -1184,6 +1189,8 @@ def main_path_phase():
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = _read_counts()
+    _measured("serve", cfg, "decode", N_SLOTS, CACHE_LEN,
+              dt * 1e3 / engine.decode_calls)
 
     n_tok = sum(len(v) for v in streams.values())
     per_call = 3 * cfg.n_layers
@@ -1371,6 +1378,17 @@ def _counts(**nonzero):
     return {k["name"]: nonzero.get(k["name"], 0) for k in KERNELS}
 
 
+# every timed main path, for [dryrun]: its config and cell, its measured ms
+# (a step, a decode call or a prefill) and the peak memory allocated since
+# its phase reset the count
+MEASURED = {}
+
+
+def _measured(path, cfg, kind, batch, seq, ms):
+    MEASURED[path] = {"cfg": cfg, "kind": kind, "batch": batch, "seq": seq,
+                      "ms": ms, "peak": torch.cuda.max_memory_allocated()}
+
+
 def train_phase(cfg, smi):
     """The training main path at full width: TRAIN_STEPS AdamW steps of
     2 x 1024 tokens, bf16, no remat, through ``train.loop.train`` on the
@@ -1403,6 +1421,7 @@ def train_phase(cfg, smi):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     steady = res.step_times[1:]
     step_ms = 1e3 * sum(steady) / len(steady)
+    _measured("train", cfg, "train", TRAIN_BATCH, TRAIN_SEQ, step_ms)
     log(f"[train] {cfg.name} full width, {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
         f"per step, {cfg.dtype}, remat none, AdamW: losses {res.losses}")
     log(f"[train] step ms (host clock, each ends in a device sync): "
@@ -1830,6 +1849,7 @@ def serve_row_loop_phase(cfg, model, stream0):
     requests = _requests(cfg)
     _reset_counts()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     streams = {}
     for rid, tok in engine.generate(requests):
@@ -1837,6 +1857,8 @@ def serve_row_loop_phase(cfg, model, stream0):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = _read_counts()
+    _measured("serve_row_loop", cfg_rl, "decode", N_SLOTS, CACHE_LEN,
+              dt * 1e3 / engine.decode_calls)
     n_tok = sum(len(v) for v in streams.values())
     per_call = 3 * cfg.n_layers
     log(f"[serve-row_loop] {len(streams)} requests, {n_tok} new tokens, "
@@ -1899,6 +1921,8 @@ def train_row_loop_phase(cfg, smi, losses_nnz):
     launches = _read_counts()
     steady = res.step_times[1:]
     step_ms = 1e3 * sum(steady) / len(steady)
+    _measured("train_row_loop", cfg_rl, "train", TRAIN_BATCH, TRAIN_SEQ,
+              step_ms)
     want = _counts(**{name: 3 * cfg.n_layers * TRAIN_STEPS
                       for name in (B3, B1, B4)})
     diffs = [abs(a - b) for a, b in zip(res.losses, losses_nnz)]
@@ -2617,11 +2641,13 @@ def prefill_attn_phase(smi):
     prefill(model, {"tokens": tokens[:, :4096]})   # first-call set-up
     torch.cuda.synchronize()
     _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     logits, cache = prefill(model, {"tokens": tokens})
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = _read_counts()
+    _measured("prefill_attn", cfg, "prefill", 1, ATTN_SEQ, dt * 1e3)
     want = _counts(**{B5: cfg.n_layers, B1: 3 * cfg.n_layers})
     logits = logits.float()
     ref_logits = {}
@@ -2776,6 +2802,7 @@ def prefill_attn_phase(smi):
     torch.cuda.synchronize()
     dt_long = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 1e9
+    _measured("prefill_attn_32k", cfg, "prefill", 1, ATTN_LONG, dt_long * 1e3)
     counts_long = _read_counts()
     log(f"[prefill-attn] {cell.name} cell (global batch "
         f"{cell.global_batch} cut to 1 on one card), 1 x {ATTN_LONG} tokens: "
@@ -2812,6 +2839,7 @@ def serve_attn_phase():
     requests = _requests(cfg)
     _reset_counts()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     streams = {}
     for rid, tok in engine.generate(requests):
@@ -2819,6 +2847,8 @@ def serve_attn_phase():
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = _read_counts()
+    _measured("serve_attn", cfg, "decode", N_SLOTS, CACHE_LEN,
+              dt * 1e3 / engine.decode_calls)
     n_tok = sum(len(v) for v in streams.values())
     want = _counts(**{B1: 3 * cfg.n_layers * engine.decode_calls})
     log(f"[serve-attn] {len(streams)} requests, {n_tok} new tokens, "
@@ -2876,6 +2906,7 @@ def serve_attn_paged_phase(smi):
     _reset_counts()
     shapemon.reset("models.paged_decode")
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     streams = {}
     for rid, tok in engine.generate(requests):
@@ -2884,6 +2915,8 @@ def serve_attn_paged_phase(smi):
     dt = time.perf_counter() - t0
     launches = _read_counts()
     calls = engine.decode_calls
+    _measured("serve_attn_paged", cfg, "decode", N_SLOTS, ATTN_CACHE,
+              dt * 1e3 / calls)
     sigs = {"serve.masked_step": engine.step_sentinel.count,
             "models.paged_decode": shapemon.trace_count(
                 "models.paged_decode")}
@@ -3094,6 +3127,7 @@ def train_attn_phase(smi):
     peak = torch.cuda.max_memory_allocated() / 1e9
     steady = res.step_times[1:]
     step_ms = 1e3 * sum(steady) / len(steady)
+    _measured("train_attn", cfg, "train", 1, ATTN_SEQ, step_ms)
     want = {n: c * ATTN_TRAIN_STEPS for n, c in per_step.items()}
     log(f"[train-attn] {cfg.name} full width, 1 x {ATTN_SEQ} tokens, bf16, "
         f"remat none, AdamW: losses {res.losses}; step ms "
@@ -3503,6 +3537,7 @@ def serve_sharded_phase(cfg, model0, smi):
     requests = _requests(cfg)
     _reset_counts()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     streams = {}
     for rid, tok in engine.generate(requests):
@@ -3510,6 +3545,8 @@ def serve_sharded_phase(cfg, model0, smi):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = _read_counts()
+    _measured("serve_sharded", cfg_s, "decode", N_SLOTS, CACHE_LEN,
+              dt * 1e3 / engine.decode_calls)
     n_tok = sum(len(v) for v in streams.values())
     per_call = 3 * cfg.n_layers * SHARDED_S * cfg_s.ffn_sparsity.shard_chunks
     spmm_n, sddmm_n = _family(launches)
@@ -3579,6 +3616,8 @@ def train_sharded_phase(cfg, smi, losses_nnz):
     launches = _read_counts()
     steady = res.step_times[1:]
     step_ms = 1e3 * sum(steady) / len(steady)
+    _measured("train_sharded", cfg_s, "train", TRAIN_BATCH, TRAIN_SEQ,
+              step_ms)
     per_layer = 3 * SHARDED_S
     want_spmm = (per_layer * cfg_s.ffn_sparsity.shard_chunks + per_layer) * \
         cfg.n_layers * TRAIN_STEPS
@@ -3667,11 +3706,13 @@ def prefill_attn_sharded_phase(smi):
     prefill(model, {"tokens": tokens})                 # first-call set-up
     torch.cuda.synchronize()
     _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     logits = prefill(model, {"tokens": tokens})[0].float()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = _read_counts()
+    _measured("prefill_attn_sharded", cfg, "prefill", 1, ATTN_SEQ, dt * 1e3)
     spmm_n, sddmm_n = _family(counts)
     want_spmm = cfg.n_layers * cfg.n_heads * 4 + 3 * cfg.n_layers
     want_sddmm = cfg.n_layers * cfg.n_heads
@@ -3747,6 +3788,81 @@ def dist_mesh_phase():
         dist.destroy_process_group()
 
 
+def dryrun_phase(smi):
+    """The dry-run (``launch.dryrun``, A10) on the card's machine: ``--all``
+    at full size (both archs x the four shape cells, no allocation), then
+    ``run_cell`` at the batch and length of every path this script timed
+    (``MEASURED``).  Each path's roofline time (the analytic work count's
+    bound) is printed beside its measured time, with share = roofline /
+    measured; a share above 1 means the count is wrong, and fails.  The
+    cell's exact argument bytes must not exceed the peak memory its phase
+    measured."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    rc = dryrun.main(["--all", "--device", DEVICE])
+    log(f"[dryrun] --all at full size: exit {rc} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    check(rc == 0, f"dryrun --all exited {rc}")
+    rows = {}
+    for path, m in MEASURED.items():
+        cell = ShapeCell(path, m["kind"], m["seq"], m["batch"])
+        rec = dryrun.run_cell(m["cfg"], cell, device=DEVICE, remat="none",
+                              verbose=False)
+        roof = rec["roofline"]
+        bound_ms = rec["t_bound_s"] * 1e3
+        share = bound_ms / m["ms"]
+        args = rec["memory"]["argument_bytes"]
+        rows[path] = {"kind": m["kind"], "batch": m["batch"],
+                      "seq": m["seq"], "flops": roof["flops_per_device"],
+                      "bytes": roof["bytes_per_device"],
+                      "bound_ms": bound_ms,
+                      "bound_by": roof["bottleneck"],
+                      "measured_ms": m["ms"], "share": share,
+                      "argument_bytes": args, "peak_bytes": m["peak"]}
+        log(f"[dryrun] {path} ({m['cfg'].name}, {m['kind']} {m['batch']} x "
+            f"{m['seq']}): flops {roof['flops_per_device']:.4e}, bytes "
+            f"{roof['bytes_per_device']:.4e}; roofline {bound_ms:.4f} ms "
+            f"({roof['bottleneck']}), measured {m['ms']:.3f} ms, share "
+            f"{share:.4f}; argument_bytes {args} <= peak {m['peak']}")
+        check(share <= 1, f"[dryrun] {path}: the roofline {bound_ms} ms "
+              f"exceeds the measured {m['ms']} ms: the count is wrong")
+        check(args <= m["peak"], f"[dryrun] {path}: argument_bytes {args} "
+              f"> the measured peak {m['peak']}")
+    log("[dryrun] " + json.dumps({"card": smi, "paths": rows}))
+    return rows
+
+
+# the example twins, each in its own process on the card; the training one
+# at EXAMPLE_TRAIN_STEPS steps of its default 4 x 128 tokens
+EXAMPLE_TRAIN_STEPS = 30
+EXAMPLES = (("examples/torch_quickstart.py",),
+            ("examples/torch_serve_decode.py",),
+            ("examples/torch_train_sparse_lm.py", "--steps",
+             str(EXAMPLE_TRAIN_STEPS)))
+
+
+def examples_phase():
+    """Run the three example twins on the card (``--device`` left at its
+    default, ``cuda``), each in a subprocess with ``src`` on the path: each
+    must exit 0 and print ``OK`` last; their output's tail is logged."""
+    import os
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    for cmd in EXAMPLES:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *cmd], cwd=root, env=env,
+                              capture_output=True, text=True, timeout=600)
+        dt = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        for line in lines[-8:]:
+            log(f"[examples] {cmd[0]}: {line}")
+        log(f"[examples] {' '.join(cmd)}: exit {proc.returncode} in "
+            f"{dt:.1f}s")
+        check(proc.returncode == 0 and lines and lines[-1] == "OK",
+              f"{' '.join(cmd)} failed: {proc.stderr[-2000:]}")
+
+
 def main():
     t_start = time.perf_counter()
 
@@ -3808,6 +3924,8 @@ def main():
     train_attn_launches, trained_attn = phase(train_attn_phase, smi)
     phase(train_attn_vs_plain_phase)
     phase(dist_mesh_phase)
+    phase(dryrun_phase, smi)
+    phase(examples_phase)
 
     # a layer runs each kernel twice on the gate/up shape for every once on
     # the down shape: the line's times are that mix, per launch

@@ -17,8 +17,9 @@ assume:
   ``|dev=<device>``): parse, injectivity, the autotune cache.
 
 ``workspace`` holds the shared byte estimators: the JAX package's working
-sets (the autotuner's ``pick_bn``) and the CUDA kernels' own shared
-memory and thread counts, with the H100's limits.
+sets (``fits_vmem``, the reference autotuner's ``pick_bn``) and the CUDA
+kernels' own shared memory and thread counts (which the port's ``pick_bn``
+budgets), with the H100's limits.
 """
 from repro_torch.analysis import workspace
 from repro_torch.analysis.report import Finding, render

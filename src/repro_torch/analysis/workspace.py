@@ -2,12 +2,13 @@
 
 Two families of formulas live here.
 
-* The JAX package's (``repro.analysis.workspace``), unchanged:
+* The JAX package's (``repro.analysis.workspace``), unchanged: its
   ``autotune.pick_bn`` uses ``fits_vmem`` to keep an N tile's working set
-  (A block + B tile + f32 accumulator) inside a budget, and its parity
+  (A block + B tile + f32 accumulator) inside a budget, and the parity
   tests hold these formulas.  They model the TPU kernels' VMEM cells, not
-  the CUDA kernels (ROADMAP C: at the models' blocks both say every tile
-  fits).  The name ``fits_vmem`` is kept for parity with the JAX package.
+  the CUDA kernels, so the port's ``autotune.pick_bn`` budgets the CUDA
+  kernels' shared memory below instead (``autotune.tile_fits``).  The name
+  ``fits_vmem`` is kept for parity with the JAX package.
 * The CUDA kernels' own: the dynamic shared memory and threads of each
   compiled instantiation, each a mirror of the C++ constant its launch
   uses (``spmm_smem_bytes``: ``spmm_tile.cuh`` ``Layout::kSmemBytes``;
@@ -63,7 +64,8 @@ def _esize(dtype) -> int:
 
 def spmm_cell_bytes(block: tuple[int, int], bn: int) -> int:
     """Working-set bytes of one (block, bn) SpMM/SDDMM grid cell: the
-    bf16 A-block + bf16 B-panel + f32 accumulator ``pick_bn`` budgets.
+    bf16 A-block + bf16 B-panel + f32 accumulator the JAX package's
+    ``pick_bn`` budgets.
 
     >>> spmm_cell_bytes((32, 32), 256) == (32*32 + 32*256)*2 + 32*256*4
     True
@@ -75,7 +77,7 @@ def spmm_cell_bytes(block: tuple[int, int], bn: int) -> int:
 def fits_vmem(block: tuple[int, int], bn: int,
               budget: int = H100_SMEM_PER_CTA) -> bool:
     """True iff a (block, bn) cell double-buffers inside ``budget`` --
-    the exact feasibility predicate ``autotune.pick_bn`` uses.
+    the JAX package's ``autotune.pick_bn`` predicate, kept as its twin.
 
     >>> fits_vmem((128, 128), 64)
     True

@@ -2,7 +2,8 @@
 from __future__ import annotations
 
 from repro_torch.configs.archs import ARCHS, smoke_config
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (SHAPES, ModelConfig,  # noqa: F401
+                                      ShapeCell, cell_applicable)
 
 
 def get_config(name: str) -> ModelConfig:

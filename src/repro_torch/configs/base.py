@@ -89,6 +89,38 @@ class ModelConfig:
     def has_decode(self) -> bool:
         return True  # all assigned archs are decoder-style
 
+    def param_count(self) -> int:
+        """Analytic parameter count (drives the 6*N*D model-FLOPs count of
+        ``launch.roofline.model_flops_for``): embeddings and head, plus
+        attention and the (sparse: its density's share) gated MLP a layer.
+        The JAX package's count for the layouts ported so far; the SSM,
+        hybrid and MLA/MoE layouts come with ROADMAP A7."""
+        if self.layout not in ("attn_mlp", "gemma_pair"):
+            raise NotImplementedError(
+                f"layout {self.layout!r} is not ported yet (ROADMAP A7)")
+        d = self.d_model
+        if self.input_mode == "codebooks":
+            n = self.n_codebooks * self.vocab_size * d * 2
+        else:
+            n = self.vocab_size * d * 2
+        return n + self.n_layers * (_attn_params(self) + _mlp_params(self))
+
+    def active_param_count(self) -> int:
+        """Per-token active params: every parameter, outside MoE (whose
+        top-k count comes with ROADMAP A7)."""
+        return self.param_count()
+
+
+def _attn_params(cfg: ModelConfig) -> int:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return d * h * hd + 2 * d * kv * hd + h * hd * d
+
+
+def _mlp_params(cfg: ModelConfig) -> int:
+    if cfg.ffn_sparsity is not None:
+        return int(3 * cfg.d_model * cfg.d_ff * cfg.ffn_sparsity.density)
+    return 3 * cfg.d_model * cfg.d_ff  # gated: up, gate, down
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeCell:

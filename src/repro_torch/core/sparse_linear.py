@@ -273,6 +273,114 @@ def init_sparse_linear(key: int, in_dim: int, out_dim: int,
     return arrays._asdict(), meta
 
 
+def meta_spec(shape, dtype) -> torch.Tensor:
+    """A shape-and-dtype stand-in: a tensor on the ``meta`` device (no
+    storage), the torch counterpart of ``jax.ShapeDtypeStruct``."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _port_field_specs(nbr: int, nbc: int, max_bpr: int, lead=()) -> dict:
+    """Specs of ``ops.PORT_FIELDS`` for ``nbr`` block-rows, ``nbc``
+    block-cols and schedules of ``max_bpr`` slots a row (``lead``: the
+    shard axis of a partitioned layer)."""
+    sched = nbr * max_bpr
+    shapes = {"rowptr": nbr + 1, "t_rowptr": nbc + 1, "flat_idx": sched,
+              "flat_col": sched, "row_len": nbr, "sddmm_flat_idx": sched}
+    return {name: meta_spec((*lead, shapes[name]), torch.int32)
+            for name in ops.PORT_FIELDS}
+
+
+def sparse_linear_specs(in_dim: int, out_dim: int, spec: SparsitySpec,
+                        dtype=torch.bfloat16, seed: Optional[int] = None,
+                        device="cuda"):
+    """``(params, meta)`` of the layer without building it: ``params`` maps
+    every key ``init_sparse_linear`` returns to a tensor on the ``meta``
+    device (shape and dtype only), ``meta`` is the static meta.
+
+    The JAX package's keys take their shapes from the dims alone
+    (``_nnzb_for``; a partitioned spec's from ``shard_shapes``), so they
+    are the same for every seed.  ``seed`` controls the meta: with the
+    layer's init seed it is the TRUE structure meta (``sparse_linear_meta``,
+    equal to what ``init_sparse_linear(seed, ...)`` returns); with None it
+    is dims-only, its stats 0 (``auto`` then resolves to the streamed
+    kernel and ``row_loop`` raises).  The port's own schedule buffers
+    (``ops.PORT_FIELDS``) are sized by that meta's ``max_bpr``, so with the
+    layer's seed every shape equals ``init_sparse_linear``'s.  ``device``
+    only keys ``shards="auto"``'s resolution."""
+    h, w = spec.block
+    nnzb = _nnzb_for(spec, out_dim, in_dim)
+    nbr, nbc = -(-out_dim // h), -(-in_dim // w)
+    i32 = torch.int32
+    if is_sharded(spec):
+        from repro_torch.launch import dist_spmm  # local: layering
+        S = resolved_shards(spec, out_dim, in_dim, device=device)
+        rps, nnzb_ps, nnzb_t_ps = shard_shapes(spec, out_dim, in_dim,
+                                               n_shards=S)
+        if seed is not None:
+            meta = sparse_linear_meta(seed, in_dim, out_dim, spec,
+                                      device=device)
+        else:
+            shard_meta = ops.SparseMeta(
+                shape=(rps * h, in_dim), block=spec.block,
+                n_block_rows=rps, n_block_cols=nbc, nnzb=nnzb_ps,
+                nnzb_t=nnzb_t_ps, reorder="identity", n_shards=S)
+            meta = dist_spmm.ShardedMeta(
+                shape=(out_dim, in_dim), block=spec.block, n_shards=S,
+                col_shards=spec.shard_cols, rows_per_shard=rps, nnzb=nnzb,
+                nnzb_per_shard=nnzb_ps, nnzb_t_per_shard=nnzb_t_ps,
+                shard_metas=(shard_meta,) * S, reorder=spec.reorder)
+        # dist_spmm.shard_port_fields: schedules at the shards' largest
+        # max_bpr, at least 1
+        max_bpr = max([m.max_bpr for m in meta.shard_metas] + [1])
+        port = _port_field_specs(rps, nbc, max_bpr, lead=(S,))
+        params = {
+            "vals": meta_spec((nnzb, h, w), dtype),
+            "shard_src": meta_spec((S, nnzb_ps), i32),
+            "shard_row_ids": meta_spec((S, nnzb_ps), i32),
+            "shard_col_ids": meta_spec((S, nnzb_ps), i32),
+            "shard_mask": meta_spec((S, nnzb_ps), torch.bool),
+            "shard_t_perm": meta_spec((S, nnzb_t_ps), i32),
+            "shard_t_row_ids": meta_spec((S, nnzb_t_ps), i32),
+            "shard_t_col_ids": meta_spec((S, nnzb_t_ps), i32),
+            "gather_rows": meta_spec((out_dim,), i32),
+            **{"shard_" + name: t for name, t in port.items()}}
+        return params, meta
+    if seed is not None:
+        meta = sparse_linear_meta(seed, in_dim, out_dim, spec, device=device)
+    else:
+        meta = ops.SparseMeta(shape=(out_dim, in_dim), block=spec.block,
+                              n_block_rows=nbr, n_block_cols=nbc,
+                              nnzb=nnzb, nnzb_t=nnzb, reorder=spec.reorder)
+    params = {
+        "vals": meta_spec((nnzb, h, w), dtype),
+        **{name: meta_spec((nnzb,), torch.bool if name == "real_mask" else i32)
+           for name in ("row_ids", "col_ids", "real_mask", "t_perm",
+                        "t_row_ids", "t_col_ids")},
+        "row_perm": meta_spec((out_dim,), i32),
+        "inv_perm": meta_spec((out_dim,), i32),
+        **_port_field_specs(nbr, nbc, meta.max_bpr)}
+    return params, meta
+
+
+def shard_balance_report(in_dim: int, out_dim: int, spec: SparsitySpec,
+                         seed: int = 7919, device="cuda") -> dict:
+    """Per-shard nnzb balance of the layer this spec and seed build (host
+    only: the dry-run prints it, so the partition's quality shows before
+    any launch).  ``device`` only keys ``shards="auto"``."""
+    from repro_torch.launch import dist_spmm  # local: layering
+    a = _pattern_for(seed, in_dim, out_dim, spec)
+    S = resolved_shards(spec, out_dim, in_dim, device=device)
+    rps, _, _ = shard_shapes(spec, out_dim, in_dim, n_shards=S)
+    return dist_spmm.shard_balance_stats(a, S, rows_per_shard=rps)
+
+
+def sparse_param_flops(meta) -> int:
+    """Operations per token of the layer (2 * nnzb * h * w, over its stored
+    blocks): the roofline's work count for sparse weights."""
+    h, w = meta.block
+    return 2 * meta.nnzb * h * w
+
+
 def apply_sparse_linear(params, meta, x: torch.Tensor,
                         spec: SparsitySpec) -> torch.Tensor:
     """y[..., out] = x[..., in] @ W^T via C = W @ x^T.  ``params`` is a

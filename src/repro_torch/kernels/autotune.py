@@ -388,12 +388,32 @@ def default_choice(op: str = "spmm") -> KernelChoice:
     return KernelChoice(default_variant(op), DEFAULT_BN, source="default")
 
 
+_KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def tile_fits(meta: ops.SparseMeta, n: int, bn: int) -> bool:
+    """True iff the CTA of an N tile ``bn`` fits one CTA's shared memory on
+    the H100, in either type and either staging of B.  A tile of
+    ``bcsr_spmm.SPMM_TILES`` is budgeted as the B1/B3 launch runs it: at
+    the row block ``bcsr_spmm.spmm_row_block`` picks for (N, h),
+    ``workspace.spmm_smem_bytes`` plus the static entry-id window; "no
+    tile" (0) always fits."""
+    if bn not in pk.SPMM_TILES:
+        return True
+    bm = pk.spmm_row_block(n, meta.block[0])
+    smem = max(workspace.spmm_smem_bytes(dt, bm, bn, km)
+               for dt in _KERNEL_DTYPES for km in (True, False)) + \
+        workspace.SPMM_STATIC_SMEM
+    return smem <= workspace.H100_SMEM_PER_CTA
+
+
 def pick_bn(meta: ops.SparseMeta, n: int,
             candidates: Iterable[int]) -> int:
-    """Largest candidate whose working set fits one CTA's shared memory
-    (``workspace.fits_vmem``) and is no wider than N needs."""
+    """Largest candidate whose CTA fits one CTA's shared memory
+    (``tile_fits``: the CUDA kernels' own budget, not the JAX package's
+    VMEM cell, ``workspace.fits_vmem``) and is no wider than N needs."""
     candidates = tuple(candidates)
-    feasible = [bn for bn in candidates if workspace.fits_vmem(meta.block, bn)]
+    feasible = [bn for bn in candidates if tile_fits(meta, n, bn)]
     if not feasible:
         feasible = [min(candidates)]
     # no point tiling wider than N

@@ -9,7 +9,8 @@ jnp path), and the oracles the kernels are held against on the card.
 ``row_loop`` kernels' twins: they read the same static schedule arrays as
 the kernels, padding slots and sentinel included, so the CPU tests pin that
 logic.  ``spmm_dense_ref`` and ``bcsr_sddmm_dense_ref`` are the ``dense``
-backends.  ``bcsr_attn_fused_ref`` is the fused block-sparse attention
+backends, ``spmm_csr_ref`` the scalar CSR yardstick of the benchmarks.
+``bcsr_attn_fused_ref`` is the fused block-sparse attention
 kernel's twin: its two passes over the mask schedule (the row max, then
 the denominator and the context together, divided once at the end).
 Products accumulate in float32.
@@ -139,6 +140,16 @@ def spmm_dense_ref(a_dense: torch.Tensor, b: torch.Tensor,
                    out_dtype=None) -> torch.Tensor:
     """Multiply the (explicitly padded) dense matrix in float32."""
     out = a_dense.float() @ b.float()
+    return out.to(out_dtype or b.dtype)
+
+
+def spmm_csr_ref(data: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
+                 b: torch.Tensor, m: int, out_dtype=None) -> torch.Tensor:
+    """The scalar COO/CSR SpMM yardstick (the JAX package's cuSPARSE
+    stand-in): one product per stored nonzero, gathered and summed into
+    its output row in float32 (``index_add_``)."""
+    prod = data.float()[:, None] * b.index_select(0, cols.long()).float()
+    out = prod.new_zeros((m, b.shape[1])).index_add_(0, rows.long(), prod)
     return out.to(out_dtype or b.dtype)
 
 

@@ -6,8 +6,9 @@ static meta, and ``ops.spmm``'s backward runs the kernels (``bcsr_spmm``
 for dB, ``bcsr_sddmm`` for dvals).  Neither do block-sparse attention archs
 (``smat-attn-1.3b``): training and prefill run kernel B5 through
 ``models.attention``, whose backward runs the SDDMM/SpMM kernels, and
-decode applies the mask as a bias.  The JAX package's ``input_specs`` and
-``opt_specs`` are dry-run helpers and are not ported yet.
+decode applies the mask as a bias.  ``input_specs`` and ``opt_specs`` give
+a cell's inputs and AdamW state as ``meta``-device tensors (shape and dtype
+only), for the dry-run (``launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -15,9 +16,40 @@ from typing import Dict
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeCell
+from repro_torch.core.sparse_linear import meta_spec as _spec
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeCell) -> Dict[str, torch.Tensor]:
+    """Every model input of this cell as a ``meta``-device tensor: the JAX
+    package's ``input_specs`` for token inputs, with the ids int64, as the
+    port feeds them (``train.loop.batch_to_device``, the serving engine).
+    Train cells hold ``tokens`` and ``labels`` [B, L], prefill ``tokens``,
+    decode one token a sequence [B]."""
+    T._check_layout(cfg)
+    B, L = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        return {"tokens": _spec((B, L), torch.int64),
+                "labels": _spec((B, L), torch.int64)}
+    if shape.kind == "prefill":
+        return {"tokens": _spec((B, L), torch.int64)}
+    return {"tokens": _spec((B,), torch.int64)}
+
+
+def opt_specs(cfg: ModelConfig, params_specs) -> Dict[str, object]:
+    """``optim.adamw.init``'s state for these parameter specs (the nested
+    ``models.transformer.param_specs`` tree or a flat mapping): float32
+    ``m`` and ``v`` beside every floating leaf, keyed by its
+    ``named_parameters()`` name, and a 0-d int32 ``step``."""
+    flat = T.flat_specs(params_specs)
+    zeros = {name: _spec(p.shape, torch.float32)
+             for name, p in flat.items() if p.is_floating_point()}
+    return {"m": zeros,
+            "v": {name: _spec(z.shape, torch.float32)
+                  for name, z in zeros.items()},
+            "step": _spec((), torch.int32)}
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,

@@ -25,9 +25,8 @@ moves no mask to the card.
 
 ``AttnSparsitySpec(shards=S)`` runs the context product over the row
 partition of the mask (``launch.dist_spmm``, ``_mask_sharded``), always on
-the composed path.  Left out, each to its ROADMAP item:
-``attention_mask_report`` (its caller is the dry-run, A10) and
-``merged_attention_meta`` (no caller yet).
+the composed path.  ``attention_mask_report`` is the dry-run's view of a
+mask (``launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -144,6 +143,16 @@ def attention_mask_meta(spec: AttnMaskSpec, seq_len: int,
     """True structure meta of the mask (``prepare_sparse_meta`` of the
     mask BCSR), memoized: what ``backend="auto"`` fingerprints."""
     return ops.prepare_sparse_meta(attention_mask_bcsr(spec, seq_len, block))
+
+
+def merged_attention_meta(specs, seq_len: int,
+                          block: Tuple[int, int]) -> ops.SparseMeta:
+    """One static meta covering the masks of several layers (the attention
+    twin of ``models.layers.mlp_sparse_metas``): the per-spec metas merged
+    conservatively (``merge_sparse_metas``: the stats take the max)."""
+    from repro_torch.core.sparse_linear import merge_sparse_metas
+    return merge_sparse_metas(
+        [attention_mask_meta(s, seq_len, block) for s in specs])
 
 
 @functools.lru_cache(maxsize=None)
@@ -460,3 +469,49 @@ def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         ctx = _composed_heads(qf, kf, vf, spec, scale, cap)
     return ctx.reshape(B, H, L, d).transpose(1, 2)
+
+
+# ================================================================ reporting
+def pick_label(backend: str, bn) -> str:
+    """``"<backend>/bn<N tile>"``, as the JAX package prints a pick; a
+    kernel left to choose its own tile prints ``bn0``."""
+    return f"{backend}/bn{bn or 0}"
+
+
+def attention_mask_report(spec: AttnSparsitySpec, seq_len: int,
+                          head_dim: int = 0, device="cuda") -> dict:
+    """Mask structure and kernel picks for the dry-run: nnzb, block density
+    against dense causal, the attention-level fused-or-composed resolution,
+    and the ``attn`` / ``sddmm`` / ``spmm`` picks the spec's backend
+    resolves on ``device`` at this sequence length.  ``head_dim`` is the
+    width the ops fingerprint with (the SDDMM's contraction and the context
+    product's panel); pass the model's, or the picks come from another N
+    bucket."""
+    meta = attention_mask_meta(spec.mask, seq_len, tuple(spec.block))
+    nbr = meta.n_block_rows
+    causal_blocks = nbr * (nbr + 1) // 2
+    head_n = head_dim or meta.block[1]
+    cspec = _composed_spec(spec)
+    # the ops take no tile from the spec (``bn`` is the JAX package's TPU
+    # tile): an explicit backend lets the kernel choose
+    sddmm_be = ops.resolve_backend(cspec.backend, None, meta, head_n,
+                                   op="sddmm", device=device)
+    spmm_be = ops.resolve_backend(cspec.backend, None, meta, head_n,
+                                  op="spmm", device=device)
+    from repro_torch.kernels import autotune  # local import: layering
+    attn_choice = autotune.get_autotuner().pick(meta, head_n, op="attn",
+                                                device=device)
+    return {
+        "mask": dataclasses.asdict(spec.mask),
+        "block": list(meta.block),
+        "seq_len": seq_len,
+        "nnzb": meta.nnzb,
+        "max_bpr": meta.max_bpr,
+        "block_density_vs_causal": round(meta.nnzb / max(causal_blocks, 1),
+                                         4),
+        "attn_impl": resolve_attn_impl(spec, seq_len, head_n, device=device),
+        "attn_pick": attn_choice.variant,
+        "sddmm_pick": pick_label(*sddmm_be),
+        "spmm_pick": pick_label(*spmm_be),
+        "shards": spec.shards,
+    }

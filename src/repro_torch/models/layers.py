@@ -144,30 +144,40 @@ def _sparse_mask(cfg, window):
     return mask
 
 
-def _decode_pages(cfg, window, cache_len):
-    """Static paged-decode resolution for one attention layer, as the JAX
-    package decides it: the mask page table ``(pages, live)`` where the
-    paged KV path applies, else None (dense-bias decode).
-    ``AttnSparsitySpec.paged_decode``: "auto" requires a strict page saving
-    (``max_bpr < n_pages``), "force" only that pages tile the cache, "off"
-    disables.  Where this returns a table, ``attention`` decodes through
-    ``_paged_decode``."""
-    sparse = getattr(cfg, "attn_sparsity", None)
-    if sparse is None:
-        return None
-    mode = getattr(sparse, "paged_decode", "auto")
-    if mode == "off":
-        return None
+def pages_decode(sparse, cache_len: int, max_bpr) -> bool:
+    """The paged-decode decision for one attention layer, as the JAX
+    package makes it.  ``AttnSparsitySpec.paged_decode``: "off" never
+    pages; "force" pages wherever pages tile the KV ring exactly and the
+    mask has a live block; "auto" also requires a strict page saving
+    (``max_bpr < n_pages``).  ``max_bpr()`` gives the most live blocks of
+    a block-row of the mask at ``cache_len``; it is called only where the
+    pages tile the ring, so a layer that cannot page builds no table."""
+    if sparse is None or sparse.paged_decode == "off":
+        return False
     w = sparse.block[1]
     if cache_len % w != 0:          # pages must tile the KV ring exactly
-        return None
+        return False
+    most = max_bpr()
+    if most <= 0:
+        return False
+    # "auto" without a page saving keeps the dense bias
+    return sparse.paged_decode == "force" or most < cache_len // w
+
+
+def _decode_pages(cfg, window, cache_len):
+    """Static paged-decode resolution for one attention layer: the mask
+    page table ``(pages, live)`` where ``pages_decode`` pages the KV, else
+    None (dense-bias decode).  Where this returns a table, ``attention``
+    decodes through ``_paged_decode``."""
+    sparse = getattr(cfg, "attn_sparsity", None)
     from repro_torch.models import attention as A
-    pages, live, meta = A.decode_page_table(
-        _sparse_mask(cfg, window), cache_len, tuple(sparse.block))
-    if meta.max_bpr <= 0:
+
+    def table():
+        return A.decode_page_table(_sparse_mask(cfg, window), cache_len,
+                                   tuple(sparse.block))
+    if not pages_decode(sparse, cache_len, lambda: table()[2].max_bpr):
         return None
-    if mode != "force" and meta.max_bpr >= cache_len // w:
-        return None                 # no page saving: keep the dense bias
+    pages, live, _ = table()
     return pages, live
 
 

@@ -20,6 +20,8 @@ from torch import nn
 from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.sparse_linear import meta_spec as _spec
+from repro_torch.core.sparse_linear import sparse_linear_specs
 from repro_torch.models import layers as L
 
 
@@ -107,6 +109,75 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
                             device=resolve_device(device))
     return {name: leaf[None].repeat(cfg.n_layers, *([1] * leaf.ndim))
             for name, leaf in one.items()}
+
+
+# ============================================================ specs (no data)
+def _block_specs(cfg: ModelConfig, i: int, device) -> dict:
+    """Specs of layer ``i``: the JAX tree's ``blocks`` leaves at index
+    ``i`` (``convert.params_from_jax``'s unstacking), plus each sparse
+    layer's port buffers."""
+    dtype, d = _dtype(cfg), cfg.d_model
+    h, kv, hd, f = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+    attn = {"wq": _spec((d, h * hd), dtype), "wk": _spec((d, kv * hd), dtype),
+            "wv": _spec((d, kv * hd), dtype), "wo": _spec((h * hd, d), dtype)}
+    if cfg.qkv_bias:
+        attn.update(bq=_spec((h * hd,), dtype), bk=_spec((kv * hd,), dtype),
+                    bv=_spec((kv * hd,), dtype))
+    spec = cfg.ffn_sparsity
+    if spec is not None:
+        seed = L.mlp_seed(i)
+        mlp = {name: sparse_linear_specs(i_, o_, spec, dtype, seed=s_,
+                                         device=device)[0]
+               for name, s_, i_, o_ in (("gate", seed, d, f),
+                                        ("up", seed + 1, d, f),
+                                        ("down", seed + 2, f, d))}
+    else:
+        mlp = {"w_gate": _spec((d, f), dtype), "w_up": _spec((d, f), dtype),
+               "w_down": _spec((f, d), dtype)}
+    f32 = torch.float32
+    return {"ln1": _spec((d,), f32), "attn": attn, "ln2": _spec((d,), f32),
+            "mlp": mlp}
+
+
+def param_specs(cfg: ModelConfig, *, device="cuda") -> dict:
+    """The model's parameters and buffers as tensors on the ``meta``
+    device (shape and dtype, no storage, no random draw): the JAX
+    package's ``param_specs`` tree with ``blocks`` unstacked into a list of
+    layers, as ``convert.params_from_jax`` reads it, so ``flat_specs`` of
+    it has ``Transformer.state_dict()``'s keys.  Sparse layers take their
+    true structure metas (their numpy pattern seeds), which size the
+    port's schedule buffers.  ``device`` only keys ``shards="auto"``."""
+    _check_layout(cfg)
+    dtype, d, V = _dtype(cfg), cfg.d_model, cfg.vocab_size
+    return {"final_norm": _spec((d,), torch.float32),
+            "embed": _spec((V, d), dtype), "lm_head": _spec((d, V), dtype),
+            "blocks": [_block_specs(cfg, i, device)
+                       for i in range(cfg.n_layers)]}
+
+
+def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> dict:
+    """``init_cache``'s tensors as ``meta``-device specs (stacked over
+    layers, the JAX package's layout)."""
+    _check_layout(cfg)
+    sc = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
+        else cache_len
+    shape = (cfg.n_layers, batch, sc, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": _spec(shape, _dtype(cfg)), "v": _spec(shape, _dtype(cfg))}
+
+
+def flat_specs(tree, prefix: str = "") -> dict:
+    """``{dotted path: leaf}`` of a nested spec tree (lists by index): the
+    keys of ``Transformer.state_dict()`` for ``param_specs``."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(flat_specs(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
 
 
 # ================================================================== forward

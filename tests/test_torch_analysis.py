@@ -9,6 +9,11 @@ flag the same plant, each in its own words), byte counts equal the
 hand-computed values of the kernels' C++ constants.  The launch hook runs
 the ``smat-ffn-1.3b:smoke`` model on the CPU with and without
 ``REPRO_VERIFY_LAUNCH=1``: outputs bit-equal."""
+# ruff: noqa: E402
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 import json
 import os
@@ -16,7 +21,6 @@ import sys
 import textwrap
 
 import numpy as np
-import pytest
 import torch
 
 from repro.analysis import fingerprint_audit as jfpa

@@ -8,6 +8,11 @@ B5's plain version against JAX's interpret-mode kernel and for
 ``block_sparse_attention`` (fused and composed) and its gradients against
 JAX (``test_attn_fused.py``'s tolerances); 1e-4 for the model's logits and
 loss (the ROADMAP's)."""
+# ruff: noqa: E402
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 import doctest
 import importlib
@@ -15,7 +20,6 @@ import importlib
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.configs import base as jbase

@@ -4,13 +4,17 @@ v7 key plus ``|dev=...``), ``core.perf_model`` equals JAX's given the same
 constants (rtol 1e-12), analytic picks are the argmin of the port's model,
 and the measured sweep, its JSON cache and ``backend="auto"`` work on the
 CPU.  A candidate that raises makes ``tune`` raise."""
+# ruff: noqa: E402
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 import json
 import time
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.core import bcsr as jb
@@ -169,6 +173,61 @@ def test_pick_bn_is_the_widest_tile_that_n_needs():
     assert autotune.pick_bn(meta, 20, tiles) == 16
     assert autotune.pick_bn(meta, 2048, tiles) == 64
     assert autotune.pick_bn(meta, 2048, autotune.NO_TILE) == 0
+
+
+def _block_meta(block, nbr=16, nbc=16, nnzb=16):
+    return ops.SparseMeta(shape=(nbr * block[0], nbc * block[1]), block=block,
+                          n_block_rows=nbr, n_block_cols=nbc, nnzb=nnzb,
+                          nnzb_t=nnzb)
+
+
+def test_pick_bn_budgets_the_cuda_kernels_shared_memory():
+    """ROADMAP C4, Difference 3: ``pick_bn`` budgets B1/B3's CTA (the row
+    block and staging ``spmm_launch_config`` picks) against the H100's
+    232,448 B, not the TPU cell.  256 x 256 blocks at N = 2048: the CTA
+    (BM 128, BN 64) takes 111,616 B whatever the block, so the pick is 64;
+    the reference picks 1,024, one of its TPU tiles."""
+    meta = _block_meta((256, 256), nbr=8, nbc=8)
+    tiles = autotune.get_variant("nnz_stream").bn_candidates
+    assert autotune.pick_bn(meta, 2048, tiles) == 64
+    assert not workspace.fits_vmem((256, 256), min(tiles))   # was BN = 8
+    assert workspace.spmm_smem_bytes(torch.bfloat16, 128, 64, True) + \
+        workspace.SPMM_STATIC_SMEM == 111616
+    jmeta = jops.SparseMeta(shape=meta.shape, block=meta.block,
+                            n_block_rows=8, n_block_cols=8, nnzb=16,
+                            nnzb_t=16)
+    assert jat.pick_bn(jmeta, 2048,
+                       jat.get_variant("nnz_stream").bn_candidates) == 1024
+    # the same CTA in either type and either staging of B
+    assert {workspace.spmm_smem_bytes(dt, 128, 64, km)
+            for dt in (torch.bfloat16, torch.float32)
+            for km in (True, False)} == {110592}
+
+
+@pytest.mark.parametrize("block", [(16, 16), (128, 128)])
+def test_pick_bn_is_unchanged_at_the_models_blocks(block):
+    """Every pick at the models' blocks is the one the TPU-cell predicate
+    (``workspace.fits_vmem``) gave, for every family's candidates."""
+    meta = _block_meta(block)
+
+    def old_pick(n, candidates):
+        feasible = [bn for bn in candidates
+                    if workspace.fits_vmem(block, bn)] or [min(candidates)]
+        fit_n = [bn for bn in feasible if bn <= max(n, min(feasible))]
+        return max(fit_n or feasible)
+    for name in autotune.variant_names(None):
+        tiles = autotune.get_variant(name).bn_candidates
+        for n in (1, 4, 8, 16, 20, 64, 100, 128, 512, 2048, 8192):
+            assert autotune.pick_bn(meta, n, tiles) == old_pick(n, tiles)
+
+
+def test_pick_bn_falls_back_to_the_narrowest_tile(monkeypatch):
+    meta = _block_meta((16, 16))
+    monkeypatch.setattr(workspace, "H100_SMEM_PER_CTA", 1024)
+    tiles = autotune.get_variant("nnz_stream").bn_candidates
+    assert not autotune.tile_fits(meta, 2048, 64)
+    assert autotune.pick_bn(meta, 2048, tiles) == min(tiles)
+    assert autotune.tile_fits(meta, 2048, 0)          # no tile
 
 
 def test_analytic_choice_skips_row_loop_without_max_bpr():

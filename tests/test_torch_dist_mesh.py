@@ -16,8 +16,12 @@ runs the same program on the same numpy-seeded operand:
 
 The file imports no JAX: ``spawn`` re-imports it in every worker.
 """
-import numpy as np
+# ruff: noqa: E402
 import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp

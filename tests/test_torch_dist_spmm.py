@@ -20,13 +20,17 @@ JAX package's ``repro.launch.dist_spmm``.
   gradients, for chunks of two or more columns (a one-column chunk runs a
   matrix-vector product on the CPU, summed in another order).
 """
+# ruff: noqa: E402
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.core import bcsr as jb

@@ -20,7 +20,16 @@
   ``repro_torch.obs`` call sits inside an autograd ``Function``'s
   ``forward``/``backward``, and the kernel wrappers import no obs module.
 * So do the partitioned path's (``dist_spmm.prepare_sharded``,
-  ``make_spmm_mesh``, an engine given an ``spmm_mesh``)."""
+  ``make_spmm_mesh``, an engine given an ``spmm_mesh``).
+* So do the dry-run's (``launch.dryrun``: its CLI and ``run_cell``; the
+  reports; ``launch.roofline.work_count``) and the example twins
+  (``examples/torch_*.py``), which import neither JAX nor the JAX package
+  either; the specs live on the ``meta`` device."""
+# ruff: noqa: E402
+import pytest
+
+pytest.importorskip("torch")
+
 import ast
 import ctypes
 import dataclasses
@@ -31,7 +40,6 @@ import sys
 from pathlib import Path
 
 import numpy as np
-import pytest
 import torch
 
 import repro_torch
@@ -53,7 +61,9 @@ from repro_torch.train import loop
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLE_TWINS = sorted((ROOT / "examples").glob("torch_*.py"))
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
+    EXAMPLE_TWINS
 PORT_MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
     .removesuffix(".__init__") for p in PORT.rglob("*.py"))
@@ -413,3 +423,41 @@ def test_partitioned_entry_points_default_to_the_card(no_card):
         ServeEngine(cfg, model, spmm_mesh=object())
     engine = ServeEngine(cfg, model, cache_len=16, device="cpu")
     assert engine.spmm_mesh is None
+
+
+def test_example_twins_are_there():
+    assert [p.name for p in EXAMPLE_TWINS] == [
+        "torch_quickstart.py", "torch_serve_decode.py",
+        "torch_train_sparse_lm.py"]
+
+
+def _load_example(path):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_dryrun_and_examples_default_to_the_card(no_card):
+    import inspect
+
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.models import attention as A
+    from repro_torch.core import sparse_linear as sl
+    for fn in (dryrun.run_cell, dryrun.sparse_shard_report,
+               dryrun.sparse_attention_report, roofline.work_count,
+               A.attention_mask_report, T.param_specs,
+               sl.sparse_linear_specs, sl.shard_balance_report):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    cfg = get_config("smat-ffn-1.3b:smoke")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.main(["--arch", "smat-ffn-1.3b:smoke"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.run_cell(cfg, ShapeCell("t", "train", 8, 1))
+    for path in EXAMPLE_TWINS:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            _load_example(path).main([])
+    # the specs hold no storage, wherever they are asked for
+    specs = T.flat_specs(T.param_specs(cfg, device="cpu"))
+    assert {t.device.type for t in specs.values()} == {"meta"}

@@ -12,10 +12,14 @@ contractions) and B5 against the composed path: carve-out 2, 1e-5 x the largest 
 (ROADMAP C); B5 against its plain version 1e-4 x max|plain|.
 The f32 training step: loss rtol 1e-5, every gradient max|diff| <= 1e-4 x
 its max|grad| (f32 sums of a few hundred products in another order)."""
+# ruff: noqa: E402
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 
 import numpy as np
-import pytest
 import torch
 
 from repro_torch.configs import get_config

@@ -2,12 +2,16 @@
 float32 on both sides, with the JAX parameters loaded through
 ``repro_torch.convert``.  Logits and loss agree within 1e-4 (both sum in
 float32, in different orders, over two layers)."""
+# ruff: noqa: E402
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config

@@ -14,13 +14,17 @@ across the packages:
   measured ``row_loop`` decision, whose backend name both packages share;
 * the scheduler's ``serve.*`` events equal JAX's record for record;
 * a JSONL written by either package reads back through the other."""
+# ruff: noqa: E402
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 import json
 import os
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.core import bcsr as jbcsr

@@ -4,12 +4,16 @@ equal; f32 products and gradients agree within 1e-5 (the tolerance of
 ``tests/test_kernels.py:39``), since the two sum in different orders.  The
 kernels themselves run only on the card
 (``tests/test_torch_kernels_cuda.py``)."""
+# ruff: noqa: E402
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.core import bcsr as jb

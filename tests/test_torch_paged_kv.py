@@ -12,12 +12,16 @@ which calls ``jax.core.trace_state_clean()``: JAX 0.9.0 removed it (ROADMAP
 fault C1).  The ``jax_oracle`` fixture points ``jaxmon._trace_active`` at
 ``jax._src.core.trace_state_clean()`` for the test's duration; no file of
 the JAX package changes."""
+# ruff: noqa: E402
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config

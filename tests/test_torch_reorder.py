@@ -3,11 +3,15 @@
 granularities, the Jaccard clustering (native C path and numpy rounds), the
 shard-balancing helpers and ``prepare(reorder=...)``.  All of it is host
 data, so every array and meta must be EXACTLY equal."""
+# ruff: noqa: E402
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import scipy.sparse as sp
 import torch
 

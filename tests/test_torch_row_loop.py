@@ -7,12 +7,16 @@ interpret mode within 1e-5 (f32, another summation order), with and without
 a row reorder -- the reorder branches of the autograd Functions included.
 The kernels themselves run only on the card
 (``tests/test_torch_kernels_cuda.py``)."""
+# ruff: noqa: E402
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.core import bcsr as jb

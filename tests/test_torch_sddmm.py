@@ -3,10 +3,14 @@ same numpy inputs.  f32 results agree within rtol = atol = 1e-5 (the
 tolerance of ``tests/test_kernels.py:39``): both accumulate in float32, in
 different orders.  The CUDA kernel itself runs only on the card
 (``tests/test_torch_kernels_cuda.py``)."""
+# ruff: noqa: E402
+import pytest
+
+pytest.importorskip("torch")
+
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.kernels import ops as jops

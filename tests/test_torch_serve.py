@@ -8,12 +8,16 @@ float32 with the JAX parameters loaded through ``repro_torch.convert``:
 greedy tokens must be identical.  Concurrency is checked inside the port:
 slots at divergent positions, and a prefix-cache copy, give the tokens each
 request gets when decoded alone."""
+# ruff: noqa: E402
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 from repro.configs import get_config as jax_get_config
 from repro.models import transformer as JT

@@ -9,11 +9,15 @@ leaves) must be exactly equal to the JAX package's on a ``(2, 4)``
 own model (one module a layer, no stacked axis) gets the JAX spec less its
 leading stack dim.  ``constrain`` is the identity with no mesh active.
 """
+# ruff: noqa: E402
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 
 import jax
 import numpy as np
-import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config

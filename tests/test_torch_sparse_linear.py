@@ -1,12 +1,16 @@
 """The port's block-sparse linear layer against the JAX package's: metas and
 ``vals`` exactly equal (both draw them from numpy seeds), outputs within
 1e-5 in f32 (different summation order)."""
+# ruff: noqa: E402
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.core import sparse_linear as jsl

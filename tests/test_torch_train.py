@@ -5,13 +5,17 @@ loss trajectory (1e-4, the ROADMAP's tolerance for model loss: both sum in
 float32, in different orders).  Then the port's own contracts: checkpoint
 round trip (bit-equal, bf16 included), restart after an injected failure,
 and ``remat="full"`` == ``"none"``."""
+# ruff: noqa: E402
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config
