@@ -36,8 +36,15 @@ its largest ``max_bpr`` and one past it, and runs the
 ``launch.dryrun --all`` and holds every timed path's analytic roofline
 (``launch.roofline``) under its measured time and its exact argument bytes
 under its measured peak memory, and ``[examples]`` runs the three example
-twins (``examples/torch_*.py``) on the card.  Every phase checks its
-results; any failure exits non-zero before the last line.
+twins (``examples/torch_*.py``) on the card.  The MLA/MoE and SSD layouts (no TPU kernel on their paths, so the B1-B5
+counters must read 0): ``[moe-serve]`` and ``[ssd-serve]`` serve
+``deepseek-v2-lite-16b`` and ``mamba2-1.3b`` at full width through
+``ServeEngine`` (streams == ``decode_step`` loops), ``[moe-model]`` and
+``[ssd-model]`` hold a 2-layer float32 copy card against CPU and prefill
+against decode, and ``[moe-train]`` (2 layers) and ``[ssd-train]`` train
+them at full width (these six run after ``[restart]``); ``[dryrun]`` adds
+their roofline shares.  Every phase
+checks its results; any failure exits non-zero before the last line.
 
 The line before the last lists every ported kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the rest
@@ -45,6 +52,7 @@ of the repository beside it, the script fails and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -1138,21 +1146,22 @@ def _requests(cfg):
                     max_new_tokens=NEW_TOKENS) for r in range(N_REQUESTS)]
 
 
-def _greedy_oracle(cfg, model, prompt, n_new, cache_len=CACHE_LEN):
-    """A direct decode_step loop: request 0 in row 0 of an N_SLOTS-row batch
-    (pad elsewhere), as the engine runs it, so row 0 sees the same shapes."""
+def _greedy_oracle(cfg, model, prompt, n_new, cache_len=CACHE_LEN, row=0):
+    """A direct decode_step loop: the request in row ``row`` of an
+    N_SLOTS-row batch (pad elsewhere), as the engine runs it in that slot,
+    so the row sees the same shapes."""
     from repro_torch.models import transformer as T
     cache = T.init_cache(cfg, N_SLOTS, cache_len, device=DEVICE)
     toks = torch.zeros(N_SLOTS, dtype=torch.int64, device=DEVICE)
     out, pos = [], 0
     for t in prompt:
-        toks[0] = int(t)
+        toks[row] = int(t)
         logits, cache = T.decode_step(cfg, model, cache, toks, pos)
         pos += 1
     for _ in range(n_new):
-        tok = int(logits[0].float().argmax())
+        tok = int(logits[row].float().argmax())
         out.append(tok)
-        toks[0] = tok
+        toks[row] = tok
         logits, cache = T.decode_step(cfg, model, cache, toks, pos)
         pos += 1
     return out
@@ -3788,6 +3797,232 @@ def dist_mesh_phase():
         dist.destroy_process_group()
 
 
+# ------------------------------------------- the MLA/MoE and SSD layouts
+MOE_ARCH, SSD_ARCH = "deepseek-v2-lite-16b", "mamba2-1.3b"
+# the 16.21 B-parameter model does not fit AdamW on one card: [moe-train]
+# keeps its full width at 2 of its 27 layers (1.59 B parameters)
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 3
+SSD_TRAIN_STEPS = 5
+# [ssd-train]'s remat: without it the step's peak memory reads 69.5 GB on
+# an H100 80GB HBM3 (700 W) alone and 71.3 GB after this script's earlier
+# phases (1.9 GB still allocated), past the 70 GB line above which "full"
+# is taken; the phase logs the memory allocated before it and its peak
+SSD_TRAIN_REMAT = "full"
+MODEL_CHECK_LEN = {MOE_ARCH: 16, SSD_ARCH: 512}   # [*-model] tokens a row
+
+
+def layout_serve_phase(arch, tag, smi):
+    """``arch`` at full width with seed-0 weights drawn on the card, served
+    through ``ServeEngine`` (N_SLOTS slots, N_REQUESTS requests of
+    PROMPT_LEN + NEW_TOKENS tokens, as ``[main]``): tok/s, ms a decode
+    call, peak memory, and a ``torch.profiler`` row (launches a call, the
+    device's idle share).  Every request's stream must equal a
+    ``decode_step`` loop's with the request in the slot the engine gave it,
+    and the B1-B5 counters must read 0 (no TPU kernel on this path)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[{tag}] {cfg.name}: layout {cfg.layout}, {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype}, "
+        f"{n_params / 1e9:.3f} B parameters "
+        f"({cfg.param_count() / 1e9:.3f} B by param_count); built in "
+        f"{time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    warm = ServeEngine(cfg, model, n_slots=N_SLOTS, cache_len=CACHE_LEN,
+                       device=DEVICE)
+    list(warm.generate(_requests(cfg)[:1]))   # first-call set-up, untimed
+    del warm
+
+    engine = ServeEngine(cfg, model, n_slots=N_SLOTS, cache_len=CACHE_LEN,
+                         device=DEVICE)
+    requests = _requests(cfg)
+    _reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    streams = {}
+    for rid, tok in engine.generate(requests):
+        streams.setdefault(rid, []).append(tok)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    calls = engine.decode_calls
+    ms_call = dt * 1e3 / calls
+    _measured(tag, cfg, "decode", N_SLOTS, CACHE_LEN, ms_call)
+    n_tok = sum(len(v) for v in streams.values())
+    prefix = engine.scheduler.config.prefix_cache
+    log(f"[{tag}] {len(streams)} requests, {n_tok} new tokens, "
+        f"{calls} decode calls in {dt:.3f}s: "
+        f"{n_tok / dt:.1f} tok/s, {ms_call:.3f} ms a decode call (host "
+        f"clock, synchronised; {N_SLOTS} slots, prompt {PROMPT_LEN}, new "
+        f"{NEW_TOKENS}); peak memory {peak_gb:.2f} GB; prefix reuse "
+        f"{prefix} ({engine.scheduler.prefix_hits} hits); kernel launches "
+        f"{launches}; {smi}")
+    check(sorted(streams) == list(range(N_REQUESTS)), f"[{tag}] requests "
+          "missing")
+    check(all(len(v) == NEW_TOKENS for v in streams.values()),
+          f"[{tag}] a request got the wrong number of tokens")
+    check(all(0 <= t < cfg.vocab_size for v in streams.values() for t in v),
+          f"[{tag}] a token outside the vocabulary")
+    check(launches == _counts(), f"[{tag}] a B1-B5 kernel launched on a "
+          f"path that has none: {launches}")
+    check(prefix == (cfg.layout == "mla_moe"),
+          f"[{tag}] prefix reuse {prefix} for layout {cfg.layout}")
+    slot_of = {r["rid"]: r["slot"] for r in engine.scheduler.trace
+               if r["event"] == "admit"}
+    with torch.inference_mode():
+        same = {rid: _greedy_oracle(cfg, model, requests[rid].prompt,
+                                    NEW_TOKENS, row=slot_of[rid]) ==
+                streams[rid] for rid in streams}
+    log(f"[{tag}] request 0: engine {streams[0]}")
+    log(f"[{tag}] engine == decode_step loop (request in its engine slot "
+        f"{slot_of}): {same}")
+    check(all(same.values()), f"[{tag}] engine stream != decode_step loop")
+    del engine
+    prof = _serve_profile(cfg, model, CACHE_LEN)
+    log(f"[{tag}-profile] " + json.dumps({"card": smi, **prof}))
+    del model
+    torch.cuda.empty_cache()
+    return {"tok_s": n_tok / dt, "ms_per_call": ms_call, "peak_gb": peak_gb,
+            "decode_calls": calls, "params": n_params, "profile": prof}
+
+
+@contextlib.contextmanager
+def _recorded_routes():
+    """Record the top-k expert indices of every ``moe._route`` call (a
+    test-side wrapper around the module function, restored after)."""
+    from repro_torch.models import moe as M
+    seen, orig = [], M._route
+
+    def rec(cfg, p, xt):
+        out = orig(cfg, p, xt)
+        seen.append(out[1].cpu())
+        return out
+    M._route = rec
+    try:
+        yield seen
+    finally:
+        M._route = orig
+
+
+def layout_model_phase(arch, tag):
+    """A float32 copy of ``arch`` at full width, 2 layers deep, with the
+    same weights on the card and on the CPU (TF32 off): the forward's
+    logits within 1e-4 x max|CPU logit| (MoE: the routing indices equal),
+    then on the card the prefill's logits against a token-by-token decode
+    loop's, within the same bound.  The MoE copy takes capacity_factor =
+    E / k, so that C = L + 1 and no (token, slot) drops in the prefill: a
+    drop is a prefill-only event (decode routes one token a row), and
+    would make the two differ by design."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
+    if cfg.layout == "mla_moe":
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.moe_top_k)
+    L_ = MODEL_CHECK_LEN[arch]
+    model = T.init_params(cfg, seed=0, device=DEVICE)
+    cpu = T.Transformer(cfg, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, L_)))
+    with torch.inference_mode():
+        with _recorded_routes() as r_card:
+            card, _, aux_card = model({"tokens": tokens.to(DEVICE)})
+        with _recorded_routes() as r_cpu:
+            ref, _, aux_cpu = cpu({"tokens": tokens})
+        scale = ref.abs().max().item()
+        err = (card.float().cpu() - ref).abs().max().item()
+        routes_equal = len(r_card) == len(r_cpu) and all(
+            torch.equal(a, b) for a, b in zip(r_card, r_cpu))
+        logits, cache = T.prefill(cfg, model, {"tokens": tokens.to(DEVICE)},
+                                  CACHE_LEN)
+        cache = T.init_cache(cfg, 2, CACHE_LEN, device=DEVICE)
+        steps = []
+        for pos in range(L_):
+            step, cache = T.decode_step(cfg, model, cache,
+                                        tokens[:, pos].to(DEVICE), pos)
+            steps.append(step)
+        dec = torch.stack(steps, dim=1)
+        err_dec = (dec - logits).abs().max().item()
+    tol = 1e-4 * scale
+    log(f"[{tag}] {cfg.name} f32, 2 layers at full width, 2 x {L_} tokens, "
+        f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}: card "
+        f"vs CPU max|dlogit| {err:.4g} (limit 1e-4 x {scale:.4g} = "
+        f"{tol:.4g}); aux card {float(aux_card):.6g} CPU "
+        f"{float(aux_cpu):.6g}; routing indices equal: {routes_equal} "
+        f"({len(r_card)} route calls); prefill vs token-by-token decode "
+        f"max|dlogit| {err_dec:.4g}")
+    check(bool(torch.isfinite(card).all()), f"[{tag}] non-finite logits")
+    check(err <= tol, f"[{tag}] card and CPU logits differ by {err}")
+    check(routes_equal, f"[{tag}] the card routes tokens otherwise than the "
+          "CPU")
+    check(err_dec <= tol, f"[{tag}] prefill and decode differ by {err_dec}")
+    del model, cpu, cache
+    torch.cuda.empty_cache()
+    return {"card_vs_cpu": err, "prefill_vs_decode": err_dec, "scale": scale}
+
+
+def layout_train_phase(arch, tag, smi, n_layers, steps, remat):
+    """``arch`` at full width (``n_layers`` deep when given) trained for
+    ``steps`` AdamW steps of TRAIN_BATCH x TRAIN_SEQ tokens in bf16 through
+    ``train.loop.train``: losses and MoE aux losses (finite), steady step
+    ms, peak memory; no B1-B5 launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    shape = ShapeCell("chip", "train", TRAIN_SEQ, TRAIN_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = loop.train(cfg, shape, device=DEVICE, total_steps=steps,
+                     opt_cfg=adamw.AdamWConfig(total_steps=steps),
+                     remat=remat)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steady = res.step_times[1:]
+    step_ms = 1e3 * sum(steady) / len(steady)
+    _measured(tag, cfg, "train", TRAIN_BATCH, TRAIN_SEQ, step_ms)
+    log(f"[{tag}] {cfg.name} full width, {cfg.n_layers} layers "
+        f"({cfg.param_count() / 1e9:.3f} B parameters), {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens a step, {cfg.dtype}, remat {remat}, AdamW: "
+        f"losses {res.losses}; aux losses {res.aux_losses}")
+    log(f"[{tag}] step ms {[round(1e3 * t, 3) for t in res.step_times]}; "
+        f"steady {step_ms:.3f} ms = {TRAIN_N / step_ms * 1e3:.1f} tokens/s; "
+        f"{wall:.1f}s with model build; peak memory {peak_gb:.2f} GB "
+        f"({before_gb:.2f} GB allocated before the phase); kernel launches "
+        f"{launches}; {smi}")
+    check(res.final_step == steps and len(res.losses) == steps,
+          f"[{tag}] training did not reach its end")
+    check(all(np.isfinite(res.losses)) and all(np.isfinite(res.aux_losses)),
+          f"[{tag}] a loss is not finite")
+    check((min(res.aux_losses) > 0) == (cfg.layout == "mla_moe"),
+          f"[{tag}] aux losses {res.aux_losses} for layout {cfg.layout}")
+    check(launches == _counts(), f"[{tag}] a B1-B5 kernel launched: "
+          f"{launches}")
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "tokens_per_s": TRAIN_N / step_ms * 1e3,
+            "peak_gb": peak_gb, "losses": res.losses,
+            "aux_losses": res.aux_losses, "remat": remat}
+
+
 def dryrun_phase(smi):
     """The dry-run (``launch.dryrun``, A10) on the card's machine: ``--all``
     at full size (both archs x the four shape cells, no allocation), then
@@ -3908,6 +4143,16 @@ def main():
     phase(train_vs_plain_phase, cfg)
     phase(train_row_loop_vs_plain_phase, cfg)
     phase(restart_phase)
+    # the MLA/MoE and SSD layouts (no TPU kernel on their paths), before
+    # the attention phases, whose cached mask tensors stay on the card
+    served_moe = phase(layout_serve_phase, MOE_ARCH, "moe-serve", smi)
+    model_moe = phase(layout_model_phase, MOE_ARCH, "moe-model")
+    trained_moe = phase(layout_train_phase, MOE_ARCH, "moe-train", smi,
+                        MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, "none")
+    served_ssd = phase(layout_serve_phase, SSD_ARCH, "ssd-serve", smi)
+    model_ssd = phase(layout_model_phase, SSD_ARCH, "ssd-model")
+    trained_ssd = phase(layout_train_phase, SSD_ARCH, "ssd-train", smi,
+                        None, SSD_TRAIN_STEPS, SSD_TRAIN_REMAT)
     mip1_perm, err_lib, _ = phase(library_phase, smi)
     winners = phase(autotune_phase, mip1_perm, smi)
     prefill_attn_launches, paged_dec_launches, prefilled = phase(
@@ -4067,7 +4312,16 @@ def main():
         f"{trained_sh['tokens_per_s']:.1f} tokens/s, attention prefill "
         f"{prefilled_sh['prefill_ms']:.3f} ms; tune_shard_count winner "
         f"S={timed_dist['tune']['measured']} (analytic "
-        f"S={timed_dist['tune']['analytic']}); whole run "
+        f"S={timed_dist['tune']['analytic']}).  {MOE_ARCH}: serving "
+        f"{served_moe['tok_s']:.1f} tok/s, {served_moe['ms_per_call']:.3f} "
+        f"ms a decode call, peak {served_moe['peak_gb']:.2f} GB; training "
+        f"({MOE_TRAIN_LAYERS} layers) {trained_moe['step_ms']:.3f} ms a "
+        f"step, peak {trained_moe['peak_gb']:.2f} GB; f32 card vs CPU "
+        f"{model_moe['card_vs_cpu']:.3g}.  {SSD_ARCH}: serving "
+        f"{served_ssd['tok_s']:.1f} tok/s, {served_ssd['ms_per_call']:.3f} "
+        f"ms a decode call; training {trained_ssd['step_ms']:.3f} ms a step "
+        f"(remat {trained_ssd['remat']}), peak {trained_ssd['peak_gb']:.2f} "
+        f"GB; f32 card vs CPU {model_ssd['card_vs_cpu']:.3g}; whole run "
         f"{time.perf_counter() - t_start:.1f}s")
     print(json.dumps(line))
     print(smi)

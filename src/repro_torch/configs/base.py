@@ -75,6 +75,14 @@ class ModelConfig:
     mlp_act: str = "silu"           # silu (gated) | gelu (gated, gemma2)
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
     def supports_long_context(self) -> bool:
         """Sub-quadratic sequence mixing: SSM/hybrid state, a bounded SWA
         window, or a bounded block-sparse attention mask (banded /
@@ -91,11 +99,11 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (drives the 6*N*D model-FLOPs count of
-        ``launch.roofline.model_flops_for``): embeddings and head, plus
-        attention and the (sparse: its density's share) gated MLP a layer.
-        The JAX package's count for the layouts ported so far; the SSM,
-        hybrid and MLA/MoE layouts come with ROADMAP A7."""
-        if self.layout not in ("attn_mlp", "gemma_pair"):
+        ``launch.roofline.model_flops_for``): embeddings and head, plus a
+        layer's attention (or MLA) and its gated MLP (sparse: its density's
+        share) or MoE, or its SSD mixer.  The JAX package's count; the
+        hybrid layout comes with ROADMAP A7."""
+        if self.layout == "zamba":
             raise NotImplementedError(
                 f"layout {self.layout!r} is not ported yet (ROADMAP A7)")
         d = self.d_model
@@ -103,12 +111,23 @@ class ModelConfig:
             n = self.n_codebooks * self.vocab_size * d * 2
         else:
             n = self.vocab_size * d * 2
+        if self.layout == "ssd":
+            return n + self.n_layers * _ssd_params(self)
+        if self.layout == "mla_moe":
+            return n + self.n_layers * (_mla_params(self) +
+                                        _moe_params(self))
         return n + self.n_layers * (_attn_params(self) + _mlp_params(self))
 
     def active_param_count(self) -> int:
-        """Per-token active params: every parameter, outside MoE (whose
-        top-k count comes with ROADMAP A7)."""
-        return self.param_count()
+        """Per-token active params (MoE: the top-k and shared experts and
+        the router only)."""
+        if self.layout != "mla_moe":
+            return self.param_count()
+        d = self.d_model
+        active_experts = self.moe_top_k + self.n_shared_experts
+        per_layer = _mla_params(self) + \
+            3 * d * self.expert_d_ff * active_experts + d * self.n_experts
+        return self.vocab_size * d * 2 + self.n_layers * per_layer
 
 
 def _attn_params(cfg: ModelConfig) -> int:
@@ -120,6 +139,37 @@ def _mlp_params(cfg: ModelConfig) -> int:
     if cfg.ffn_sparsity is not None:
         return int(3 * cfg.d_model * cfg.d_ff * cfg.ffn_sparsity.density)
     return 3 * cfg.d_model * cfg.d_ff  # gated: up, gate, down
+
+
+def _mla_params(cfg: ModelConfig) -> int:
+    d, h = cfg.d_model, cfg.n_heads
+    qd = h * (cfg.nope_head_dim + cfg.rope_head_dim)
+    n = 0
+    if cfg.q_lora_rank:
+        n += d * cfg.q_lora_rank + cfg.q_lora_rank * qd
+    else:
+        n += d * qd
+    n += d * (cfg.kv_lora_rank + cfg.rope_head_dim)           # down kv + rope
+    n += cfg.kv_lora_rank * h * (cfg.nope_head_dim + cfg.v_head_dim)
+    n += h * cfg.v_head_dim * d                               # out proj
+    return n
+
+
+def _moe_params(cfg: ModelConfig) -> int:
+    d = cfg.d_model
+    n = d * cfg.n_experts                                     # router
+    n += 3 * d * cfg.expert_d_ff * cfg.n_experts              # routed
+    n += 3 * d * cfg.expert_d_ff * cfg.n_shared_experts       # shared
+    return n
+
+
+def _ssd_params(cfg: ModelConfig) -> int:
+    d, di = cfg.d_model, cfg.d_inner
+    g, ns, hh = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    d_xbc = di + 2 * g * ns
+    in_proj = d * (2 * di + 2 * g * ns + hh)
+    conv = cfg.ssm_conv_width * d_xbc
+    return in_proj + conv + 2 * hh + di * d + di              # A,D,out,norm
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,7 +1,9 @@
 """Load a JAX-package parameter tree into the port's model.
 
 The JAX package stacks the layers on a leading ``[n_layers, ...]`` axis (it
-scans them); the port keeps one module per layer.  Tests use this to run
+scans them); the port keeps one module per layer, whose parameters carry the
+JAX tree's keys (``attn``/``mlp``, ``mla``/``moe`` with ``moe.shared``, or
+``ssd``), so a layer's subtree loads by name.  Tests use this to run
 both packages on the same dense weights: ``torch.Generator`` and
 ``jax.random`` draw different numbers from one seed, while the sparse FFN
 structures and values come from numpy seeds and are equal anyway.
@@ -12,7 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.sparse_linear import SHARDED_JAX_FIELDS
+from repro_torch.core.sparse_linear import SHARDED_JAX_FIELDS, SparseLinear
 from repro_torch.kernels import ops
 from repro_torch.launch import dist_spmm
 from repro_torch.models import transformer as T
@@ -59,23 +61,27 @@ def _put_sparse(sparse, layer, i: int) -> None:
         _put(getattr(sparse, field), value)
 
 
+def _put_layer(module, tree, i: int) -> None:
+    """Layer ``i`` of a stacked JAX subtree into ``module``, key by key (a
+    sparse linear layer's subtree through ``_put_sparse``)."""
+    for name, value in tree.items():
+        target = getattr(module, name)
+        if isinstance(target, SparseLinear):
+            _put_sparse(target, value, i)
+        elif isinstance(value, dict):
+            _put_layer(target, value, i)
+        else:
+            _put(target, value[i])
+
+
 def params_from_jax(cfg: ModelConfig, params_np, device) -> T.Transformer:
     """``params_np`` is the JAX ``init_params`` tree with every leaf a numpy
     array (pass bf16 leaves through float32).  Returns the port's
     ``Transformer`` on ``device`` holding the same values."""
     model = T.Transformer(cfg, device=T.resolve_device(device))
-    blocks = params_np["blocks"]
     with torch.no_grad():
         for name in ("final_norm", "embed", "lm_head"):
             _put(getattr(model, name), params_np[name])
         for i, blk in enumerate(model.blocks):
-            _put(blk.ln1, blocks["ln1"][i])
-            _put(blk.ln2, blocks["ln2"][i])
-            for name, value in blocks["attn"].items():
-                _put(getattr(blk.attn, name), value[i])
-            for name, layer in blocks["mlp"].items():
-                if isinstance(layer, dict):          # a sparse linear layer
-                    _put_sparse(getattr(blk.mlp, name), layer, i)
-                else:
-                    _put(getattr(blk.mlp, name), layer[i])
+            _put_layer(blk, params_np["blocks"], i)
     return model

@@ -13,8 +13,9 @@ The port has no compiler to ask, so ``work_count`` counts the work
 analytically.  Its rules fix the yardstick a step is judged by:
 
 * It is computed from the config, the shape cell and the structure metas.
-  Nothing depends on the backend a layer resolves, on a kernel's tile or
-  on a schedule's padding slots, so a kernel redesign can never move it.
+  Nothing depends on the backend a layer resolves, on a kernel's tile, on a
+  schedule's padding slots or on the MoE dispatch arm, so a kernel
+  redesign can never move it.
 * Dense products count 2*m*k*n: the attention projections, a dense FFN,
   the LM head (at the positions whose logits the step needs: all of them
   in a train step, the last of each sequence in prefill and decode, which
@@ -27,16 +28,35 @@ analytically.  Its rules fix the yardstick a step is judged by:
   blocks x h x w; in decode, the cache rows the step reads (the live pages
   of the last query's page-table row where the config pages its KV, else
   the whole ring).
+* ``mla_moe``.  MLA counts its projections (q, directly or through the
+  q LoRA; the latent and rope key; the output) per token.  In training and
+  prefill it adds the per-head K and V it builds from the latent, 2*r*h*
+  (nope + v) a token, and 2*(nope + rope + v) a (query, key) pair a head.
+  In decode (the absorbed form) it adds q's and the context's products
+  with ``wkv_b``, 2*h*r*(nope + v) a token, and 2*(2r + rope) a pair a
+  head over the whole ring.  The MoE counts its active experts only: the
+  router, 2*d*E a token, and top-k plus shared gated MLPs, 6*d*F each a
+  token.
+* ``ssd``.  The in/out projections and the depthwise conv (2*cw a
+  channel) a token.  The chunked scan: 2*(N + P) a head per (i, j) pair
+  of the lower triangle of each chunk (its scores and their product with
+  the inputs), and 4*P*N a head a token (the chunk states and the
+  inter-chunk read).  In decode, the recurrence step: 4*P*N a head a
+  token (the state's decay and update, and its read).
 * Training counts forward + dX + dW: three times the forward.
 * Bytes are a stated minimum: each weight read once a forward pass (the
-  embedding: one row a token, at most the table); for training the
-  weights read again in the backward (all but the embedding), the
-  gradients written, and AdamW's reads (gradient, parameter, ``m``,
-  ``v``) and writes (parameter, ``m``, ``v``); the cell's inputs read once;
-  the KV cache a prefill writes, and in decode the cache rows a step reads
-  and the row it writes; the float32 logits written once, at the LM
-  head's positions (the prefill's output: one row a sequence).  Activations,
-  index buffers and the attention mask are not counted.
+  embedding: one row a token, at most the table; a routed expert's
+  weights only for the min(E, tokens * k) experts the step can reach); for
+  training the weights read again in the backward (all but the embedding,
+  the same experts), the gradients written, and AdamW's reads (gradient,
+  parameter, ``m``, ``v``) and writes (parameter, ``m``, ``v``); the
+  cell's inputs read once; the decode cache a prefill writes, and in
+  decode the cache rows a step reads and the row it writes (MLA: the
+  latent, (r + rope) elements a position a layer; SSD: the conv window and
+  the float32 state, read and written, a sequence a layer); the float32
+  logits written once, at the LM head's positions (the prefill's output:
+  one row a sequence).  Activations, index buffers and the attention mask
+  are not counted.
 * The collective term counts the bytes ``launch.dist_spmm``'s all-gathers
   move when a partitioned FFN (``SparsitySpec(shards=S)``) runs one shard a
   rank over the cell's devices (S x ``shard_cols`` of them): each product
@@ -290,6 +310,74 @@ def _sparse_layers(cfg, device):
     return out
 
 
+def _mla_flops(cfg, shape, tokens: int) -> tuple:
+    """(projections, attention) forward flops of the MLA layers."""
+    d, h = cfg.d_model, cfg.n_heads
+    nope, rope, vd, r = (cfg.nope_head_dim, cfg.rope_head_dim,
+                         cfg.v_head_dim, cfg.kv_lora_rank)
+    qd = h * (nope + rope)
+    qr = cfg.q_lora_rank
+    q = d * qr + qr * qd if qr else d * qd
+    per_token = q + d * (r + rope) + h * vd * d
+    pairs = _attn_pairs(cfg, shape)
+    if shape.kind == "decode":          # absorbed: q and ctx through wkv_b
+        per_token += h * r * (nope + vd)
+        attn = 2.0 * h * (2 * r + rope) * pairs
+    else:                               # per-head K and V from the latent
+        per_token += r * h * (nope + vd)
+        attn = 2.0 * h * (nope + rope + vd) * pairs
+    return 2.0 * tokens * per_token * cfg.n_layers, attn * cfg.n_layers
+
+
+def _moe_flops(cfg, tokens: int) -> float:
+    """Forward flops of the MoE layers at their active experts."""
+    d, f = cfg.d_model, cfg.expert_d_ff
+    active = cfg.moe_top_k + cfg.n_shared_experts
+    return 2.0 * tokens * (d * cfg.n_experts + 3 * d * f * active) * \
+        cfg.n_layers
+
+
+def _ssd_dims(cfg) -> tuple:
+    d_xbc = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    return d_xbc, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+
+
+def _ssd_flops(cfg, shape, tokens: int) -> tuple:
+    """(projections, mixer) forward flops of the SSD layers: the mixer is
+    the conv and the chunked scan (in decode, the recurrence step)."""
+    d, di = cfg.d_model, cfg.d_inner
+    d_xbc, H, P, N = _ssd_dims(cfg)
+    proj = 2.0 * tokens * (d * (di + d_xbc + H) + di * d)
+    mixer = 2.0 * tokens * cfg.ssm_conv_width * d_xbc
+    if shape.kind == "decode":
+        mixer += 4.0 * tokens * H * P * N
+    else:
+        c = min(cfg.ssm_chunk, shape.seq_len)
+        pairs = shape.global_batch * (shape.seq_len // c) * c * (c + 1) // 2
+        mixer += 2.0 * H * (N + P) * pairs + 4.0 * tokens * H * P * N
+    return proj * cfg.n_layers, mixer * cfg.n_layers
+
+
+def _cache_bytes(cfg, shape, es: int) -> float:
+    """Decode-cache bytes the step touches: written by a prefill; read
+    (the rows it reads) and written (one row) by a decode step."""
+    B, L, nl = shape.global_batch, shape.seq_len, cfg.n_layers
+    if shape.kind == "train":
+        return 0.0
+    if cfg.layout == "ssd":
+        d_xbc, H, P, N = _ssd_dims(cfg)
+        seq = ((cfg.ssm_conv_width - 1) * d_xbc * es + H * P * N * 4) * nl
+        return seq * B * (1 if shape.kind == "prefill" else 2)
+    if cfg.layout == "mla_moe":
+        row = (cfg.kv_lora_rank + cfg.rope_head_dim) * es * nl
+    else:
+        row = 2.0 * cfg.n_kv_heads * cfg.head_dim * es * nl   # K and V
+    if shape.kind == "prefill":
+        ring = min(L, cfg.sliding_window) if cfg.sliding_window else L
+        return row * B * ring
+    return row * B * (_decode_keys(cfg, L) + 1)
+
+
 @dataclasses.dataclass(frozen=True)
 class WorkCount:
     """``work_count``'s result: whole-step flops and bytes (all devices),
@@ -309,6 +397,16 @@ class WorkCount:
                 (self.bytes - self.weight_bytes) / n + weight_bytes)
 
 
+_ROUTED = ("w_gate", "w_up", "w_down")
+
+
+def _is_routed(name: str) -> bool:
+    """A routed expert bank's ``state_dict`` name (``blocks.<i>.moe.w_*``;
+    the shared experts sit under ``moe.shared``)."""
+    parts = name.split(".")
+    return len(parts) >= 2 and parts[-2] == "moe" and parts[-1] in _ROUTED
+
+
 def weight_read_bytes(cfg, shape, leaf_bytes: Dict[str, float]) -> float:
     """Weight bytes the step reads (the rules above) for the floating
     parameter bytes ``leaf_bytes`` ({``state_dict`` name: bytes}; a
@@ -317,13 +415,19 @@ def weight_read_bytes(cfg, shape, leaf_bytes: Dict[str, float]) -> float:
                                    else shape.seq_len)
     total = sum(leaf_bytes.values())
     embed = leaf_bytes.get("embed", 0.0)
-    fwd = total - embed + embed * min(tokens, cfg.vocab_size) / \
-        cfg.vocab_size
+    routed = sum(b for k, b in leaf_bytes.items() if _is_routed(k))
+    if routed:
+        e = cfg.n_experts
+        routed_read = routed * min(e, tokens * cfg.moe_top_k) / e
+    else:
+        routed_read = 0.0
+    rest = total - embed - routed + routed_read      # read once a pass
+    fwd = rest + embed * min(tokens, cfg.vocab_size) / cfg.vocab_size
     if shape.kind != "train":
         return fwd
     # the backward re-reads all but the embedding; the gradients are
     # written; AdamW reads gradient and parameter and writes the parameter
-    return fwd + (total - embed) + total + 3 * total
+    return fwd + rest + total + 3 * total
 
 
 def work_count(cfg, shape, *, n_devices: int = 1,
@@ -349,14 +453,22 @@ def work_count(cfg, shape, *, n_devices: int = 1,
               if v.is_floating_point()}
     n_float = sum(v.numel() for v in flat.values() if v.is_floating_point())
 
-    proj = 2.0 * tokens * (d * H * dh + 2 * d * KV * dh + H * dh * d) * nl
-    if cfg.ffn_sparsity is not None:
-        sparse = _sparse_layers(cfg, device)
-        ffn = float(tokens * sum(sparse_param_flops(m) for _, _, m in sparse))
+    sparse = []
+    if cfg.layout == "mla_moe":
+        proj, attn = _mla_flops(cfg, shape, tokens)
+        ffn = _moe_flops(cfg, tokens)
+    elif cfg.layout == "ssd":
+        proj, attn = _ssd_flops(cfg, shape, tokens)
+        ffn = 0.0
     else:
-        sparse = []
-        ffn = 2.0 * tokens * 3 * d * cfg.d_ff * nl
-    attn = 4.0 * dh * H * _attn_pairs(cfg, shape) * nl
+        proj = 2.0 * tokens * (d * H * dh + 2 * d * KV * dh + H * dh * d) * nl
+        if cfg.ffn_sparsity is not None:
+            sparse = _sparse_layers(cfg, device)
+            ffn = float(tokens * sum(sparse_param_flops(m)
+                                     for _, _, m in sparse))
+        else:
+            ffn = 2.0 * tokens * 3 * d * cfg.d_ff * nl
+        attn = 4.0 * dh * H * _attn_pairs(cfg, shape) * nl
     head_rows = B * L if shape.kind == "train" else B
     head = 2.0 * head_rows * d * V
     fwd = proj + ffn + attn + head
@@ -366,15 +478,9 @@ def work_count(cfg, shape, *, n_devices: int = 1,
     inputs = float(sum(_nbytes(t) for t in
                        st.input_specs(cfg, shape).values()))
     logits = 4.0 * head_rows * V
-    kv_row = 2.0 * KV * dh * es * nl           # K and V of one position
-    if shape.kind == "train":
-        cache = 0.0
-        state = 16.0 * n_float                 # m and v, read and written
-    elif shape.kind == "prefill":
-        ring = min(L, cfg.sliding_window) if cfg.sliding_window else L
-        cache, state = kv_row * B * ring, 0.0
-    else:
-        cache, state = kv_row * B * (_decode_keys(cfg, L) + 1), 0.0
+    cache = _cache_bytes(cfg, shape, es)
+    # AdamW's m and v, read and written
+    state = 16.0 * n_float if shape.kind == "train" else 0.0
     nbytes = w_bytes + inputs + logits + cache + state
 
     # dist_spmm's all-gathers: one shard a rank over S x shard_cols devices

@@ -7,6 +7,13 @@ tokens/s and how many times each CUDA kernel was launched.
       --arch smat-ffn-1.3b:smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch smat-attn-1.3b:smoke --device cpu --cache-len 64
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek-v2-lite-16b:smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b
+
+Any registered arch serves (``--arch``): the paper's ``smat-ffn-1.3b`` and
+``smat-attn-1.3b``, ``mamba2-1.3b`` (its state is not position-indexed, so
+prefix reuse is off), ``deepseek-v2-lite-16b`` and ``deepseek-v2-236b``.
 
 With block-sparse attention whose page table saves pages at this cache
 length (the second line: 3 of 4 pages a step), decode reads KV through the

@@ -6,7 +6,9 @@ static meta, and ``ops.spmm``'s backward runs the kernels (``bcsr_spmm``
 for dB, ``bcsr_sddmm`` for dvals).  Neither do block-sparse attention archs
 (``smat-attn-1.3b``): training and prefill run kernel B5 through
 ``models.attention``, whose backward runs the SDDMM/SpMM kernels, and
-decode applies the mask as a bias.  ``input_specs`` and ``opt_specs`` give
+decode applies the mask as a bias.  ``mla_moe`` and ``ssd`` archs run the
+same steps; ``T.train_loss`` adds their MoE load-balance loss.
+``input_specs`` and ``opt_specs`` give
 a cell's inputs and AdamW state as ``meta``-device tensors (shape and dtype
 only), for the dry-run (``launch.dryrun``).
 """

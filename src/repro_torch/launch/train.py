@@ -5,9 +5,17 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch smat-ffn-1.3b \
       --steps 5 --batch 2 --seq 1024
 
-  # a few steps of the smoke config on the CPU:
+  # a few steps of the smoke config on the CPU (any registered arch:
+  # smat-ffn-1.3b, smat-attn-1.3b, mamba2-1.3b, deepseek-v2-lite-16b,
+  # deepseek-v2-236b, each with its :smoke view):
   PYTHONPATH=src python -m repro_torch.launch.train \
       --arch smat-ffn-1.3b:smoke --device cpu --steps 4
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --arch deepseek-v2-lite-16b:smoke --device cpu --steps 4 --seq 32
+
+  # mamba2-1.3b at full width on the card:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \
+      --steps 5 --batch 2 --seq 1024
 
   # failure injection + automatic restart from the latest checkpoint:
   PYTHONPATH=src python -m repro_torch.launch.train \
@@ -62,6 +70,9 @@ def main(argv=None):
     print(f"[train] done: {res.final_step} steps, "
           f"loss {res.losses[0]:.3f} -> {res.losses[-1]:.3f}, "
           f"restarts={res.restarts_used}, stragglers={res.straggler_steps}")
+    if cfg.layout == "mla_moe":
+        print(f"[train] MoE load-balance loss {res.aux_losses[0]:.4f} -> "
+              f"{res.aux_losses[-1]:.4f}")
     launched = {name: n for launches in counters
                 for name, n in launches.items()}
     print(f"[train] kernel launches: {launched} (0 on the CPU, where the "

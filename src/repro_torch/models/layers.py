@@ -1,13 +1,14 @@
 """Transformer layer components: norms, RoPE, GQA attention (sliding window,
 logit softcap, QKV bias, or block-sparse scores on a static BCSR mask:
-``cfg.attn_sparsity``) and the gated MLP, dense or block-sparse (the paper's
-technique as a drop-in FFN).
+``cfg.attn_sparsity``), MLA (DeepSeek) and the gated MLP, dense or
+block-sparse (the paper's technique as a drop-in FFN).
 
 Conventions (those of the JAX package):
   * activations are [B, L, D]; decode caches are ring buffers written at
     ``pos % cache_len``;
   * attention math accumulates in float32;
-  * the functions take the layer's module (``Attention``, ``MLP``) as ``p``
+  * the functions take the layer's module (``Attention``, ``MLA``, ``MLP``)
+    as ``p``
     and read its parameters by the JAX package's names.
 
 Unlike the JAX package, the decode cache is updated IN PLACE: prefill and
@@ -120,7 +121,8 @@ def _mask_bias(q_pos, k_pos, window):
 
 def _sdpa(q, k, v, bias, cap, scale):
     """q [B,Lq,H,dh] k [B,S,KV,dh] v [B,S,KV,dv] bias [B,Lq,S]
-    -> [B,Lq,H,dv]; scores and softmax in float32."""
+    -> [B,Lq,H,dv] (dv may differ from dh: MLA's 128 against 192); scores
+    and softmax in float32."""
     B, Lq, H, dh = q.shape
     KV = k.shape[2]
     dv = v.shape[-1]
@@ -366,6 +368,130 @@ def init_attn_cache(cfg, batch, cache_len, dtype, window=None, *, device):
     kv, dh = cfg.n_kv_heads, cfg.head_dim
     return {"k": torch.zeros((batch, Sc, kv, dh), dtype=dtype, device=device),
             "v": torch.zeros((batch, Sc, kv, dh), dtype=dtype, device=device)}
+
+
+# ======================================================================= MLA
+class MLA(nn.Module):
+    """Multi-head Latent Attention's weights (DeepSeek-V2): q through
+    ``wq``, or ``wq_a`` -> ``q_norm`` -> ``wq_b`` with ``cfg.q_lora_rank``;
+    the latent ``c_kv`` and a shared rope key through ``wkv_a``; per-head
+    K and V from the latent through ``wkv_b``."""
+
+    def __init__(self, cfg, *, dtype, device, generator=None):
+        super().__init__()
+        d, h = cfg.d_model, cfg.n_heads
+        nope, rope, vd, r = (cfg.nope_head_dim, cfg.rope_head_dim,
+                             cfg.v_head_dim, cfg.kv_lora_rank)
+        s = d ** -0.5
+        q_dim = h * (nope + rope)
+        if cfg.q_lora_rank:
+            qr = cfg.q_lora_rank
+            self.wq_a = _weight((d, qr), s, dtype, device, generator)
+            self.q_norm = nn.Parameter(torch.zeros(qr, device=device))
+            self.wq_b = _weight((qr, q_dim), qr ** -0.5, dtype, device,
+                                generator)
+        else:
+            self.wq = _weight((d, q_dim), s, dtype, device, generator)
+        self.wkv_a = _weight((d, r + rope), s, dtype, device, generator)
+        self.kv_norm = nn.Parameter(torch.zeros(r, device=device))
+        self.wkv_b = _weight((r, h * (nope + vd)), r ** -0.5, dtype, device,
+                             generator)
+        self.wo = _weight((h * vd, d), (h * vd) ** -0.5, dtype, device,
+                          generator)
+
+
+def init_mla(cfg, generator, dtype, *, device) -> MLA:
+    return MLA(cfg, dtype=dtype, device=device, generator=generator)
+
+
+def mla_attention(cfg, p, x, *, cache=None, pos=None, slot_mask=None):
+    """Multi-head Latent Attention; returns (y, cache).  The cache holds
+    the compressed latent (``ckv`` [B, S, r]) and the shared rope key
+    (``krope`` [B, S, rope]) only.  Modes as ``attention``'s:
+
+      train/prefill: per-head K [.., nope + rope] and V [.., v_head_dim]
+        built from the latent, through ``_causal_attention``; a prefill
+        writes the last ``S`` positions' latents at slots 0.. of the ring
+        (a ring read back at ``pos % S`` only while ``L <= S``);
+      decode (L == 1, ``pos`` an int): the absorbed form in float32
+        against the ring, written in place at ``pos % S`` (only the rows
+        where ``slot_mask`` [B] is True, when given)."""
+    B, L, D = x.shape
+    h = cfg.n_heads
+    nope, rope, vd, r = (cfg.nope_head_dim, cfg.rope_head_dim,
+                         cfg.v_head_dim, cfg.kv_lora_rank)
+
+    if cfg.q_lora_rank:
+        q = _dense(rms_norm(_dense(x, p.wq_a), p.q_norm), p.wq_b)
+    else:
+        q = _dense(x, p.wq)
+    q = q.reshape(B, L, h, nope + rope)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+
+    kv_a = _dense(x, p.wkv_a)                            # [B, L, r + rope]
+    c_kv = rms_norm(kv_a[..., :r], p.kv_norm)
+    k_rope = kv_a[..., r:].reshape(B, L, 1, rope)
+
+    positions = torch.arange(L, dtype=torch.int64, device=x.device)
+    if cache is not None and pos is not None:
+        positions = positions + pos
+    positions = positions[None, :].expand(B, L)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
+
+    scale = (nope + rope) ** -0.5
+    w_kv_b = p.wkv_b.reshape(r, h, nope + vd)
+    w_uk, w_uv = w_kv_b[..., :nope], w_kv_b[..., nope:]
+
+    if cache is not None and L == 1:
+        # ---- absorbed decode: score against the latent cache directly
+        ckv_c, krope_c = cache["ckv"], cache["krope"]
+        Sc = ckv_c.shape[1]
+        slot = pos % Sc
+        c_new = c_kv[:, 0].to(ckv_c.dtype)
+        r_new = k_rope[:, 0, 0].to(krope_c.dtype)
+        if slot_mask is not None:
+            keep = slot_mask[:, None]
+            c_new = torch.where(keep, c_new, ckv_c[:, slot])
+            r_new = torch.where(keep, r_new, krope_c[:, slot])
+        ckv_c[:, slot] = c_new
+        krope_c[:, slot] = r_new
+        q_lat = torch.einsum("blhn,rhn->blhr", q_nope.float(),
+                             w_uk.float())                 # [B,1,h,r]
+        s_lat = torch.einsum("blhr,bsr->bhls", q_lat, ckv_c.float())
+        s_rope = torch.einsum("blhe,bse->bhls", q_rope.float(),
+                              krope_c.float())
+        scores = (s_lat + s_rope) * scale
+        j = torch.arange(Sc, dtype=torch.int64, device=x.device)
+        k_pos = pos - ((pos - j) % Sc)       # ring-buffer slot positions
+        q_pos = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+        bias = _mask_bias(q_pos, k_pos, None)             # [1, Sc]
+        probs = torch.softmax(scores + bias[None, None], dim=-1)
+        ctx_lat = torch.einsum("bhls,bsr->blhr", probs, ckv_c.float())
+        ctx = torch.einsum("blhr,rhv->blhv", ctx_lat, w_uv.float())
+    else:
+        # ---- train/prefill: materialize per-head K, V
+        k_nope = torch.einsum("blr,rhn->blhn", c_kv, w_uk.to(c_kv.dtype))
+        v = torch.einsum("blr,rhv->blhv", c_kv, w_uv.to(c_kv.dtype))
+        k = torch.cat([k_nope, k_rope.expand(B, L, h, rope)], dim=-1)
+        qq = torch.cat([q_nope, q_rope], dim=-1)
+        ctx = _causal_attention(qq, k, v, None, None, scale)  # [B,L,h,vd]
+        if cache is not None:               # prefill: write latent cache
+            ckv_c, krope_c = cache["ckv"], cache["krope"]
+            Sc = ckv_c.shape[1]
+            n = min(L, Sc)
+            ckv_c[:, :n] = c_kv[:, -Sc:].to(ckv_c.dtype)
+            krope_c[:, :n] = k_rope[:, -Sc:, 0].to(krope_c.dtype)
+
+    y = _dense(ctx.reshape(B, L, h * vd).to(x.dtype), p.wo)
+    return y, cache
+
+
+def init_mla_cache(cfg, batch, cache_len, dtype, *, device):
+    return {"ckv": torch.zeros((batch, cache_len, cfg.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "krope": torch.zeros((batch, cache_len, cfg.rope_head_dim),
+                                 dtype=dtype, device=device)}
 
 
 # ======================================================================= MLP

@@ -1,12 +1,21 @@
 """Model assembly: embeddings, the block stack, caches, and the forward /
-prefill / decode entry points for the ``attn_mlp`` layout (a standard
-decoder; ``smat-ffn`` with its block-sparse FFN, ``smat-attn`` with
-block-sparse attention scores on top).
+prefill / decode entry points.
+
+Layouts (over token inputs):
+  attn_mlp — a standard decoder (``smat-ffn`` with its block-sparse FFN,
+             ``smat-attn`` with block-sparse attention scores on top);
+  mla_moe  — DeepSeek MLA attention + a shared/routed MoE FFN;
+  ssd      — Mamba2 (attention-free).
+The JAX package's ``gemma_pair`` and ``zamba`` layouts and its
+``tokens+patches`` and ``codebooks`` inputs are not ported yet (ROADMAP A7).
 
 The JAX package stacks the blocks on a leading axis and scans them; here
 ``Transformer.blocks`` is a ``ModuleList`` walked by a Python loop, and the
 decode cache keeps the stacked layout (``{"k", "v"}: [n_layers, B, S, KV,
-dh]``) so a layer's cache is a view into it.  ``forward``'s ``remat``
+dh]``; ``{"ckv", "krope"}: [n_layers, B, S, r | rope]``; ``{"conv",
+"state"}: [n_layers, B, cw-1, d_xbc | H, P, N]``) so a layer's cache is a
+view into it.  ``forward``'s third value sums the layers' MoE
+load-balance losses, as the JAX package's scan carries it.  ``forward``'s ``remat``
 replaces the JAX package's ``jax.checkpoint`` policies: ``"full"`` runs
 each block under ``torch.utils.checkpoint``; ``"dots"`` and ``"names"`` are
 not ported yet.
@@ -23,6 +32,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sparse_linear import meta_spec as _spec
 from repro_torch.core.sparse_linear import sparse_linear_specs
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
+
+LAYOUTS = ("attn_mlp", "mla_moe", "ssd")
 
 
 def resolve_device(device) -> torch.device:
@@ -46,24 +59,39 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_layout(cfg: ModelConfig) -> None:
-    if cfg.layout != "attn_mlp" or cfg.input_mode != "tokens":
+    if cfg.layout not in LAYOUTS or cfg.input_mode != "tokens":
         raise NotImplementedError(
             f"layout {cfg.layout!r} with input_mode {cfg.input_mode!r} is not "
-            "ported yet (only attn_mlp over tokens)")
+            f"ported yet (ROADMAP A7; ported: {', '.join(LAYOUTS)} over "
+            "tokens)")
 
 
 class Block(nn.Module):
-    """One ``attn_mlp`` layer: pre-norm attention, then pre-norm MLP."""
+    """One layer, its parameters named as the JAX package's ``blocks``
+    tree: ``attn_mlp`` (pre-norm attention ``ln1``/``attn``, then pre-norm
+    MLP ``ln2``/``mlp``), ``mla_moe`` (``ln1``/``mla``, then ``ln2``/
+    ``moe``) or ``ssd`` (``ln``/``ssd``)."""
 
     def __init__(self, cfg, *, dtype, device, generator=None,
                  seed_hint: int = 0):
         super().__init__()
         d = cfg.d_model
+        if cfg.layout == "ssd":
+            self.ln = nn.Parameter(torch.zeros(d, device=device))
+            self.ssd = S.init_ssd(cfg, generator, dtype, device=device)
+            return
         self.ln1 = nn.Parameter(torch.zeros(d, device=device))
-        self.attn = L.init_attention(cfg, generator, dtype, device=device)
+        if cfg.layout == "mla_moe":
+            self.mla = L.init_mla(cfg, generator, dtype, device=device)
+        else:
+            self.attn = L.init_attention(cfg, generator, dtype,
+                                         device=device)
         self.ln2 = nn.Parameter(torch.zeros(d, device=device))
-        self.mlp = L.init_mlp(cfg, generator, dtype, device=device,
-                              seed_hint=seed_hint)
+        if cfg.layout == "mla_moe":
+            self.moe = M.init_moe(cfg, generator, dtype, device=device)
+        else:
+            self.mlp = L.init_mlp(cfg, generator, dtype, device=device,
+                                  seed_hint=seed_hint)
 
 
 class Transformer(nn.Module):
@@ -104,9 +132,14 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
                device="cuda"):
     """Decode caches for the whole network, stacked over layers."""
     _check_layout(cfg)
-    one = L.init_attn_cache(cfg, batch, cache_len, _dtype(cfg),
-                            window=cfg.sliding_window,
-                            device=resolve_device(device))
+    device, dtype = resolve_device(device), _dtype(cfg)
+    if cfg.layout == "mla_moe":
+        one = L.init_mla_cache(cfg, batch, cache_len, dtype, device=device)
+    elif cfg.layout == "ssd":
+        one = S.init_ssd_cache(cfg, batch, dtype, device=device)
+    else:
+        one = L.init_attn_cache(cfg, batch, cache_len, dtype,
+                                window=cfg.sliding_window, device=device)
     return {name: leaf[None].repeat(cfg.n_layers, *([1] * leaf.ndim))
             for name, leaf in one.items()}
 
@@ -117,6 +150,8 @@ def _block_specs(cfg: ModelConfig, i: int, device) -> dict:
     ``i`` (``convert.params_from_jax``'s unstacking), plus each sparse
     layer's port buffers."""
     dtype, d = _dtype(cfg), cfg.d_model
+    if cfg.layout in ("mla_moe", "ssd"):        # no sparse layer in these
+        return _module_specs(Block(cfg, dtype=dtype, device="meta"))
     h, kv, hd, f = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
     attn = {"wq": _spec((d, h * hd), dtype), "wk": _spec((d, kv * hd), dtype),
             "wv": _spec((d, kv * hd), dtype), "wo": _spec((h * hd, d), dtype)}
@@ -139,6 +174,19 @@ def _block_specs(cfg: ModelConfig, i: int, device) -> dict:
             "mlp": mlp}
 
 
+def _module_specs(module: nn.Module) -> dict:
+    """A module's parameters as a nested ``{name: meta tensor}`` tree, for
+    a module built on the ``meta`` device (shapes and dtypes only)."""
+    out: dict = {}
+    for name, p in module.named_parameters():
+        *path, leaf = name.split(".")
+        node = out
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = p.detach()
+    return out
+
+
 def param_specs(cfg: ModelConfig, *, device="cuda") -> dict:
     """The model's parameters and buffers as tensors on the ``meta``
     device (shape and dtype, no storage, no random draw): the JAX
@@ -158,11 +206,7 @@ def param_specs(cfg: ModelConfig, *, device="cuda") -> dict:
 def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> dict:
     """``init_cache``'s tensors as ``meta``-device specs (stacked over
     layers, the JAX package's layout)."""
-    _check_layout(cfg)
-    sc = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
-        else cache_len
-    shape = (cfg.n_layers, batch, sc, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": _spec(shape, _dtype(cfg)), "v": _spec(shape, _dtype(cfg))}
+    return init_cache(cfg, batch, cache_len, device="meta")
 
 
 def flat_specs(tree, prefix: str = "") -> dict:
@@ -192,14 +236,27 @@ def _head(cfg: ModelConfig, params, x) -> torch.Tensor:
 
 
 def _apply_block(cfg: ModelConfig, p: Block, x, cache, pos, slot_mask=None):
-    """Returns (x, cache)."""
+    """Returns (x, cache, aux): ``aux`` is the layer's MoE load-balance
+    loss (0 for the other layouts)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.layout == "ssd":
+        y, c = S.ssd_block(cfg, p.ssd, L.rms_norm(x, p.ln), cache=cache,
+                           pos=pos, slot_mask=slot_mask)
+        return x + y, c, aux
+    if cfg.layout == "mla_moe":
+        a, c = L.mla_attention(cfg, p.mla, L.rms_norm(x, p.ln1), cache=cache,
+                               pos=pos, slot_mask=slot_mask)
+        x = x + a
+        y, aux = M.moe_ffn(cfg, p.moe, L.rms_norm(x, p.ln2),
+                           dispatch=cfg.moe_dispatch)
+        return x + y, c, aux
     a, c = L.attention(cfg, p.attn, L.rms_norm(x, p.ln1),
                        window=cfg.sliding_window, cache=cache, pos=pos,
                        slot_mask=slot_mask)
     x = x + a
     x = x + L.mlp(cfg, p.mlp, L.rms_norm(x, p.ln2),
                   seed_hints=(p.mlp.seed_hint,))
-    return x, c
+    return x, c, aux
 
 
 REMAT = ("none", "full")
@@ -207,16 +264,19 @@ REMAT = ("none", "full")
 
 def _remat_block(cfg: ModelConfig, blk: Block, x):
     """One block without a cache under activation checkpointing: its
-    activations are recomputed in the backward (JAX ``remat="full"``)."""
-    return torch_checkpoint.checkpoint(
-        lambda x_: _apply_block(cfg, blk, x_, None, None)[0], x,
-        use_reentrant=False)
+    activations are recomputed in the backward (JAX ``remat="full"``).
+    Returns (x, aux)."""
+    def run(x_):
+        x_, _, aux = _apply_block(cfg, blk, x_, None, None)
+        return x_, aux
+    return torch_checkpoint.checkpoint(run, x, use_reentrant=False)
 
 
 def forward(cfg: ModelConfig, params: Transformer, batch_in, *, cache=None,
             pos=None, slot_mask=None, remat: str = "none"
             ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
     """Returns (logits, cache, aux_loss); the cache is updated in place.
+    ``aux_loss`` sums the layers' MoE load-balance losses.
     ``remat="full"`` checkpoints each block (training, no cache)."""
     if remat in ("dots", "names"):
         raise NotImplementedError(
@@ -225,14 +285,15 @@ def forward(cfg: ModelConfig, params: Transformer, batch_in, *, cache=None,
     if remat not in REMAT:
         raise ValueError(f"unknown remat {remat!r}; want one of {REMAT}")
     x = _embed(cfg, params, batch_in)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, blk in enumerate(params.blocks):
         if remat == "full" and cache is None:
-            x = _remat_block(cfg, blk, x)
-            continue
-        layer_cache = None if cache is None else \
-            {name: leaf[i] for name, leaf in cache.items()}
-        x, _ = _apply_block(cfg, blk, x, layer_cache, pos, slot_mask)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = _remat_block(cfg, blk, x)
+        else:
+            layer_cache = None if cache is None else \
+                {name: leaf[i] for name, leaf in cache.items()}
+            x, _, a = _apply_block(cfg, blk, x, layer_cache, pos, slot_mask)
+        aux = aux + a
     return _head(cfg, params, x), cache, aux
 
 
@@ -265,9 +326,10 @@ def prefill(cfg: ModelConfig, params: Transformer, batch_in, cache_len: int):
 
 def decode_step(cfg: ModelConfig, params: Transformer, cache, tokens,
                 pos: int, slot_mask=None):
-    """One decode step: tokens [B], pos an int.  Writes the step's K/V into
-    ``cache`` in place (only the rows where ``slot_mask`` [B] is True, when
-    given).  Returns (logits [B, V], cache)."""
+    """One decode step: tokens [B], pos an int.  Writes the step's K/V (MLA:
+    latent; SSD: conv window and state) into ``cache`` in place (only the
+    rows where ``slot_mask`` [B] is True, when given).  Returns (logits
+    [B, V], cache)."""
     logits, cache, _ = forward(cfg, params, {"tokens": tokens[:, None]},
                                cache=cache, pos=pos, slot_mask=slot_mask)
     return logits[:, 0], cache

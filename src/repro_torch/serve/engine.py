@@ -51,11 +51,16 @@ from repro_torch.obs import shapemon
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.scheduler import Scheduler, SchedulerConfig
 
-# decode-cache batch axis by leaf name: attn k/v [n_layers, B, S, KV, dh]
-_CACHE_BATCH_AXIS = {"k": -4, "v": -4}
+# decode-cache batch axis by leaf name (the launch.sharding.cache_shardings
+# layouts): attn k/v [n_layers, B, S, KV, dh]; mla ckv/krope [n_layers, B,
+# S, r]; ssd conv [n_layers, B, cw-1, d] / state [n_layers, B, H, P, N]
+_CACHE_BATCH_AXIS = {"k": -4, "v": -4, "ckv": -3, "krope": -3,
+                     "conv": -3, "state": -4}
 
-# leaves indexed by position, the ones a cross-slot prefix copy is exact for
-_POSITION_INDEXED = ("k", "v")
+# leaves indexed by position, the ones a cross-slot prefix copy is exact
+# for.  ssd conv/state summarize history (the state after the LAST token,
+# not one entry a position), so prefix reuse is off for layouts with them.
+_POSITION_INDEXED = ("k", "v", "ckv", "krope")
 
 
 def _copy_slot(cache, src: int, dst: int):
@@ -69,6 +74,20 @@ def _copy_slot(cache, src: int, dst: int):
                 "serve.engine._CACHE_BATCH_AXIS")
         ax = _CACHE_BATCH_AXIS[name] % leaf.ndim
         leaf.select(ax, dst).copy_(leaf.select(ax, src))
+    return cache
+
+
+def _reset_history(cache, slot: int):
+    """Zero slot ``slot``'s rows of every leaf that is not indexed by
+    position (ssd ``conv``/``state``), in place: a request admitted onto a
+    slot starts from an empty history, not from the state its previous
+    occupant left (ROADMAP C6: the JAX package's engine carries it over).
+    Position-indexed leaves need no reset: the new request overwrites
+    positions as it feeds them and attends causally."""
+    for name, leaf in cache.items():
+        if name not in _POSITION_INDEXED:
+            ax = _CACHE_BATCH_AXIS[name] % leaf.ndim
+            leaf.select(ax, slot).zero_()
     return cache
 
 
@@ -172,6 +191,7 @@ class ServeEngine:
         for adm in self.scheduler.admit():
             if adm["reuse"] > 0 and adm["src"] != adm["slot"]:
                 _copy_slot(self.cache, adm["src"], adm["slot"])
+            _reset_history(self.cache, adm["slot"])
         produced: List[Tuple[int, object]] = []
         for pos, entries in self.scheduler.plan():
             mask = np.zeros(self.n_slots, bool)

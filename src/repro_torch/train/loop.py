@@ -46,6 +46,9 @@ class TrainResult:
     step_times: list
     restarts_used: int
     straggler_steps: list
+    # the MoE load-balance loss of each step (0.0 without MoE layers); the
+    # port's own field, after the JAX package's
+    aux_losses: list = dataclasses.field(default_factory=list)
 
 
 def batch_to_device(batch, device) -> dict:
@@ -84,7 +87,7 @@ def train(cfg: ModelConfig, shape: ShapeCell, *, device="cuda",
         opt_state = state["opt"]
         log.info("resumed from step %d", start_step)
 
-    losses, times, stragglers = [], [], []
+    losses, times, stragglers, aux_losses = [], [], [], []
     ewma = None
     try:
         for step in range(start_step, total_steps):
@@ -98,6 +101,7 @@ def train(cfg: ModelConfig, shape: ShapeCell, *, device="cuda",
             dt = time.time() - t0
             losses.append(loss)
             times.append(dt)
+            aux_losses.append(float(metrics["aux_loss"]))
             # the loss is deterministic for a fixed seed, so it rides in
             # the event args; the step time is wall clock and stays in the
             # metrics (report-only histogram) and the dur field
@@ -126,7 +130,8 @@ def train(cfg: ModelConfig, shape: ShapeCell, *, device="cuda",
     finally:
         if mgr:
             mgr.wait()       # a relaunch must find every save this run made
-    return TrainResult(total_steps, losses, times, 0, stragglers)
+    return TrainResult(total_steps, losses, times, 0, stragglers,
+                       aux_losses)
 
 
 def train_with_restarts(cfg, shape, *, max_restarts: int = 2,

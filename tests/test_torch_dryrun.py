@@ -10,7 +10,9 @@ The kernel picks are the port's own (its registry and its H100 model): they
 must equal what the port's dispatch resolves for the same metas.  XLA's
 numbers (compile times, cost analysis) are not compared; a cell's argument
 bytes are held to the JAX specs' bytes divided as the JAX rule tables place
-each leaf, on one card and on a ``2,2`` mesh.
+each leaf, on one card and on a ``2,2`` mesh, for the attention arch and
+the MLA/MoE and SSD archs (MoE expert banks over ``model``, their latent and
+conv/state caches by the cache rules).
 """
 # ruff: noqa: E402
 import pytest
@@ -154,11 +156,14 @@ CELLS = [("train", 32, 2), ("prefill", 32, 2), ("decode", 64, 2),
          ("decode", 64, 8)]
 
 
+@pytest.mark.parametrize("name", ["smat-attn-1.3b:smoke",
+                                  "deepseek-v2-lite-16b:smoke",
+                                  "deepseek-v2-236b:smoke",
+                                  "mamba2-1.3b:smoke"])
 @pytest.mark.parametrize("mesh_shape", [(1, 1), (2, 2)])
 @pytest.mark.parametrize("kind,seq,batch", CELLS)
 def test_cell_argument_bytes_follow_the_jax_placement(kind, seq, batch,
-                                                      mesh_shape):
-    name = "smat-attn-1.3b:smoke"
+                                                      mesh_shape, name):
     cfg, jcfg = get_config(name), jax_get_config(name)
     mesh = dryrun.make_mesh(mesh_shape)
     jm = jmesh.make_abstract_mesh(mesh_shape, ("data", "model"))
@@ -179,7 +184,8 @@ def test_cell_argument_bytes_follow_the_jax_placement(kind, seq, batch,
     from repro_torch.models import transformer as T
     port = T.flat_specs(T.param_specs(cfg, device="cpu"))
     extra = {k: v for k, v in port.items() if k not in want}
-    assert {k.rsplit(".", 1)[1] for k in extra} == set(ops.PORT_FIELDS)
+    assert {k.rsplit(".", 1)[1] for k in extra} == (
+        set(ops.PORT_FIELDS) if cfg.ffn_sparsity else set())
     total = sum(want.values()) + sum(v.numel() * 4 for v in extra.values())
     batch_specs = jst.input_specs(jcfg, jcell)
     ids = 2                                   # int64 ids against int32
@@ -231,10 +237,15 @@ def test_main_all_at_full_size(tmp_path, capsys):
     assert dryrun.main(["--all", "--device", "cpu", "--out", str(out)]) == 0
     records = json.loads(out.read_text())
     ok = [(r["arch"], r["shape"]) for r in records if r["status"] == "ok"]
-    assert len(ok) == 7
+    assert len(ok) == 17
     assert [(r["arch"], r["shape"]) for r in records
-            if r["status"] == "skip"] == [("smat-ffn-1.3b", "long_500k")]
-    assert "7 cells ok, 0 errors" in capsys.readouterr().out
+            if r["status"] == "skip"] == [
+        ("deepseek-v2-236b", "long_500k"),
+        ("deepseek-v2-lite-16b", "long_500k"),
+        ("smat-ffn-1.3b", "long_500k")]
+    assert {a for a, s in ok if s == "long_500k"} == {"mamba2-1.3b",
+                                                       "smat-attn-1.3b"}
+    assert "17 cells ok, 0 errors" in capsys.readouterr().out
 
 
 def test_main_exits_1_on_an_error_record(monkeypatch):

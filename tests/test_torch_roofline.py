@@ -98,7 +98,10 @@ def test_roofline_terms_and_bottleneck_on_the_h100():
 
 @pytest.mark.parametrize("arch", ["smat-ffn-1.3b", "smat-attn-1.3b",
                                   "smat-ffn-1.3b:smoke",
-                                  "smat-attn-1.3b:smoke"])
+                                  "smat-attn-1.3b:smoke",
+                                  "deepseek-v2-lite-16b", "deepseek-v2-236b",
+                                  "mamba2-1.3b", "deepseek-v2-lite-16b:smoke",
+                                  "mamba2-1.3b:smoke"])
 def test_model_flops_equal_jax(arch):
     cfg, jcfg = get_config(arch), jax_get_config(arch)
     for name in SHAPES:
@@ -266,3 +269,84 @@ def test_collective_term_of_a_partitioned_ffn():
         h = meta.block[0]
         want += 0.5 * meta.n_shards * meta.rows_per_shard * h * 64 * es
     assert work.wire_bytes == want > 0
+
+
+# counts worked by hand from the docstring's rules at smoke size
+# deepseek-v2-lite-16b:smoke: d 128, 4 heads, nope 32, rope 16, v 32, latent
+# r 64, no q LoRA, 4 experts of width 64 (top-2, 1 shared), vocab 512, 2
+# layers.  Per token a layer: q 128*4*48 = 24576, latent + rope key
+# 128*80 = 10240, out 4*32*128 = 16384, and the wkv_b products
+# 64*4*(32+32) = 16384 (per-head K/V in prefill; the absorbed q and context
+# in decode): 67584.  MoE: router 128*4 + 3*128*64*(2+1) = 74240.
+# mamba2-1.3b:smoke: d 128, d_inner 256, 16 heads of 16, state 16, 1 group
+# (conv channels 256 + 32 = 288), chunk 32, vocab 512, 2 layers.  Per token
+# a layer: in 128*(256+288+16) + out 256*128 = 104448.
+HAND = {
+    ("deepseek-v2-lite-16b:smoke", "prefill", 16, 2): {
+        "projections": 2 * 32 * 67584 * 2,
+        # 2 rows x 16*17/2 causal pairs a head, 2*(48+32) a pair
+        "attention": 2 * 4 * (48 + 32) * (2 * 136) * 2,
+        "ffn": 2 * 32 * 74240 * 2,
+        "head": 2 * 2 * 128 * 512},
+    ("deepseek-v2-lite-16b:smoke", "decode", 16, 1): {
+        "projections": 2 * 1 * 67584 * 2,
+        # the whole 16-slot ring, 2*(2*64 + 16) a pair a head
+        "attention": 2 * 4 * (2 * 64 + 16) * 16 * 2,
+        "ffn": 2 * 1 * 74240 * 2,
+        "head": 2 * 1 * 128 * 512},
+    ("mamba2-1.3b:smoke", "prefill", 64, 2): {
+        "projections": 2 * 128 * 104448 * 2,
+        # conv 2*4*288 a token; 2 chunks of 32*33/2 pairs a row at
+        # 2*(16+16) a head; 4*16*16 a head a token
+        "attention": (2 * 128 * 4 * 288 + 2 * 16 * 32 * (2 * 2 * 528)
+                      + 4 * 128 * 16 * 16 * 16) * 2,
+        "ffn": 0,
+        "head": 2 * 2 * 128 * 512},
+    ("mamba2-1.3b:smoke", "decode", 64, 2): {
+        "projections": 2 * 2 * 104448 * 2,
+        "attention": (2 * 2 * 4 * 288 + 4 * 2 * 16 * 16 * 16) * 2,
+        "ffn": 0,
+        "head": 2 * 2 * 128 * 512},
+}
+# bytes: the decode cache a step touches (bf16 latent of 64 + 16 a position
+# a layer over 16 + 1 rows; a mamba row's conv window 3*288 bf16 and f32
+# state 16*16*16, read and written in decode, written by a prefill)
+HAND_CACHE = {
+    ("deepseek-v2-lite-16b:smoke", "prefill", 16, 2): 80 * 2 * 2 * 2 * 16,
+    ("deepseek-v2-lite-16b:smoke", "decode", 16, 1): 80 * 2 * 2 * 1 * 17,
+    ("mamba2-1.3b:smoke", "prefill", 64, 2): (3 * 288 * 2 + 4096 * 4) * 2 * 2,
+    ("mamba2-1.3b:smoke", "decode", 64, 2): (3 * 288 * 2 + 4096 * 4) * 2 * 2
+    * 2,
+}
+
+
+@pytest.mark.parametrize("key", list(HAND), ids=lambda k: f"{k[0]}-{k[1]}")
+def test_work_count_of_the_new_layouts_by_hand(key):
+    arch, kind, seq, batch = key
+    work = rl.work_count(get_config(arch), ShapeCell("c", kind, seq, batch),
+                         device="cpu")
+    parts = work.parts["flops"]
+    assert {k: parts[k] for k in HAND[key]} == HAND[key]
+    assert work.flops == sum(HAND[key].values())
+    assert work.parts["bytes"]["kv_cache"] == HAND_CACHE[key]
+
+
+def test_moe_weight_bytes_read_only_reachable_experts():
+    """deepseek-v2-lite-16b:smoke decoding one token (top-2 of 4 experts):
+    half of each routed bank is read.  Floating bytes by hand: embed and
+    head 512*128*2 each, final norm 128*4; a layer: norms 2*128*4, MLA
+    128*192*2 + 128*80*2 + 64*4 + 64*256*2 + 128*128*2 = 135424, router
+    128*4*4, routed banks 3*4*128*64*2 = 196608, shared 3*128*64*2."""
+    cfg = get_config("deepseek-v2-lite-16b:smoke")
+    layer = 1024 + 135424 + 2048 + 196608 + 49152
+    total = 2 * 131072 + 512 + 2 * layer
+    fwd = total - 131072 + 256 - 2 * 196608 // 2    # one embedding row
+    work = rl.work_count(cfg, ShapeCell("c", "decode", 16, 1), device="cpu")
+    assert work.parts["bytes"]["weights"] == fwd
+    # 4 tokens x top-2 reach every expert: the whole bank is read
+    work4 = rl.work_count(cfg, ShapeCell("c", "prefill", 4, 1), device="cpu")
+    assert work4.parts["bytes"]["weights"] == total - 131072 + 4 * 256
+    # training re-reads the reached experts and runs AdamW on everything
+    tr = rl.work_count(cfg, ShapeCell("c", "train", 1, 1), device="cpu")
+    rest = total - 131072 - 196608
+    assert tr.parts["bytes"]["weights"] == (rest + 256) + rest + 4 * total

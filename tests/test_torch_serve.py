@@ -214,3 +214,88 @@ def test_sharded_engine_matches_jax_decode_oracle(monkeypatch, n_slots):
     oracle = _jax_greedy(jcfg, jparams, prompt, max_new)
     got = _serve(tcfg, model, [(0, prompt)], n_slots, max_new)[0]
     assert got == oracle, (got, oracle)
+
+
+# ------------------------------------------- the mla_moe and ssd layouts
+NEW_ARCHS = ["deepseek-v2-lite-16b:smoke", "mamba2-1.3b:smoke"]
+
+
+@pytest.fixture(scope="module", params=NEW_ARCHS)
+def new_model(request):
+    """The port's own float32 model of a ``mla_moe`` or ``ssd`` smoke arch
+    (its logits and greedy tokens are held to JAX's in
+    ``test_torch_model.py``)."""
+    from repro_torch.models import transformer as T
+    tcfg = dataclasses.replace(get_config(request.param), dtype="float32")
+    return tcfg, T.init_params(tcfg, seed=0, device="cpu")
+
+
+def _port_greedy(tcfg, model, prompt, max_new, n_slots):
+    """A direct port ``decode_step`` loop, request in row 0 of an
+    ``n_slots``-row batch with pad elsewhere (the engine's shapes)."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    cache = T.init_cache(tcfg, n_slots, 32, device="cpu")
+    toks = torch.zeros(n_slots, dtype=torch.int64)
+    out, pos = [], 0
+    with torch.inference_mode():
+        for t in list(prompt) + [None] * max_new:
+            if t is None:
+                t = int(logits[0].argmax())
+                out.append(t)
+                if len(out) == max_new:
+                    break
+            toks[0] = int(t)
+            logits, cache = T.decode_step(tcfg, model, cache, toks, pos)
+            pos += 1
+    return out
+
+
+@pytest.mark.parametrize("n_slots", [1, 3])
+def test_new_layout_engine_matches_its_decode_loop(new_model, n_slots):
+    tcfg, model = new_model
+    prompt = [58, 93, 70, 61, 52, 7]
+    want = _port_greedy(tcfg, model, prompt, 5, n_slots)
+    assert _serve(tcfg, model, [(0, prompt)], n_slots, 5)[0] == want
+
+
+def test_new_layout_concurrent_requests_match_solo(new_model):
+    """Diverged positions decoded together (slot masks keep the other
+    rows' latent ring, or conv window and state), and request 2 admitted
+    onto request 1's freed slot (its conv window and state reset, ROADMAP
+    C6): each request gets its solo tokens."""
+    tcfg, model = new_model
+    jobs = [(0, [1, 2, 3, 4, 5, 6, 7]), (1, [9, 8]), (2, [300, 4, 17])]
+    solo = {}
+    for rid, prompt in jobs:
+        solo.update(_serve(tcfg, model, [(rid, prompt)], 1, 3))
+    assert _serve(tcfg, model, jobs, 2, 3) == solo
+
+
+def test_new_layout_prefix_reuse_follows_the_cache_leaves(new_model):
+    """MLA's latent ring is position-indexed: a shared prefix is copied
+    (one hit) and the request decodes as alone.  Mamba2's state summarizes
+    the history: prefix reuse is off, as in the JAX package."""
+    tcfg, model = new_model
+    jobs = [(0, [7, 8, 9, 10, 11]), (1, [3]), (2, [7, 8, 9, 10, 40])]
+    solo = {}
+    for rid, prompt in jobs:
+        solo.update(_serve(tcfg, model, [(rid, prompt)], 1, 2))
+    eng = ServeEngine(tcfg, model, n_slots=2, cache_len=32, device="cpu")
+    got = {}
+    for rid, tok in eng.generate([Request(r, np.asarray(p, np.int32), 2)
+                                  for r, p in jobs]):
+        got.setdefault(rid, []).append(tok)
+    mla = tcfg.layout == "mla_moe"
+    assert eng.scheduler.config.prefix_cache == mla
+    assert eng.scheduler.prefix_hits == (1 if mla else 0)
+    assert got == solo
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS + ["deepseek-v2-236b:smoke"])
+def test_serve_cli_runs_the_new_archs_on_cpu(arch, capsys):
+    assert serve_cli.main(["--arch", arch, "--device", "cpu", "--requests",
+                           "3", "--slots", "2", "--prompt-len", "3",
+                           "--new-tokens", "2", "--cache-len", "16"]) == 0
+    assert "3/3 requests, 6 new tokens" in capsys.readouterr().out

@@ -2,7 +2,9 @@
 
 Every leaf of ``param_specs``, ``cache_specs``, ``input_specs``,
 ``opt_specs`` and ``sparse_linear_specs`` (unsharded, ``shards=2``, with
-and without a seed) of both archs' ``:smoke`` views must have the shape and
+and without a seed) of every registered arch's ``:smoke`` view (the sparse
+FFN and attention archs, both DeepSeek-V2 MLA/MoE archs and Mamba2) must
+have the shape and
 dtype of the JAX package's ``jax.eval_shape`` leaf at the same path, the
 layer stack unstacked as ``convert.params_from_jax`` reads it.  Stated
 differences, each checked exactly:
@@ -39,7 +41,9 @@ from repro_torch.kernels import ops
 from repro_torch.launch import steps as st
 from repro_torch.models import transformer as T
 
-ARCHS = ["smat-ffn-1.3b:smoke", "smat-attn-1.3b:smoke"]
+ARCHS = ["smat-ffn-1.3b:smoke", "smat-attn-1.3b:smoke",
+         "deepseek-v2-lite-16b:smoke", "deepseek-v2-236b:smoke",
+         "mamba2-1.3b:smoke"]
 CELLS = [("train", 64, 2), ("prefill", 64, 2), ("decode", 96, 3)]
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "int32": torch.int32, "bool": torch.bool}
@@ -91,7 +95,8 @@ def test_param_specs_equal_jax_and_the_model(arch):
     assert all(v.device.type == "meta" for v in specs.values())
     got = _port(specs)
     extra = set(got) - set(jax_params)
-    assert {k.rsplit(".", 1)[1] for k in extra} == set(ops.PORT_FIELDS)
+    assert {k.rsplit(".", 1)[1] for k in extra} == (
+        set(ops.PORT_FIELDS) if cfg.ffn_sparsity else set())
     assert {k: got[k] for k in jax_params} == jax_params
     # with the layers' seeds, the port buffers too are the built model's
     model = T.init_params(cfg, device="cpu")
@@ -176,7 +181,8 @@ def test_sparse_linear_specs_equal_jax(kw, seed):
                               for k, v in built.items()}
 
 
-CONFIGS = ARCHS + ["smat-ffn-1.3b", "smat-attn-1.3b"]
+CONFIGS = ARCHS + ["smat-ffn-1.3b", "smat-attn-1.3b", "deepseek-v2-lite-16b",
+                   "deepseek-v2-236b", "mamba2-1.3b"]
 EXAMPLE_100M = dict(
     name="smat-ffn-100m", family="dense", layout="attn_mlp", n_layers=12,
     d_model=768, n_heads=12, n_kv_heads=4, head_dim=64, d_ff=3072,
@@ -198,8 +204,20 @@ def test_param_counts_equal_jax(name):
     assert cfg.active_param_count() == jcfg.active_param_count()
 
 
+def test_param_counts_of_the_full_width_archs():
+    """The counts the chip runs are sized by: 16.21 B (2.66 B active a
+    token) for deepseek-v2-lite-16b, 1.59 B at 2 of its layers, 1.45 B for
+    mamba2-1.3b."""
+    lite = get_config("deepseek-v2-lite-16b")
+    assert (lite.param_count(), lite.active_param_count()) == \
+        (16_210_198_528, 2_663_120_896)
+    assert dataclasses.replace(lite, n_layers=2).param_count() == \
+        1_589_116_928
+    assert get_config("mamba2-1.3b").param_count() == 1_446_402_048
+
+
 def test_param_count_raises_for_layouts_not_ported():
-    cfg = dataclasses.replace(get_config(ARCHS[0]), layout="ssd")
+    cfg = dataclasses.replace(get_config(ARCHS[0]), layout="zamba")
     with pytest.raises(NotImplementedError, match="A7"):
         cfg.param_count()
 
