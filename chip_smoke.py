@@ -43,7 +43,16 @@ counters must read 0): ``[moe-serve]`` and ``[ssd-serve]`` serve
 ``[ssd-model]`` hold a 2-layer float32 copy card against CPU and prefill
 against decode, and ``[moe-train]`` (2 layers) and ``[ssd-train]`` train
 them at full width (these six run after ``[restart]``); ``[dryrun]`` adds
-their roofline shares.  Every phase
+their roofline shares.  After them, the rest of the JAX package's
+layouts and inputs, again with the B1-B5 counters at 0:
+``[gemma-serve]`` (``gemma2-27b`` at full width and depth, 28.41 B
+parameters), ``[gemma-model]``, ``[gemma-train]`` (one pair; then step 0
+under every ``remat`` policy against ``"none"``), ``[hybrid-serve]``,
+``[hybrid-model]`` and ``[hybrid-train]`` (``zamba2-7b``),
+``[audio-serve]`` and ``[audio-train]`` (``musicgen-medium``, codebook
+rows), ``[vlm-prefill]`` (``pixtral-12b``: 1,024 patch embeddings +
+1,024 tokens), ``[vlm-model]``, ``[vlm-train]`` and ``[dense-model]``
+(``h2o-danube-1.8b``, ``minitron-4b``, ``qwen2.5-14b``).  Every phase
 checks its results; any failure exits non-zero before the last line.
 
 The line before the last lists every ported kernel as JSON; the last line is
@@ -1137,30 +1146,44 @@ def timing_phase(smi):
 
 
 # ----------------------------------------------------------------- main path
+def _cb_row(cfg) -> tuple:
+    """A position's token shape: () or (n_codebooks,)."""
+    return (cfg.n_codebooks,) if cfg.input_mode == "codebooks" else ()
+
+
 def _requests(cfg):
+    """N_REQUESTS prompts of PROMPT_LEN positions ([PROMPT_LEN, n_cb] for
+    ``codebooks``), seed 0."""
     from repro_torch.serve.engine import Request
     rng = np.random.default_rng(0)
-    return [Request(rid=r, prompt=rng.integers(0, cfg.vocab_size,
-                                               size=PROMPT_LEN,
-                                               dtype=np.int32),
-                    max_new_tokens=NEW_TOKENS) for r in range(N_REQUESTS)]
+    return [Request(rid=r, prompt=rng.integers(
+        0, cfg.vocab_size, size=(PROMPT_LEN,) + _cb_row(cfg),
+        dtype=np.int32), max_new_tokens=NEW_TOKENS)
+        for r in range(N_REQUESTS)]
+
+
+def _tok_list(stream):
+    """A stream of tokens (ints, or codebook rows) as plain lists."""
+    return [np.asarray(t).tolist() for t in stream]
 
 
 def _greedy_oracle(cfg, model, prompt, n_new, cache_len=CACHE_LEN, row=0):
     """A direct decode_step loop: the request in row ``row`` of an
     N_SLOTS-row batch (pad elsewhere), as the engine runs it in that slot,
-    so the row sees the same shapes."""
+    so the row sees the same shapes.  Returns ints, or lists of codebook
+    tokens for ``codebooks``."""
     from repro_torch.models import transformer as T
     cache = T.init_cache(cfg, N_SLOTS, cache_len, device=DEVICE)
-    toks = torch.zeros(N_SLOTS, dtype=torch.int64, device=DEVICE)
+    toks = torch.zeros((N_SLOTS,) + _cb_row(cfg), dtype=torch.int64,
+                       device=DEVICE)
     out, pos = [], 0
     for t in prompt:
-        toks[row] = int(t)
+        toks[row] = torch.as_tensor(np.asarray(t, np.int64))
         logits, cache = T.decode_step(cfg, model, cache, toks, pos)
         pos += 1
     for _ in range(n_new):
-        tok = int(logits[row].float().argmax())
-        out.append(tok)
+        tok = logits[row].float().argmax(-1)
+        out.append(tok.tolist())
         toks[row] = tok
         logits, cache = T.decode_step(cfg, model, cache, toks, pos)
         pos += 1
@@ -3824,6 +3847,7 @@ def layout_serve_phase(arch, tag, smi):
     from repro_torch.serve.engine import ServeEngine
 
     cfg = get_config(arch)
+    before_gb = torch.cuda.memory_allocated() / 1e9
     t0 = time.perf_counter()
     model = T.init_params(cfg, seed=0, device=DEVICE)
     torch.cuda.synchronize()
@@ -3833,7 +3857,8 @@ def layout_serve_phase(arch, tag, smi):
         f"{n_params / 1e9:.3f} B parameters "
         f"({cfg.param_count() / 1e9:.3f} B by param_count); built in "
         f"{time.perf_counter() - t0:.1f}s, "
-        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card "
+        f"({before_gb:.2f} GB allocated before the phase)")
     warm = ServeEngine(cfg, model, n_slots=N_SLOTS, cache_len=CACHE_LEN,
                        device=DEVICE)
     list(warm.generate(_requests(cfg)[:1]))   # first-call set-up, untimed
@@ -3869,19 +3894,22 @@ def layout_serve_phase(arch, tag, smi):
           "missing")
     check(all(len(v) == NEW_TOKENS for v in streams.values()),
           f"[{tag}] a request got the wrong number of tokens")
-    check(all(0 <= t < cfg.vocab_size for v in streams.values() for t in v),
-          f"[{tag}] a token outside the vocabulary")
+    check(all(np.all((0 <= np.asarray(t)) & (np.asarray(t) < cfg.vocab_size))
+              and np.shape(t) == _cb_row(cfg)
+              for v in streams.values() for t in v),
+          f"[{tag}] a token outside the vocabulary or of the wrong shape")
     check(launches == _counts(), f"[{tag}] a B1-B5 kernel launched on a "
           f"path that has none: {launches}")
-    check(prefix == (cfg.layout == "mla_moe"),
+    # the Mamba2 state is not indexed by position: no prefix reuse there
+    check(prefix == (cfg.layout not in ("ssd", "zamba")),
           f"[{tag}] prefix reuse {prefix} for layout {cfg.layout}")
     slot_of = {r["rid"]: r["slot"] for r in engine.scheduler.trace
                if r["event"] == "admit"}
     with torch.inference_mode():
         same = {rid: _greedy_oracle(cfg, model, requests[rid].prompt,
                                     NEW_TOKENS, row=slot_of[rid]) ==
-                streams[rid] for rid in streams}
-    log(f"[{tag}] request 0: engine {streams[0]}")
+                _tok_list(streams[rid]) for rid in streams}
+    log(f"[{tag}] request 0: engine {_tok_list(streams[0])}")
     log(f"[{tag}] engine == decode_step loop (request in its engine slot "
         f"{slot_of}): {same}")
     check(all(same.values()), f"[{tag}] engine stream != decode_step loop")
@@ -3891,7 +3919,8 @@ def layout_serve_phase(arch, tag, smi):
     del model
     torch.cuda.empty_cache()
     return {"tok_s": n_tok / dt, "ms_per_call": ms_call, "peak_gb": peak_gb,
-            "decode_calls": calls, "params": n_params, "profile": prof}
+            "decode_calls": calls, "params": n_params, "profile": prof,
+            "launches": launches}
 
 
 @contextlib.contextmanager
@@ -3912,49 +3941,73 @@ def _recorded_routes():
         M._route = orig
 
 
-def layout_model_phase(arch, tag):
-    """A float32 copy of ``arch`` at full width, 2 layers deep, with the
-    same weights on the card and on the CPU (TF32 off): the forward's
-    logits within 1e-4 x max|CPU logit| (MoE: the routing indices equal),
-    then on the card the prefill's logits against a token-by-token decode
-    loop's, within the same bound.  The MoE copy takes capacity_factor =
-    E / k, so that C = L + 1 and no (token, slot) drops in the prefill: a
-    drop is a prefill-only event (decode routes one token a row), and
-    would make the two differ by design."""
+def layout_model_phase(arch, tag, cut=None, patches=0):
+    """A float32 copy of ``arch`` at full width, cut to ``cut`` (config
+    fields; default 2 layers deep), with the same weights on the card and
+    on the CPU (TF32 off): the forward's logits within 1e-4 x max|CPU
+    logit| (MoE: the routing indices equal), then on the card the
+    prefill's logits against a token-by-token decode loop's, within the
+    same bound.  With ``patches`` > 0 (``tokens+patches``) that many patch
+    embeddings go in front of the tokens, and the decode loop starts from
+    a prefill of the patches and the first token.  The MoE copy takes
+    capacity_factor = E / k, so that C = L + 1 and no (token, slot) drops
+    in the prefill: a drop is a prefill-only event (decode routes one
+    token a row), and would make the two differ by design."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                              **(cut or {"n_layers": 2}))
     if cfg.layout == "mla_moe":
         cfg = dataclasses.replace(
             cfg, capacity_factor=cfg.n_experts / cfg.moe_top_k)
-    L_ = MODEL_CHECK_LEN[arch]
+    L_ = MODEL_CHECK_LEN.get(arch, 16)
+    # a ring at least as long as the prompt: a longer prefill keeps the
+    # reference's ring layout, which decode does not read back (C7)
+    cache_len = max(CACHE_LEN, patches + L_)
     model = T.init_params(cfg, seed=0, device=DEVICE)
     cpu = T.Transformer(cfg, device="cpu")
     cpu.load_state_dict(model.state_dict())
-    tokens = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (2, L_)))
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, L_) + _cb_row(cfg)))
+    batch = {"tokens": tokens}
+    if patches:
+        batch["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+            (2, patches, cfg.d_model)).astype(np.float32))
+
+    def on_card(b):
+        return {k: v.to(DEVICE) for k, v in b.items()}
     with torch.inference_mode():
         with _recorded_routes() as r_card:
-            card, _, aux_card = model({"tokens": tokens.to(DEVICE)})
+            card, _, aux_card = model(on_card(batch))
         with _recorded_routes() as r_cpu:
-            ref, _, aux_cpu = cpu({"tokens": tokens})
+            ref, _, aux_cpu = cpu(batch)
+        del cpu
         scale = ref.abs().max().item()
         err = (card.float().cpu() - ref).abs().max().item()
         routes_equal = len(r_card) == len(r_cpu) and all(
             torch.equal(a, b) for a, b in zip(r_card, r_cpu))
-        logits, cache = T.prefill(cfg, model, {"tokens": tokens.to(DEVICE)},
-                                  CACHE_LEN)
-        cache = T.init_cache(cfg, 2, CACHE_LEN, device=DEVICE)
-        steps = []
-        for pos in range(L_):
+        logits, cache = T.prefill(cfg, model, on_card(batch), cache_len)
+        if patches:
+            # the patches and the first token, then token by token
+            first, cache = T.prefill(cfg, model, on_card(
+                dict(batch, tokens=tokens[:, :1])), cache_len)
+            steps, logits = [first[:, -1]], logits[:, patches:]
+        else:
+            cache = T.init_cache(cfg, 2, cache_len, device=DEVICE)
+            steps = []
+        for j in range(len(steps), L_):
             step, cache = T.decode_step(cfg, model, cache,
-                                        tokens[:, pos].to(DEVICE), pos)
+                                        tokens[:, j].to(DEVICE),
+                                        patches + j)
             steps.append(step)
         dec = torch.stack(steps, dim=1)
         err_dec = (dec - logits).abs().max().item()
     tol = 1e-4 * scale
-    log(f"[{tag}] {cfg.name} f32, 2 layers at full width, 2 x {L_} tokens, "
+    what = ", ".join(f"{k}={v}" for k, v in (cut or {"n_layers": 2}).items())
+    log(f"[{tag}] {cfg.name} f32 at full width ({what}), 2 x {L_} tokens"
+        f"{f' after {patches} patch embeddings' if patches else ''}, "
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}: card "
         f"vs CPU max|dlogit| {err:.4g} (limit 1e-4 x {scale:.4g} = "
         f"{tol:.4g}); aux card {float(aux_card):.6g} CPU "
@@ -3966,25 +4019,25 @@ def layout_model_phase(arch, tag):
     check(routes_equal, f"[{tag}] the card routes tokens otherwise than the "
           "CPU")
     check(err_dec <= tol, f"[{tag}] prefill and decode differ by {err_dec}")
-    del model, cpu, cache
+    del model, cache
     torch.cuda.empty_cache()
     return {"card_vs_cpu": err, "prefill_vs_decode": err_dec, "scale": scale}
 
 
-def layout_train_phase(arch, tag, smi, n_layers, steps, remat):
-    """``arch`` at full width (``n_layers`` deep when given) trained for
-    ``steps`` AdamW steps of TRAIN_BATCH x TRAIN_SEQ tokens in bf16 through
-    ``train.loop.train``: losses and MoE aux losses (finite), steady step
-    ms, peak memory; no B1-B5 launch."""
+def layout_train_phase(arch, tag, smi, cut, steps, remat,
+                       seq=TRAIN_SEQ, batch=TRAIN_BATCH):
+    """``arch`` at full width (cut to ``cut``, config fields, when given)
+    trained for ``steps`` AdamW steps of ``batch`` x ``seq`` positions in
+    bf16 through ``train.loop.train``: losses and MoE aux losses (finite),
+    steady step ms, peak memory; no B1-B5 launch."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeCell
     from repro_torch.optim import adamw
     from repro_torch.train import loop
 
-    cfg = get_config(arch)
-    if n_layers:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    shape = ShapeCell("chip", "train", TRAIN_SEQ, TRAIN_BATCH)
+    cfg = dataclasses.replace(get_config(arch), **(cut or {}))
+    shape = ShapeCell("chip", "train", seq, batch)
+    n_tok = seq * batch
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before_gb = torch.cuda.memory_allocated() / 1e9
@@ -3999,13 +4052,15 @@ def layout_train_phase(arch, tag, smi, n_layers, steps, remat):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     steady = res.step_times[1:]
     step_ms = 1e3 * sum(steady) / len(steady)
-    _measured(tag, cfg, "train", TRAIN_BATCH, TRAIN_SEQ, step_ms)
-    log(f"[{tag}] {cfg.name} full width, {cfg.n_layers} layers "
-        f"({cfg.param_count() / 1e9:.3f} B parameters), {TRAIN_BATCH} x "
-        f"{TRAIN_SEQ} tokens a step, {cfg.dtype}, remat {remat}, AdamW: "
+    _measured(tag, cfg, "train", batch, seq, step_ms)
+    what = ", ".join(f"{k}={v}" for k, v in (cut or {}).items()) or \
+        "full depth"
+    log(f"[{tag}] {cfg.name} full width ({what}), {cfg.n_layers} layers "
+        f"({cfg.param_count() / 1e9:.3f} B parameters), {batch} x "
+        f"{seq} positions a step, {cfg.dtype}, remat {remat}, AdamW: "
         f"losses {res.losses}; aux losses {res.aux_losses}")
     log(f"[{tag}] step ms {[round(1e3 * t, 3) for t in res.step_times]}; "
-        f"steady {step_ms:.3f} ms = {TRAIN_N / step_ms * 1e3:.1f} tokens/s; "
+        f"steady {step_ms:.3f} ms = {n_tok / step_ms * 1e3:.1f} positions/s; "
         f"{wall:.1f}s with model build; peak memory {peak_gb:.2f} GB "
         f"({before_gb:.2f} GB allocated before the phase); kernel launches "
         f"{launches}; {smi}")
@@ -4018,9 +4073,168 @@ def layout_train_phase(arch, tag, smi, n_layers, steps, remat):
     check(launches == _counts(), f"[{tag}] a B1-B5 kernel launched: "
           f"{launches}")
     torch.cuda.empty_cache()
-    return {"step_ms": step_ms, "tokens_per_s": TRAIN_N / step_ms * 1e3,
+    return {"step_ms": step_ms, "tokens_per_s": n_tok / step_ms * 1e3,
             "peak_gb": peak_gb, "losses": res.losses,
-            "aux_losses": res.aux_losses, "remat": remat}
+            "aux_losses": res.aux_losses, "remat": remat,
+            "launches": launches}
+
+
+# ------------- the gemma_pair, zamba, codebooks and tokens+patches families
+GEMMA_ARCH, HYBRID_ARCH = "gemma2-27b", "zamba2-7b"
+AUDIO_ARCH, VLM_ARCH = "musicgen-medium", "pixtral-12b"
+DENSE_ARCHS = ("h2o-danube-1.8b", "minitron-4b", "qwen2.5-14b")
+# gemma2-27b (28.41 B parameters) does not fit AdamW on one card: its
+# [gemma-model] and [gemma-train] keep one pair (2 of its 46 layers)
+GEMMA_CUT, GEMMA_TRAIN_STEPS = {"n_layers": 2}, 3
+# zamba2-7b's AdamW state alone would take about 69 GB: [hybrid-train]
+# keeps 2 of its 13 units (and the tail of 3); [hybrid-model] 1 unit of 2
+# Mamba2 layers and a tail of 1, with the shared block.  n_layers counts
+# as the config does: units x (unit_len + the shared block) + tail
+HYBRID_TRAIN_CUT = {"hybrid_n_units": 2, "n_layers": 2 * 6 + 3}
+HYBRID_TRAIN_STEPS = 3
+HYBRID_MODEL_CUT = {"hybrid_n_units": 1, "hybrid_unit_len": 2,
+                    "hybrid_tail": 1, "n_layers": 1 * 3 + 1}
+AUDIO_TRAIN_STEPS, AUDIO_TRAIN_REMAT = 5, "none"
+VLM_TEXT, VLM_DECODE = 1024, 16   # [vlm-prefill]: after 1,024 patches
+VLM_TRAIN_SEQ, VLM_TRAIN_STEPS = 2048, 3      # 1,024 patches + 1,024 text
+VLM_MODEL_PATCHES = 16            # [vlm-model]'s patch embeddings a row
+MODEL_CHECK_LEN[HYBRID_ARCH] = 512           # past one 256-token SSD chunk
+
+
+def remat_policy_phase(arch, tag, cut):
+    """Step 0 of ``arch`` at full width (cut to ``cut``), TRAIN_BATCH x
+    TRAIN_SEQ, seed-0 bf16 weights, under each ``remat`` policy: the loss
+    must equal ``"none"``'s and every gradient be within 1e-5 x its leaf's
+    max |grad| of ``"none"``'s.  Logs each policy's step ms and peak
+    memory above what was allocated before its step (the weights, and
+    ``"none"``'s gradients kept for the comparison): the expected order
+    is full <= names <= dots <= none, and an exception to it is logged
+    with its numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data import pipeline
+    from repro_torch.models import transformer as T
+    from repro_torch.train import loop
+
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    model = T.init_params(cfg, seed=0, device=DEVICE)
+    batch = loop.batch_to_device(pipeline.make_batch(
+        cfg, ShapeCell("chip", "train", TRAIN_SEQ, TRAIN_BATCH), 0), DEVICE)
+    _reset_counts()
+    rows, ref = {}, None
+    for remat in T.REMAT:
+        for p in model.parameters():
+            p.grad = None
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loss, _ = T.train_loss(cfg, model, batch, remat=remat)
+        loss.backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        row = {"loss": float(loss.detach()), "ms": ms, "peak_gb": peak / 1e9,
+               "above_base_gb": (peak - base) / 1e9}
+        if ref is None:
+            ref = row["loss"], grads
+            row["grad_rel_err"] = 0.0
+        else:
+            row["grad_rel_err"] = max(
+                ((g.float() - ref[1][n].float()).abs().max() /
+                 ref[1][n].float().abs().max().clamp_min(1e-30)).item()
+                for n, g in grads.items())
+        rows[remat] = row
+        log(f"[{tag}] remat {remat}: step 0 loss {row['loss']!r}, "
+            f"forward + backward {ms:.3f} ms (host clock, synchronised), "
+            f"peak {row['peak_gb']:.3f} GB ({row['above_base_gb']:.3f} GB "
+            f"above the {base / 1e9:.3f} GB allocated before), gradients "
+            f"vs none max rel {row['grad_rel_err']:.3g}")
+        del loss, grads
+    launches = _read_counts()
+    order = ("full", "names", "dots", "none")
+    peaks = [rows[r]["above_base_gb"] for r in order]
+    log(f"[{tag}] step-0 peak above the allocated base by policy: "
+        + ", ".join(f"{r} {rows[r]['above_base_gb']:.3f} GB" for r in order)
+        + (" (full <= names <= dots <= none)" if peaks == sorted(peaks)
+           else " -- finding: not in the order full <= names <= dots <= "
+           "none"))
+    check(all(rows[r]["loss"] == rows["none"]["loss"] for r in order),
+          f"[{tag}] a remat policy changed the step-0 loss: {rows}")
+    check(all(rows[r]["grad_rel_err"] <= 1e-5 for r in order),
+          f"[{tag}] a remat policy changed the gradients: {rows}")
+    check(launches == _counts(), f"[{tag}] a B1-B5 kernel launched: "
+          f"{launches}")
+    del model, ref, batch
+    torch.cuda.empty_cache()
+    return rows
+
+
+def vlm_prefill_phase(smi, tag="vlm-prefill"):
+    """``pixtral-12b`` at full width and depth (seed-0 bf16 weights drawn
+    on the card): one prompt of ``patch_tokens`` (1,024) patch embeddings
+    and VLM_TEXT tokens through ``T.prefill`` (a warm-up prefill and
+    decode step first, then a timed prefill), then VLM_DECODE greedy
+    ``decode_step`` calls from the
+    prefilled cache: ms of each, peak memory, finite logits, tokens in the
+    vocabulary, no B1-B5 launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(VLM_ARCH)
+    P = cfg.patch_tokens
+    model = T.init_params(cfg, seed=0, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, VLM_TEXT),
+                                     generator=gen, device=DEVICE),
+             "patch_embeds": torch.randn((1, P, cfg.d_model), generator=gen,
+                                         device=DEVICE)}
+    cache_len = P + VLM_TEXT + VLM_DECODE
+    with torch.inference_mode():
+        # warm-up: the prefill's and a decode step's first calls (cuBLAS
+        # picks its kernels for each new shape)
+        logits, cache = T.prefill(cfg, model, batch, cache_len)
+        T.decode_step(cfg, model, cache, logits[:, -1].argmax(-1),
+                      P + VLM_TEXT)
+        del logits, cache
+        _reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, cache = T.prefill(cfg, model, batch, cache_len)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        _measured(tag, cfg, "prefill", 1, P + VLM_TEXT, prefill_ms)
+        finite = bool(torch.isfinite(logits).all())
+        tok = logits[:, -1].argmax(-1)
+        out = [int(tok)]
+        t0 = time.perf_counter()
+        for i in range(VLM_DECODE):
+            step, cache = T.decode_step(cfg, model, cache, tok,
+                                        P + VLM_TEXT + i)
+            tok = step.argmax(-1)
+            out.append(int(tok))
+            finite &= bool(torch.isfinite(step).all())
+        decode_ms = (time.perf_counter() - t0) * 1e3 / VLM_DECODE
+    launches = _read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[{tag}] {cfg.name} full width and depth ({cfg.n_layers} layers, "
+        f"{cfg.param_count() / 1e9:.3f} B parameters, bf16): prefill of "
+        f"{P} patch embeddings + {VLM_TEXT} tokens {prefill_ms:.3f} ms; "
+        f"{VLM_DECODE} greedy decode steps {decode_ms:.3f} ms a step (host "
+        f"clock, synchronised at the end); peak memory {peak_gb:.2f} GB; "
+        f"tokens {out}; kernel launches {launches}; {smi}")
+    check(finite, f"[{tag}] non-finite logits")
+    check(all(0 <= t < cfg.vocab_size for t in out), f"[{tag}] a token "
+          "outside the vocabulary")
+    check(launches == _counts(), f"[{tag}] a B1-B5 kernel launched: "
+          f"{launches}")
+    del model, cache, logits
+    torch.cuda.empty_cache()
+    return {"prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+            "peak_gb": peak_gb, "launches": launches}
 
 
 def dryrun_phase(smi):
@@ -4148,11 +4362,39 @@ def main():
     served_moe = phase(layout_serve_phase, MOE_ARCH, "moe-serve", smi)
     model_moe = phase(layout_model_phase, MOE_ARCH, "moe-model")
     trained_moe = phase(layout_train_phase, MOE_ARCH, "moe-train", smi,
-                        MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, "none")
+                        {"n_layers": MOE_TRAIN_LAYERS}, MOE_TRAIN_STEPS,
+                        "none")
     served_ssd = phase(layout_serve_phase, SSD_ARCH, "ssd-serve", smi)
     model_ssd = phase(layout_model_phase, SSD_ARCH, "ssd-model")
     trained_ssd = phase(layout_train_phase, SSD_ARCH, "ssd-train", smi,
                         None, SSD_TRAIN_STEPS, SSD_TRAIN_REMAT)
+    # the gemma_pair, zamba, codebooks and tokens+patches families (no TPU
+    # kernel on their paths either); gemma2-27b's 56.8 GB of weights first,
+    # every earlier model freed
+    served_gemma = phase(layout_serve_phase, GEMMA_ARCH, "gemma-serve", smi)
+    model_gemma = phase(layout_model_phase, GEMMA_ARCH, "gemma-model",
+                        GEMMA_CUT)
+    trained_gemma = phase(layout_train_phase, GEMMA_ARCH, "gemma-train", smi,
+                          GEMMA_CUT, GEMMA_TRAIN_STEPS, "none")
+    policies = phase(remat_policy_phase, GEMMA_ARCH, "gemma-train",
+                     GEMMA_CUT)
+    served_hybrid = phase(layout_serve_phase, HYBRID_ARCH, "hybrid-serve",
+                          smi)
+    model_hybrid = phase(layout_model_phase, HYBRID_ARCH, "hybrid-model",
+                         HYBRID_MODEL_CUT)
+    trained_hybrid = phase(layout_train_phase, HYBRID_ARCH, "hybrid-train",
+                           smi, HYBRID_TRAIN_CUT, HYBRID_TRAIN_STEPS, "none")
+    served_audio = phase(layout_serve_phase, AUDIO_ARCH, "audio-serve", smi)
+    trained_audio = phase(layout_train_phase, AUDIO_ARCH, "audio-train", smi,
+                          None, AUDIO_TRAIN_STEPS, AUDIO_TRAIN_REMAT)
+    prefilled_vlm = phase(vlm_prefill_phase, smi)
+    model_vlm = phase(layout_model_phase, VLM_ARCH, "vlm-model", None,
+                      VLM_MODEL_PATCHES)
+    trained_vlm = phase(layout_train_phase, VLM_ARCH, "vlm-train", smi,
+                        {"n_layers": 2}, VLM_TRAIN_STEPS, "none",
+                        VLM_TRAIN_SEQ)
+    model_dense = {a: phase(layout_model_phase, a, "dense-model")
+                   for a in DENSE_ARCHS}
     mip1_perm, err_lib, _ = phase(library_phase, smi)
     winners = phase(autotune_phase, mip1_perm, smi)
     prefill_attn_launches, paged_dec_launches, prefilled = phase(
@@ -4197,7 +4439,19 @@ def main():
              "train_attn": train_attn_launches,
              "serve_sharded": serve_sh_launches,
              "train_sharded": train_sh_launches,
-             "prefill_attn_sharded": prefill_sh_launches}
+             "prefill_attn_sharded": prefill_sh_launches,
+             # the paths without a TPU kernel: 0 launches each
+             **{path: r["launches"] for path, r in (
+                 ("moe_serve", served_moe), ("moe_train", trained_moe),
+                 ("ssd_serve", served_ssd), ("ssd_train", trained_ssd),
+                 ("gemma_serve", served_gemma),
+                 ("gemma_train", trained_gemma),
+                 ("hybrid_serve", served_hybrid),
+                 ("hybrid_train", trained_hybrid),
+                 ("audio_serve", served_audio),
+                 ("audio_train", trained_audio),
+                 ("vlm_prefill", prefilled_vlm),
+                 ("vlm_train", trained_vlm))}}
 
     def entry(k, err, rows, **extra):
         by_path = {path: counts[k["name"]] for path, counts in paths.items()}
@@ -4281,6 +4535,7 @@ def main():
         e.update({key: res[headline[e["name"]]][key]
                   for key in ("smem_bytes", "regs", "ctas_per_sm")},
                  resources_by_shape=res)
+    dense_err = {a: r["card_vs_cpu"] for a, r in model_dense.items()}
     log(f"[main] REPRO_VERIFY_LAUNCH=1 hook: {hook_counts} dispatches "
         "checked, outputs bit-equal without it")
     log(f"[main] serving: {tok_s:.1f} tok/s (nnz_stream), {tok_s_rl:.1f} "
@@ -4321,7 +4576,28 @@ def main():
         f"{served_ssd['tok_s']:.1f} tok/s, {served_ssd['ms_per_call']:.3f} "
         f"ms a decode call; training {trained_ssd['step_ms']:.3f} ms a step "
         f"(remat {trained_ssd['remat']}), peak {trained_ssd['peak_gb']:.2f} "
-        f"GB; f32 card vs CPU {model_ssd['card_vs_cpu']:.3g}; whole run "
+        f"GB; f32 card vs CPU {model_ssd['card_vs_cpu']:.3g}.  {GEMMA_ARCH}: "
+        f"serving {served_gemma['tok_s']:.1f} tok/s, "
+        f"{served_gemma['ms_per_call']:.3f} ms a decode call, peak "
+        f"{served_gemma['peak_gb']:.2f} GB; training (1 pair) "
+        f"{trained_gemma['step_ms']:.3f} ms a step, peak "
+        f"{trained_gemma['peak_gb']:.2f} GB; step-0 peaks above the base "
+        f"by remat "
+        f"{ {r: round(v['above_base_gb'], 3) for r, v in policies.items()} }"
+        f" GB; "
+        f"f32 card vs CPU {model_gemma['card_vs_cpu']:.3g}.  {HYBRID_ARCH}: "
+        f"serving {served_hybrid['tok_s']:.1f} tok/s, "
+        f"{served_hybrid['ms_per_call']:.3f} ms a decode call; training (2 "
+        f"units) {trained_hybrid['step_ms']:.3f} ms a step; f32 card vs CPU "
+        f"{model_hybrid['card_vs_cpu']:.3g}.  {AUDIO_ARCH}: serving "
+        f"{served_audio['tok_s']:.1f} tok/s (codebook rows), training "
+        f"{trained_audio['step_ms']:.3f} ms a step (remat "
+        f"{trained_audio['remat']}), peak {trained_audio['peak_gb']:.2f} GB."
+        f"  {VLM_ARCH}: prefill {prefilled_vlm['prefill_ms']:.3f} ms, "
+        f"decode {prefilled_vlm['decode_ms_per_step']:.3f} ms a step; "
+        f"training (2 layers) {trained_vlm['step_ms']:.3f} ms a step; f32 "
+        f"card vs CPU {model_vlm['card_vs_cpu']:.3g}; dense f32 card vs CPU "
+        f"{dense_err}; whole run "
         f"{time.perf_counter() - t_start:.1f}s")
     print(json.dumps(line))
     print(smi)

@@ -1,8 +1,10 @@
 """Registered architectures: the paper's two workloads (an LM whose FFN
 weights are 90% block-sparse, multiplied by the BCSR SpMM kernels, and the
-same LM with block-sparse attention scores on top), and of the JAX
-package's assigned archs the ones whose layout is ported: Mamba2 (``ssd``)
-and DeepSeek-V2 (``mla_moe``), with the JAX package's fields."""
+same LM with block-sparse attention scores on top), and the JAX package's
+ten assigned archs, field for field: Mamba2 (``ssd``), DeepSeek-V2
+(``mla_moe``), Pixtral (``tokens+patches``), H2O-Danube, Minitron and
+Qwen2.5 (``attn_mlp``), Gemma2 (``gemma_pair``), Zamba2 (``zamba``) and
+MusicGen (``codebooks``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -48,6 +50,66 @@ _register(ModelConfig(
     n_experts=160, n_shared_experts=2, moe_top_k=6, expert_d_ff=1536,
 ))
 
+# --------------------------------------------------------------------- [vlm]
+# Pixtral-12B: pixtral-ViT (stub frontend: patch embeddings come in as
+# inputs) + mistral-nemo backbone
+_register(ModelConfig(
+    name="pixtral-12b", family="vlm", layout="attn_mlp",
+    n_layers=40, d_model=5120, n_heads=32, n_kv_heads=8, head_dim=128,
+    d_ff=14336, vocab_size=131072, rope_theta=1_000_000.0,
+    input_mode="tokens+patches", patch_tokens=1024,
+))
+
+# ------------------------------------------------------------------- [dense]
+# H2O-Danube-1.8B, arXiv:2401.16818 — llama+mistral mix, sliding window
+_register(ModelConfig(
+    name="h2o-danube-1.8b", family="dense", layout="attn_mlp",
+    n_layers=24, d_model=2560, n_heads=32, n_kv_heads=8, head_dim=80,
+    d_ff=6912, vocab_size=32000, sliding_window=4096,
+))
+
+# Minitron-4B (pruned Nemotron), arXiv:2407.14679
+_register(ModelConfig(
+    name="minitron-4b", family="dense", layout="attn_mlp",
+    n_layers=32, d_model=3072, n_heads=24, n_kv_heads=8, head_dim=128,
+    d_ff=9216, vocab_size=256000,
+))
+
+# Qwen2.5-14B — GQA + QKV bias
+_register(ModelConfig(
+    name="qwen2.5-14b", family="dense", layout="attn_mlp",
+    n_layers=48, d_model=5120, n_heads=40, n_kv_heads=8, head_dim=128,
+    d_ff=13824, vocab_size=152064, qkv_bias=True, rope_theta=1_000_000.0,
+))
+
+# Gemma2-27B, arXiv:2408.00118 — local/global alternation, logit softcaps
+_register(ModelConfig(
+    name="gemma2-27b", family="dense", layout="gemma_pair",
+    n_layers=46, d_model=4608, n_heads=32, n_kv_heads=16, head_dim=128,
+    d_ff=36864, vocab_size=256000, sliding_window=4096,
+    attn_logit_softcap=50.0, final_logit_softcap=30.0, mlp_act="gelu",
+))
+
+# ------------------------------------------------------------------ [hybrid]
+# Zamba2-7B, arXiv:2411.15242 — Mamba2 backbone + shared attention block
+_register(ModelConfig(
+    name="zamba2-7b", family="hybrid", layout="zamba",
+    n_layers=81, d_model=3584, n_heads=32, n_kv_heads=32, head_dim=112,
+    d_ff=14336, vocab_size=32000,
+    ssm_state=64, ssm_expand=2, ssm_head_dim=64, ssm_groups=1,
+    hybrid_unit_len=5, hybrid_n_units=13, hybrid_tail=3,
+))
+
+# ------------------------------------------------------------------- [audio]
+# MusicGen-medium, arXiv:2306.05284 — decoder over EnCodec tokens (stub
+# frontend: 4 codebooks, vocab 2048 each)
+_register(ModelConfig(
+    name="musicgen-medium", family="audio", layout="attn_mlp",
+    n_layers=48, d_model=1536, n_heads=24, n_kv_heads=24, head_dim=64,
+    d_ff=6144, vocab_size=2048,
+    input_mode="codebooks", n_codebooks=4,
+))
+
 # --------------------------------------------------- the paper's own archs
 # The JAX package registers this arch with backend="xla" so it stays
 # lowerable on a CPU; here the main path must run the CUDA kernel, so the
@@ -81,7 +143,7 @@ _register(ModelConfig(
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:
     """Reduced same-family config for CPU tests: few layers, small width,
-    tiny vocab (the JAX package's shrink for the layouts ported so far)."""
+    tiny vocab (the JAX package's shrink)."""
     kw = dict(
         name=cfg.name + ":smoke",
         n_layers=2,
@@ -101,8 +163,13 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
                   moe_top_k=2, expert_d_ff=64)
     if cfg.ssm_state:
         kw.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=32)
+    if cfg.layout == "zamba":
+        kw.update(hybrid_unit_len=2, hybrid_n_units=2, hybrid_tail=1,
+                  n_layers=5)
     if cfg.sliding_window:
         kw.update(sliding_window=64)
+    if cfg.patch_tokens:
+        kw.update(patch_tokens=8)
     if cfg.ffn_sparsity is not None:
         kw.update(ffn_sparsity=SparsitySpec(
             density=0.3, block=(16, 16), backend=cfg.ffn_sparsity.backend,

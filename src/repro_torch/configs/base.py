@@ -99,13 +99,11 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (drives the 6*N*D model-FLOPs count of
-        ``launch.roofline.model_flops_for``): embeddings and head, plus a
-        layer's attention (or MLA) and its gated MLP (sparse: its density's
-        share) or MoE, or its SSD mixer.  The JAX package's count; the
-        hybrid layout comes with ROADMAP A7."""
-        if self.layout == "zamba":
-            raise NotImplementedError(
-                f"layout {self.layout!r} is not ported yet (ROADMAP A7)")
+        ``launch.roofline.model_flops_for``): embeddings and head (one pair
+        a codebook), plus a layer's attention (or MLA) and its gated MLP
+        (sparse: its density's share) or MoE, or its SSD mixer; ``zamba``
+        counts its Mamba2 layers, then the shared block once.  The JAX
+        package's count."""
         d = self.d_model
         if self.input_mode == "codebooks":
             n = self.n_codebooks * self.vocab_size * d * 2
@@ -113,6 +111,11 @@ class ModelConfig:
             n = self.vocab_size * d * 2
         if self.layout == "ssd":
             return n + self.n_layers * _ssd_params(self)
+        if self.layout == "zamba":
+            n_mamba = self.hybrid_unit_len * self.hybrid_n_units + \
+                self.hybrid_tail
+            return n + n_mamba * _ssd_params(self) + \
+                _attn_params(self) + _mlp_params(self)
         if self.layout == "mla_moe":
             return n + self.n_layers * (_mla_params(self) +
                                         _moe_params(self))

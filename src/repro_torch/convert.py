@@ -1,9 +1,12 @@
 """Load a JAX-package parameter tree into the port's model.
 
 The JAX package stacks the layers on a leading ``[n_layers, ...]`` axis (it
-scans them); the port keeps one module per layer, whose parameters carry the
-JAX tree's keys (``attn``/``mlp``, ``mla``/``moe`` with ``moe.shared``, or
-``ssd``), so a layer's subtree loads by name.  Tests use this to run
+scans them); the port keeps one module per block, whose parameters carry
+the JAX tree's keys (``attn``/``mlp``, ``local``/``global`` halves of a
+``gemma_pair`` block, ``mla``/``moe`` with ``moe.shared``, or ``ssd``), so
+a block's subtree loads by name.  ``zamba``'s ``units`` are stacked twice
+(``[n_units, unit_len, ...]``), its ``tail`` once, and its ``shared_attn``
+not at all.  Tests use this to run
 both packages on the same dense weights: ``torch.Generator`` and
 ``jax.random`` draw different numbers from one seed, while the sparse FFN
 structures and values come from numpy seeds and are equal anyway.
@@ -28,7 +31,7 @@ def _put(target: torch.Tensor, value) -> None:
     target.copy_(value.to(target.dtype))
 
 
-def _put_sparse(sparse, layer, i: int) -> None:
+def _put_sparse(sparse, layer, i) -> None:
     """Layer ``i`` of a JAX sparse linear tree into a ``SparseLinear``: the
     JAX fields by name, then the port's own (``ops.PORT_FIELDS``) rebuilt
     from them; for a partitioned layer (``shard_*`` leaves, stacked
@@ -61,9 +64,11 @@ def _put_sparse(sparse, layer, i: int) -> None:
         _put(getattr(sparse, field), value)
 
 
-def _put_layer(module, tree, i: int) -> None:
-    """Layer ``i`` of a stacked JAX subtree into ``module``, key by key (a
-    sparse linear layer's subtree through ``_put_sparse``)."""
+def _put_layer(module, tree, i) -> None:
+    """Layer ``i`` (an index, or a tuple of them for a subtree stacked
+    twice; ``()`` for one not stacked) of a JAX subtree into ``module``,
+    key by key (a sparse linear layer's subtree through
+    ``_put_sparse``)."""
     for name, value in tree.items():
         target = getattr(module, name)
         if isinstance(target, SparseLinear):
@@ -82,6 +87,14 @@ def params_from_jax(cfg: ModelConfig, params_np, device) -> T.Transformer:
     with torch.no_grad():
         for name in ("final_norm", "embed", "lm_head"):
             _put(getattr(model, name), params_np[name])
+        if cfg.layout == "zamba":
+            for u, unit in enumerate(model.units):
+                for j, blk in enumerate(unit):
+                    _put_layer(blk, params_np["units"], (u, j))
+            for j, blk in enumerate(model.tail):
+                _put_layer(blk, params_np["tail"], j)
+            _put_layer(model.shared_attn, params_np["shared_attn"], ())
+            return model
         for i, blk in enumerate(model.blocks):
             _put_layer(blk, params_np["blocks"], i)
     return model

@@ -100,6 +100,7 @@ def _cell_leaves(cfg, shape: ShapeCell, mesh, seq_shard_long: bool,
     outs = {}
     batch = st.input_specs(cfg, shape)
     B = shape.global_batch
+    cb = cfg.n_codebooks if cfg.input_mode == "codebooks" else 1
     if shape.kind == "train":
         opt = st.opt_specs(cfg, params)
         o_shard = sh.opt_state_shardings(mesh, opt, p_shard)
@@ -119,10 +120,10 @@ def _cell_leaves(cfg, shape: ShapeCell, mesh, seq_shard_long: bool,
                                    sh.batch_shardings(mesh, batch))
         args.update({"batch." + k: b for k, b in b_bytes.items()})
         cache = T.cache_specs(cfg, B, shape.seq_len)
-        c_bytes = _per_device_bytes(mesh, cache,
-                                   sh.cache_shardings(mesh, cache, cfg))
+        c_bytes = _per_device_bytes(mesh, T.flat_specs(cache), _flat_specs_of(
+            sh.cache_shardings(mesh, cache, cfg)))
         outs.update({"cache." + k: b for k, b in c_bytes.items()})
-        outs["logits"] = B * cfg.vocab_size * 4
+        outs["logits"] = B * cfg.vocab_size * 4 * cb
     else:
         seq_shard = seq_shard_long and B < 8
         tok_spec = sh.batch_shardings(mesh, batch)["tokens"] if B >= 8 \
@@ -131,11 +132,11 @@ def _cell_leaves(cfg, shape: ShapeCell, mesh, seq_shard_long: bool,
             _placement(mesh, tok_spec)
         cache = T.cache_specs(cfg, B, shape.seq_len)
         c_bytes = _per_device_bytes(
-            mesh, cache, sh.cache_shardings(mesh, cache, cfg,
-                                            seq_shard=seq_shard))
+            mesh, T.flat_specs(cache), _flat_specs_of(sh.cache_shardings(
+                mesh, cache, cfg, seq_shard=seq_shard)))
         args.update({"cache." + k: b for k, b in c_bytes.items()})
         outs.update({"cache." + k: b for k, b in c_bytes.items()})
-        outs["logits"] = B * cfg.vocab_size * 4
+        outs["logits"] = B * cfg.vocab_size * 4 * cb
     return args, outs, weights
 
 
@@ -285,12 +286,12 @@ def sparse_attention_report(cfg, seq_len: int = 512, device="cuda") -> dict:
 
 def paged_kv_report(cfg, cache_len: int = 512, n_slots: int = 4) -> dict:
     """Paged block-sparse KV accounting for serving (``serve.paged_kv``);
-    empty when the arch has no ``attn_sparsity`` or another layout than
-    ``attn_mlp``.  Also places the page tables through
+    empty when the arch has no ``attn_sparsity`` or no k/v attention rings
+    (a layout other than ``attn_mlp`` and ``gemma_pair``).  Also places the page tables through
     ``sharding.cache_shardings`` on a one-card mesh, so the page-table
     leaf rules stay read."""
     spec = getattr(cfg, "attn_sparsity", None)
-    if spec is None or cfg.layout != "attn_mlp":
+    if spec is None or cfg.layout not in ("attn_mlp", "gemma_pair"):
         return {}
     from repro_torch.serve.paged_kv import PagedKVCache  # local: layering
     paged = PagedKVCache(cfg, cache_len, n_slots)

@@ -43,6 +43,20 @@ analytically.  Its rules fix the yardstick a step is judged by:
   the inputs), and 4*P*N a head a token (the chunk states and the
   inter-chunk read).  In decode, the recurrence step: 4*P*N a head a
   token (the state's decay and update, and its read).
+* ``gemma_pair``.  Each pair counts as two ``attn_mlp`` layers: the local
+  half's attended keys are capped by the sliding window (in decode, its
+  ring is the window), the global half's are not.
+* ``zamba``.  Its ``hybrid_unit_len x hybrid_n_units + hybrid_tail``
+  Mamba2 layers count as ``ssd`` layers; the shared attention + MLP block
+  counts as ``hybrid_n_units`` applications of its flops (with no window)
+  and of its decode cache (each unit has its own ring), but its weights
+  as one read a pass, as every weight: the floor, since the block's
+  weights can stay in cache between units only at small widths.
+* ``codebooks``: ``n_codebooks`` heads (and logits), each codebook's
+  embedding gathered at every position.  ``tokens+patches``: the patch
+  positions are in the sequence (the cell's ``seq_len`` holds them) and
+  do no embedding gather; a train step needs the logits of the text
+  positions only.
 * Training counts forward + dX + dW: three times the forward.
 * Bytes are a stated minimum: each weight read once a forward pass (the
   embedding: one row a token, at most the table; a routed expert's
@@ -295,6 +309,17 @@ def _attn_pairs(cfg, shape) -> int:
     return B * _causal_pairs(L, cfg.sliding_window)
 
 
+def _ffn_hints(cfg) -> tuple:
+    """The ``init_mlp`` seed hint of every dense-or-sparse MLP application
+    of the stack: one a layer (``attn_mlp``: the layer index; every
+    ``gemma_pair`` half: 0), one a unit for ``zamba``'s shared block."""
+    if cfg.layout == "attn_mlp":
+        return tuple(range(cfg.n_layers))
+    if cfg.layout == "zamba":
+        return (0,) * cfg.hybrid_n_units
+    return (0,) * cfg.n_layers
+
+
 def _sparse_layers(cfg, device):
     """``[(in_dim, out_dim, meta)]`` of every sparse FFN product of the
     stack, with each layer's true structure meta."""
@@ -302,12 +327,29 @@ def _sparse_layers(cfg, device):
     from repro_torch.models import layers as Lyr
     d, f, spec = cfg.d_model, cfg.d_ff, cfg.ffn_sparsity
     out = []
-    for i in range(cfg.n_layers):
-        seed = Lyr.mlp_seed(i)
+    for hint in _ffn_hints(cfg):
+        seed = Lyr.mlp_seed(hint)
         for s, i_, o_ in ((seed, d, f), (seed + 1, d, f), (seed + 2, f, d)):
             out.append((i_, o_, sparse_linear_meta(s, i_, o_, spec,
                                                    device=device)))
     return out
+
+
+def _layer_groups(cfg) -> list:
+    """``[(kind, n_layers, view)]``: the stack's layers by kind (``attn``:
+    an attention + MLP layer; ``mla_moe``; ``ssd``), ``view`` the config
+    their counts read (the window of a ``gemma_pair`` global half and of
+    ``zamba``'s shared block dropped)."""
+    nl = cfg.n_layers
+    if cfg.layout in ("ssd", "mla_moe"):
+        return [(cfg.layout, nl, cfg)]
+    free = dataclasses.replace(cfg, sliding_window=None)
+    if cfg.layout == "gemma_pair":
+        return [("attn", nl // 2, cfg), ("attn", nl // 2, free)]
+    if cfg.layout == "zamba":
+        n_mamba = cfg.hybrid_unit_len * cfg.hybrid_n_units + cfg.hybrid_tail
+        return [("ssd", n_mamba, cfg), ("attn", cfg.hybrid_n_units, free)]
+    return [("attn", nl, cfg)]
 
 
 def _mla_flops(cfg, shape, tokens: int) -> tuple:
@@ -342,9 +384,10 @@ def _ssd_dims(cfg) -> tuple:
     return d_xbc, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
 
 
-def _ssd_flops(cfg, shape, tokens: int) -> tuple:
-    """(projections, mixer) forward flops of the SSD layers: the mixer is
-    the conv and the chunked scan (in decode, the recurrence step)."""
+def _ssd_flops(cfg, shape, tokens: int, n_layers: int) -> tuple:
+    """(projections, mixer) forward flops of ``n_layers`` SSD layers: the
+    mixer is the conv and the chunked scan (in decode, the recurrence
+    step)."""
     d, di = cfg.d_model, cfg.d_inner
     d_xbc, H, P, N = _ssd_dims(cfg)
     proj = 2.0 * tokens * (d * (di + d_xbc + H) + di * d)
@@ -355,27 +398,32 @@ def _ssd_flops(cfg, shape, tokens: int) -> tuple:
         c = min(cfg.ssm_chunk, shape.seq_len)
         pairs = shape.global_batch * (shape.seq_len // c) * c * (c + 1) // 2
         mixer += 2.0 * H * (N + P) * pairs + 4.0 * tokens * H * P * N
-    return proj * cfg.n_layers, mixer * cfg.n_layers
+    return proj * n_layers, mixer * n_layers
 
 
 def _cache_bytes(cfg, shape, es: int) -> float:
     """Decode-cache bytes the step touches: written by a prefill; read
     (the rows it reads) and written (one row) by a decode step."""
-    B, L, nl = shape.global_batch, shape.seq_len, cfg.n_layers
+    B, L = shape.global_batch, shape.seq_len
     if shape.kind == "train":
         return 0.0
-    if cfg.layout == "ssd":
-        d_xbc, H, P, N = _ssd_dims(cfg)
-        seq = ((cfg.ssm_conv_width - 1) * d_xbc * es + H * P * N * 4) * nl
-        return seq * B * (1 if shape.kind == "prefill" else 2)
-    if cfg.layout == "mla_moe":
-        row = (cfg.kv_lora_rank + cfg.rope_head_dim) * es * nl
-    else:
-        row = 2.0 * cfg.n_kv_heads * cfg.head_dim * es * nl   # K and V
-    if shape.kind == "prefill":
-        ring = min(L, cfg.sliding_window) if cfg.sliding_window else L
-        return row * B * ring
-    return row * B * (_decode_keys(cfg, L) + 1)
+    total = 0.0
+    for kind, n, view in _layer_groups(cfg):
+        if kind == "ssd":
+            d_xbc, H, P, N = _ssd_dims(cfg)
+            seq = ((cfg.ssm_conv_width - 1) * d_xbc * es + H * P * N * 4) * n
+            total += seq * B * (1 if shape.kind == "prefill" else 2)
+            continue
+        if kind == "mla_moe":
+            row = (cfg.kv_lora_rank + cfg.rope_head_dim) * es * n
+        else:
+            row = 2.0 * cfg.n_kv_heads * cfg.head_dim * es * n   # K and V
+        window = view.sliding_window
+        if shape.kind == "prefill":
+            total += row * B * (min(L, window) if window else L)
+        else:
+            total += row * B * (_decode_keys(view, L) + 1)
+    return total
 
 
 @dataclasses.dataclass(frozen=True)
@@ -407,6 +455,15 @@ def _is_routed(name: str) -> bool:
     return len(parts) >= 2 and parts[-2] == "moe" and parts[-1] in _ROUTED
 
 
+def _gathered(cfg, shape) -> int:
+    """Positions of the step that gather an embedding row (a text token:
+    ``tokens+patches``' patch positions do not)."""
+    if shape.kind == "decode":
+        return shape.global_batch
+    patches = cfg.patch_tokens if cfg.input_mode == "tokens+patches" else 0
+    return shape.global_batch * (shape.seq_len - patches)
+
+
 def weight_read_bytes(cfg, shape, leaf_bytes: Dict[str, float]) -> float:
     """Weight bytes the step reads (the rules above) for the floating
     parameter bytes ``leaf_bytes`` ({``state_dict`` name: bytes}; a
@@ -422,7 +479,9 @@ def weight_read_bytes(cfg, shape, leaf_bytes: Dict[str, float]) -> float:
     else:
         routed_read = 0.0
     rest = total - embed - routed + routed_read      # read once a pass
-    fwd = rest + embed * min(tokens, cfg.vocab_size) / cfg.vocab_size
+    # each codebook's table [V, D] gathers one row a position
+    fwd = rest + embed * min(_gathered(cfg, shape), cfg.vocab_size) / \
+        cfg.vocab_size
     if shape.kind != "train":
         return fwd
     # the backward re-reads all but the embedding; the gradients are
@@ -446,7 +505,6 @@ def work_count(cfg, shape, *, n_devices: int = 1,
     d, V = cfg.d_model, cfg.vocab_size
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     es = getattr(torch, cfg.dtype).itemsize
-    nl = cfg.n_layers
 
     flat = T.flat_specs(T.param_specs(cfg, device=device))
     params = {k: float(_nbytes(v)) for k, v in flat.items()
@@ -454,30 +512,37 @@ def work_count(cfg, shape, *, n_devices: int = 1,
     n_float = sum(v.numel() for v in flat.values() if v.is_floating_point())
 
     sparse = []
-    if cfg.layout == "mla_moe":
-        proj, attn = _mla_flops(cfg, shape, tokens)
-        ffn = _moe_flops(cfg, tokens)
-    elif cfg.layout == "ssd":
-        proj, attn = _ssd_flops(cfg, shape, tokens)
-        ffn = 0.0
-    else:
-        proj = 2.0 * tokens * (d * H * dh + 2 * d * KV * dh + H * dh * d) * nl
-        if cfg.ffn_sparsity is not None:
-            sparse = _sparse_layers(cfg, device)
-            ffn = float(tokens * sum(sparse_param_flops(m)
-                                     for _, _, m in sparse))
+    proj = ffn = attn = 0.0
+    for kind, n, view in _layer_groups(cfg):
+        if kind == "mla_moe":
+            p_, a_ = _mla_flops(cfg, shape, tokens)
+            proj, attn, ffn = proj + p_, attn + a_, ffn + _moe_flops(cfg,
+                                                                     tokens)
+        elif kind == "ssd":
+            p_, a_ = _ssd_flops(cfg, shape, tokens, n)
+            proj, attn = proj + p_, attn + a_
         else:
-            ffn = 2.0 * tokens * 3 * d * cfg.d_ff * nl
-        attn = 4.0 * dh * H * _attn_pairs(cfg, shape) * nl
-    head_rows = B * L if shape.kind == "train" else B
-    head = 2.0 * head_rows * d * V
+            proj += 2.0 * tokens * (d * H * dh + 2 * d * KV * dh +
+                                    H * dh * d) * n
+            attn += 4.0 * dh * H * _attn_pairs(view, shape) * n
+            if cfg.ffn_sparsity is None:
+                ffn += 2.0 * tokens * 3 * d * cfg.d_ff * n
+    if cfg.ffn_sparsity is not None and cfg.layout not in ("mla_moe",
+                                                           "ssd"):
+        sparse = _sparse_layers(cfg, device)
+        ffn = float(tokens * sum(sparse_param_flops(m)
+                                 for _, _, m in sparse))
+    cb = cfg.n_codebooks if cfg.input_mode == "codebooks" else 1
+    # a train step's logits at its text positions, else the last's
+    head_rows = _gathered(cfg, shape) if shape.kind == "train" else B
+    head = 2.0 * head_rows * d * V * cb
     fwd = proj + ffn + attn + head
     flops = 3.0 * fwd if shape.kind == "train" else fwd
 
     w_bytes = weight_read_bytes(cfg, shape, params)
     inputs = float(sum(_nbytes(t) for t in
                        st.input_specs(cfg, shape).values()))
-    logits = 4.0 * head_rows * V
+    logits = 4.0 * head_rows * V * cb
     cache = _cache_bytes(cfg, shape, es)
     # AdamW's m and v, read and written
     state = 16.0 * n_float if shape.kind == "train" else 0.0

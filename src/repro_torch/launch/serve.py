@@ -10,10 +10,15 @@ tokens/s and how many times each CUDA kernel was launched.
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch deepseek-v2-lite-16b:smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch musicgen-medium:smoke --device cpu
 
 Any registered arch serves (``--arch``): the paper's ``smat-ffn-1.3b`` and
-``smat-attn-1.3b``, ``mamba2-1.3b`` (its state is not position-indexed, so
-prefix reuse is off), ``deepseek-v2-lite-16b`` and ``deepseek-v2-236b``.
+``smat-attn-1.3b``, and the JAX package's ten (``mamba2-1.3b`` and
+``zamba2-7b`` with prefix reuse off, their state not being
+position-indexed; ``musicgen-medium`` streams a row of codebook tokens a
+position from ``[prompt-len, 4]`` prompts; ``pixtral-12b`` serves text
+prompts, with no patches).
 
 With block-sparse attention whose page table saves pages at this cache
 length (the second line: 3 of 4 pages a step), decode reads KV through the
@@ -52,9 +57,11 @@ def main(argv=None):
                          cache_len=args.cache_len, device=args.device)
 
     rng = np.random.default_rng(0)
+    # codebooks: a prompt is [Lp, n_cb], one token a codebook a position
+    row = (cfg.n_codebooks,) if cfg.input_mode == "codebooks" else ()
     requests = [Request(rid=rid,
                         prompt=rng.integers(0, cfg.vocab_size,
-                                            size=args.prompt_len,
+                                            size=(args.prompt_len,) + row,
                                             dtype=np.int32),
                         max_new_tokens=args.new_tokens,
                         temperature=args.temperature)
@@ -90,7 +97,9 @@ def main(argv=None):
           + ", ".join(f"{name} {n}" for name, n in launched.items())
           + "; 0 on the CPU, where the plain versions run)")
     for rid in sorted(streamed)[:3]:
-        print(f"  rid={rid} first-tokens={streamed[rid][:8]}")
+        first = [t.tolist() if isinstance(t, np.ndarray) else t
+                 for t in streamed[rid][:8]]
+        print(f"  rid={rid} first-tokens={first}")
     return 0
 
 

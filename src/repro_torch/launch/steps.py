@@ -6,8 +6,9 @@ static meta, and ``ops.spmm``'s backward runs the kernels (``bcsr_spmm``
 for dB, ``bcsr_sddmm`` for dvals).  Neither do block-sparse attention archs
 (``smat-attn-1.3b``): training and prefill run kernel B5 through
 ``models.attention``, whose backward runs the SDDMM/SpMM kernels, and
-decode applies the mask as a bias.  ``mla_moe`` and ``ssd`` archs run the
-same steps; ``T.train_loss`` adds their MoE load-balance loss.
+decode applies the mask as a bias.  Every other layout and input mode runs
+the same steps; ``T.train_loss`` adds the MoE load-balance loss of
+``mla_moe`` and scores only the text positions of ``tokens+patches``.
 ``input_specs`` and ``opt_specs`` give
 a cell's inputs and AdamW state as ``meta``-device tensors (shape and dtype
 only), for the dry-run (``launch.dryrun``).
@@ -26,18 +27,34 @@ from repro_torch.optim import adamw
 
 def input_specs(cfg: ModelConfig, shape: ShapeCell) -> Dict[str, torch.Tensor]:
     """Every model input of this cell as a ``meta``-device tensor: the JAX
-    package's ``input_specs`` for token inputs, with the ids int64, as the
-    port feeds them (``train.loop.batch_to_device``, the serving engine).
-    Train cells hold ``tokens`` and ``labels`` [B, L], prefill ``tokens``,
-    decode one token a sequence [B]."""
+    package's ``input_specs``, with the ids int64, as the port feeds them
+    (``train.loop.batch_to_device``, the serving engine).  Train cells
+    hold ``tokens`` and ``labels`` [B, L] ([B, L, n_cb] for
+    ``codebooks``; [B, L - P] beside ``patch_embeds`` [B, P, D] in bf16
+    for ``tokens+patches``), prefill the same less ``labels``, decode one
+    token a sequence [B] ([B, n_cb])."""
     T._check_layout(cfg)
     B, L = shape.global_batch, shape.seq_len
-    if shape.kind == "train":
-        return {"tokens": _spec((B, L), torch.int64),
-                "labels": _spec((B, L), torch.int64)}
-    if shape.kind == "prefill":
-        return {"tokens": _spec((B, L), torch.int64)}
-    return {"tokens": _spec((B,), torch.int64)}
+    ids = torch.int64
+    if shape.kind in ("train", "prefill"):
+        if cfg.input_mode == "codebooks":
+            batch = {"tokens": _spec((B, L, cfg.n_codebooks), ids),
+                     "labels": _spec((B, L, cfg.n_codebooks), ids)}
+        elif cfg.input_mode == "tokens+patches":
+            lt = L - cfg.patch_tokens
+            batch = {"tokens": _spec((B, lt), ids),
+                     "patch_embeds": _spec((B, cfg.patch_tokens,
+                                            cfg.d_model), torch.bfloat16),
+                     "labels": _spec((B, lt), ids)}
+        else:
+            batch = {"tokens": _spec((B, L), ids),
+                     "labels": _spec((B, L), ids)}
+        if shape.kind == "prefill":
+            batch.pop("labels")
+        return batch
+    if cfg.input_mode == "codebooks":
+        return {"tokens": _spec((B, cfg.n_codebooks), ids)}
+    return {"tokens": _spec((B,), ids)}
 
 
 def opt_specs(cfg: ModelConfig, params_specs) -> Dict[str, object]:

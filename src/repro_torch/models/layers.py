@@ -89,6 +89,32 @@ def _weight(shape, scale, dtype, device, generator):
     return nn.Parameter(w)
 
 
+# ================================================================ remat tags
+@torch.library.custom_op("repro_torch::checkpoint_name", mutates_args=())
+def _checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    return x.clone()        # a custom op's output may not alias its input
+
+
+@_checkpoint_name.register_fake
+def _(x, name):
+    return torch.empty_like(x)
+
+
+_checkpoint_name.register_autograd(lambda ctx, grad: (grad, None))
+# the op ``checkpoint_name`` records: what ``remat="names"``'s policy saves
+CHECKPOINT_NAME_OP = torch.ops.repro_torch.checkpoint_name.default
+
+
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """The twin of JAX's ``checkpoint_name``: ``x``, tagged ``name`` for
+    ``remat="names"`` (``transformer.SAVED_NAMES``).  With autograd on the
+    tag is a copy of ``x`` through the ``repro_torch::checkpoint_name`` op,
+    equal bit for bit; outside autograd (serving) ``x`` itself."""
+    if not torch.is_grad_enabled():
+        return x
+    return torch.ops.repro_torch.checkpoint_name(x, name)
+
+
 # ================================================================= attention
 class Attention(nn.Module):
     def __init__(self, cfg, *, dtype, device, generator=None):
@@ -476,6 +502,7 @@ def mla_attention(cfg, p, x, *, cache=None, pos=None, slot_mask=None):
         k = torch.cat([k_nope, k_rope.expand(B, L, h, rope)], dim=-1)
         qq = torch.cat([q_nope, q_rope], dim=-1)
         ctx = _causal_attention(qq, k, v, None, None, scale)  # [B,L,h,vd]
+        ctx = checkpoint_name(ctx, "attn_ctx")
         if cache is not None:               # prefill: write latent cache
             ckv_c, krope_c = cache["ckv"], cache["krope"]
             Sc = ckv_c.shape[1]

@@ -133,6 +133,7 @@ def _moe_gather(cfg, p, x):
     rows = torch.arange(B, device=x.device)[:, None]
     xin = x_pad[rows, slot_tok.reshape(B, e * C)].reshape(B, e, C, D)
     eout = _expert_mlp(cfg, p, xin)                        # [B, E, C, D]
+    eout = L.checkpoint_name(eout, "moe_eout")
     contrib = eout * slot_w[..., None].to(eout.dtype)
 
     # combine: each (token, slot) reads its cell (a dropped one the zero

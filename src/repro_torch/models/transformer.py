@@ -1,27 +1,50 @@
 """Model assembly: embeddings, the block stack, caches, and the forward /
 prefill / decode entry points.
 
-Layouts (over token inputs):
-  attn_mlp — a standard decoder (``smat-ffn`` with its block-sparse FFN,
-             ``smat-attn`` with block-sparse attention scores on top);
-  mla_moe  — DeepSeek MLA attention + a shared/routed MoE FFN;
-  ssd      — Mamba2 (attention-free).
-The JAX package's ``gemma_pair`` and ``zamba`` layouts and its
-``tokens+patches`` and ``codebooks`` inputs are not ported yet (ROADMAP A7).
+Layouts (the JAX package's):
+  attn_mlp   — a standard decoder (the dense archs, the pixtral and
+               musicgen backbones, ``smat-ffn`` with its block-sparse FFN,
+               ``smat-attn`` with block-sparse attention scores on top);
+  gemma_pair — a (local sliding-window + global) pair of attention + MLP
+               halves a block, ``n_layers // 2`` blocks, post-norms on
+               each half's attention and MLP outputs, logit softcaps;
+  mla_moe    — DeepSeek MLA attention + a shared/routed MoE FFN;
+  ssd        — Mamba2 (attention-free);
+  zamba      — ``hybrid_n_units`` units of ``hybrid_unit_len`` Mamba2
+               layers, each followed by ONE shared attention + MLP block
+               (its weights reused by every unit), then ``hybrid_tail``
+               Mamba2 layers.
+Inputs: ``tokens`` [B, L]; ``tokens+patches`` (``patch_embeds`` [B, P, D]
+put in front of the token embeddings; ``train_loss`` scores the text
+positions only); ``codebooks`` (tokens [B, L, n_cb], the codebook
+embeddings summed in order, logits [B, L, n_cb, V]).
 
 The JAX package stacks the blocks on a leading axis and scans them; here
-``Transformer.blocks`` is a ``ModuleList`` walked by a Python loop, and the
-decode cache keeps the stacked layout (``{"k", "v"}: [n_layers, B, S, KV,
-dh]``; ``{"ckv", "krope"}: [n_layers, B, S, r | rope]``; ``{"conv",
-"state"}: [n_layers, B, cw-1, d_xbc | H, P, N]``) so a layer's cache is a
-view into it.  ``forward``'s third value sums the layers' MoE
-load-balance losses, as the JAX package's scan carries it.  ``forward``'s ``remat``
-replaces the JAX package's ``jax.checkpoint`` policies: ``"full"`` runs
-each block under ``torch.utils.checkpoint``; ``"dots"`` and ``"names"`` are
-not ported yet.
+``Transformer.blocks`` is a ``ModuleList`` walked by a Python loop (for
+``zamba``: ``units``, a list of lists, ``tail`` and ``shared_attn``), and
+the decode cache keeps the stacked layout (``{"k", "v"}: [n_layers, B, S,
+KV, dh]``; ``gemma_pair``: ``{"local": {k, v}, "global": {k, v}}`` over
+the pairs, the local ring capped at the window; ``{"ckv", "krope"}:
+[n_layers, B, S, r | rope]``; ``{"conv", "state"}: [n_layers, B, cw-1,
+d_xbc | H, P, N]``; ``zamba``: ``{"units_ssd": [n_units, unit_len, ...],
+"units_attn": [n_units, ...], "tail_ssd": [tail, ...]}``, each unit's use
+of the shared block with an attention cache of its own) so a layer's cache
+is a view into it.  ``forward``'s third value sums the layers' MoE
+load-balance losses, as the JAX package's scan carries it.
+
+``forward``'s ``remat`` replaces the JAX package's ``jax.checkpoint``
+policies with ``torch.utils.checkpoint`` over each block: ``"full"``
+recomputes everything; ``"dots"`` and ``"names"`` run a selective
+checkpoint (``create_selective_checkpoint_contexts``) that saves the
+outputs of the products without batch dimensions (``aten.mm``/``addmm``,
+as ``dots_with_no_batch_dims_saveable``) or only the tensors tagged
+``attn_ctx`` and ``moe_eout`` (``layers.checkpoint_name``).  ``zamba``
+checkpoints its tail only, as the JAX package does.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Any, Tuple
 
 import torch
@@ -35,7 +58,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 
-LAYOUTS = ("attn_mlp", "mla_moe", "ssd")
+LAYOUTS = ("attn_mlp", "gemma_pair", "mla_moe", "ssd", "zamba")
+INPUT_MODES = ("tokens", "tokens+patches", "codebooks")
 
 
 def resolve_device(device) -> torch.device:
@@ -59,17 +83,50 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_layout(cfg: ModelConfig) -> None:
-    if cfg.layout not in LAYOUTS or cfg.input_mode != "tokens":
-        raise NotImplementedError(
-            f"layout {cfg.layout!r} with input_mode {cfg.input_mode!r} is not "
-            f"ported yet (ROADMAP A7; ported: {', '.join(LAYOUTS)} over "
-            "tokens)")
+    if cfg.layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {cfg.layout!r}; want one of "
+                         f"{LAYOUTS}")
+    if cfg.input_mode not in INPUT_MODES:
+        raise ValueError(f"unknown input_mode {cfg.input_mode!r}; want one "
+                         f"of {INPUT_MODES}")
+
+
+@functools.lru_cache(maxsize=None)
+def _view(cfg: ModelConfig, layout: str) -> ModelConfig:
+    """``cfg`` read as another layout: ``zamba``'s Mamba2 layers run as
+    ``ssd`` blocks and its shared block as an ``attn_mlp`` block without
+    a window (the JAX package's shared block passes none)."""
+    if layout == "attn_mlp":
+        return dataclasses.replace(cfg, layout=layout, sliding_window=None)
+    return dataclasses.replace(cfg, layout=layout)
+
+
+def _n_repeats(cfg: ModelConfig) -> int:
+    """Blocks of the stack: a ``gemma_pair`` block holds two layers."""
+    return cfg.n_layers // 2 if cfg.layout == "gemma_pair" else cfg.n_layers
+
+
+class GemmaHalf(nn.Module):
+    """One half of a ``gemma_pair`` block: pre-norm attention with a
+    post-norm on its output (``ln1``/``attn``/``ln1_post``), then pre-norm
+    MLP with a post-norm (``ln2``/``mlp``/``ln2_post``)."""
+
+    def __init__(self, cfg, *, dtype, device, generator=None):
+        super().__init__()
+        d = cfg.d_model
+        self.ln1 = nn.Parameter(torch.zeros(d, device=device))
+        self.ln1_post = nn.Parameter(torch.zeros(d, device=device))
+        self.attn = L.init_attention(cfg, generator, dtype, device=device)
+        self.ln2 = nn.Parameter(torch.zeros(d, device=device))
+        self.ln2_post = nn.Parameter(torch.zeros(d, device=device))
+        self.mlp = L.init_mlp(cfg, generator, dtype, device=device)
 
 
 class Block(nn.Module):
-    """One layer, its parameters named as the JAX package's ``blocks``
+    """One block, its parameters named as the JAX package's ``blocks``
     tree: ``attn_mlp`` (pre-norm attention ``ln1``/``attn``, then pre-norm
-    MLP ``ln2``/``mlp``), ``mla_moe`` (``ln1``/``mla``, then ``ln2``/
+    MLP ``ln2``/``mlp``), ``gemma_pair`` (``local`` and ``global``
+    halves, ``GemmaHalf``), ``mla_moe`` (``ln1``/``mla``, then ``ln2``/
     ``moe``) or ``ssd`` (``ln``/``ssd``)."""
 
     def __init__(self, cfg, *, dtype, device, generator=None,
@@ -79,6 +136,12 @@ class Block(nn.Module):
         if cfg.layout == "ssd":
             self.ln = nn.Parameter(torch.zeros(d, device=device))
             self.ssd = S.init_ssd(cfg, generator, dtype, device=device)
+            return
+        if cfg.layout == "gemma_pair":
+            for kind in ("local", "global"):
+                self.add_module(kind, GemmaHalf(cfg, dtype=dtype,
+                                                device=device,
+                                                generator=generator))
             return
         self.ln1 = nn.Parameter(torch.zeros(d, device=device))
         if cfg.layout == "mla_moe":
@@ -97,21 +160,34 @@ class Block(nn.Module):
 class Transformer(nn.Module):
     """The decoder.  Dense weights are drawn from ``generator`` (left
     uninitialised when it is None); the sparse FFN structures and values
-    always come from their numpy seeds, as in the JAX package."""
+    always come from their numpy seeds, as in the JAX package.  ``embed``
+    is [V, D] and ``lm_head`` [D, V] ([n_cb, V, D] and [n_cb, D, V] for
+    ``codebooks``)."""
 
     def __init__(self, cfg: ModelConfig, *, device, generator=None):
         super().__init__()
         _check_layout(cfg)
         self.cfg = cfg
-        dtype, d = _dtype(cfg), cfg.d_model
+        dtype, d, V = _dtype(cfg), cfg.d_model, cfg.vocab_size
+        cb = (cfg.n_codebooks,) if cfg.input_mode == "codebooks" else ()
         self.final_norm = nn.Parameter(torch.zeros(d, device=device))
-        self.embed = L._weight((cfg.vocab_size, d), 0.02, dtype, device,
-                               generator)
-        self.lm_head = L._weight((d, cfg.vocab_size), d ** -0.5, dtype,
-                                 device, generator)
+        self.embed = L._weight(cb + (V, d), 0.02, dtype, device, generator)
+        self.lm_head = L._weight(cb + (d, V), d ** -0.5, dtype, device,
+                                 generator)
+        if cfg.layout == "zamba":
+            ssd, kw = _view(cfg, "ssd"), dict(dtype=dtype, device=device,
+                                              generator=generator)
+            self.units = nn.ModuleList(
+                nn.ModuleList(Block(ssd, **kw)
+                              for _ in range(cfg.hybrid_unit_len))
+                for _ in range(cfg.hybrid_n_units))
+            self.tail = nn.ModuleList(Block(ssd, **kw)
+                                      for _ in range(cfg.hybrid_tail))
+            self.shared_attn = Block(_view(cfg, "attn_mlp"), **kw)
+            return
         self.blocks = nn.ModuleList(
             Block(cfg, dtype=dtype, device=device, generator=generator,
-                  seed_hint=i) for i in range(cfg.n_layers))
+                  seed_hint=i) for i in range(_n_repeats(cfg)))
 
     def forward(self, batch_in, *, cache=None, pos=None, slot_mask=None,
                 remat: str = "none"):
@@ -128,30 +204,54 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     return Transformer(cfg, device=device, generator=generator)
 
 
+def _stacked(tree, *lead):
+    """``tree``'s leaves repeated over the leading dims ``lead`` (each copy
+    its own storage)."""
+    if isinstance(tree, dict):
+        return {k: _stacked(v, *lead) for k, v in tree.items()}
+    return tree[(None,) * len(lead)].repeat(*lead, *([1] * tree.ndim))
+
+
+def _layer(tree, *index):
+    """The views of a stacked cache tree at ``index`` (a layer's cache)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, *index) for k, v in tree.items()}
+    return tree[index]
+
+
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
                device="cuda"):
     """Decode caches for the whole network, stacked over layers."""
     _check_layout(cfg)
     device, dtype = resolve_device(device), _dtype(cfg)
+    if cfg.layout == "zamba":
+        ssd = S.init_ssd_cache(cfg, batch, dtype, device=device)
+        attn = L.init_attn_cache(cfg, batch, cache_len, dtype, device=device)
+        return {"units_ssd": _stacked(ssd, cfg.hybrid_n_units,
+                                      cfg.hybrid_unit_len),
+                "units_attn": _stacked(attn, cfg.hybrid_n_units),
+                "tail_ssd": _stacked(ssd, cfg.hybrid_tail)}
     if cfg.layout == "mla_moe":
         one = L.init_mla_cache(cfg, batch, cache_len, dtype, device=device)
     elif cfg.layout == "ssd":
         one = S.init_ssd_cache(cfg, batch, dtype, device=device)
+    elif cfg.layout == "gemma_pair":
+        one = {"local": L.init_attn_cache(cfg, batch, cache_len, dtype,
+                                          window=cfg.sliding_window,
+                                          device=device),
+               "global": L.init_attn_cache(cfg, batch, cache_len, dtype,
+                                           device=device)}
     else:
         one = L.init_attn_cache(cfg, batch, cache_len, dtype,
                                 window=cfg.sliding_window, device=device)
-    return {name: leaf[None].repeat(cfg.n_layers, *([1] * leaf.ndim))
-            for name, leaf in one.items()}
+    return _stacked(one, _n_repeats(cfg))
 
 
 # ============================================================ specs (no data)
-def _block_specs(cfg: ModelConfig, i: int, device) -> dict:
-    """Specs of layer ``i``: the JAX tree's ``blocks`` leaves at index
-    ``i`` (``convert.params_from_jax``'s unstacking), plus each sparse
-    layer's port buffers."""
+def _attn_mlp_specs(cfg: ModelConfig, seed_hint: int, device) -> dict:
+    """Specs of an ``attn_mlp`` block built with ``seed_hint`` (its sparse
+    layers' pattern seeds): ``ln1``/``attn``/``ln2``/``mlp``."""
     dtype, d = _dtype(cfg), cfg.d_model
-    if cfg.layout in ("mla_moe", "ssd"):        # no sparse layer in these
-        return _module_specs(Block(cfg, dtype=dtype, device="meta"))
     h, kv, hd, f = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
     attn = {"wq": _spec((d, h * hd), dtype), "wk": _spec((d, kv * hd), dtype),
             "wv": _spec((d, kv * hd), dtype), "wo": _spec((h * hd, d), dtype)}
@@ -160,7 +260,7 @@ def _block_specs(cfg: ModelConfig, i: int, device) -> dict:
                     bv=_spec((kv * hd,), dtype))
     spec = cfg.ffn_sparsity
     if spec is not None:
-        seed = L.mlp_seed(i)
+        seed = L.mlp_seed(seed_hint)
         mlp = {name: sparse_linear_specs(i_, o_, spec, dtype, seed=s_,
                                          device=device)[0]
                for name, s_, i_, o_ in (("gate", seed, d, f),
@@ -172,6 +272,20 @@ def _block_specs(cfg: ModelConfig, i: int, device) -> dict:
     f32 = torch.float32
     return {"ln1": _spec((d,), f32), "attn": attn, "ln2": _spec((d,), f32),
             "mlp": mlp}
+
+
+def _block_specs(cfg: ModelConfig, i: int, device) -> dict:
+    """Specs of block ``i``: the JAX tree's ``blocks`` leaves at index
+    ``i`` (``convert.params_from_jax``'s unstacking), plus each sparse
+    layer's port buffers."""
+    if cfg.layout in ("mla_moe", "ssd"):        # no sparse layer in these
+        return _module_specs(Block(cfg, dtype=_dtype(cfg), device="meta"))
+    if cfg.layout == "gemma_pair":              # every half's MLP: hint 0
+        post = {"ln1_post": _spec((cfg.d_model,), torch.float32),
+                "ln2_post": _spec((cfg.d_model,), torch.float32)}
+        return {kind: {**_attn_mlp_specs(cfg, 0, device), **post}
+                for kind in ("local", "global")}
+    return _attn_mlp_specs(cfg, i, device)
 
 
 def _module_specs(module: nn.Module) -> dict:
@@ -191,16 +305,29 @@ def param_specs(cfg: ModelConfig, *, device="cuda") -> dict:
     """The model's parameters and buffers as tensors on the ``meta``
     device (shape and dtype, no storage, no random draw): the JAX
     package's ``param_specs`` tree with ``blocks`` unstacked into a list of
-    layers, as ``convert.params_from_jax`` reads it, so ``flat_specs`` of
+    blocks (``zamba``: ``units`` into a list of lists, ``tail`` into a
+    list), as ``convert.params_from_jax`` reads it, so ``flat_specs`` of
     it has ``Transformer.state_dict()``'s keys.  Sparse layers take their
     true structure metas (their numpy pattern seeds), which size the
     port's schedule buffers.  ``device`` only keys ``shards="auto"``."""
     _check_layout(cfg)
     dtype, d, V = _dtype(cfg), cfg.d_model, cfg.vocab_size
-    return {"final_norm": _spec((d,), torch.float32),
-            "embed": _spec((V, d), dtype), "lm_head": _spec((d, V), dtype),
-            "blocks": [_block_specs(cfg, i, device)
-                       for i in range(cfg.n_layers)]}
+    cb = (cfg.n_codebooks,) if cfg.input_mode == "codebooks" else ()
+    out = {"final_norm": _spec((d,), torch.float32),
+           "embed": _spec(cb + (V, d), dtype),
+           "lm_head": _spec(cb + (d, V), dtype)}
+    if cfg.layout == "zamba":
+        def ssd():
+            return _module_specs(Block(_view(cfg, "ssd"), dtype=dtype,
+                                       device="meta"))
+        out["units"] = [[ssd() for _ in range(cfg.hybrid_unit_len)]
+                        for _ in range(cfg.hybrid_n_units)]
+        out["tail"] = [ssd() for _ in range(cfg.hybrid_tail)]
+        out["shared_attn"] = _attn_mlp_specs(cfg, 0, device)
+        return out
+    out["blocks"] = [_block_specs(cfg, i, device)
+                     for i in range(_n_repeats(cfg))]
+    return out
 
 
 def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> dict:
@@ -225,14 +352,50 @@ def flat_specs(tree, prefix: str = "") -> dict:
 
 
 # ================================================================== forward
+@functools.lru_cache(maxsize=None)
+def _embed_scale(d_model: int, dtype: torch.dtype) -> float:
+    """``sqrt(d_model)`` rounded to ``dtype`` first, as the JAX package
+    multiplies by ``jnp.asarray(d ** 0.5, x.dtype)`` (68.0 for 4608 in
+    bf16); its product with a bf16 activation is exact in float32, so the
+    result is rounded once, as JAX's."""
+    return float(torch.tensor(d_model ** 0.5, dtype=dtype))
+
+
 def _embed(cfg: ModelConfig, params, batch_in) -> torch.Tensor:
-    return params.embed[batch_in["tokens"]]                 # [B, L, D]
+    tokens = batch_in["tokens"]
+    if cfg.input_mode == "codebooks":
+        # tokens [B, L, n_cb]: the codebook embeddings summed in order, in
+        # the model dtype (the JAX package's Python ``sum``)
+        x = params.embed[0][tokens[..., 0]]
+        for c in range(1, cfg.n_codebooks):
+            x = x + params.embed[c][tokens[..., c]]
+    else:
+        x = params.embed[tokens]                            # [B, L, D]
+    if cfg.layout == "gemma_pair":
+        x = x * _embed_scale(cfg.d_model, x.dtype)
+    if cfg.input_mode == "tokens+patches" and "patch_embeds" in batch_in:
+        pe = batch_in["patch_embeds"].to(x.dtype)           # [B, P, D]
+        x = torch.cat([pe, x], dim=1)
+    return x
 
 
 def _head(cfg: ModelConfig, params, x) -> torch.Tensor:
     x = L.rms_norm(x, params.final_norm)
-    logits = x @ params.lm_head
+    if cfg.input_mode == "codebooks":
+        logits = torch.einsum("bld,cdv->blcv", x, params.lm_head)
+    else:
+        logits = x @ params.lm_head
     return L.softcap(logits.float(), cfg.final_logit_softcap)
+
+
+def _attn_mlp(cfg, p, x, cache, pos, slot_mask, window):
+    """Pre-norm attention, then pre-norm MLP (an ``attn_mlp`` block)."""
+    a, c = L.attention(cfg, p.attn, L.rms_norm(x, p.ln1), window=window,
+                       cache=cache, pos=pos, slot_mask=slot_mask)
+    x = x + a
+    x = x + L.mlp(cfg, p.mlp, L.rms_norm(x, p.ln2),
+                  seed_hints=(p.mlp.seed_hint,))
+    return x, c
 
 
 def _apply_block(cfg: ModelConfig, p: Block, x, cache, pos, slot_mask=None):
@@ -250,50 +413,104 @@ def _apply_block(cfg: ModelConfig, p: Block, x, cache, pos, slot_mask=None):
         y, aux = M.moe_ffn(cfg, p.moe, L.rms_norm(x, p.ln2),
                            dispatch=cfg.moe_dispatch)
         return x + y, c, aux
-    a, c = L.attention(cfg, p.attn, L.rms_norm(x, p.ln1),
-                       window=cfg.sliding_window, cache=cache, pos=pos,
-                       slot_mask=slot_mask)
-    x = x + a
-    x = x + L.mlp(cfg, p.mlp, L.rms_norm(x, p.ln2),
-                  seed_hints=(p.mlp.seed_hint,))
+    if cfg.layout == "gemma_pair":
+        for kind, window in (("local", cfg.sliding_window), ("global", None)):
+            h = getattr(p, kind)
+            a, _ = L.attention(cfg, h.attn, L.rms_norm(x, h.ln1),
+                               window=window,
+                               cache=None if cache is None else cache[kind],
+                               pos=pos, slot_mask=slot_mask)
+            x = x + L.rms_norm(a, h.ln1_post)
+            m = L.mlp(cfg, h.mlp, L.rms_norm(x, h.ln2),
+                      seed_hints=(h.mlp.seed_hint,))
+            x = x + L.rms_norm(m, h.ln2_post)
+        return x, cache, aux
+    x, c = _attn_mlp(cfg, p, x, cache, pos, slot_mask, cfg.sliding_window)
     return x, c, aux
 
 
-REMAT = ("none", "full")
+REMAT = ("none", "full", "dots", "names")
+# the tensors ``remat="names"`` saves (``layers.checkpoint_name`` tags)
+SAVED_NAMES = ("attn_ctx", "moe_eout")
+# products without batch dimensions: ``remat="dots"`` saves their outputs
+_DOTS = ("mm", "addmm")
 
 
-def _remat_block(cfg: ModelConfig, blk: Block, x):
-    """One block without a cache under activation checkpointing: its
-    activations are recomputed in the backward (JAX ``remat="full"``).
+def _remat_policy(remat: str):
+    """The selective checkpoint's policy of ``remat`` ("dots" or
+    "names"): save what it names, recompute the rest."""
+    CP = torch_checkpoint.CheckpointPolicy
+    if remat == "dots":
+        saved = {getattr(torch.ops.aten, op).default for op in _DOTS}
+
+        def policy(ctx, op, *args, **kwargs):
+            return CP.MUST_SAVE if op in saved else CP.PREFER_RECOMPUTE
+    else:
+        def policy(ctx, op, *args, **kwargs):
+            return CP.MUST_SAVE if op == L.CHECKPOINT_NAME_OP and \
+                args[1] in SAVED_NAMES else CP.PREFER_RECOMPUTE
+    return policy
+
+
+def _remat_block(cfg: ModelConfig, blk: Block, x, remat: str):
+    """One block without a cache under activation checkpointing (the JAX
+    package's ``jax.checkpoint`` of the block, with ``remat``'s policy).
     Returns (x, aux)."""
     def run(x_):
         x_, _, aux = _apply_block(cfg, blk, x_, None, None)
         return x_, aux
-    return torch_checkpoint.checkpoint(run, x, use_reentrant=False)
+    kw = {}
+    if remat != "full":
+        kw["context_fn"] = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts,
+            _remat_policy(remat))
+    return torch_checkpoint.checkpoint(run, x, use_reentrant=False, **kw)
+
+
+def _run_stack(cfg, blocks, x, cache, pos, slot_mask, remat, lead=()):
+    """The blocks in order, block ``i`` on the cache at ``lead + (i,)``;
+    returns (x, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, blk in enumerate(blocks):
+        if remat != "none" and cache is None:
+            x, a = _remat_block(cfg, blk, x, remat)
+        else:
+            c = None if cache is None else _layer(cache, *lead, i)
+            x, _, a = _apply_block(cfg, blk, x, c, pos, slot_mask)
+        aux = aux + a
+    return x, aux
+
+
+def _zamba_forward(cfg, params, x, cache, pos, slot_mask, remat):
+    """Each unit's Mamba2 layers, then the shared attention + MLP block
+    (the same weights in every unit, the unit's own attention cache); the
+    tail after the last unit.  Only the tail is checkpointed."""
+    ssd = _view(cfg, "ssd")
+    for u, unit in enumerate(params.units):
+        x, _ = _run_stack(ssd, unit, x, None if cache is None else
+                          cache["units_ssd"], pos, slot_mask, "none",
+                          lead=(u,))
+        c = None if cache is None else _layer(cache["units_attn"], u)
+        x, _ = _attn_mlp(cfg, params.shared_attn, x, c, pos, slot_mask, None)
+    return _run_stack(ssd, params.tail, x, None if cache is None else
+                      cache["tail_ssd"], pos, slot_mask, remat)
 
 
 def forward(cfg: ModelConfig, params: Transformer, batch_in, *, cache=None,
             pos=None, slot_mask=None, remat: str = "none"
             ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
     """Returns (logits, cache, aux_loss); the cache is updated in place.
-    ``aux_loss`` sums the layers' MoE load-balance losses.
-    ``remat="full"`` checkpoints each block (training, no cache)."""
-    if remat in ("dots", "names"):
-        raise NotImplementedError(
-            f"remat={remat!r} (a jax.checkpoint policy) is not ported yet; "
-            f"use one of {REMAT}")
+    ``aux_loss`` sums the layers' MoE load-balance losses.  ``remat``
+    checkpoints each block (training, no cache) under one of ``REMAT``'s
+    policies."""
     if remat not in REMAT:
         raise ValueError(f"unknown remat {remat!r}; want one of {REMAT}")
     x = _embed(cfg, params, batch_in)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, blk in enumerate(params.blocks):
-        if remat == "full" and cache is None:
-            x, a = _remat_block(cfg, blk, x)
-        else:
-            layer_cache = None if cache is None else \
-                {name: leaf[i] for name, leaf in cache.items()}
-            x, _, a = _apply_block(cfg, blk, x, layer_cache, pos, slot_mask)
-        aux = aux + a
+    if cfg.layout == "zamba":
+        x, aux = _zamba_forward(cfg, params, x, cache, pos, slot_mask, remat)
+    else:
+        x, aux = _run_stack(cfg, params.blocks, x, cache, pos, slot_mask,
+                            remat)
     return _head(cfg, params, x), cache, aux
 
 
@@ -310,14 +527,19 @@ def lm_loss(cfg: ModelConfig, logits, labels) -> torch.Tensor:
 def train_loss(cfg: ModelConfig, params: Transformer, batch_in,
                remat: str = "full"):
     """Returns (loss, {"lm_loss", "aux_loss"}); ``batch_in`` holds
-    ``tokens`` and shifted ``labels`` (-100 = ignore)."""
+    ``tokens`` and shifted ``labels`` (-100 = ignore), and for
+    ``tokens+patches`` the ``patch_embeds``, whose positions the loss
+    leaves out."""
     logits, _, aux = forward(cfg, params, batch_in, remat=remat)
+    if cfg.input_mode == "tokens+patches":
+        logits = logits[:, cfg.patch_tokens:]
     loss = lm_loss(cfg, logits, batch_in["labels"])
     return loss + 0.01 * aux, {"lm_loss": loss, "aux_loss": aux}
 
 
 def prefill(cfg: ModelConfig, params: Transformer, batch_in, cache_len: int):
-    """Build decode caches from a prompt.  Returns (logits, cache)."""
+    """Build decode caches from a prompt (its ``patch_embeds`` in front,
+    for ``tokens+patches``).  Returns (logits, cache)."""
     B = batch_in["tokens"].shape[0]
     cache = init_cache(cfg, B, cache_len, device=params.embed.device)
     logits, cache, _ = forward(cfg, params, batch_in, cache=cache, pos=0)
@@ -326,10 +548,10 @@ def prefill(cfg: ModelConfig, params: Transformer, batch_in, cache_len: int):
 
 def decode_step(cfg: ModelConfig, params: Transformer, cache, tokens,
                 pos: int, slot_mask=None):
-    """One decode step: tokens [B], pos an int.  Writes the step's K/V (MLA:
-    latent; SSD: conv window and state) into ``cache`` in place (only the
-    rows where ``slot_mask`` [B] is True, when given).  Returns (logits
-    [B, V], cache)."""
+    """One decode step: tokens [B] ([B, n_cb] for ``codebooks``), pos an
+    int.  Writes the step's K/V (MLA: latent; SSD: conv window and state)
+    into ``cache`` in place (only the rows where ``slot_mask`` [B] is True,
+    when given).  Returns (logits [B, V] ([B, n_cb, V]), cache)."""
     logits, cache, _ = forward(cfg, params, {"tokens": tokens[:, None]},
                                cache=cache, pos=pos, slot_mask=slot_mask)
     return logits[:, 0], cache

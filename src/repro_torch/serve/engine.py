@@ -52,49 +52,66 @@ from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.scheduler import Scheduler, SchedulerConfig
 
 # decode-cache batch axis by leaf name (the launch.sharding.cache_shardings
-# layouts): attn k/v [n_layers, B, S, KV, dh]; mla ckv/krope [n_layers, B,
-# S, r]; ssd conv [n_layers, B, cw-1, d] / state [n_layers, B, H, P, N]
+# layouts), counted from the end so the stacking depth does not matter:
+# attn k/v [..., B, S, KV, dh]; mla ckv/krope [..., B, S, r]; ssd conv
+# [..., B, cw-1, d] / state [..., B, H, P, N]
 _CACHE_BATCH_AXIS = {"k": -4, "v": -4, "ckv": -3, "krope": -3,
                      "conv": -3, "state": -4}
 
 # leaves indexed by position, the ones a cross-slot prefix copy is exact
 # for.  ssd conv/state summarize history (the state after the LAST token,
-# not one entry a position), so prefix reuse is off for layouts with them.
+# not one entry a position), so prefix reuse is off for layouts with them
+# (ssd, zamba).
 _POSITION_INDEXED = ("k", "v", "ckv", "krope")
+
+
+def _leaves(cache, path=()):
+    """``(path, leaf)`` of every tensor of a (nested) cache dict, as the
+    JAX package's ``tree_map_with_path`` walks it."""
+    for name, leaf in cache.items():
+        if isinstance(leaf, dict):
+            yield from _leaves(leaf, path + (name,))
+        else:
+            yield path + (name,), leaf
+
+
+def _batch_axis(path, leaf) -> int:
+    name = path[-1]
+    if name not in _CACHE_BATCH_AXIS:
+        raise KeyError(
+            f"unknown decode-cache leaf {name!r} at {'.'.join(path)}: add "
+            "its batch axis to serve.engine._CACHE_BATCH_AXIS")
+    return _CACHE_BATCH_AXIS[name] % leaf.ndim
 
 
 def _copy_slot(cache, src: int, dst: int):
     """Copy slot ``src``'s cache rows over slot ``dst`` on every leaf, in
     place — the prefix-cache transfer.  Rows are batch-independent, so the
     copied prefix KV is bitwise identical to recomputing it."""
-    for name, leaf in cache.items():
-        if name not in _CACHE_BATCH_AXIS:
-            raise KeyError(
-                f"unknown decode-cache leaf {name!r}: add its batch axis to "
-                "serve.engine._CACHE_BATCH_AXIS")
-        ax = _CACHE_BATCH_AXIS[name] % leaf.ndim
+    for path, leaf in _leaves(cache):
+        ax = _batch_axis(path, leaf)
         leaf.select(ax, dst).copy_(leaf.select(ax, src))
     return cache
 
 
 def _reset_history(cache, slot: int):
     """Zero slot ``slot``'s rows of every leaf that is not indexed by
-    position (ssd ``conv``/``state``), in place: a request admitted onto a
-    slot starts from an empty history, not from the state its previous
-    occupant left (ROADMAP C6: the JAX package's engine carries it over).
+    position (ssd ``conv``/``state``, ``zamba``'s ``units_ssd`` and
+    ``tail_ssd`` too), in place: a request admitted onto a slot starts
+    from an empty history, not from the state its previous occupant left
+    (ROADMAP C6: the JAX package's engine carries it over).
     Position-indexed leaves need no reset: the new request overwrites
     positions as it feeds them and attends causally."""
-    for name, leaf in cache.items():
-        if name not in _POSITION_INDEXED:
-            ax = _CACHE_BATCH_AXIS[name] % leaf.ndim
-            leaf.select(ax, slot).zero_()
+    for path, leaf in _leaves(cache):
+        if path[-1] not in _POSITION_INDEXED:
+            leaf.select(_batch_axis(path, leaf), slot).zero_()
     return cache
 
 
 @dataclasses.dataclass
 class Request:
     rid: int
-    prompt: np.ndarray                 # [Lp]
+    prompt: np.ndarray                 # [Lp] (or [Lp, n_cb])
     max_new_tokens: int = 32
     temperature: float = 0.0
     out_tokens: Optional[list] = None
@@ -126,13 +143,14 @@ class ServeEngine:
         with torch.inference_mode():
             self.cache = T.init_cache(cfg, n_slots, cache_len,
                                       device=self.device)
-        prefix_ok = set(self.cache) <= set(_POSITION_INDEXED)
+        prefix_ok = {path[-1] for path, _ in _leaves(self.cache)} <= \
+            set(_POSITION_INDEXED)
         self.scheduler = Scheduler(SchedulerConfig(
             n_slots=n_slots, cache_len=cache_len,
             prefix_cache=bool(prefix_cache) and prefix_ok))
         self.paged_kv = None
         if getattr(cfg, "attn_sparsity", None) is not None and \
-                cfg.layout == "attn_mlp":
+                cfg.layout in ("attn_mlp", "gemma_pair"):
             from repro_torch.serve.paged_kv import PagedKVCache
             self.paged_kv = PagedKVCache(cfg, cache_len, n_slots,
                                          placement=placement)
@@ -156,18 +174,26 @@ class ServeEngine:
         self.scheduler.enqueue(req)
 
     def _slot_tokens(self, entries) -> torch.Tensor:
-        """Batch token vector with each entry's token in its slot and pad
-        (0) elsewhere."""
-        arr = np.zeros((self.n_slots,), np.int64)
+        """Batch tokens with each entry's token in its slot and pad (0)
+        elsewhere: [n_slots], or [n_slots, n_cb] rows for ``codebooks``."""
+        row = (self.cfg.n_codebooks,) if self.cfg.input_mode == \
+            "codebooks" else ()
+        arr = np.zeros((self.n_slots,) + row, np.int64)
         for slot, token, _ in entries:
             arr[slot] = token
         return torch.from_numpy(arr).to(self.device)
 
-    def _sample(self, logits: np.ndarray, temperature: float) -> int:
+    def _sample(self, logits: np.ndarray, temperature: float):
+        """A token from a slot's logits [V] (an int), or a row of tokens
+        from [n_cb, V] (int32, one a codebook): the argmax, or a draw from
+        the engine's generator above temperature 0."""
         if temperature <= 0:
-            return int(logits.argmax(axis=-1))
+            tok = logits.argmax(axis=-1)
+            return int(tok) if np.ndim(tok) == 0 else tok.astype(np.int32)
         probs = torch.softmax(torch.from_numpy(logits) / temperature, dim=-1)
-        return int(torch.multinomial(probs, 1, generator=self.generator))
+        tok = torch.multinomial(probs, 1, generator=self.generator)
+        return int(tok) if probs.ndim == 1 else \
+            tok[:, 0].numpy().astype(np.int32)
 
     def _mesh_scope(self):
         if self.spmm_mesh is None:

@@ -106,19 +106,20 @@ class PagedKVCache:
     (= the mask meta's ``max_bpr``), resident/offloaded bytes, and the cost
     model's step-read estimates (paged against a dense ring read).
 
-    ``attn_mlp`` is one layer group (all layers share the config's mask and
-    sliding window).  The JAX package's ``gemma_pair`` split (local and
-    global halves) comes with that layout (ROADMAP A7).
+    Layer groups follow the layouts that own k/v rings, as in the JAX
+    package: ``attn_mlp`` is one group (all layers share the config's mask
+    and sliding window); ``gemma_pair`` splits into the local halves
+    (window-capped, possibly a smaller ring) and the global ones, each
+    half decoding through the page table of its own window.
     """
 
     def __init__(self, cfg, cache_len: int, n_slots: int,
                  placement: Optional[PagePlacementSpec] = None):
         if getattr(cfg, "attn_sparsity", None) is None:
             raise ValueError("PagedKVCache requires cfg.attn_sparsity")
-        if cfg.layout != "attn_mlp":
+        if cfg.layout not in ("attn_mlp", "gemma_pair"):
             raise ValueError(
-                f"layout {cfg.layout!r}: only attn_mlp's k/v rings are "
-                "paged in the port (gemma_pair is ROADMAP A7)")
+                f"layout {cfg.layout!r} has no k/v attention rings to page")
         self.cfg = cfg
         self.cache_len = int(cache_len)
         self.n_slots = int(n_slots)
@@ -126,7 +127,11 @@ class PagedKVCache:
 
     def _groups(self):
         """[(name, window, n_layers)] — layer groups sharing one mask."""
-        return [("attn", self.cfg.sliding_window, self.cfg.n_layers)]
+        cfg = self.cfg
+        if cfg.layout == "attn_mlp":
+            return [("attn", cfg.sliding_window, cfg.n_layers)]
+        half = cfg.n_layers // 2
+        return [("local", cfg.sliding_window, half), ("global", None, half)]
 
     def _cache_len(self, window) -> int:
         return min(self.cache_len, window) if window else self.cache_len

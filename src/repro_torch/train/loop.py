@@ -52,9 +52,12 @@ class TrainResult:
 
 
 def batch_to_device(batch, device) -> dict:
-    """A ``make_batch`` batch (numpy int32) as int64 tensors on ``device``."""
-    return {k: torch.from_numpy(v).to(device=device, dtype=torch.int64)
-            for k, v in batch.items()}
+    """A ``make_batch`` batch on ``device``: its ids (numpy int32) as int64
+    tensors, ``patch_embeds`` (float32) as they are (the model casts them
+    to its dtype)."""
+    return {k: torch.from_numpy(v).to(
+        device=device, dtype=None if v.dtype.kind == "f" else torch.int64)
+        for k, v in batch.items()}
 
 
 def train(cfg: ModelConfig, shape: ShapeCell, *, device="cuda",

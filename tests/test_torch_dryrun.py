@@ -24,6 +24,7 @@ import json
 import os
 
 import jax
+import numpy as np
 
 from repro.configs import get_config as jax_get_config
 from repro.configs.base import ShapeCell as JaxShapeCell
@@ -123,6 +124,29 @@ def test_paged_kv_report_equals_jax(jdr, cache_len):
     assert dryrun.paged_kv_report(get_config("smat-ffn-1.3b:smoke")) == {}
 
 
+def test_paged_kv_report_covers_gemma_pair_as_jax(jdr):
+    """A ``gemma_pair`` config with block-sparse attention: the local and
+    global groups, as the JAX dry-run reports them (given the port's
+    bandwidths), their page-table leaf specs too."""
+    from repro.serve import paged_kv as jpk
+    from repro_torch.serve import paged_kv as tpk
+
+    def sparse(get):
+        spec = get("smat-attn-1.3b:smoke").attn_sparsity
+        return dataclasses.replace(get("gemma2-27b:smoke"),
+                                   attn_sparsity=spec)
+    cfg, jcfg = sparse(get_config), sparse(jax_get_config)
+    got = dryrun.paged_kv_report(cfg, cache_len=128)
+    want = jdr.paged_kv_report(jcfg, cache_len=128)
+    bw = tpk.PagePlacementSpec()
+    h100 = jpk.PagedKVCache(jcfg, 128, 4, jpk.PagePlacementSpec(
+        hbm_gbps=bw.hbm_gbps, host_gbps=bw.host_gbps)).report()
+    assert got.pop("table_leaf_specs") == want.pop("table_leaf_specs")
+    assert got == h100
+    assert [g["group"] for g in got["groups"]] == ["local", "global"]
+    assert dryrun.paged_kv_report(get_config("zamba2-7b:smoke")) == {}
+
+
 def _factor(mesh, spec) -> int:
     sizes = dict(mesh.shape)
     n = 1
@@ -133,23 +157,42 @@ def _factor(mesh, spec) -> int:
     return n
 
 
-def _jax_leaves(tree, shardings, mesh, layers):
+def _stack_dims(jcfg) -> dict:
+    """The JAX param tree's stacked subtrees and their stack dims."""
+    if jcfg.layout == "zamba":
+        return {"units": (jcfg.hybrid_n_units, jcfg.hybrid_unit_len),
+                "tail": (jcfg.hybrid_tail,)}
+    return {"blocks": (JT._n_repeats(jcfg),)}
+
+
+def _jax_leaves(tree, shardings, mesh, stacks=None):
     """``{port path: bytes one device holds}`` of a JAX spec tree placed by
-    ``shardings``: stacked ``blocks`` leaves split a layer each."""
+    ``shardings``: the leaves of the stacked subtrees ``stacks`` ({name:
+    stack dims}, at the top or under ``m``/``v``) split a layer each."""
     out = {}
     flat = jax.tree_util.tree_flatten_with_path(tree)[0]
     shard = jax.tree_util.tree_leaves(shardings)
     for (p, leaf), s in zip(flat, shard):
-        path = ".".join(str(getattr(k, "key", getattr(k, "idx", k)))
-                        for k in p)
+        parts = [str(getattr(k, "key", getattr(k, "idx", k))) for k in p]
         nbytes = leaf.size * leaf.dtype.itemsize / _factor(mesh, s.spec)
-        head, sep, rest = path.partition("blocks.")
-        if sep and not head.rstrip(".").count(".") and leaf.shape:
-            for i in range(layers):
-                out[f"{head}blocks.{i}.{rest}"] = nbytes / layers
-        else:
-            out[path] = nbytes
+        at = next((i for i, k in enumerate(parts[:2]) if k in (stacks or {})),
+                  None)
+        if at is None or not leaf.shape:
+            out[".".join(parts)] = nbytes
+            continue
+        dims = stacks[parts[at]]
+        for ix in np.ndindex(*dims):
+            key = parts[:at + 1] + [str(i) for i in ix] + parts[at + 1:]
+            out[".".join(key)] = nbytes / int(np.prod(dims))
     return out
+
+
+def _batch_bytes(batch_specs, shardings, mesh) -> float:
+    """A batch's bytes a device holds, the port's ids int64 (JAX: int32),
+    ``patch_embeds`` bf16 in both."""
+    leaves = _jax_leaves(batch_specs, shardings, mesh)
+    return sum(b * (2 if str(batch_specs[k].dtype) == "int32" else 1)
+               for k, b in leaves.items())
 
 
 CELLS = [("train", 32, 2), ("prefill", 32, 2), ("decode", 64, 2),
@@ -159,7 +202,9 @@ CELLS = [("train", 32, 2), ("prefill", 32, 2), ("decode", 64, 2),
 @pytest.mark.parametrize("name", ["smat-attn-1.3b:smoke",
                                   "deepseek-v2-lite-16b:smoke",
                                   "deepseek-v2-236b:smoke",
-                                  "mamba2-1.3b:smoke"])
+                                  "mamba2-1.3b:smoke", "gemma2-27b:smoke",
+                                  "zamba2-7b:smoke", "musicgen-medium:smoke",
+                                  "pixtral-12b:smoke"])
 @pytest.mark.parametrize("mesh_shape", [(1, 1), (2, 2)])
 @pytest.mark.parametrize("kind,seq,batch", CELLS)
 def test_cell_argument_bytes_follow_the_jax_placement(kind, seq, batch,
@@ -179,7 +224,7 @@ def test_cell_argument_bytes_follow_the_jax_placement(kind, seq, batch,
     params = JT.param_specs(jcfg)
     mode = "serve" if kind != "train" and batch >= 8 else "train"
     p_shard = jsh.param_shardings(jm, params, mode=mode)
-    want = _jax_leaves(params, p_shard, jm, cfg.n_layers)
+    want = _jax_leaves(params, p_shard, jm, _stack_dims(jcfg))
     # the port's schedule buffers: replicated, as every index leaf
     from repro_torch.models import transformer as T
     port = T.flat_specs(T.param_specs(cfg, device="cpu"))
@@ -194,18 +239,16 @@ def test_cell_argument_bytes_follow_the_jax_placement(kind, seq, batch,
         o_shard = jsh.opt_state_shardings(jm, opt, p_shard)
         moments = _jax_leaves({"m": opt["m"], "v": opt["v"]},
                               {"m": o_shard["m"], "v": o_shard["v"]}, jm,
-                              cfg.n_layers)
+                              _stack_dims(jcfg))
         # the port keeps no moment beside an integer leaf
         floating = {k for k, v in port.items() if v.is_floating_point()}
         total += sum(b for k, b in moments.items()
                      if k.split(".", 1)[1] in floating) + 4
-        b_shard = jsh.batch_shardings(jm, batch_specs)
-        total += ids * sum(_jax_leaves(batch_specs, b_shard, jm,
-                                       1).values())
+        total += _batch_bytes(batch_specs,
+                              jsh.batch_shardings(jm, batch_specs), jm)
     elif kind == "prefill":
-        b_shard = jsh.batch_shardings(jm, batch_specs)
-        total += ids * sum(_jax_leaves(batch_specs, b_shard, jm,
-                                       1).values())
+        total += _batch_bytes(batch_specs,
+                              jsh.batch_shardings(jm, batch_specs), jm)
     else:
         tok = batch_specs["tokens"]
         f = _factor(jm, jsh.batch_shardings(jm, batch_specs)["tokens"].spec) \
@@ -213,7 +256,7 @@ def test_cell_argument_bytes_follow_the_jax_placement(kind, seq, batch,
         total += ids * tok.size * tok.dtype.itemsize / f
         cache = JT.cache_specs(jcfg, batch, seq)
         c_shard = jsh.cache_shardings(jm, cache, jcfg, seq_shard=batch < 8)
-        total += sum(_jax_leaves(cache, c_shard, jm, 1).values())
+        total += sum(_jax_leaves(cache, c_shard, jm).values())
     assert rec["memory"]["argument_bytes"] == round(total)
     roof = rec["roofline"]
     assert roof["flops_per_device"] > 0 and roof["bytes_per_device"] > 0
@@ -233,19 +276,23 @@ def test_main_writes_every_cell_and_report(tmp_path):
 
 
 def test_main_all_at_full_size(tmp_path, capsys):
+    """All 12 archs x the 4 shape cells: 41 ok, the 7 ``long_500k`` cells
+    of pure full-attention archs skipped (``cell_applicable``)."""
     out = tmp_path / "all.json"
     assert dryrun.main(["--all", "--device", "cpu", "--out", str(out)]) == 0
     records = json.loads(out.read_text())
     ok = [(r["arch"], r["shape"]) for r in records if r["status"] == "ok"]
-    assert len(ok) == 17
+    assert len(ok) == 41
     assert [(r["arch"], r["shape"]) for r in records
             if r["status"] == "skip"] == [
-        ("deepseek-v2-236b", "long_500k"),
-        ("deepseek-v2-lite-16b", "long_500k"),
-        ("smat-ffn-1.3b", "long_500k")]
-    assert {a for a, s in ok if s == "long_500k"} == {"mamba2-1.3b",
-                                                       "smat-attn-1.3b"}
-    assert "17 cells ok, 0 errors" in capsys.readouterr().out
+        (a, "long_500k") for a in (
+            "deepseek-v2-236b", "deepseek-v2-lite-16b", "minitron-4b",
+            "musicgen-medium", "pixtral-12b", "qwen2.5-14b",
+            "smat-ffn-1.3b")]
+    assert {a for a, s in ok if s == "long_500k"} == {
+        "gemma2-27b", "h2o-danube-1.8b", "mamba2-1.3b", "smat-attn-1.3b",
+        "zamba2-7b"}
+    assert "41 cells ok, 0 errors" in capsys.readouterr().out
 
 
 def test_main_exits_1_on_an_error_record(monkeypatch):

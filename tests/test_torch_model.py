@@ -140,7 +140,8 @@ def test_config_fields_equal_except_backend(arch):
 def test_unported_configs_raise():
     # a shards=2 attention config (the row-sharded score structure, A5)
     # runs, and gives the logits of its shards=0 twin on the same weights;
-    # the zamba layout is not ported and raises
+    # an unknown layout raises ValueError, as the JAX package's
+    # _init_block does
     tcfg = dataclasses.replace(get_config("smat-attn-1.3b:smoke"),
                                dtype="float32")
     cfg = dataclasses.replace(tcfg, attn_sparsity=dataclasses.replace(
@@ -155,9 +156,14 @@ def test_unported_configs_raise():
     assert bool(torch.isfinite(logits).all())
     np.testing.assert_allclose(logits.numpy(), plain.numpy(), rtol=1e-5,
                                atol=1e-5)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        T.Transformer(dataclasses.replace(get_config(ARCH + ":smoke"),
-                                          layout="zamba"), device="cpu")
+    bad = dataclasses.replace(get_config(ARCH + ":smoke"), layout="rwkv")
+    with pytest.raises(ValueError, match="rwkv"):
+        JT.init_params(dataclasses.replace(jax_get_config(ARCH + ":smoke"),
+                                           layout="rwkv"))
+    with pytest.raises(ValueError, match="unknown layout 'rwkv'"):
+        T.Transformer(bad, device="cpu")
+    with pytest.raises(ValueError, match="unknown layout 'rwkv'"):
+        T.init_cache(bad, 1, 8, device="cpu")
 
 
 @pytest.fixture
@@ -316,8 +322,22 @@ def test_new_layouts_prefill_and_greedy_decode_match(new_pair):
     np.testing.assert_array_equal(np.stack(t_toks), np.stack(j_toks))
 
 
-@pytest.mark.parametrize("arch", NEW_ARCHS + [a[:-len(":smoke")]
-                                              for a in NEW_ARCHS])
+# the archs registered with the JAX package's fields unchanged (the two
+# smat archs differ in their backends: test_config_fields_equal_except_backend)
+SAME_ARCHS = ["deepseek-v2-lite-16b", "deepseek-v2-236b", "mamba2-1.3b",
+              "pixtral-12b", "h2o-danube-1.8b", "minitron-4b",
+              "qwen2.5-14b", "gemma2-27b", "zamba2-7b", "musicgen-medium"]
+
+
+def test_every_jax_arch_is_registered():
+    from repro.configs import list_archs as jax_list_archs
+    from repro_torch.configs import list_archs
+    assert sorted(list_archs()) == sorted(jax_list_archs())
+    assert len(list_archs()) == 12
+
+
+@pytest.mark.parametrize("arch", SAME_ARCHS + [a + ":smoke"
+                                               for a in SAME_ARCHS])
 def test_new_config_fields_equal_jax(arch):
     jcfg, tcfg = jax_get_config(arch), get_config(arch)
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)

@@ -350,3 +350,143 @@ def test_moe_weight_bytes_read_only_reachable_experts():
     tr = rl.work_count(cfg, ShapeCell("c", "train", 1, 1), device="cpu")
     rest = total - 131072 - 196608
     assert tr.parts["bytes"]["weights"] == (rest + 256) + rest + 4 * total
+
+
+# ------------------------------- gemma_pair, zamba, codebooks, tokens+patches
+def _plain_prefill_flops(cfg, B, Lq, seed=0):
+    """FlopCounterMode over the plain CPU prefill of random weights (with
+    random patch embeddings in front for ``tokens+patches``)."""
+    model = T.init_params(cfg, device="cpu")
+    rng = np.random.default_rng(seed)
+    P = cfg.patch_tokens if cfg.input_mode == "tokens+patches" else 0
+    row = (cfg.n_codebooks,) if cfg.input_mode == "codebooks" else ()
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(B, Lq - P) + row))}
+    if P:
+        batch["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, P, cfg.d_model)).astype(np.float32))
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        T.prefill(cfg, model, batch, Lq)
+    return fc.get_total_flops()
+
+
+@pytest.mark.parametrize("arch", ["gemma2-27b:smoke", "musicgen-medium:smoke",
+                                  "pixtral-12b:smoke", "h2o-danube-1.8b:smoke",
+                                  "qwen2.5-14b:smoke"])
+def test_work_count_of_the_new_inputs_against_the_plain_forward(arch):
+    """A 2 x 128 prefill: the plain forward scores the whole square of
+    every layer (the count: the causal triangle, within the window where
+    the layer has one: the local halves of ``gemma_pair``, danube's
+    layers) and runs the head (each codebook's) at every position (the
+    count: the last).  The patches of ``tokens+patches`` are positions of
+    the sequence."""
+    cfg = get_config(arch)
+    B, Lq = 2, 128
+    work = rl.work_count(cfg, ShapeCell("p", "prefill", Lq, B), device="cpu")
+    per_pair = 4 * cfg.head_dim * cfg.n_heads * B
+    if cfg.layout == "gemma_pair":
+        half = cfg.n_layers // 2
+        counted = half * (rl._causal_pairs(Lq, cfg.sliding_window) +
+                          rl._causal_pairs(Lq, None))
+    else:
+        counted = cfg.n_layers * rl._causal_pairs(Lq, cfg.sliding_window)
+    gap = per_pair * (cfg.n_layers * Lq * Lq - counted)
+    cb = cfg.n_codebooks if cfg.input_mode == "codebooks" else 1
+    gap += 2 * B * (Lq - 1) * cfg.d_model * cfg.vocab_size * cb
+    assert _plain_prefill_flops(cfg, B, Lq) == work.flops + gap
+    windowed = cfg.layout == "gemma_pair" or bool(cfg.sliding_window)
+    assert windowed == (counted < cfg.n_layers * Lq * (Lq + 1) // 2)
+
+
+def test_work_count_of_zamba_by_hand():
+    """zamba2-7b:smoke (2 units of 2 Mamba2 layers + a tail of 1: 5 ``ssd``
+    layers as mamba2-1.3b:smoke's, 104448 projection flops a token a layer;
+    the shared block applied twice: q/k/v/o 128*128 + 2*128*64 + 128*128 =
+    49152 a token, the MLP 3*128*256 a token, attention 4*32*4 a causal
+    pair a row) prefilling 2 x 64, and its decode cache: 5 conv windows
+    and states, and the 2 units' own K/V rings."""
+    cfg = get_config("zamba2-7b:smoke")
+    work = rl.work_count(cfg, ShapeCell("c", "prefill", 64, 2), device="cpu")
+    ssd_mixer = 2 * 128 * 4 * 288 + 2 * 16 * 32 * (2 * 2 * 528) + \
+        4 * 128 * 16 * 16 * 16
+    want = {"projections": 2 * 128 * 104448 * 5 + 2 * 128 * 49152 * 2,
+            "attention": ssd_mixer * 5 + 4 * 32 * 4 * 2 * (64 * 65 // 2) * 2,
+            "ffn": 2 * 128 * 3 * 128 * 256 * 2,
+            "head": 2 * 2 * 128 * 512}
+    assert {k: work.parts["flops"][k] for k in want} == want
+    ssd_cache = (3 * 288 * 2 + 4096 * 4) * 5 * 2
+    kv = 2 * 2 * 32 * 2 * 2                  # K and V, bf16, a position
+    assert work.parts["bytes"]["kv_cache"] == ssd_cache + kv * 64 * 2
+    dec = rl.work_count(cfg, ShapeCell("c", "decode", 64, 2), device="cpu")
+    assert dec.parts["bytes"]["kv_cache"] == 2 * ssd_cache + kv * 65 * 2
+    # the shared block's weights read once a pass, not once a unit
+    flat = T.flat_specs(T.param_specs(cfg, device="cpu"))
+    total = sum(v.numel() * v.element_size() for v in flat.values()
+                if v.is_floating_point())
+    embed = 512 * 128 * 2
+    assert work.parts["bytes"]["weights"] == total - embed + embed * 128 / 512
+
+
+@pytest.mark.parametrize("arch", ["gemma2-27b:smoke", "zamba2-7b:smoke",
+                                  "musicgen-medium:smoke",
+                                  "pixtral-12b:smoke"])
+@pytest.mark.parametrize("kind,seq", [("train", 64), ("prefill", 64),
+                                      ("decode", 64), ("decode", 96)])
+def test_new_layout_bytes_from_the_specs(arch, kind, seq):
+    """Each byte term from the specs: the weights (the embedding rows the
+    text positions gather, from every codebook's table), the inputs, the
+    decode cache (a prefill writes every leaf; a decode step reads each
+    K/V ring and writes one row, reads and writes each conv window and
+    state), the logits (every codebook's; a train step's at the text
+    positions) and AdamW's state."""
+    cfg = get_config(arch)
+    B, V = 2, cfg.vocab_size
+    work = rl.work_count(cfg, ShapeCell("c", kind, seq, B), device="cpu")
+    flat = T.flat_specs(T.param_specs(cfg, device="cpu"))
+    floats = {k: t for k, t in flat.items() if t.is_floating_point()}
+    total = _spec_bytes(floats)
+    embed = _spec_bytes(flat["embed"])
+    P = cfg.patch_tokens if cfg.input_mode == "tokens+patches" else 0
+    text = B if kind == "decode" else B * (seq - P)
+    weights = total - embed * (V - min(text, V)) / V
+    if kind == "train":
+        weights += (total - embed) + total + 3 * total
+    kv = 0.0
+    if kind != "train":
+        for name, leaf in T.flat_specs(T.cache_specs(cfg, B, seq)).items():
+            nbytes = leaf.numel() * leaf.element_size()
+            if kind == "prefill":
+                kv += nbytes
+            elif name.rsplit(".", 1)[-1] in ("k", "v"):
+                ring = leaf.shape[-3]
+                kv += nbytes * (ring + 1) / ring
+            else:
+                kv += 2 * nbytes
+    state = 0
+    if kind == "train":
+        opt = st.opt_specs(cfg, flat)
+        state = 2 * (_spec_bytes(opt["m"]) + _spec_bytes(opt["v"]))
+    cb = cfg.n_codebooks if cfg.input_mode == "codebooks" else 1
+    want = {"weights": weights,
+            "inputs": _spec_bytes(st.input_specs(
+                cfg, ShapeCell("c", kind, seq, B))),
+            "logits": 4 * (text if kind == "train" else B) * V * cb,
+            "kv_cache": kv, "optimizer_state": state}
+    assert work.parts["bytes"] == pytest.approx(want, rel=1e-12, abs=0)
+    if kind != "train":
+        _, outs, _ = dryrun._cell_leaves(
+            cfg, ShapeCell("c", kind, seq, B), dryrun.make_mesh(), True,
+            "cpu")
+        assert outs["logits"] == want["logits"]
+
+
+@pytest.mark.parametrize("arch", ["gemma2-27b", "zamba2-7b",
+                                  "musicgen-medium", "pixtral-12b",
+                                  "h2o-danube-1.8b", "minitron-4b",
+                                  "qwen2.5-14b", "gemma2-27b:smoke",
+                                  "zamba2-7b:smoke"])
+def test_model_flops_of_the_new_archs_equal_jax(arch):
+    cfg, jcfg = get_config(arch), jax_get_config(arch)
+    for name in SHAPES:
+        assert rl.model_flops_for(cfg, SHAPES[name]) == \
+            jrl.model_flops_for(jcfg, JAX_SHAPES[name])

@@ -217,7 +217,8 @@ def test_sharded_engine_matches_jax_decode_oracle(monkeypatch, n_slots):
 
 
 # ------------------------------------------- the mla_moe and ssd layouts
-NEW_ARCHS = ["deepseek-v2-lite-16b:smoke", "mamba2-1.3b:smoke"]
+NEW_ARCHS = ["deepseek-v2-lite-16b:smoke", "mamba2-1.3b:smoke",
+             "gemma2-27b:smoke", "zamba2-7b:smoke"]
 
 
 @pytest.fixture(scope="module", params=NEW_ARCHS)
@@ -274,9 +275,10 @@ def test_new_layout_concurrent_requests_match_solo(new_model):
 
 
 def test_new_layout_prefix_reuse_follows_the_cache_leaves(new_model):
-    """MLA's latent ring is position-indexed: a shared prefix is copied
-    (one hit) and the request decodes as alone.  Mamba2's state summarizes
-    the history: prefix reuse is off, as in the JAX package."""
+    """MLA's latent ring and gemma_pair's local and global K/V rings are
+    position-indexed: a shared prefix is copied (one hit) and the request
+    decodes as alone.  Mamba2's state (zamba's too) summarizes the
+    history: prefix reuse is off, as in the JAX package."""
     tcfg, model = new_model
     jobs = [(0, [7, 8, 9, 10, 11]), (1, [3]), (2, [7, 8, 9, 10, 40])]
     solo = {}
@@ -287,13 +289,15 @@ def test_new_layout_prefix_reuse_follows_the_cache_leaves(new_model):
     for rid, tok in eng.generate([Request(r, np.asarray(p, np.int32), 2)
                                   for r, p in jobs]):
         got.setdefault(rid, []).append(tok)
-    mla = tcfg.layout == "mla_moe"
-    assert eng.scheduler.config.prefix_cache == mla
-    assert eng.scheduler.prefix_hits == (1 if mla else 0)
+    rings = tcfg.layout in ("mla_moe", "gemma_pair")
+    assert eng.scheduler.config.prefix_cache == rings
+    assert eng.scheduler.prefix_hits == (1 if rings else 0)
     assert got == solo
 
 
-@pytest.mark.parametrize("arch", NEW_ARCHS + ["deepseek-v2-236b:smoke"])
+@pytest.mark.parametrize("arch", NEW_ARCHS + ["deepseek-v2-236b:smoke",
+                                              "musicgen-medium:smoke",
+                                              "pixtral-12b:smoke"])
 def test_serve_cli_runs_the_new_archs_on_cpu(arch, capsys):
     assert serve_cli.main(["--arch", arch, "--device", "cpu", "--requests",
                            "3", "--slots", "2", "--prompt-len", "3",

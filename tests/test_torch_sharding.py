@@ -32,7 +32,10 @@ from repro_torch.launch import sharding as tsh
 from repro_torch.models import transformer as T
 
 MESHES = [((2, 4), ("data", "model")), ((2, 2, 2), ("pod", "data", "model"))]
-ARCHS = ["smat-ffn-1.3b:smoke", "smat-attn-1.3b:smoke", "sharded-ffn"]
+ARCHS = ["smat-ffn-1.3b:smoke", "smat-attn-1.3b:smoke", "sharded-ffn",
+         "gemma2-27b:smoke", "zamba2-7b:smoke", "musicgen-medium:smoke"]
+# the port's stacked axes: one module a layer (``zamba``: units x2)
+_STACKED = {"blocks": 1, "units": 2, "tail": 1}
 
 
 def _jax_cfg(arch):
@@ -109,9 +112,12 @@ def test_param_and_opt_specs_equal_jax(arch, shape, axes):
     names = {p[-1] for p, _ in _flat(params)}
     if arch == "sharded-ffn":
         assert {"shard_src", "gather_rows"} <= names
+    if arch == "musicgen-medium:smoke":      # the 3-D codebook tables
+        got = _port(tsh.param_shardings(tm, params))
+        assert got[("embed",)][0] is None and len(got[("embed",)]) == 3
 
 
-@pytest.mark.parametrize("arch", ARCHS[:2])
+@pytest.mark.parametrize("arch", ARCHS[:2] + ARCHS[3:5])
 @pytest.mark.parametrize("shape,axes", MESHES)
 def test_batch_and_cache_specs_equal_jax(arch, shape, axes):
     jm, tm = _meshes(shape, axes)
@@ -129,26 +135,33 @@ def test_batch_and_cache_specs_equal_jax(arch, shape, axes):
                 _specs(jsh.cache_shardings(jm, cache, cfg, seq_shard))
 
 
+@pytest.mark.parametrize("arch", ["smat-ffn-1.3b:smoke", "gemma2-27b:smoke",
+                                  "zamba2-7b:smoke",
+                                  "musicgen-medium:smoke"])
 @pytest.mark.parametrize("shape,axes", MESHES)
-def test_port_model_specs_are_jax_specs_less_the_stack_axis(shape, axes):
-    """The port keeps one module a layer: a block leaf's spec is the JAX
-    stacked leaf's without its leading (layer) dim."""
+def test_port_model_specs_are_jax_specs_less_the_stack_axis(shape, axes,
+                                                             arch):
+    """The port keeps one module a layer: a stacked leaf's spec is the JAX
+    leaf's without its leading (layer) dims (``zamba``'s ``units``: two;
+    its ``shared_attn``: none); ``gemma_pair``'s ``local``/``global``
+    halves and the 3-D codebook tables placed as JAX places them."""
     jm, tm = _meshes(shape, axes)
     params = jax.eval_shape(lambda: JT.init_params(
-        jax_get_config("smat-ffn-1.3b:smoke"), seed=0))
+        jax_get_config(arch), seed=0))
     want = _specs(jsh.param_shardings(jm, params))
-    model = T.Transformer(get_config("smat-ffn-1.3b:smoke"), device="meta")
+    model = T.Transformer(get_config(arch), device="meta")
     got = tsh.param_shardings(tm, dict(model.named_parameters()))
-    checked = 0
+    seen = set()
     for name, spec in got.items():       # the flat dict keeps its keys
         path = tuple(name.split("."))
-        if path[0] == "blocks":           # blocks.<i>.<module>...<leaf>
-            jpath = ("blocks",) + path[2:]
-            assert tuple(spec) == want[jpath][1:], path
-        else:
-            assert tuple(spec) == want[path], path
-        checked += 1
-    assert checked == len(list(model.parameters()))
+        lead = _STACKED.get(path[0], 0)  # blocks.<i>.<module>...<leaf>
+        jpath = path[:1] + path[1 + lead:]
+        assert tuple(spec) == want[jpath][lead:], path
+        seen.add(jpath)
+    assert len(got) == len(list(model.parameters()))
+    # every floating JAX leaf is a parameter of the port's model
+    assert seen == {p for p, leaf in _flat(params)
+                    if jax.numpy.issubdtype(leaf.dtype, jax.numpy.floating)}
 
 
 def test_constrain_is_the_identity_without_a_mesh():

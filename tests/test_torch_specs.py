@@ -2,16 +2,17 @@
 
 Every leaf of ``param_specs``, ``cache_specs``, ``input_specs``,
 ``opt_specs`` and ``sparse_linear_specs`` (unsharded, ``shards=2``, with
-and without a seed) of every registered arch's ``:smoke`` view (the sparse
-FFN and attention archs, both DeepSeek-V2 MLA/MoE archs and Mamba2) must
-have the shape and
-dtype of the JAX package's ``jax.eval_shape`` leaf at the same path, the
-layer stack unstacked as ``convert.params_from_jax`` reads it.  Stated
+and without a seed) of every registered arch's ``:smoke`` view (all
+twelve: every layout and input mode) must have the shape and dtype of the
+JAX package's ``jax.eval_shape`` leaf at the same path, the layer stack
+unstacked as ``convert.params_from_jax`` reads it (``zamba``'s ``units``
+twice).  Stated
 differences, each checked exactly:
 
 * the port's sparse layers add its schedule buffers (``ops.PORT_FIELDS``);
   with the layer's seed each has the shape of the built model's buffer;
-* token ids are int64 (what the port feeds), int32 in the JAX package;
+* token ids are int64 (what the port feeds), int32 in the JAX package
+  (``patch_embeds`` are bf16 in both);
 * AdamW's state is kept for the floating parameters only (the JAX package
   keeps a 0-d moment beside every integer leaf too).
 
@@ -41,9 +42,11 @@ from repro_torch.kernels import ops
 from repro_torch.launch import steps as st
 from repro_torch.models import transformer as T
 
-ARCHS = ["smat-ffn-1.3b:smoke", "smat-attn-1.3b:smoke",
-         "deepseek-v2-lite-16b:smoke", "deepseek-v2-236b:smoke",
-         "mamba2-1.3b:smoke"]
+FULL = ["smat-ffn-1.3b", "smat-attn-1.3b", "deepseek-v2-lite-16b",
+        "deepseek-v2-236b", "mamba2-1.3b", "pixtral-12b", "h2o-danube-1.8b",
+        "minitron-4b", "qwen2.5-14b", "gemma2-27b", "zamba2-7b",
+        "musicgen-medium"]
+ARCHS = [a + ":smoke" for a in FULL]
 CELLS = [("train", 64, 2), ("prefill", 64, 2), ("decode", 96, 3)]
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "int32": torch.int32, "bool": torch.bool}
@@ -59,21 +62,34 @@ def _jax_flat(tree) -> dict:
             jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-def _unstacked(jflat: dict, n_layers: int) -> dict:
-    """JAX ``{path: (shape, dtype)}`` with ``blocks.*`` leaves split into
-    one entry a layer (``blocks.<i>.*``), as the port's model holds them
-    (a 0-d leaf there, AdamW's moment of a stacked integer leaf, stands
-    for one a layer)."""
+def _stack_dims(jcfg) -> dict:
+    """The JAX tree's stacked subtrees and their stack dims: ``blocks``
+    over the repeats (a ``gemma_pair`` block is a pair of layers);
+    ``zamba``'s ``units`` [n_units, unit_len] and ``tail``."""
+    if jcfg.layout == "zamba":
+        return {"units": (jcfg.hybrid_n_units, jcfg.hybrid_unit_len),
+                "tail": (jcfg.hybrid_tail,)}
+    return {"blocks": (JT._n_repeats(jcfg),)}
+
+
+def _unstacked(jflat: dict, jcfg) -> dict:
+    """JAX ``{path: (shape, dtype)}`` with each stacked leaf split into one
+    entry a layer (``blocks.<i>.*``; ``units.<u>.<j>.*``), as the port's
+    model holds them (a 0-d leaf there, AdamW's moment of a stacked
+    integer leaf, stands for one a layer)."""
     out = {}
+    stacks = _stack_dims(jcfg)
     for path, leaf in jflat.items():
         shape, dtype = tuple(leaf.shape), DTYPES[str(leaf.dtype)]
-        if path.startswith("blocks."):
-            assert shape == () or shape[0] == n_layers, path
-            for i in range(n_layers):
-                out[f"blocks.{i}.{path[len('blocks.'):]}"] = (shape[1:],
-                                                              dtype)
-        else:
+        head, _, rest = path.partition(".")
+        dims = stacks.get(head)
+        if dims is None:
             out[path] = (shape, dtype)
+            continue
+        assert shape == () or shape[:len(dims)] == dims, path
+        for ix in np.ndindex(*dims):
+            key = ".".join([head, *map(str, ix), rest])
+            out[key] = (shape[len(dims):], dtype)
     return out
 
 
@@ -86,7 +102,7 @@ def arch(request):
     name = request.param
     jcfg = jax_get_config(name)
     return name, get_config(name), jcfg, \
-        _unstacked(_jax_flat(JT.param_specs(jcfg)), jcfg.n_layers)
+        _unstacked(_jax_flat(JT.param_specs(jcfg)), jcfg)
 
 
 def test_param_specs_equal_jax_and_the_model(arch):
@@ -106,11 +122,11 @@ def test_param_specs_equal_jax_and_the_model(arch):
 
 def test_cache_specs_equal_jax(arch):
     _, cfg, jcfg, _ = arch
-    got = _port(T.cache_specs(cfg, 3, 40))
+    got = _port(T.flat_specs(T.cache_specs(cfg, 3, 40)))
     want = {k: (tuple(v.shape), DTYPES[str(v.dtype)])
-            for k, v in JT.cache_specs(jcfg, 3, 40).items()}
+            for k, v in _jax_flat(JT.cache_specs(jcfg, 3, 40)).items()}
     assert got == want
-    built = T.init_cache(cfg, 3, 40, device="cpu")
+    built = T.flat_specs(T.init_cache(cfg, 3, 40, device="cpu"))
     assert got == {k: (tuple(v.shape), v.dtype) for k, v in built.items()}
 
 
@@ -122,7 +138,10 @@ def test_input_specs_equal_jax(arch, kind, seq, batch):
     assert set(got) == set(want)
     for k, v in got.items():
         assert tuple(v.shape) == tuple(want[k].shape), k
-        assert str(want[k].dtype) == "int32" and v.dtype == torch.int64
+        if k == "patch_embeds":
+            assert str(want[k].dtype) == "bfloat16" == str(v.dtype)[6:]
+        else:
+            assert str(want[k].dtype) == "int32" and v.dtype == torch.int64
         assert v.device.type == "meta"
 
 
@@ -131,7 +150,7 @@ def test_opt_specs_follow_adamw_init(arch):
     params = T.param_specs(cfg, device="cpu")
     got = st.opt_specs(cfg, params)
     jopt = jst.opt_specs(jcfg, JT.param_specs(jcfg))
-    jm = _unstacked(_jax_flat(jopt["m"]), jcfg.n_layers)
+    jm = _unstacked(_jax_flat(jopt["m"]), jcfg)
     floating = {k for k, v in T.flat_specs(params).items()
                 if v.is_floating_point()}
     assert set(got["m"]) == set(got["v"]) == floating
@@ -181,8 +200,7 @@ def test_sparse_linear_specs_equal_jax(kw, seed):
                               for k, v in built.items()}
 
 
-CONFIGS = ARCHS + ["smat-ffn-1.3b", "smat-attn-1.3b", "deepseek-v2-lite-16b",
-                   "deepseek-v2-236b", "mamba2-1.3b"]
+CONFIGS = ARCHS + FULL
 EXAMPLE_100M = dict(
     name="smat-ffn-100m", family="dense", layout="attn_mlp", n_layers=12,
     d_model=768, n_heads=12, n_kv_heads=4, head_dim=64, d_ff=3072,
@@ -217,9 +235,15 @@ def test_param_counts_of_the_full_width_archs():
 
 
 def test_param_count_raises_for_layouts_not_ported():
-    cfg = dataclasses.replace(get_config(ARCHS[0]), layout="zamba")
-    with pytest.raises(NotImplementedError, match="A7"):
-        cfg.param_count()
+    """Every layout is ported now: ``zamba`` counts its Mamba2 layers, then
+    the shared block once, exactly as the JAX package does (5.74 B for
+    zamba2-7b), here for a config of another shape too."""
+    cfg = dataclasses.replace(get_config("zamba2-7b"), hybrid_n_units=3,
+                              hybrid_unit_len=2, hybrid_tail=0)
+    jcfg = dataclasses.replace(jax_get_config("zamba2-7b"), hybrid_n_units=3,
+                               hybrid_unit_len=2, hybrid_tail=0)
+    assert cfg.param_count() == jcfg.param_count()
+    assert get_config("zamba2-7b").param_count() == 5_736_657_792
 
 
 @pytest.mark.parametrize("kw", SPECS[:3], ids=["b16", "b16x32", "shards2"])

@@ -261,9 +261,13 @@ def test_remat_full_matches_none():
     for name, g in grads["none"].items():
         torch.testing.assert_close(grads["full"][name], g, rtol=1e-6,
                                    atol=1e-6, msg=name)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        T.train_loss(tcfg, T.init_params(tcfg, seed=0, device="cpu"), batch,
-                     remat="dots")
+    # "dots" (a selective checkpoint, ported in PR 23) gives the same
+    # loss; an unknown policy raises, as the JAX package's would not run it
+    model = T.init_params(tcfg, seed=0, device="cpu")
+    loss, _ = T.train_loss(tcfg, model, batch, remat="dots")
+    assert float(loss.detach()) == losses["none"]
+    with pytest.raises(ValueError, match="unknown remat"):
+        T.train_loss(tcfg, model, batch, remat="offload")
 
 
 # -------------------------------------------------------------- checkpoint
