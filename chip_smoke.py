@@ -27,7 +27,12 @@ partitioned SpMM path (``launch.dist_spmm``) runs in ``[dist-parity]``,
 ``[dist-timing]``, ``[serve-sharded]``, ``[train-sharded]``,
 ``[prefill-attn-sharded]`` (``shards=4``: every shard's product on the
 same kernels, counted by family) and ``[dist-mesh]`` (a one-rank nccl
-mesh).  Right after ``[build]``, ``[analysis]`` runs the static contract
+mesh); ``[train-mesh]`` trains ``smat-ffn-1.3b`` at full width through
+``train.loop.train(cfg, shape, mesh)`` on a one-rank nccl ``(data,
+model)`` mesh, parameters and AdamW state stored as ``DTensor``s under
+the sharding rules (losses bit-equal to ``[train]``'s), then checks a
+mesh-agnostic checkpoint and the int8 gradient compression on the card.
+Right after ``[build]``, ``[analysis]`` runs the static contract
 analyzer (``python -m repro_torch.analysis --all``), holds every kernel
 instantiation's shared-memory formula to the library's own query and its
 registers (``cuobjdump -res-usage``) to the H100's limits, launches B5 at
@@ -1505,7 +1510,7 @@ def train_phase(cfg, smi):
     torch.cuda.empty_cache()
     return launches, {"step_ms": step_ms,
                       "tokens_per_s": TRAIN_N / step_ms * 1e3,
-                      "losses": res.losses}
+                      "losses": res.losses, "peak_gb": peak_gb}
 
 
 def train_vs_plain_phase(cfg):
@@ -3779,24 +3784,36 @@ def prefill_attn_sharded_phase(smi):
     return counts, {"prefill_ms": dt * 1e3, "unsharded_ms": dt0 * 1e3}
 
 
+@contextlib.contextmanager
+def _one_rank_nccl():
+    """A one-rank ``nccl`` process group on the card (any free local port;
+    ``gloo`` when a rehearsal sets DEVICE to the CPU), destroyed on the way
+    out."""
+    import socket
+
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("nccl" if DEVICE == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def dist_mesh_phase():
     """A one-rank ``nccl`` group on the card: ``spmm_sharded`` through a
     ``(1,)`` ``"spmm"`` mesh, bit for bit equal to the in-process S = 1
     run (forward and both gradients), at the gate/up shape in bf16, N =
     64.  This runs the collectives' code path on the card; the multi-rank
     mode is held on the CPU (``tests/test_torch_dist_mesh.py``)."""
-    import socket
-
-    import torch.distributed as dist
-
     from repro_torch.launch import dist_spmm
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    torch.cuda.set_device(0)
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
-                            world_size=1, rank=0)
-    try:
+    with _one_rank_nccl():
         mesh = dist_spmm.make_spmm_mesh(1)
         a = _ffn_pattern("gate_up")
         arrays, smeta = _ffn_sharded(a, 1, torch.bfloat16)
@@ -3816,8 +3833,172 @@ def dist_mesh_phase():
             f"bitwise equal to in-process {same} "
             f"{'ok' if all(same) else 'FAIL'}")
         check(all(same), "[dist-mesh] mesh mode differs from in-process")
-    finally:
-        dist.destroy_process_group()
+
+
+def _full(t):
+    """A ``DTensor`` gathered whole; any other tensor as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _first_difference(cfg, shape, mesh, opt_cfg):
+    """``(step, parameter)`` of the first difference between the plain
+    step and the mesh step, run side by side from the same weights on the
+    same batches (None if every parameter stays bit-equal)."""
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import steps as st
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    model = T.init_params(cfg, seed=0, device=DEVICE)
+    opt = adamw.init(dict(model.named_parameters()))
+    sharded = st.shard_model(T.init_params(cfg, seed=0, device=DEVICE), mesh)
+    sharded_opt = st.init_opt_state(sharded)
+    b_specs = sh.batch_shardings(mesh, st.input_specs(cfg, shape))
+    plain_step = st.make_train_step(cfg, opt_cfg, remat="none")
+    mesh_step = st.make_train_step(cfg, opt_cfg, remat="none", mesh=mesh)
+    for step in range(TRAIN_STEPS):
+        batch = loop.batch_to_device(make_batch(cfg, shape, step), DEVICE)
+        model, opt, _ = plain_step(model, opt, batch)
+        sharded, sharded_opt, _ = mesh_step(
+            sharded, sharded_opt, sh.distribute_tree(mesh, batch, b_specs))
+        for name, p in model.named_parameters():
+            if not torch.equal(p, _full(sharded.shards[name])):
+                return step, name
+    return None
+
+
+def train_mesh_phase(cfg, smi, trained):
+    """The training mesh (A11) on the card: a one-rank ``nccl`` group, a
+    ``(data, model) = (1, 1)`` mesh, and ``smat-ffn-1.3b`` at full width
+    and depth through ``train.loop.train(cfg, shape, mesh)``: TRAIN_STEPS
+    steps of 2 x 1024 tokens, bf16, ``nnz_stream``, the batches and seed of
+    ``[train]``.  Parameters and AdamW state are ``DTensor``s under the
+    sharding rules; a step gathers them, so the gathered parameters sit
+    beside the stored ones.  Every collective of one rank is an identity:
+    the losses must equal ``[train]``'s bit for bit (otherwise the phase
+    steps both paths side by side and names the first step and parameter
+    that differ), with ``[train]``'s 144 B1 and 72 B2 launches a step.  ms
+    a step and peak memory beside ``[train]``'s.  At ``:smoke`` size: a
+    checkpoint written on the mesh is byte-identical to one written without
+    it, and restores onto the mesh (``shardings=``), is saved again and
+    restores bit-equal; ``ef_compress_grads`` over the one-rank group on a
+    card tensor equals the same function on the CPU (a one-rank ``gloo``
+    group) bit for bit."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps as st
+    from repro_torch.launch.constrain import use_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw, compress
+    from repro_torch.train import loop
+
+    shape = ShapeCell("chip", "train", TRAIN_SEQ, TRAIN_BATCH)
+    opt_cfg = adamw.AdamWConfig(total_steps=TRAIN_STEPS)
+    with _one_rank_nccl():
+        mesh = mesh_lib.make_mesh((1, 1), ("data", "model"),
+                                  device_type=DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = loop.train(cfg, shape, mesh, total_steps=TRAIN_STEPS,
+                         opt_cfg=opt_cfg, remat="none")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        steady = res.step_times[1:]
+        step_ms = 1e3 * sum(steady) / len(steady)
+        _measured("train_mesh", cfg, "train", TRAIN_BATCH, TRAIN_SEQ,
+                  step_ms)
+        want = {name: n * cfg.n_layers * TRAIN_STEPS
+                for name, n in _counts(**{B1: 6, B2: 3}).items()}
+        same = res.losses == trained["losses"]
+        log(f"[train-mesh] {cfg.name} full width on a one-rank nccl mesh "
+            f"{mesh_lib.axis_sizes(mesh)}: losses {res.losses}; [train]'s "
+            f"{trained['losses']}; bit-equal {same}")
+        log(f"[train-mesh] step ms {[round(1e3 * t, 3) for t in res.step_times]}"
+            f"; steady {step_ms:.3f} ms = {TRAIN_N / step_ms * 1e3:.1f} "
+            f"tokens/s ([train] {trained['step_ms']:.3f} ms); peak memory "
+            f"{peak_gb:.2f} GB ([train] {trained['peak_gb']:.2f} GB); "
+            f"{wall:.1f}s with model build; launches {launches}, expected "
+            f"{want}; {smi}")
+        if not same:
+            log(f"[train-mesh] first (step, parameter) that differs: "
+                f"{_first_difference(cfg, shape, mesh, opt_cfg)}")
+        check(res.final_step == TRAIN_STEPS and same,
+              "[train-mesh] losses differ from [train]'s")
+        check(launches == want,
+              f"[train-mesh] launch counts {launches} != {want}")
+
+        smoke = get_config("smat-ffn-1.3b:smoke")
+        small = ShapeCell("t", "train", 32, 2)
+        kw = dict(total_steps=2, ckpt_every=2, opt_cfg=adamw.AdamWConfig(
+            lr=1e-3, total_steps=2, warmup_steps=1))
+        with tempfile.TemporaryDirectory() as tmp:
+            loop.train(smoke, small, mesh, ckpt_dir=f"{tmp}/mesh", **kw)
+            loop.train(smoke, small, device=DEVICE, ckpt_dir=f"{tmp}/plain",
+                       **kw)
+            written = {d: [(Path(tmp) / d / "step_00000002" / f).read_bytes()
+                           for f in ("arrays.npz", "manifest.json")]
+                       for d in ("mesh", "plain")}
+            model = st.shard_model(T.init_params(smoke, seed=0,
+                                                 device=DEVICE), mesh)
+            opt = st.init_opt_state(model)
+            like = {"params": model.state_dict(), "opt": opt}
+            shardings = st.state_shardings(model, opt)
+            mgr = CheckpointManager(f"{tmp}/mesh", async_save=False)
+            state, step = mgr.restore(like, shardings=shardings)
+            mgr.save(step + 1, state)
+            again, _ = mgr.restore(like, step=step + 1, shardings=shardings)
+            a, b = dict(_leaves(state)), dict(_leaves(again))
+            restored = (sorted(a) == sorted(b) and all(
+                type(b[k]) is type(v) and b[k].dtype == v.dtype and
+                torch.equal(_full(b[k]), _full(v)) for k, v in a.items())
+                and hasattr(state["params"]["embed"], "full_tensor"))
+        bytes_equal = written["mesh"] == written["plain"]
+        log(f"[train-mesh] smoke checkpoint at step 2: written on the mesh "
+            f"== written without it, byte for byte: {bytes_equal}; restored "
+            f"onto the mesh as DTensors, re-saved and restored bit-equal "
+            f"over {len(a)} tensors: {restored}")
+        check(bytes_equal and restored, "[train-mesh] checkpoint on the "
+              "mesh is not mesh-agnostic or does not restore bit-equal")
+
+        rng = np.random.default_rng(5)
+        grads = {"w": torch.from_numpy(rng.standard_normal(
+                     (2048, 512)).astype(np.float32)),
+                 "b": torch.from_numpy(rng.standard_normal(
+                     8192).astype(np.float32)).to(torch.bfloat16)}
+        out = {}
+        cpu_mesh = DeviceMesh.from_group(dist.new_group([0], backend="gloo"),
+                                         "cpu", mesh_dim_names=("data",))
+        card_mesh = mesh_lib.make_mesh((1,), ("data",), device_type=DEVICE)
+        for label, m, dev in (("card", card_mesh, DEVICE),
+                              ("cpu", cpu_mesh, "cpu")):
+            g = {k: v.to(dev) for k, v in grads.items()}
+            with use_mesh(m):
+                r = compress.init_residual(g)
+                for _ in range(2):           # the second step carries r
+                    g_hat, r = compress.ef_compress_grads(g, r, "data")
+            out[label] = {**{"g_hat/" + k: v.cpu() for k, v in g_hat.items()},
+                          **{"r/" + k: v.cpu() for k, v in r.items()}}
+        equal = all(torch.equal(out["card"][k], v)
+                    for k, v in out["cpu"].items())
+        log(f"[train-mesh] ef_compress_grads, 2 steps over the one-rank "
+            f"group: card == CPU bit for bit over {len(out['cpu'])} "
+            f"tensors: {equal}")
+        check(equal, "[train-mesh] gradient compression differs on the card")
+    torch.cuda.empty_cache()
+    return launches, {"step_ms": step_ms, "peak_gb": peak_gb,
+                      "losses": res.losses}
 
 
 # ------------------------------------------- the MLA/MoE and SSD layouts
@@ -4354,6 +4535,8 @@ def main():
                                           trained["losses"])
     train_sh_launches, trained_sh = phase(train_sharded_phase, cfg, smi,
                                           trained["losses"])
+    train_mesh_launches, trained_mesh = phase(train_mesh_phase, cfg, smi,
+                                              trained)
     phase(train_vs_plain_phase, cfg)
     phase(train_row_loop_vs_plain_phase, cfg)
     phase(restart_phase)
@@ -4439,6 +4622,7 @@ def main():
              "train_attn": train_attn_launches,
              "serve_sharded": serve_sh_launches,
              "train_sharded": train_sh_launches,
+             "train_mesh": train_mesh_launches,
              "prefill_attn_sharded": prefill_sh_launches,
              # the paths without a TPU kernel: 0 launches each
              **{path: r["launches"] for path, r in (
@@ -4542,7 +4726,10 @@ def main():
         f"tok/s (row_loop); training: {trained['step_ms']:.3f} ms per step, "
         f"{trained['tokens_per_s']:.1f} tokens/s (nnz_stream), "
         f"{trained_rl['step_ms']:.3f} ms, {trained_rl['tokens_per_s']:.1f} "
-        f"tokens/s (row_loop).  Autotune winners: "
+        f"tokens/s (row_loop); on a one-rank (1, 1) mesh "
+        f"{trained_mesh['step_ms']:.3f} ms per step, peak "
+        f"{trained_mesh['peak_gb']:.2f} GB ([train] "
+        f"{trained['peak_gb']:.2f} GB).  Autotune winners: "
         f"{ {f'{k[0]} {k[1]} N={k[2]}': v for k, v in winners.items()} }.  "
         f"Kernel times per launch: {B1} and {B3} at the decode shape "
         f"(N={N_SLOTS}; train_forward and train_dB at N={TRAIN_N}, "

@@ -15,6 +15,14 @@ State is a nested dict of tensors, e.g. ``{"params": model.state_dict(),
 update its tensors in place at once.  bf16 (and fp8) leaves are stored as
 unsigned-integer views with the true dtype in the manifest, and decoded
 through torch alone (no ``ml_dtypes``).
+
+Mesh-agnostic: a ``DTensor`` leaf (a training mesh's shard) is gathered
+with ``full_tensor()`` on the calling thread, on every rank, since the
+gather is a collective; only then may the background writer run, and under
+an initialised process group only rank 0 writes.  A checkpoint written on
+a mesh is byte-identical to one written without one.  ``restore(...,
+shardings=...)`` distributes each leaf under its ``NamedSharding``
+(``launch.sharding``): a relaunch re-shards onto whatever mesh it has.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 # numpy's savez cannot store these dtypes: they are stored as raw unsigned
 # ints of their width (the JAX package's encoding); torch views them through
@@ -68,12 +77,20 @@ def _decode(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def _unflatten_into(like, flat: Dict[str, torch.Tensor], prefix: str = ""):
+def _gathered(t):
+    """A ``DTensor`` leaf as its full tensor (a collective: every rank
+    calls it, in the same order), any other leaf as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _unflatten_into(like, flat: Dict[str, torch.Tensor], prefix: str = "",
+                    shardings=None):
     out = {}
     for key, leaf in like.items():
         path = f"{prefix}{key}"
+        sharding = None if shardings is None else shardings[key]
         if isinstance(leaf, dict):
-            out[key] = _unflatten_into(leaf, flat, path + "/")
+            out[key] = _unflatten_into(leaf, flat, path + "/", sharding)
             continue
         if path not in flat:
             raise KeyError(f"checkpoint missing leaf {path}")
@@ -85,7 +102,8 @@ def _unflatten_into(like, flat: Dict[str, torch.Tensor], prefix: str = ""):
         if value.dtype != leaf.dtype:
             raise ValueError(f"dtype mismatch for {path}: ckpt {value.dtype} "
                              f"vs expected {leaf.dtype}")
-        out[key] = value.to(leaf.device)
+        value = value.to(leaf.device)
+        out[key] = value if sharding is None else sharding.distribute(value)
     return out
 
 
@@ -97,14 +115,22 @@ class CheckpointManager:
         self._q: "queue.Queue" = queue.Queue(maxsize=1)
         self._async = async_save
         self._err: Optional[BaseException] = None
-        if async_save:
+        # under a process group every rank gathers, rank 0 alone writes
+        self._writer = not (dist.is_available() and dist.is_initialized()) \
+            or dist.get_rank() == 0
+        if async_save and self._writer:
             self._thread = threading.Thread(target=self._worker, daemon=True)
             self._thread.start()
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, state: Dict[str, Any], block: bool = False):
-        """state: nested dict of tensors, e.g. {"params": ..., "opt": ...}."""
-        host = {k: _to_host(v) for k, v in _flatten(state).items()}
+        """state: nested dict of tensors, e.g. {"params": ..., "opt": ...};
+        ``DTensor`` leaves are gathered here, on every rank."""
+        full = {k: _gathered(v) for k, v in _flatten(state).items()}
+        if not self._writer:
+            return
+        host = {k: _to_host(v) for k, v in full.items()}
+        del full          # the gathered tensors need not outlive the copies
         if not self._async or block:
             if self._async:
                 self.wait()
@@ -154,7 +180,7 @@ class CheckpointManager:
     def wait(self):
         """Drain pending async saves (before shutdown, a blocking save, or
         an assert); re-raises a failure of the background writer."""
-        if self._async:
+        if self._async and self._writer:
             self._q.join()
         if self._err:
             raise self._err
@@ -174,11 +200,14 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like, step: Optional[int] = None) -> Tuple[Any, int]:
+    def restore(self, like, step: Optional[int] = None,
+                shardings=None) -> Tuple[Any, int]:
         """Restore into the structure of ``like`` (a nested dict of tensors,
         e.g. ``{"params": model.state_dict(), "opt": opt_state}``): new
-        tensors of the same shapes and dtypes on each leaf's device.
-        Returns ``(state, step)``."""
+        tensors of the same (global) shapes and dtypes on each leaf's
+        device.  ``shardings``, the same structure with a ``NamedSharding``
+        (or None) a leaf, distributes each leaf under it: a ``DTensor``
+        holding this rank's block.  Returns ``(state, step)``."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
@@ -188,4 +217,4 @@ class CheckpointManager:
         with np.load(os.path.join(path, "arrays.npz")) as z:
             flat = {k: _decode(z[k], manifest["leaves"][k]["dtype"])
                     for k in z.files}
-        return _unflatten_into(like, flat), step
+        return _unflatten_into(like, flat, shardings=shardings), step

@@ -10,13 +10,15 @@ machine tells a program of its cluster, so the caller gives the group its
 address, size and rank).  ``device_type`` is explicit and defaults to the
 card; ``"cpu"`` builds a mesh for ``gloo`` process groups (the CPU tests).
 ``make_abstract_mesh`` gives the shape and axis names alone, with no
-process group: what the sharding rules read.  The functions touch no
-process state until called.
+process group: what the sharding rules read.  ``data_group`` gives a
+rank's data-parallel group under a mesh (the training mesh's gradient and
+loss sums run over it).  The functions touch no process state until
+called.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -103,3 +105,39 @@ def data_axes(mesh) -> tuple:
 
 def model_axis(mesh) -> str:
     return "model"
+
+
+# data_group's result per mesh: {id(mesh): (mesh, result)}
+_DATA_GROUPS: Dict[int, tuple] = {}
+
+
+def data_group(mesh) -> Tuple[Optional["dist.ProcessGroup"], int, int]:
+    """``(group, index, size)`` of this rank's data-parallel group under a
+    ``DeviceMesh``: the ranks that share its coordinate on every axis but
+    ``pod`` and ``data`` (one group per ``model`` coordinate), ordered
+    pod-major, as the JAX package orders a batch sharded over ``("pod",
+    "data")``; ``index`` is this rank's place in that order.  ``group`` is
+    None when the group has one rank.
+
+    The groups are built with ``dist.new_group`` over the ranks of each
+    ``model`` coordinate (every rank creates every group, in the same
+    order, the first time it asks; cached per mesh), not with the private
+    ``DeviceMesh._flatten``."""
+    hit = _DATA_GROUPS.get(id(mesh))
+    if hit is not None and hit[0] is mesh:
+        return hit[1]
+    names = axis_names(mesh)
+    d_dims = [i for i, n in enumerate(names) if n in ("pod", "data")]
+    o_dims = [i for i in range(len(names)) if i not in d_dims]
+    size = int(np.prod([mesh.mesh.shape[i] for i in d_dims], dtype=np.int64))
+    rows = mesh.mesh.permute(*o_dims, *d_dims).reshape(-1, size).tolist()
+    me = dist.get_rank()
+    out = None
+    for row in rows:
+        group = dist.new_group(row) if size > 1 else None
+        if me in row:
+            out = (group, row.index(me), size)
+    if out is None:
+        raise ValueError(f"rank {me} is not in the mesh {mesh}")
+    _DATA_GROUPS[id(mesh)] = (mesh, out)
+    return out

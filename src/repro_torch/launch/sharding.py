@@ -17,16 +17,29 @@ The functions return per-leaf specs and place nothing: a spec is a
 ``PartitionSpec``, a tuple holding, per dim, an axis name, a tuple of axis
 names or None.  A tree is a (nested) mapping or sequence whose leaves have
 a ``shape`` (tensors, numpy arrays); a flat mapping with dotted keys (a
-module's ``named_parameters()``) is read as the nested one.  The port's
-train loop runs on one card, so nothing in the port reads the param, opt,
-batch and cache rules yet: they are held equal to the JAX package's for
-the training mesh to come (ROADMAP A11).  ``spmm_shard_count`` is what the
-partitioned SpMM path and ``SparsitySpec(reorder="shard_balance")`` read.
+module's ``named_parameters()``) is read as the nested one.  The rule
+tables are held equal to the JAX package's; the training mesh
+(``train.loop.train(cfg, shape, mesh)``) stores parameters and AdamW state
+under ``param_shardings`` and ``opt_state_shardings`` and splits the batch
+under ``batch_shardings``, and the dry-run divides each leaf's bytes by
+them.  ``spmm_shard_count`` is what the partitioned SpMM path and
+``SparsitySpec(reorder="shard_balance")`` read.
+
+From a spec to a ``DTensor``: ``placements`` gives one placement a mesh
+dim (``Shard(d)`` where tensor dim ``d`` names that axis, else
+``Replicate()``; a tuple such as ``("pod", "data")`` shards one dim over
+both, major to minor in mesh order, as JAX nests them), ``local_shard``
+this rank's block of a full tensor (a view: no communication),
+``shard_tensor`` a ``DTensor`` that owns a copy of that block, and
+``distribute_tree`` does it for every leaf of a tree.  ``NamedSharding``
+(a spec on a mesh) is what ``CheckpointManager.restore(shardings=...)``
+distributes a leaf under.
 """
 from __future__ import annotations
 
+import dataclasses
 from collections.abc import Mapping
-from typing import Any
+from typing import Any, List
 
 import numpy as np
 import torch
@@ -307,3 +320,87 @@ def cache_shardings(mesh, cache_specs_tree, cfg,
 
 def replicated(mesh, specs) -> Any:
     return _map_with_path(lambda path, leaf: P(), specs)
+
+
+# ------------------------------------------------------- specs -> DTensors
+def _mesh_axes(mesh, a) -> tuple:
+    """The mesh axes of one spec entry, checked to be in mesh order (a
+    ``DTensor`` shards a dim over several mesh dims major to minor in mesh
+    order only)."""
+    axes = () if a is None else a if isinstance(a, tuple) else (a,)
+    names = axis_names(mesh)
+    if list(axes) != [n for n in names if n in axes]:
+        raise ValueError(f"spec entry {a!r} is not in the mesh's axis order "
+                         f"{names}")
+    return axes
+
+
+def placements(mesh, spec) -> List[Any]:
+    """One ``DTensor`` placement a mesh dim: ``Shard(d)`` where tensor dim
+    ``d`` of ``spec`` names that mesh axis, else ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = axis_names(mesh)
+    out = [Replicate() for _ in names]
+    for d, a in enumerate(spec):
+        for name in _mesh_axes(mesh, a):
+            out[names.index(name)] = Shard(d)
+    return out
+
+
+def local_shard(mesh, t: torch.Tensor, spec) -> torch.Tensor:
+    """This rank's block of the full tensor ``t`` under ``spec`` (a view;
+    no communication): each dim sharded over mesh axes is cut into as many
+    equal pieces as their sizes' product, and the rank takes the piece its
+    coordinates give, major to minor (``fit_spec`` makes them divide)."""
+    coord = dict(zip(axis_names(mesh), mesh.get_coordinate()))
+    sizes = axis_sizes(mesh)
+    for d, a in enumerate(spec):
+        piece, n = 0, 1
+        for name in _mesh_axes(mesh, a):
+            piece, n = piece * sizes[name] + coord[name], n * sizes[name]
+        if n > 1:
+            if t.shape[d] % n:
+                raise ValueError(f"dim {d} of {tuple(t.shape)} does not "
+                                 f"divide into {n} pieces under {spec}")
+            step = t.shape[d] // n
+            t = t.narrow(d, piece * step, step)
+    return t
+
+
+def from_local(mesh, local: torch.Tensor, spec, shape):
+    """The ``DTensor`` of global ``shape`` under ``spec`` whose block on this
+    rank is ``local`` (its storage, not a copy)."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(
+        local, mesh, placements(mesh, spec), run_check=False,
+        shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
+
+
+def shard_tensor(mesh, t: torch.Tensor, spec):
+    """A ``DTensor`` of the full tensor ``t`` under ``spec`` whose local
+    tensor is a copy of this rank's block (every rank holds the same
+    ``t``; nothing is sent)."""
+    local = local_shard(mesh, t, spec).clone(
+        memory_format=torch.contiguous_format)
+    return from_local(mesh, local, spec, t.shape)
+
+
+def distribute_tree(mesh, tree, specs) -> Any:
+    """``shard_tensor`` over every leaf of a (nested or flat) mapping of
+    tensors, ``specs`` the same mapping of specs (``param_shardings``,
+    ``opt_state_shardings`` or ``batch_shardings`` of it)."""
+    if isinstance(tree, Mapping):
+        return {k: distribute_tree(mesh, v, specs[k]) for k, v in tree.items()}
+    return shard_tensor(mesh, tree, specs)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh (the JAX ``NamedSharding``): how a restored
+    checkpoint leaf is distributed."""
+    mesh: Any
+    spec: PartitionSpec
+
+    def distribute(self, t: torch.Tensor):
+        return shard_tensor(self.mesh, t, self.spec)

@@ -12,15 +12,30 @@ the same steps; ``T.train_loss`` adds the MoE load-balance loss of
 ``input_specs`` and ``opt_specs`` give
 a cell's inputs and AdamW state as ``meta``-device tensors (shape and dtype
 only), for the dry-run (``launch.dryrun``).
+
+Under a training mesh (``make_train_step(..., mesh=mesh)``) the step runs
+gather-then-compute over ZeRO-3 storage: a ``MeshModel`` (``shard_model``)
+stores each parameter as a ``DTensor`` under
+``launch.sharding.param_shardings`` and AdamW's moments under
+``opt_state_shardings`` (``init_opt_state``).  A step gathers every
+parameter to a full local tensor, runs the unchanged model forward and
+backward on this rank's batch rows (so the kernels get plain local
+tensors), sums the gradients over the data group, clips with the norm of
+that full gradient, and updates each rank's own shard of parameters and
+moments.  Compute over the ``model`` axis is replicated: no
+tensor-parallel product is taken.
 """
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.core.sparse_linear import meta_spec as _spec
+from repro_torch.launch import sharding as sh
+from repro_torch.launch.constrain import psum_data, use_mesh
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 
@@ -71,14 +86,162 @@ def opt_specs(cfg: ModelConfig, params_specs) -> Dict[str, object]:
             "step": _spec((), torch.int32)}
 
 
+# ------------------------------------------------------------ mesh storage
+@dataclasses.dataclass
+class MeshModel:
+    """A model stored under a training mesh.  ``shards`` holds each
+    parameter as a ``DTensor`` under ``specs`` (its
+    ``launch.sharding.param_shardings`` spec): the parameters' storage.
+    ``module`` holds the buffers (the sparse layers' index arrays, which the
+    rules replicate) and, during a step only, the gathered parameters; its
+    parameters are empty between steps."""
+    module: T.Transformer
+    mesh: Any
+    specs: Dict[str, Any]
+    shards: Dict[str, Any]
+
+    def state_dict(self) -> Dict[str, Any]:
+        """``module.state_dict()``'s keys in its order, each parameter its
+        ``DTensor``: a checkpoint of it gathers to the unsharded bytes."""
+        return {k: self.shards.get(k, v)
+                for k, v in self.module.state_dict().items()}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Take ``state``'s parameters (``DTensor``s) as the shards and copy
+        its buffers into the module."""
+        self.shards.update({k: state[k] for k in self.shards})
+        self.module.load_state_dict(
+            {k: v for k, v in state.items() if k not in self.shards},
+            strict=False)
+
+
+def _release(p: torch.Tensor) -> None:
+    """Drop a module parameter's full storage (the shards keep it)."""
+    p.data = p.data.new_empty(0)
+
+
+def _local(tree):
+    """``tree`` with each ``DTensor`` leaf its local tensor (a view of its
+    storage: in-place updates land in the shard)."""
+    if isinstance(tree, dict):
+        return {k: _local(v) for k, v in tree.items()}
+    return tree.to_local() if hasattr(tree, "to_local") else tree
+
+
+def shard_model(module: T.Transformer, mesh) -> MeshModel:
+    """Store ``module``'s parameters under ``mesh``'s parameter rules (each
+    rank a copy of its block; every rank holds the same ``module``) and
+    release their full storage."""
+    params = dict(module.named_parameters())
+    specs = sh.param_shardings(mesh, params)
+    shards = sh.distribute_tree(
+        mesh, {n: p.detach() for n, p in params.items()}, specs)
+    for p in params.values():
+        _release(p)
+    return MeshModel(module, mesh, specs, shards)
+
+
+def opt_shardings(mesh, opt_state) -> Dict[str, Any]:
+    """``launch.sharding.opt_state_shardings`` of an AdamW state (full
+    tensors or ``DTensor``s, read for their global shapes)."""
+    like = {k: ({n: torch.empty(t.shape, device="meta")
+                 for n, t in v.items()} if isinstance(v, dict)
+                else torch.empty(v.shape, device="meta"))
+            for k, v in opt_state.items()}
+    return sh.opt_state_shardings(mesh, like)
+
+
+def init_opt_state(model: MeshModel) -> Dict[str, Any]:
+    """``adamw.init`` of the shards: ``m`` and ``v`` as ``DTensor``s under
+    ``opt_state_shardings`` (each rank zeros of its block), ``step``
+    replicated."""
+    mesh, shards = model.mesh, model.shards
+    local = adamw.init({n: d.to_local() for n, d in shards.items()})
+    specs = opt_shardings(mesh, {"m": shards, "v": shards,
+                                 "step": local["step"]})
+    moments = {k: {n: sh.from_local(mesh, t, specs[k][n], shards[n].shape)
+                   for n, t in local[k].items()} for k in ("m", "v")}
+    return {**moments,
+            "step": sh.from_local(mesh, local["step"], specs["step"], ())}
+
+
+def state_shardings(model: MeshModel, opt_state) -> Dict[str, Any]:
+    """The ``NamedSharding`` of every leaf of ``{"params":
+    model.state_dict(), "opt": opt_state}`` (None for the buffers, which
+    stay whole): what ``CheckpointManager.restore`` distributes a restored
+    checkpoint under, on this mesh whatever mesh wrote it."""
+    def named(specs):
+        if isinstance(specs, dict):
+            return {k: named(v) for k, v in specs.items()}
+        return sh.NamedSharding(model.mesh, specs)
+    return {"params": {k: (named(model.specs[k]) if k in model.specs
+                           else None) for k in model.state_dict()},
+            "opt": named(opt_shardings(model.mesh, opt_state))}
+
+
+def mesh_loss_and_grads(cfg: ModelConfig, model: MeshModel, batch: Dict,
+                        remat: str = "full"):
+    """The mesh step's forward and backward: gather every parameter into
+    the module (``DTensor.full_tensor``: an all-gather over the mesh dims
+    that shard it), run ``T.train_loss`` on this rank's rows of ``batch``
+    (``DTensor`` leaves under ``batch_shardings``, or local tensors), release
+    the gathered parameters, and sum the gradients and the loss terms over
+    the data group.  Returns ``(metrics, grads)``: the global ``loss``,
+    ``lm_loss`` and ``aux_loss``, and the full gradient of the global loss
+    by parameter name."""
+    params = dict(model.module.named_parameters())
+    with use_mesh(model.mesh):
+        for name, p in params.items():
+            p.data = model.shards[name].full_tensor()
+            p.grad = None
+        loss, parts = T.train_loss(cfg, model.module, _local(batch),
+                                   remat=remat)
+        loss.backward()
+        grads = {n: p.grad for n, p in params.items()}
+        for p in params.values():
+            p.grad = None
+            _release(p)
+        names = [n for n, g in grads.items() if g is not None]
+        terms = [t.detach().float() for t in (loss, *parts.values())]
+        *summed, total = psum_data([*(grads[n] for n in names),
+                                    torch.stack(terms)])
+    grads.update(zip(names, summed))
+    metrics = dict(zip(("loss", *parts), total.unbind()))
+    return metrics, grads
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
-                    remat: str = "full"):
+                    remat: str = "full", mesh: Optional[Any] = None):
     """``train_step(model, opt_state, batch) -> (model, opt_state,
     metrics)``: loss and gradients of ``T.train_loss``, then one AdamW
     update of the model's parameters, in place.  ``batch`` holds ``tokens``
     and ``labels`` tensors on the model's device; the metrics are 0-d
     tensors (``loss``, ``lm_loss``, ``aux_loss``, ``grad_norm``, ``lr``),
-    read without a host sync."""
+    read without a host sync.
+
+    With ``mesh`` the model is a ``MeshModel`` on that mesh, ``opt_state``
+    ``init_opt_state``'s and ``batch`` ``DTensor``s under
+    ``batch_shardings`` (or this rank's rows): the step gathers, computes
+    (``mesh_loss_and_grads``), clips with the full gradient's norm and
+    updates this rank's shards; the metrics are the global ones."""
+    if mesh is not None:
+        def mesh_step(model: MeshModel, opt_state, batch: Dict):
+            if model.mesh is not mesh:
+                raise ValueError("the model is stored on another mesh")
+            metrics, grads = mesh_loss_and_grads(cfg, model, batch, remat)
+            gnorm = adamw.global_norm(grads)
+            local_grads = {n: None if g is None else
+                           sh.local_shard(mesh, g, model.specs[n])
+                           for n, g in grads.items()}
+            state = _local(opt_state)
+            _, state, om = adamw.update(opt_cfg, local_grads, state,
+                                        _local(model.shards),
+                                        grad_norm=gnorm)
+            opt_state["step"] = sh.from_local(mesh, state["step"], sh.P(),
+                                              ())
+            return model, opt_state, {**metrics, **om}
+        return mesh_step
+
     def train_step(model: T.Transformer, opt_state, batch: Dict):
         params = dict(model.named_parameters())
         for p in params.values():

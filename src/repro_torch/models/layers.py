@@ -32,6 +32,7 @@ from repro_torch.core.sparse_linear import (SparseLinear,
                                             init_sparse_linear,
                                             merge_sparse_metas,
                                             sparse_linear_meta)
+from repro_torch.launch.constrain import BATCH, MODEL, constrain
 from repro_torch.obs import shapemon
 
 # chunk size for q-blocked (O(L*chunk) memory) attention
@@ -496,11 +497,15 @@ def mla_attention(cfg, p, x, *, cache=None, pos=None, slot_mask=None):
         ctx_lat = torch.einsum("bhls,bsr->blhr", probs, ckv_c.float())
         ctx = torch.einsum("blhr,rhv->blhv", ctx_lat, w_uv.float())
     else:
-        # ---- train/prefill: materialize per-head K, V
+        # ---- train/prefill: materialize per-head K, V (heads over
+        # ``model``, where the JAX package constrains them)
         k_nope = torch.einsum("blr,rhn->blhn", c_kv, w_uk.to(c_kv.dtype))
         v = torch.einsum("blr,rhv->blhv", c_kv, w_uv.to(c_kv.dtype))
         k = torch.cat([k_nope, k_rope.expand(B, L, h, rope)], dim=-1)
-        qq = torch.cat([q_nope, q_rope], dim=-1)
+        qq = constrain(torch.cat([q_nope, q_rope], dim=-1), BATCH, None,
+                       MODEL)
+        k = constrain(k, BATCH, None, MODEL)
+        v = constrain(v, BATCH, None, MODEL)
         ctx = _causal_attention(qq, k, v, None, None, scale)  # [B,L,h,vd]
         ctx = checkpoint_name(ctx, "attn_ctx")
         if cache is not None:               # prefill: write latent cache

@@ -32,6 +32,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from repro_torch.launch.constrain import (BATCH, MODEL, constrain,
+                                         data_parallel, psum_data)
 from repro_torch.models import layers as L
 
 
@@ -61,15 +63,27 @@ def init_moe(cfg, generator, dtype, *, device) -> MoE:
 
 def _route(cfg, p, xt):
     """xt [..., T, D] -> (gate_vals, gate_idx, aux): the top-k of the
-    router's softmax, renormalised, and the Switch load-balance loss."""
+    router's softmax, renormalised, and the Switch load-balance loss
+    ``E * sum_e me_e * f_e``, a product of two token means.  Under a
+    data-parallel mesh (``launch.constrain.data_parallel``) both means are
+    over the global batch: the expert counts and the token count are summed
+    over the data group first, and ``aux`` is this rank's share (its
+    tokens' router probabilities over the global count), so the shares sum
+    to the global loss."""
     e, k = cfg.n_experts, cfg.moe_top_k
     logits = torch.einsum("...td,de->...te", xt.float(), p.router)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = torch.topk(probs, k, dim=-1)
     gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
-    me = probs.reshape(-1, e).mean(dim=0)
-    onehot_mean = torch.bincount(gate_idx.reshape(-1), minlength=e).float() \
-        / gate_idx.numel()
+    counts = torch.bincount(gate_idx.reshape(-1), minlength=e)
+    if data_parallel():
+        n_tok = torch.tensor(probs.numel() // e, device=probs.device)
+        counts, n_tok = psum_data([counts, n_tok])
+        me = probs.reshape(-1, e).sum(dim=0) / n_tok
+        onehot_mean = counts.float() / (n_tok * k)
+    else:
+        me = probs.reshape(-1, e).mean(dim=0)
+        onehot_mean = counts.float() / gate_idx.numel()
     aux = e * torch.sum(me * onehot_mean)
     return gate_vals, gate_idx, aux
 
@@ -132,7 +146,9 @@ def _moe_gather(cfg, p, x):
     x_pad = torch.cat([x, x.new_zeros(B, 1, D)], dim=1)   # row L -> zeros
     rows = torch.arange(B, device=x.device)[:, None]
     xin = x_pad[rows, slot_tok.reshape(B, e * C)].reshape(B, e, C, D)
+    xin = constrain(xin, BATCH, MODEL)                     # rows x EP
     eout = _expert_mlp(cfg, p, xin)                        # [B, E, C, D]
+    eout = constrain(eout, BATCH, MODEL)
     eout = L.checkpoint_name(eout, "moe_eout")
     contrib = eout * slot_w[..., None].to(eout.dtype)
 
@@ -144,6 +160,7 @@ def _moe_gather(cfg, p, x):
     y = got[:, :, 0]
     for j in range(1, k):
         y = y + got[:, :, j]
+    y = constrain(y, BATCH)
     return y.to(x.dtype), aux
 
 

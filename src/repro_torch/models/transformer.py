@@ -54,6 +54,7 @@ from torch.utils import checkpoint as torch_checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sparse_linear import meta_spec as _spec
 from repro_torch.core.sparse_linear import sparse_linear_specs
+from repro_torch.launch.constrain import BATCH, MODEL, constrain, psum_data
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
@@ -401,6 +402,9 @@ def _attn_mlp(cfg, p, x, cache, pos, slot_mask, window):
 def _apply_block(cfg: ModelConfig, p: Block, x, cache, pos, slot_mask=None):
     """Returns (x, cache, aux): ``aux`` is the layer's MoE load-balance
     loss (0 for the other layouts)."""
+    if x.shape[1] > 1:
+        # sequence-parallel carry (the JAX package's Megatron-SP constraint)
+        x = constrain(x, BATCH, MODEL)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.layout == "ssd":
         y, c = S.ssd_block(cfg, p.ssd, L.rms_norm(x, p.ln), cache=cache,
@@ -505,7 +509,7 @@ def forward(cfg: ModelConfig, params: Transformer, batch_in, *, cache=None,
     policies."""
     if remat not in REMAT:
         raise ValueError(f"unknown remat {remat!r}; want one of {REMAT}")
-    x = _embed(cfg, params, batch_in)
+    x = constrain(_embed(cfg, params, batch_in), BATCH)
     if cfg.layout == "zamba":
         x, aux = _zamba_forward(cfg, params, x, cache, pos, slot_mask, remat)
     else:
@@ -516,12 +520,17 @@ def forward(cfg: ModelConfig, params: Transformer, batch_in, *, cache=None,
 
 # ================================================================ entry points
 def lm_loss(cfg: ModelConfig, logits, labels) -> torch.Tensor:
-    """Next-token CE.  labels already shifted; -100 = ignore."""
+    """Next-token CE.  labels already shifted; -100 = ignore.  Under a
+    training mesh whose data group has more than one rank
+    (``launch.constrain.data_parallel``) it is this rank's share: its rows'
+    summed NLL over the global batch's count of valid labels, so that the
+    shares sum to the loss of the global batch, as GSPMD's mean is."""
     valid = labels >= 0
     lab = labels.clamp_min(0).long()
     lp = torch.log_softmax(logits, dim=-1)
     nll = -lp.gather(-1, lab[..., None])[..., 0]
-    return (nll * valid).sum() / valid.sum().clamp_min(1)
+    count, = psum_data([valid.sum()])
+    return (nll * valid).sum() / count.clamp_min(1)
 
 
 def train_loss(cfg: ModelConfig, params: Transformer, batch_in,
@@ -529,7 +538,8 @@ def train_loss(cfg: ModelConfig, params: Transformer, batch_in,
     """Returns (loss, {"lm_loss", "aux_loss"}); ``batch_in`` holds
     ``tokens`` and shifted ``labels`` (-100 = ignore), and for
     ``tokens+patches`` the ``patch_embeds``, whose positions the loss
-    leaves out."""
+    leaves out.  Under a data-parallel mesh each term is this rank's share
+    (``lm_loss``, ``moe._route``): the shares sum to the global loss."""
     logits, _, aux = forward(cfg, params, batch_in, remat=remat)
     if cfg.input_mode == "tokens+patches":
         logits = logits[:, cfg.patch_tokens:]

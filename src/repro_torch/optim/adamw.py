@@ -61,16 +61,19 @@ def global_norm(grads: Dict[str, Optional[torch.Tensor]]) -> torch.Tensor:
 
 
 def update(cfg: AdamWConfig, grads: Dict[str, Optional[torch.Tensor]],
-           state: Dict[str, object], params: Dict[str, torch.Tensor]
+           state: Dict[str, object], params: Dict[str, torch.Tensor],
+           grad_norm: Optional[torch.Tensor] = None
            ) -> Tuple[Dict[str, torch.Tensor], Dict[str, object],
                       Dict[str, torch.Tensor]]:
     """One AdamW step: ``params`` and ``state``'s moments are updated in
     place and returned, with ``{"grad_norm", "lr"}``.  A parameter whose
     gradient is None (not reached by the loss) takes a zero gradient, as a
-    JAX gradient of an unused leaf is zero."""
+    JAX gradient of an unused leaf is zero.  ``grad_norm`` is the norm the
+    clip reads, ``global_norm(grads)`` when not given: a mesh step passes
+    its shards with the norm of the full gradient."""
     step = state["step"] + 1
     lr = schedule(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     if cfg.clip_norm is None:
         scale = torch.ones((), dtype=torch.float32, device=gnorm.device)
     else:
