@@ -3835,11 +3835,6 @@ def dist_mesh_phase():
         check(all(same), "[dist-mesh] mesh mode differs from in-process")
 
 
-def _full(t):
-    """A ``DTensor`` gathered whole; any other tensor as it is."""
-    return t.full_tensor() if hasattr(t, "full_tensor") else t
-
-
 def _first_difference(cfg, shape, mesh, opt_cfg):
     """``(step, parameter)`` of the first difference between the plain
     step and the mesh step, run side by side from the same weights on the
@@ -3863,7 +3858,7 @@ def _first_difference(cfg, shape, mesh, opt_cfg):
         sharded, sharded_opt, _ = mesh_step(
             sharded, sharded_opt, sh.distribute_tree(mesh, batch, b_specs))
         for name, p in model.named_parameters():
-            if not torch.equal(p, _full(sharded.shards[name])):
+            if not torch.equal(p, sh.full(sharded.shards[name])):
                 return step, name
     return None
 
@@ -3881,8 +3876,8 @@ def train_mesh_phase(cfg, smi, trained):
     that differ), with ``[train]``'s 144 B1 and 72 B2 launches a step.  ms
     a step and peak memory beside ``[train]``'s.  At ``:smoke`` size: a
     checkpoint written on the mesh is byte-identical to one written without
-    it, and restores onto the mesh (``shardings=``), is saved again and
-    restores bit-equal; ``ef_compress_grads`` over the one-rank group on a
+    it, and restores onto the mesh (``mesh=``, ``specs=``), is saved again
+    and restores bit-equal; ``ef_compress_grads`` over the one-rank group on a
     card tensor equals the same function on the CPU (a one-rank ``gloo``
     group) bit for bit."""
     import tempfile
@@ -3894,6 +3889,7 @@ def train_mesh_phase(cfg, smi, trained):
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeCell
     from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as sh
     from repro_torch.launch import steps as st
     from repro_torch.launch.constrain import use_mesh
     from repro_torch.models import transformer as T
@@ -3954,15 +3950,16 @@ def train_mesh_phase(cfg, smi, trained):
                                                  device=DEVICE), mesh)
             opt = st.init_opt_state(model)
             like = {"params": model.state_dict(), "opt": opt}
-            shardings = st.state_shardings(model, opt)
+            specs = st.state_specs(model, opt)
             mgr = CheckpointManager(f"{tmp}/mesh", async_save=False)
-            state, step = mgr.restore(like, shardings=shardings)
+            state, step = mgr.restore(like, mesh=mesh, specs=specs)
             mgr.save(step + 1, state)
-            again, _ = mgr.restore(like, step=step + 1, shardings=shardings)
+            again, _ = mgr.restore(like, step=step + 1, mesh=mesh,
+                                   specs=specs)
             a, b = dict(_leaves(state)), dict(_leaves(again))
             restored = (sorted(a) == sorted(b) and all(
                 type(b[k]) is type(v) and b[k].dtype == v.dtype and
-                torch.equal(_full(b[k]), _full(v)) for k, v in a.items())
+                torch.equal(sh.full(b[k]), sh.full(v)) for k, v in a.items())
                 and hasattr(state["params"]["embed"], "full_tensor"))
         bytes_equal = written["mesh"] == written["plain"]
         log(f"[train-mesh] smoke checkpoint at step 2: written on the mesh "

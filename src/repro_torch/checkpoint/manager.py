@@ -21,8 +21,9 @@ with ``full_tensor()`` on the calling thread, on every rank, since the
 gather is a collective; only then may the background writer run, and under
 an initialised process group only rank 0 writes.  A checkpoint written on
 a mesh is byte-identical to one written without one.  ``restore(...,
-shardings=...)`` distributes each leaf under its ``NamedSharding``
-(``launch.sharding``): a relaunch re-shards onto whatever mesh it has.
+mesh=, specs=)`` distributes each leaf under its spec on ``mesh``
+(``launch.sharding.shard_tensor``): a relaunch re-shards onto whatever mesh
+it has.
 """
 from __future__ import annotations
 
@@ -37,6 +38,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from repro_torch.launch import sharding as sh
 
 # numpy's savez cannot store these dtypes: they are stored as raw unsigned
 # ints of their width (the JAX package's encoding); torch views them through
@@ -77,20 +80,14 @@ def _decode(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def _gathered(t):
-    """A ``DTensor`` leaf as its full tensor (a collective: every rank
-    calls it, in the same order), any other leaf as it is."""
-    return t.full_tensor() if hasattr(t, "full_tensor") else t
-
-
 def _unflatten_into(like, flat: Dict[str, torch.Tensor], prefix: str = "",
-                    shardings=None):
+                    mesh=None, specs=None):
     out = {}
     for key, leaf in like.items():
         path = f"{prefix}{key}"
-        sharding = None if shardings is None else shardings[key]
+        spec = None if specs is None else specs[key]
         if isinstance(leaf, dict):
-            out[key] = _unflatten_into(leaf, flat, path + "/", sharding)
+            out[key] = _unflatten_into(leaf, flat, path + "/", mesh, spec)
             continue
         if path not in flat:
             raise KeyError(f"checkpoint missing leaf {path}")
@@ -103,7 +100,8 @@ def _unflatten_into(like, flat: Dict[str, torch.Tensor], prefix: str = "",
             raise ValueError(f"dtype mismatch for {path}: ckpt {value.dtype} "
                              f"vs expected {leaf.dtype}")
         value = value.to(leaf.device)
-        out[key] = value if sharding is None else sharding.distribute(value)
+        out[key] = value if spec is None else sh.shard_tensor(mesh, value,
+                                                              spec)
     return out
 
 
@@ -126,7 +124,7 @@ class CheckpointManager:
     def save(self, step: int, state: Dict[str, Any], block: bool = False):
         """state: nested dict of tensors, e.g. {"params": ..., "opt": ...};
         ``DTensor`` leaves are gathered here, on every rank."""
-        full = {k: _gathered(v) for k, v in _flatten(state).items()}
+        full = {k: sh.full(v) for k, v in _flatten(state).items()}
         if not self._writer:
             return
         host = {k: _to_host(v) for k, v in full.items()}
@@ -200,14 +198,14 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like, step: Optional[int] = None,
-                shardings=None) -> Tuple[Any, int]:
+    def restore(self, like, step: Optional[int] = None, mesh=None,
+                specs=None) -> Tuple[Any, int]:
         """Restore into the structure of ``like`` (a nested dict of tensors,
         e.g. ``{"params": model.state_dict(), "opt": opt_state}``): new
         tensors of the same (global) shapes and dtypes on each leaf's
-        device.  ``shardings``, the same structure with a ``NamedSharding``
-        (or None) a leaf, distributes each leaf under it: a ``DTensor``
-        holding this rank's block.  Returns ``(state, step)``."""
+        device.  ``specs``, the same structure with a ``PartitionSpec`` (or
+        None) a leaf, distributes each leaf under it on ``mesh``: a
+        ``DTensor`` holding this rank's block.  Returns ``(state, step)``."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
@@ -217,4 +215,4 @@ class CheckpointManager:
         with np.load(os.path.join(path, "arrays.npz")) as z:
             flat = {k: _decode(z[k], manifest["leaves"][k]["dtype"])
                     for k in z.files}
-        return _unflatten_into(like, flat, shardings=shardings), step
+        return _unflatten_into(like, flat, mesh=mesh, specs=specs), step

@@ -64,24 +64,19 @@ def data_parallel() -> bool:
 
 
 def psum_data(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """``tensors`` summed over the active mesh's data group, as a new list
-    in the same order; the tensors themselves where there is no mesh or its
-    data group has one rank.  Tensors of one dtype travel in one
-    ``all_reduce``; no gradient flows through the sum."""
+    """``tensors`` summed over the active mesh's data group, in place, as a
+    list in the same order of their detached (contiguous) selves; the
+    tensors themselves where there is no mesh or its data group has one
+    rank.  Each tensor is its own ``all_reduce``, all of them in flight at
+    once, so the sum needs no copy beside the tensors; no gradient flows
+    through it."""
     out = list(tensors)
     if not data_parallel():
         return out
     import torch.distributed as dist
     group = _ACTIVE[-1][1]
-    by_dtype: dict = {}
-    for i, t in enumerate(out):
-        by_dtype.setdefault(t.dtype, []).append(i)
-    for idx in by_dtype.values():
-        flat = torch.cat([out[i].detach().reshape(-1) for i in idx])
-        dist.all_reduce(flat, group=group)
-        off = 0
-        for i in idx:
-            n = out[i].numel()
-            out[i] = flat[off:off + n].view(out[i].shape)
-            off += n
+    out = [t.detach().contiguous() for t in out]
+    works = [dist.all_reduce(t, group=group, async_op=True) for t in out]
+    for work in works:
+        work.wait()
     return out

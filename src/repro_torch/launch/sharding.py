@@ -31,13 +31,13 @@ dim (``Shard(d)`` where tensor dim ``d`` names that axis, else
 both, major to minor in mesh order, as JAX nests them), ``local_shard``
 this rank's block of a full tensor (a view: no communication),
 ``shard_tensor`` a ``DTensor`` that owns a copy of that block, and
-``distribute_tree`` does it for every leaf of a tree.  ``NamedSharding``
-(a spec on a mesh) is what ``CheckpointManager.restore(shardings=...)``
-distributes a leaf under.
+``distribute_tree`` does it for every leaf of a tree.  Back from a
+``DTensor``: ``full`` gathers it whole (a collective), ``local`` takes this
+rank's block (a view); both pass a plain tensor through and map over a
+nested mapping.
 """
 from __future__ import annotations
 
-import dataclasses
 from collections.abc import Mapping
 from typing import Any, List
 
@@ -395,12 +395,23 @@ def distribute_tree(mesh, tree, specs) -> Any:
     return shard_tensor(mesh, tree, specs)
 
 
-@dataclasses.dataclass(frozen=True)
-class NamedSharding:
-    """A spec on a mesh (the JAX ``NamedSharding``): how a restored
-    checkpoint leaf is distributed."""
-    mesh: Any
-    spec: PartitionSpec
+def _leafwise(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _leafwise(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
-    def distribute(self, t: torch.Tensor):
-        return shard_tensor(self.mesh, t, self.spec)
+
+def full(tree) -> Any:
+    """Every ``DTensor`` leaf of ``tree`` (or ``tree`` itself) gathered to
+    its full tensor (a collective: every rank of its mesh calls it, in the
+    same order); any other leaf as it is."""
+    return _leafwise(lambda t: t.full_tensor() if hasattr(t, "full_tensor")
+                     else t, tree)
+
+
+def local(tree) -> Any:
+    """Every ``DTensor`` leaf of ``tree`` (or ``tree`` itself) as this
+    rank's block (a view of its storage: in-place updates land in the
+    shard); any other leaf as it is."""
+    return _leafwise(lambda t: t.to_local() if hasattr(t, "to_local")
+                     else t, tree)

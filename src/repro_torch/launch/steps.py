@@ -120,14 +120,6 @@ def _release(p: torch.Tensor) -> None:
     p.data = p.data.new_empty(0)
 
 
-def _local(tree):
-    """``tree`` with each ``DTensor`` leaf its local tensor (a view of its
-    storage: in-place updates land in the shard)."""
-    if isinstance(tree, dict):
-        return {k: _local(v) for k, v in tree.items()}
-    return tree.to_local() if hasattr(tree, "to_local") else tree
-
-
 def shard_model(module: T.Transformer, mesh) -> MeshModel:
     """Store ``module``'s parameters under ``mesh``'s parameter rules (each
     rank a copy of its block; every rank holds the same ``module``) and
@@ -165,18 +157,13 @@ def init_opt_state(model: MeshModel) -> Dict[str, Any]:
             "step": sh.from_local(mesh, local["step"], specs["step"], ())}
 
 
-def state_shardings(model: MeshModel, opt_state) -> Dict[str, Any]:
-    """The ``NamedSharding`` of every leaf of ``{"params":
-    model.state_dict(), "opt": opt_state}`` (None for the buffers, which
-    stay whole): what ``CheckpointManager.restore`` distributes a restored
-    checkpoint under, on this mesh whatever mesh wrote it."""
-    def named(specs):
-        if isinstance(specs, dict):
-            return {k: named(v) for k, v in specs.items()}
-        return sh.NamedSharding(model.mesh, specs)
-    return {"params": {k: (named(model.specs[k]) if k in model.specs
-                           else None) for k in model.state_dict()},
-            "opt": named(opt_shardings(model.mesh, opt_state))}
+def state_specs(model: MeshModel, opt_state) -> Dict[str, Any]:
+    """The spec of every leaf of ``{"params": model.state_dict(), "opt":
+    opt_state}`` (None for the buffers, which stay whole): what
+    ``CheckpointManager.restore(..., mesh=model.mesh, specs=)`` distributes
+    a restored checkpoint under, on this mesh whatever mesh wrote it."""
+    return {"params": {k: model.specs.get(k) for k in model.state_dict()},
+            "opt": opt_shardings(model.mesh, opt_state)}
 
 
 def mesh_loss_and_grads(cfg: ModelConfig, model: MeshModel, batch: Dict,
@@ -194,7 +181,7 @@ def mesh_loss_and_grads(cfg: ModelConfig, model: MeshModel, batch: Dict,
         for name, p in params.items():
             p.data = model.shards[name].full_tensor()
             p.grad = None
-        loss, parts = T.train_loss(cfg, model.module, _local(batch),
+        loss, parts = T.train_loss(cfg, model.module, sh.local(batch),
                                    remat=remat)
         loss.backward()
         grads = {n: p.grad for n, p in params.items()}
@@ -233,9 +220,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
             local_grads = {n: None if g is None else
                            sh.local_shard(mesh, g, model.specs[n])
                            for n, g in grads.items()}
-            state = _local(opt_state)
+            state = sh.local(opt_state)
             _, state, om = adamw.update(opt_cfg, local_grads, state,
-                                        _local(model.shards),
+                                        sh.local(model.shards),
                                         grad_norm=gnorm)
             opt_state["step"] = sh.from_local(mesh, state["step"], sh.P(),
                                               ())

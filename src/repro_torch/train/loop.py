@@ -120,9 +120,8 @@ def train(cfg: ModelConfig, shape: ShapeCell, mesh=None, *, device="cuda",
     start_step = 0
     if mgr and mgr.latest_step() is not None:
         state, start_step = mgr.restore(
-            {"params": model.state_dict(), "opt": opt_state},
-            shardings=None if mesh is None else
-            st.state_shardings(model, opt_state))
+            {"params": model.state_dict(), "opt": opt_state}, mesh=mesh,
+            specs=None if mesh is None else st.state_specs(model, opt_state))
         model.load_state_dict(state["params"])
         opt_state = state["opt"]
         if logs:

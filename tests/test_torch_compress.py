@@ -1,43 +1,21 @@
 """``optim.compress`` against the JAX package's on the same numpy inputs.
 
 ``quantize_int8``'s codes and scale are exact (round half to even in both,
-the ``+ 1e-12`` and ``/ 127.0`` in float32).  Two error-feedback steps over
-R = 4 ranks: the JAX side simulates them with ``jax.vmap(...,
-axis_name="data")``, which binds the ``psum``; the port side runs one
-4-rank ``gloo`` group (``torch_compress_ranks``, which imports no JAX).
-The residuals are bit-equal, the summed ``g_hat`` within 1e-6 x max (the
-sums run in another order)."""
+the ``+ 1e-12`` and ``/ 127.0`` in float32), and so is ``init_residual``.
+Error feedback over R = 4 ranks runs in the 4-rank ``gloo`` group of
+``test_torch_train_mesh.py``, against ``jax.vmap(..., axis_name="data")``
+(``jax_mesh_reference.py``)."""
 # ruff: noqa: E402
 import pytest
 
 pytest.importorskip("torch")
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
-import torch_compress_ranks
 from repro.optim import compress as jcompress
 from repro_torch.optim import compress
-
-R, STEPS = 4, 2
-
-
-def _grads():
-    rng = np.random.default_rng(7)
-    w = rng.standard_normal((R, 24, 16)).astype(np.float32)
-    w[1] *= 1e-3                       # ranks on very different scales
-    return {"w": w,
-            "b": rng.standard_normal((R, 16)).astype(np.float32) * 1e-4,
-            "bf16_v": rng.standard_normal((R, 40)).astype(np.float32),
-            "idx": np.tile(np.arange(5, dtype=np.int32), (R, 1))}
-
-
-def _bf16(a):
-    """``a`` rounded to bf16 as both packages hold the leaf."""
-    return torch.from_numpy(a).to(torch.bfloat16)
-
 
 @pytest.mark.parametrize("x", [
     np.array([127.0, 0.5, 1.5, 2.5, -0.5, -2.5, 126.5, -127.0], np.float32),
@@ -57,52 +35,16 @@ def test_quantize_int8_codes_and_scale_exact(x):
 
 
 def test_init_residual_matches_jax():
-    g = {k: v[0] for k, v in _grads().items()}
+    rng = np.random.default_rng(7)
+    g = {"w": rng.standard_normal((24, 16)).astype(np.float32),
+         "b": rng.standard_normal(16).astype(np.float32),
+         "idx": np.arange(5, dtype=np.int32)}
     want = jcompress.init_residual({k: jnp.asarray(v) for k, v in g.items()})
     got = compress.init_residual({k: torch.from_numpy(v)
                                   for k, v in g.items()})
     for k in g:
         assert got[k].dtype == torch.float32
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
-
-
-def test_error_feedback_over_four_ranks_matches_jax(tmp_path):
-    grads = _grads()
-    # the JAX side: R simulated ranks, the psum bound by vmap
-    jg = {k: (jnp.asarray(_bf16(v).float().numpy()).astype(jnp.bfloat16)
-              if k.startswith("bf16") else jnp.asarray(v))
-          for k, v in grads.items()}
-    step = jax.vmap(lambda g, r: jcompress.ef_compress_grads(g, r, "data"),
-                    axis_name="data")
-    jr = jax.vmap(jcompress.init_residual)(jg)
-    want = []
-    for _ in range(STEPS):
-        g_hat, jr = step(jg, jr)
-        want.append((g_hat, jr))
-    want_psum = jax.vmap(lambda x: jcompress.compressed_psum(x, "data"),
-                         axis_name="data")(jg["w"])
-
-    got = torch_compress_ranks.run(tmp_path, grads, STEPS)
-    for r, ranks_out in enumerate(got):
-        for s, (g_hat, res) in enumerate(want):
-            for k in grads:
-                tag = (r, s, k)
-                got_r = ranks_out["residual"][s][k]
-                got_g = ranks_out["g_hat"][s][k]
-                if k == "idx":           # integer leaves pass through
-                    np.testing.assert_array_equal(got_g.numpy(),
-                                                  grads[k][r])
-                    continue
-                np.testing.assert_array_equal(got_r.numpy(),
-                                              np.asarray(res[k][r]),
-                                              err_msg=str(tag))
-                want_g = np.asarray(g_hat[k][r])
-                tol = 1e-6 * np.abs(want_g).max()
-                np.testing.assert_allclose(got_g.numpy(), want_g, rtol=0,
-                                           atol=tol, err_msg=str(tag))
-        want_p = np.asarray(want_psum[r])
-        np.testing.assert_allclose(ranks_out["psum"].numpy(), want_p, rtol=0,
-                                   atol=1e-6 * np.abs(want_p).max())
 
 
 def test_psum_needs_an_active_mesh():

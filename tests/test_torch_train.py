@@ -247,28 +247,6 @@ def test_sharded_train_trajectory_matches_jax(monkeypatch):
     _trajectory(jcfg, tcfg, jparams, jax.tree.map(np.asarray, jparams))
 
 
-def test_train_loop_matches_jax_loop_on_a_mesh(pair, monkeypatch):
-    """The port's ``train(cfg, shape)`` against the JAX package's ``train(
-    cfg, shape, make_mesh((1, 1), ("data", "model")))`` (what
-    ``tests/test_substrates.py`` runs), 4 steps from the JAX seed-0 weights
-    (the port's ``init_params`` draws its own, so the test hands it JAX's):
-    every loss within 1e-4."""
-    from repro.launch import mesh as jmesh
-    from repro.train import loop as jloop
-    jcfg, tcfg, _, np_params = pair
-    monkeypatch.setattr(T, "init_params", lambda cfg, seed=0, device="cuda":
-                        convert.params_from_jax(cfg, np_params, device))
-    kw = dict(lr=1e-3, warmup_steps=2, total_steps=4)
-    want = jloop.train(jcfg, J_SHAPE,
-                       jmesh.make_mesh((1, 1), ("data", "model")),
-                       total_steps=4, opt_cfg=jadamw.AdamWConfig(**kw))
-    got = loop.train(tcfg, SHAPE, device="cpu", total_steps=4,
-                     opt_cfg=adamw.AdamWConfig(**kw))
-    assert len(got.losses) == len(want.losses) == 4
-    np.testing.assert_allclose(got.losses, want.losses, rtol=1e-4,
-                               atol=1e-4)
-
-
 def test_remat_full_matches_none():
     _, tcfg = _cfgs()
     batch = loop.batch_to_device(_batch_np(tcfg, 1), "cpu")

@@ -1,9 +1,16 @@
 """The port's training mesh over ``torch.distributed`` CPU ranks (``gloo``),
-against its own unsharded ``train(..., mesh=None)`` on the same seed.
+against its own unsharded ``train(..., mesh=None)`` and against the JAX
+package's loop, ``train(cfg, shape, make_mesh((1, 1), ("data", "model")))``
+(GSPMD gives the same result on any mesh), from the same JAX seed-0
+weights.
 
 One group of 4 processes (``torch.multiprocessing``, a ``FileStore`` under
 a temporary directory; no TCP port) runs every case; each test reads its
-case's results (rank by rank):
+case's results (rank by rank).  Beside it, a child process runs the JAX
+side (``jax_mesh_reference.py``): it writes the weights every run starts
+from and the R = 4 ranks' gradients first, then the JAX losses and error
+feedback outputs.  This process runs the unsharded runs and a one-rank
+``(1, 1)`` gloo mesh meanwhile.
 
 * ``(1, 4)``: ``smat-ffn-1.3b:smoke`` in float32, 4 steps: losses, step-0
   gradients and the final checkpoint (parameters and AdamW state) bit-equal
@@ -23,7 +30,17 @@ case's results (rank by rank):
   uninterrupted run's;
 * a ``(pod, data, model) = (2, 2, 1)`` mesh: a dim sharded over ``("pod",
   "data")`` takes the JAX order (pod major) and gathers back; a dim over
-  the size-1 ``model`` axis gathers to the shard itself (no copy).
+  the size-1 ``model`` axis gathers to the shard itself (no copy);
+* against the JAX package, within 1e-4 (the ROADMAP's tolerance for model
+  loss: the packages sum in float32 in different orders): the JAX loop's
+  losses for the ``smat-ffn-1.3b`` cases on 4 x 32 tokens and the
+  one-rank mesh; JAX's ``train_loss`` at step 0 for the undivided batch
+  and the MoE (its ``aux_loss`` too), whose later steps the unsharded
+  port holds;
+* ``optim.compress``: two error-feedback steps over a ``("data",)`` mesh of
+  the 4 ranks against ``jax.vmap(..., axis_name="data")`` over R = 4
+  simulated ranks: residuals bit-equal, the summed ``g_hat`` within 1e-6 x
+  max (the sums run in another order).
 
 Every rank returns the same ``TrainResult``.  The file imports no JAX:
 ``spawn`` re-imports it in every worker.
@@ -33,8 +50,11 @@ import pytest
 
 pytest.importorskip("torch")
 
+import contextlib
 import dataclasses
 import os
+import subprocess
+import sys
 import tempfile
 import time
 import traceback
@@ -46,6 +66,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from repro_torch import convert
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeCell
 from repro_torch.data.pipeline import make_batch
@@ -55,16 +76,18 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import sharding as sh
 from repro_torch.launch import steps as st
 from repro_torch.models import transformer as T
-from repro_torch.optim import adamw
+from repro_torch.optim import adamw, compress
 from repro_torch.train import loop
 
 ARCH, MOE = "smat-ffn-1.3b:smoke", "deepseek-v2-lite-16b:smoke"
 SHAPE = ShapeCell("t", "train", 32, 4)
 SMALL = ShapeCell("t", "train", 32, 2)    # (4, 1) does not divide it
-STEPS, MOE_STEPS = 4, 2
+STEPS, MOE_STEPS, EF_STEPS = 4, 2, 2
 MESHES = ((1, 4), (2, 2), (4, 1))
 WORLD = 4
-SPAWN_TIMEOUT_S = 300      # the group takes about 15 s
+SPAWN_TIMEOUT_S = 300      # the group takes about 25 s
+JAX_TOL = 1e-4
+TESTS = Path(__file__).resolve().parent
 
 
 def _cfg(arch):
@@ -87,8 +110,65 @@ def _batch(cfg, shape, step=0):
 
 
 def _nbytes(t):
-    t = t.to_local() if hasattr(t, "to_local") else t
+    t = sh.local(t)
     return t.numel() * t.element_size()
+
+
+def _wait_for(out_dir, name, jax_proc=None, timeout_s=SPAWN_TIMEOUT_S):
+    """The JAX side's ``<name>.npz`` as a dict, once it is written.  Fails
+    with its log if the JAX process ``jax_proc`` failed first."""
+    path = Path(out_dir) / f"{name}.npz"
+    deadline = time.monotonic() + timeout_s
+    while not path.exists():
+        if jax_proc is not None and jax_proc.poll():
+            log = (Path(out_dir) / "jax.log").read_text()
+            pytest.fail(f"the JAX reference process exited "
+                        f"{jax_proc.returncode}:\n{log[-4000:]}")
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no {path} in {timeout_s} s")
+        time.sleep(0.1)
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _inputs(out_dir, jax_proc=None):
+    """What the JAX side writes first: its seed-0 weights, a nested numpy
+    tree by arch, and the R ranks' gradients (a leading rank axis)."""
+    weights, grads = {}, {}
+    for key, value in _wait_for(out_dir, "inputs", jax_proc).items():
+        kind, rest = key.split("/", 1)
+        if kind == "g":
+            grads[rest] = value
+            continue
+        arch, *parents, leaf = rest.split("/")
+        node = weights.setdefault(arch, {})
+        for name in parents:
+            node = node.setdefault(name, {})
+        node[leaf] = value
+    return weights, grads
+
+
+def _use_jax_weights(weights):
+    """Make ``T.init_params(cfg, seed=0)`` build the JAX seed-0 weights of
+    ``cfg`` (by name) where ``weights`` holds them; returns the function it
+    replaced."""
+    own = T.init_params
+
+    def init_params(cfg, seed=0, device="cuda"):
+        if seed == 0 and cfg.name in weights:
+            return convert.params_from_jax(cfg, weights[cfg.name], device)
+        return own(cfg, seed=seed, device=device)
+    T.init_params = init_params
+    return own
+
+
+@contextlib.contextmanager
+def _jax_weights(weights):
+    own = _use_jax_weights(weights)
+    try:
+        yield
+    finally:
+        T.init_params = own
 
 
 # ------------------------------------------------------------- the ranks
@@ -157,10 +237,38 @@ def _case_pod_order(out_dir):
             one.to_local().data_ptr()}
 
 
+def _case_error_feedback(grads):
+    """This rank's row of ``grads`` (bf16 where the name says so) through
+    EF_STEPS steps of ``ef_compress_grads``, and ``compressed_psum`` of
+    ``w``, over a ``("data",)`` mesh of every rank."""
+    rank = dist.get_rank()
+    g = {}
+    for name, a in grads.items():
+        t = torch.from_numpy(np.ascontiguousarray(a[rank]))
+        g[name] = t.to(torch.bfloat16) if name.startswith("bf16") else t
+    out = {"g_hat": [], "residual": []}
+    mesh = mesh_lib.make_mesh((WORLD,), ("data",), device_type="cpu")
+    with constrain.use_mesh(mesh):
+        residual = compress.init_residual(g)
+        for _ in range(EF_STEPS):
+            g_hat, residual = compress.ef_compress_grads(g, residual, "data")
+            out["g_hat"].append(g_hat)
+            out["residual"].append(residual)
+        out["psum"] = compress.compressed_psum(g["w"], "data")
+    return out
+
+
 CASES = {**{f"ffn{a}x{b}": (lambda o, s=(a, b): _case_ffn(s, o))
             for a, b in MESHES},
          "moe": _case_moe, "undivided": _case_undivided,
-         "elastic": _case_elastic, "pod_order": _case_pod_order}
+         "elastic": _case_elastic}
+
+
+def _run(results, name, case, *args):
+    try:
+        results[name] = case(*args)
+    except Exception:                  # reported by the case's own test
+        results[name] = {"error": traceback.format_exc()}
 
 
 def _worker(rank, world, store_path, out_dir):
@@ -169,22 +277,24 @@ def _worker(rank, world, store_path, out_dir):
                             rank=rank, world_size=world)
     try:
         results = {}
+        _run(results, "pod_order", _case_pod_order, out_dir)
+        weights, grads = _inputs(out_dir)   # the JAX process writes them
+        _run(results, "ef", _case_error_feedback, grads)
+        _use_jax_weights(weights)
         for name, case in CASES.items():
-            try:
-                results[name] = case(out_dir)
-            except Exception:          # reported by the case's own test
-                results[name] = {"error": traceback.format_exc()}
+            _run(results, name, case, out_dir)
         torch.save(results, f"{out_dir}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
 
 
-# ----------------------------------------------------- the unsharded runs
+# ------------------------------------------- the references, and the group
 @pytest.fixture(scope="module")
 def ranks():
-    """Every rank's results, and the unsharded runs (in this process, no
-    process group) they are held against, on one thread as the ranks run
-    (a CPU reduction's order depends on the thread count)."""
+    """Every rank's results, the port's unsharded runs and one-rank mesh
+    run (in this process, no process group beside the one-rank one), and
+    the JAX side's, on one thread as the ranks run (a CPU reduction's order
+    depends on the thread count)."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
@@ -193,36 +303,72 @@ def ranks():
         torch.set_num_threads(threads)
 
 
+def _unsharded(tmp):
+    cfg = _cfg(ARCH)
+    model = T.init_params(cfg, seed=0, device="cpu")
+    loss, _ = T.train_loss(cfg, model, _batch(cfg, SHAPE), remat="none")
+    loss.backward()
+    return {"loss0": float(loss.detach()),
+            "grads": {n: p.grad for n, p in model.named_parameters()},
+            "ffn": loop.train(cfg, SHAPE, device="cpu",
+                              ckpt_dir=f"{tmp}/ckpt_ref", **_kw()),
+            "moe": loop.train(_cfg(MOE), SHAPE, device="cpu",
+                              **_kw(MOE_STEPS)),
+            "small": loop.train(cfg, SMALL, device="cpu", **_kw())}
+
+
+def _one_rank_mesh(tmp):
+    """``train(cfg, SHAPE, mesh)`` on a ``(1, 1)`` mesh of a one-rank gloo
+    group."""
+    dist.init_process_group("gloo", store=dist.FileStore(f"{tmp}/store1", 1),
+                            rank=0, world_size=1)
+    try:
+        return loop.train(_cfg(ARCH), SHAPE, _mesh((1, 1)), **_kw())
+    finally:
+        dist.destroy_process_group()
+
+
+def _start_jax(tmp):
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
+        p for p in (str(TESTS.parent / "src"), os.environ.get("PYTHONPATH"))
+        if p))
+    with open(f"{tmp}/jax.log", "w") as log:
+        return subprocess.Popen(
+            [sys.executable, str(TESTS / "jax_mesh_reference.py"), tmp],
+            env=env, stdout=log, stderr=subprocess.STDOUT)
+
+
 def _spawn_and_reference():
     with tempfile.TemporaryDirectory() as tmp:
+        jax_proc = _start_jax(tmp)
         ranks = mp.spawn(_worker, args=(WORLD, f"{tmp}/store", tmp),
                          nprocs=WORLD, join=False)
-        deadline = time.monotonic() + SPAWN_TIMEOUT_S
-        while not ranks.join(timeout=5):
-            if time.monotonic() > deadline:
-                for proc in ranks.processes:
+        try:
+            weights, grads = _inputs(tmp, jax_proc)
+            with _jax_weights(weights):
+                ref = _unsharded(tmp)
+                ref["one_rank"] = _one_rank_mesh(tmp)
+            ref["ef_grads"] = grads
+            deadline = time.monotonic() + SPAWN_TIMEOUT_S
+            while not ranks.join(timeout=5):
+                if time.monotonic() > deadline:
+                    pytest.fail(f"the {WORLD} ranks did not finish in "
+                                f"{SPAWN_TIMEOUT_S} s")
+            jax_ref = _wait_for(tmp, "reference", jax_proc)
+        finally:
+            for proc in ranks.processes:
+                if proc.is_alive():
                     proc.kill()
-                pytest.fail(f"the {WORLD} ranks did not finish in "
-                            f"{SPAWN_TIMEOUT_S} s")
+            if jax_proc.poll() is None:
+                jax_proc.kill()
         got = [torch.load(f"{tmp}/rank{r}.pt") for r in range(WORLD)]
-        cfg = _cfg(ARCH)
-        model = T.init_params(cfg, seed=0, device="cpu")
-        loss, _ = T.train_loss(cfg, model, _batch(cfg, SHAPE), remat="none")
-        loss.backward()
-        ref = {"loss0": float(loss.detach()),
-               "grads": {n: p.grad for n, p in model.named_parameters()},
-               "ffn": loop.train(cfg, SHAPE, device="cpu",
-                                 ckpt_dir=f"{tmp}/ckpt_ref", **_kw()),
-               "moe": loop.train(_cfg(MOE), SHAPE, device="cpu",
-                                 **_kw(MOE_STEPS)),
-               "small": loop.train(cfg, SMALL, device="cpu", **_kw())}
         ckpts = {name: {f: (Path(tmp) / name / "step_00000004" / f)
                         .read_bytes()
                         for f in ("arrays.npz", "manifest.json")}
                  for name in ("ckpt_ref", "ckpt_1x4")}
         steps = {name: sorted(os.listdir(Path(tmp) / name))
                  for name in ("ckpt_ref", "ckpt_1x4", "elastic")}
-    return got, ref, ckpts, steps
+    return got, ref, ckpts, steps, jax_ref
 
 
 def _case(ranks, name):
@@ -244,7 +390,7 @@ def _same_result(got):
 
 
 def test_one_data_rank_is_bit_equal_to_unsharded(ranks):
-    got, ref, ckpts, steps = ranks
+    got, ref, ckpts, steps, _ = ranks
     case = _case(got, "ffn1x4")
     res = _same_result(case)
     assert res["losses"] == ref["ffn"].losses
@@ -260,7 +406,7 @@ def test_one_data_rank_is_bit_equal_to_unsharded(ranks):
 
 @pytest.mark.parametrize("mesh", [(2, 2), (4, 1)])
 def test_data_parallel_mesh_matches_unsharded(ranks, mesh):
-    got, ref, _, _ = ranks
+    got, ref, _, _, _ = ranks
     case = _case(got, f"ffn{mesh[0]}x{mesh[1]}")
     res = _same_result(case)
     _close(res["losses"], ref["ffn"].losses)
@@ -274,7 +420,7 @@ def test_data_parallel_mesh_matches_unsharded(ranks, mesh):
 
 @pytest.mark.parametrize("mesh", MESHES)
 def test_rank_bytes_equal_the_dryrun_per_device_bytes(ranks, mesh):
-    got, _, _, _ = ranks
+    got, _, _, _, _ = ranks
     cfg = _cfg(ARCH)
     for r, case in enumerate(_case(got, f"ffn{mesh[0]}x{mesh[1]}")):
         assert case["held"] == case["want"], (mesh, r)
@@ -284,7 +430,7 @@ def test_rank_bytes_equal_the_dryrun_per_device_bytes(ranks, mesh):
 
 
 def test_moe_global_aux_loss_matches_unsharded(ranks):
-    got, ref, _, _ = ranks
+    got, ref, _, _, _ = ranks
     res = _same_result(_case(got, "moe"))
     _close(res["losses"], ref["moe"].losses)
     _close(res["aux_losses"], ref["moe"].aux_losses)
@@ -292,14 +438,14 @@ def test_moe_global_aux_loss_matches_unsharded(ranks):
 
 
 def test_undivided_batch_is_replicated(ranks):
-    got, ref, _, _ = ranks
+    got, ref, _, _, _ = ranks
     case = _case(got, "undivided")
     assert case[0]["spec"] == (None, None)
     _close(_same_result(case)["losses"], ref["small"].losses)
 
 
 def test_elastic_restart_onto_another_mesh(ranks):
-    got, ref, _, steps = ranks
+    got, ref, _, steps, _ = ranks
     res = _same_result(_case(got, "elastic"))
     assert res["restarts_used"] == 1 and res["final_step"] == STEPS
     assert len(res["losses"]) == STEPS - 2     # resumed from step 2
@@ -308,11 +454,67 @@ def test_elastic_restart_onto_another_mesh(ranks):
 
 
 def test_pod_data_dim_takes_the_jax_order(ranks):
-    got, _, _, _ = ranks
+    got, _, _, _, _ = ranks
     for case in _case(got, "pod_order"):
         assert case["local"] and case["gathered"]
         assert case["placements"] == ["S(0)", "S(0)", "R"]
         assert case["size1_alias"]
+
+
+# ------------------------------------------------------ against the JAX loop
+def test_one_rank_gloo_mesh_loop_matches_jax_loop(ranks):
+    """The port's ``train(cfg, shape, mesh)`` on a ``(1, 1)`` mesh of a
+    one-rank gloo group against the JAX package's ``train(cfg, shape,
+    make_mesh((1, 1), ("data", "model")))`` (what ``tests/test_substrates.py``
+    runs), 4 steps from the same weights."""
+    _, ref, _, _, jax_ref = ranks
+    assert len(ref["one_rank"].losses) == STEPS
+    np.testing.assert_allclose(ref["one_rank"].losses, jax_ref["loss/ffn"],
+                               rtol=JAX_TOL, atol=JAX_TOL)
+
+
+@pytest.mark.parametrize("case,want,first", [
+    ("ffn1x4", "ffn", 0), ("ffn2x2", "ffn", 0), ("ffn4x1", "ffn", 0),
+    ("elastic", "ffn", 2), ("undivided", "small", 0), ("moe", "moe", 0)])
+def test_mesh_losses_match_jax_loop(ranks, case, want, first):
+    """Each 4-rank case's losses against the JAX loop's on a ``(1, 1)``
+    mesh from step ``first`` (where the elastic run resumes); the
+    undivided and MoE cases' step-0 loss (and ``aux_loss``) against JAX's
+    ``train_loss`` (their later steps are held against the unsharded port
+    above)."""
+    got, _, _, _, jax_ref = ranks
+    res = _same_result(_case(got, case))
+    want_losses = jax_ref[f"loss/{want}"][first:]
+    n = len(want_losses)
+    assert n == (1 if case in ("undivided", "moe") else len(res["losses"]))
+    np.testing.assert_allclose(res["losses"][:n], want_losses, rtol=JAX_TOL,
+                               atol=JAX_TOL)
+    if case == "moe":
+        np.testing.assert_allclose(res["aux_losses"][0], jax_ref["aux/moe"],
+                                   rtol=JAX_TOL, atol=JAX_TOL)
+
+
+def test_error_feedback_over_four_ranks_matches_jax(ranks):
+    got, ref, _, _, jax_ref = ranks
+    grads = ref["ef_grads"]
+    for r, out in enumerate(_case(got, "ef")):
+        for s in range(EF_STEPS):
+            for k, g in grads.items():
+                tag = (r, s, k)
+                got_g = out["g_hat"][s][k]
+                if k == "idx":           # integer leaves pass through
+                    np.testing.assert_array_equal(got_g.numpy(), g[r])
+                    continue
+                np.testing.assert_array_equal(
+                    out["residual"][s][k].numpy(), jax_ref[f"ef/r/{s}/{k}"][r],
+                    err_msg=str(tag))
+                want_g = jax_ref[f"ef/g_hat/{s}/{k}"][r]
+                np.testing.assert_allclose(
+                    got_g.numpy(), want_g, rtol=0,
+                    atol=1e-6 * np.abs(want_g).max(), err_msg=str(tag))
+        want_p = jax_ref["ef/psum"][r]
+        np.testing.assert_allclose(out["psum"].numpy(), want_p, rtol=0,
+                                   atol=1e-6 * np.abs(want_p).max())
 
 
 # ------------------------------------------------------ without a group
