@@ -41,7 +41,10 @@ its largest ``max_bpr`` and one past it, and runs the
 ``launch.dryrun --all`` and holds every timed path's analytic roofline
 (``launch.roofline``) under its measured time and its exact argument bytes
 under its measured peak memory, and ``[examples]`` runs the three example
-twins (``examples/torch_*.py``) on the card.  The MLA/MoE and SSD layouts (no TPU kernel on their paths, so the B1-B5
+twins (``examples/torch_*.py``) on the card.  ``[batched]`` holds B1-B4
+over 16 instances in one launch (the instance axis the composed attention
+path and B5's backward run on) bit-equal to 16 single launches and to its
+plain version, and times it against them.  The MLA/MoE and SSD layouts (no TPU kernel on their paths, so the B1-B5
 counters must read 0): ``[moe-serve]`` and ``[ssd-serve]`` serve
 ``deepseek-v2-lite-16b`` and ``mamba2-1.3b`` at full width through
 ``ServeEngine`` (streams == ``decode_step`` loops), ``[moe-model]`` and
@@ -211,6 +214,10 @@ def build_phase():
             check(not spilled, f"{k['name']}: "
                   f"{'its' if every else 'bf16'} instantiations spill "
                   f"registers: {spilled}")
+            others = [(fn, st) for fn, st in _spills(info["log"]) if st]
+            if others:
+                log(f"[build] {k['name']}: f32 instantiations with spill "
+                    f"stores (bytes; not gated): {others}")
     log(f"[build] all kernels built in {time.perf_counter() - t0:.2f}s")
 
 
@@ -480,6 +487,31 @@ def analysis_phase(smi):
           f"N={edge + 1} not flagged: {errs}")
     log(f"[analysis] grid: {B1} at N={edge + 1} (BN 64) is flagged on the "
         f"host ({errs[0]}); N={edge} passes")
+    # the instance axis folds into grid x: the attention backward's
+    # batched launches over BATCHED_G heads, and a G past gridDim.x
+    from repro_torch.models import attention as A
+    am = A.attention_mask_meta(A.banded(4096), ATTN_SEQ, (128, 128))
+    launches = {B1: ("nnz_stream", "spmm"), B3: ("row_loop", "spmm"),
+                B2: ("nnz_stream", "sddmm"), B4: ("row_loop", "sddmm")}
+    grids = {name: vl.derive_grid(am, op, 128, backend=be,
+                                  instances=BATCHED_G)
+             for name, (be, op) in launches.items()}
+    want = {B1: (am.n_block_rows * BATCHED_G, 2, 1),
+            B3: (am.n_block_rows * BATCHED_G, 2, 1),
+            B2: (am.nnzb * BATCHED_G, 2, 2),
+            B4: (am.n_block_rows * am.max_bpr * BATCHED_G, 2, 2)}
+    check(grids == want, f"batched grids {grids} != {want}")
+    for be, op in launches.values():
+        check(vl.verify_launch(am, be, n=128, op=op,
+                               instances=BATCHED_G) == [],
+              f"{be} {op} over {BATCHED_G} instances flagged")
+    past = ws.H100_GRID_X // am.n_block_rows + 1
+    errs = vl.verify_launch(am, "nnz_stream", n=128, instances=past)
+    check(len(errs) == 1 and "gridDim.x" in errs[0],
+          f"G={past} not flagged: {errs}")
+    log(f"[analysis] batched grids over {BATCHED_G} heads {grids}, each "
+        f"within the card's limits; "
+        f"G={past} is flagged on the host ({errs[0]})")
 
     hook = _hook_on_main_paths()
     log(f"[analysis] every check held; {smi}")
@@ -2616,6 +2648,249 @@ def attn_bwd_timing_phase(smi):
     return rows
 
 
+BATCHED_G = 16         # instances of a [batched] launch: smat-attn-1.3b's heads
+
+
+def _folded(rng, G, rows, n, dtype, kmajor=False):
+    """A [G, rows, n] operand as the model folds its heads: instance g is
+    column block g of one [1, rows, G, n] tensor (batch stride n, row
+    stride G * n); with ``kmajor`` the x^T view of a [G, n, rows] tensor
+    (its row axis contiguous), as the FFN's backward passes x and dC."""
+    if kmajor:
+        t = rng.standard_normal((G, n, rows)).astype(np.float32)
+        return torch.from_numpy(t).to(DEVICE, dtype).transpose(1, 2)
+    t = rng.standard_normal((1, rows, G, n)).astype(np.float32)
+    return torch.from_numpy(t).to(DEVICE, dtype).transpose(1, 2)[0]
+
+
+def _batched_lib_bsr(rowptr, col_ids, vals, shape):
+    """The G instances' blocks as one batched ``torch.sparse_bsr_tensor``
+    (the shared structure repeated), the batched SpMM yardstick."""
+    G = vals.shape[0]
+    return torch.sparse_bsr_tensor(
+        rowptr.expand(G, -1).contiguous(), col_ids.expand(G, -1).contiguous(),
+        vals, size=(G, *shape))
+
+
+def _batched_lib_mask(arrays, shape, G, dtype):
+    """The stored blocks' element CSR repeated for G instances: the mask
+    of a batched ``torch.sparse.sampled_addmm`` (it refuses a BSR mask)."""
+    one = torch.sparse_bsr_tensor(
+        arrays.rowptr, arrays.col_ids,
+        torch.ones(arrays.col_ids.shape[0], *arrays.vals.shape[-2:],
+                   dtype=dtype, device=DEVICE), size=shape).to_dense()
+    one = one.to_sparse_csr()
+    crow, col, vals = (t.expand(G, -1).contiguous() for t in (
+        one.crow_indices(), one.col_indices(), one.values()))
+    return torch.sparse_csr_tensor(crow, col, vals, size=(G, *shape))
+
+
+def batched_phase(smi):
+    """B1-B4 over G = BATCHED_G instances in one launch (the instance axis of
+    ``ops.spmm`` / ``ops.sddmm``, which the composed attention path and
+    B5's backward now take): at the attention backward's shape (16 heads of
+    smat-attn-1.3b, L = ATTN_SEQ, banded(4096) in 128x128 blocks, f32, N =
+    d = 128; Q, K, V and g as the model's folded-heads views) -- B1's
+    context (probs @ V) and dK/dV (P^T g over the transpose structure),
+    B3's context, B2's and B4's scores -- and at the FFN's gate/up shape
+    in bf16 (8192 x 2048, 112 blocks, N = TRAIN_N, the x^T and dC^T views).
+    Each batched call launches once; it must equal the G single launches
+    on the instances' views bit for bit, a second call bit for bit, and
+    its batched plain version (f32 rtol = atol = 1e-4; bf16 1e-2, about
+    one ulp); B3 equals B1 and B4 equals B2 bitwise.  Each is timed (CUDA
+    graphs) beside the G single launches, its bound (G times one
+    instance's), its plain version and the library's batched call
+    (``torch.sparse_bsr_tensor`` with a batch axis @ the dense operand;
+    ``torch.sparse.sampled_addmm`` over a batched element CSR), whose
+    refusal is recorded."""
+    from repro_torch.kernels import bcsr_spmm as pk
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import attention as A
+    G = BATCHED_G
+    rng = np.random.default_rng(17)
+    L, d = ATTN_SEQ, 128
+    f32, bf16 = torch.float32, torch.bfloat16
+    mt = A.mask_tensors(A.banded(4096), L, (128, 128), DEVICE)
+    a, meta = mt.arrays, mt.meta
+    q, k, v, g = (_folded(rng, G, L, d, f32) for _ in range(4))
+    scores = pk.bcsr_sddmm(q, k, a.row_ids, a.col_ids, 128, 128)
+    probs = A.block_softmax(scores * d ** -0.5, mt.elem_mask, a.row_ids,
+                            meta.n_block_rows, flat_idx=a.sddmm_flat_idx)
+    t_vals = ops.transposed_vals(probs, a.t_perm)
+    fa, fmeta = _prepared(3, FULL_WIDTH["gate_up"][0], (128, 128),
+                          nnzb=FULL_WIDTH["gate_up"][1], dtype=bf16)
+    (M, K), n = fmeta.shape, TRAIN_N
+    fvals = torch.from_numpy(rng.standard_normal(
+        (G, *fa.vals.shape)).astype(np.float32)).to(DEVICE, bf16)
+    xt, dct = (_folded(rng, G, rows, n, bf16, kmajor=True)
+               for rows in (K, M))
+
+    def spmm(kern, vals, arrays, nbr, b, t=False):
+        if kern == B1:
+            rows = (arrays.t_row_ids, arrays.t_col_ids, arrays.t_rowptr) \
+                if t else (arrays.row_ids, arrays.col_ids, arrays.rowptr)
+            return lambda s=slice(None): pk.bcsr_spmm_nnz_stream(
+                vals[s], rows[0], rows[1], b[s], nbr, rowptr=rows[2])
+        return lambda s=slice(None): pk.bcsr_spmm_row_loop(
+            vals[s], arrays.flat_idx, arrays.flat_col, arrays.row_len, b[s],
+            nbr)
+
+    def sddmm(kern, arrays, m, dc, b):
+        h, w = m.block
+        if kern == B2:
+            return lambda s=slice(None): pk.bcsr_sddmm(
+                dc[s], b[s], arrays.row_ids, arrays.col_ids, h, w)
+        return lambda s=slice(None): pk.bcsr_sddmm_row_loop(
+            dc[s], b[s], arrays.sddmm_flat_idx, arrays.flat_col,
+            m.n_block_rows, m.nnzb, h, w)
+
+    def spmm_plain(vals, arrays, nbr, b, t=False, dt=None):
+        rows = (arrays.t_row_ids, arrays.t_col_ids) if t else \
+            (arrays.row_ids, arrays.col_ids)
+        return lambda: ref.bcsr_spmm_ref(vals, *rows, b, nbr, out_dtype=dt)
+
+    def sddmm_plain(arrays, m, dc, b, dt=None):
+        return lambda: ref.bcsr_sddmm_ref(dc, b, arrays.row_ids,
+                                          arrays.col_ids, *m.block,
+                                          out_dtype=dt)
+
+    def spmm_lib(vals, rowptr, col_ids, b, shape):
+        bsr = _batched_lib_bsr(rowptr, col_ids, vals, shape)
+        return [("batched sparse_bsr @ b", lambda: bsr @ b),
+                ("torch.bmm(batched sparse_bsr, b)",
+                 lambda: torch.bmm(bsr, b))]
+
+    def sddmm_lib(arrays, m, shape, dc, b):
+        mask = _batched_lib_mask(arrays, shape, G, dc.dtype)
+        return [("sampled_addmm over a batched element CSR",
+                 lambda: torch.sparse.sampled_addmm(
+                     mask, dc, b.transpose(1, 2), beta=0.0).to_dense())]
+
+    one_b1 = bound(meta.nnzb, 128, 128, L, d, meta.n_block_rows, f32)
+    one_b1t = bound(meta.nnzb_t, 128, 128, L, d, meta.n_block_cols, f32)
+    one_b2 = sddmm_bound(a, meta, d, f32)
+    one_f1 = bound(fmeta.nnzb, 128, 128, K, n, fmeta.n_block_rows, bf16)
+    one_f2 = sddmm_bound(fa, fmeta, n, bf16)
+    attn = f"f32 banded(4096) L={L} nnzb={meta.nnzb} N={d}"
+    ffn = f"bf16 gate_up {M}x{K} nnzb={fmeta.nnzb} N={n}"
+    # case -> (kernel, batched call (s: the instances), plain version,
+    #          library call or None, one instance's bound, kernel it equals)
+    cases = {
+        "attn context": (B1, spmm(B1, probs, a, meta.n_block_rows, v),
+                         spmm_plain(probs, a, meta.n_block_rows, v),
+                         (probs, a.rowptr, a.col_ids, v, (L, L)),
+                         one_b1, None, attn),
+        "attn dK/dV": (B1, spmm(B1, t_vals, a, meta.n_block_cols, g, t=True),
+                       spmm_plain(t_vals, a, meta.n_block_cols, g, t=True),
+                       (t_vals, a.t_rowptr, a.t_col_ids, g, (L, L)),
+                       one_b1t, None, attn),
+        "attn context row_loop": (B3, spmm(B3, probs, a, meta.n_block_rows,
+                                           v),
+                                  spmm_plain(probs, a, meta.n_block_rows,
+                                             v), None, one_b1,
+                                  "attn context", attn),
+        "attn scores": (B2, sddmm(B2, a, meta, q, k),
+                        sddmm_plain(a, meta, q, k),
+                        ("sddmm", a, meta, (L, L), q, k), one_b2, None,
+                        attn),
+        "attn scores row_loop": (B4, sddmm(B4, a, meta, q, k),
+                                 sddmm_plain(a, meta, q, k), None, one_b2,
+                                 "attn scores", attn),
+        "ffn forward": (B1, spmm(B1, fvals, fa, fmeta.n_block_rows, xt),
+                        spmm_plain(fvals, fa, fmeta.n_block_rows, xt,
+                                   dt=f32),
+                        (fvals, fa.rowptr, fa.col_ids, xt, (M, K)), one_f1,
+                        None, ffn),
+        "ffn forward row_loop": (B3, spmm(B3, fvals, fa, fmeta.n_block_rows,
+                                          xt),
+                                 spmm_plain(fvals, fa, fmeta.n_block_rows,
+                                            xt, dt=f32), None, one_f1,
+                                 "ffn forward", ffn),
+        "ffn dvals": (B2, sddmm(B2, fa, fmeta, dct, xt),
+                      sddmm_plain(fa, fmeta, dct, xt, dt=f32),
+                      ("sddmm", fa, fmeta, (M, K), dct, xt), one_f2,
+                      None, ffn),
+        "ffn dvals row_loop": (B4, sddmm(B4, fa, fmeta, dct, xt),
+                               sddmm_plain(fa, fmeta, dct, xt, dt=f32),
+                               None, one_f2, "ffn dvals", ffn),
+    }
+    rows, results = {}, {}
+    for case, (kname, call, plain, lib, (one_ms, by), same_as, what) in \
+            cases.items():
+        _reset_counts()
+        got = call()
+        torch.cuda.synchronize()
+        launched = _read_counts()
+        again = call()
+        singles = torch.stack([call(i) for i in range(G)])
+        want = plain().to(got.dtype)
+        torch.cuda.synchronize()
+        tol = 1e-4 if got.dtype == f32 else 1e-2
+        err = (got.float() - want.float()).abs().max().item()
+        row = {"case": f"{kname} {case} G={G} {what}", "G": G,
+               "launches": launched[kname],
+               "bit_equal_to_singles": torch.equal(got, singles),
+               "bit_stable": torch.equal(got, again), "max_abs_err": err,
+               "rel_err": _rel(got.float(), want.float()), "tol": tol}
+        if same_as is not None:
+            row["equal_to"] = {"kernel": cases[same_as][0],
+                               "bitwise": torch.equal(got,
+                                                      results[same_as])}
+        ok = (launched == _counts(**{kname: 1}) and
+              row["bit_equal_to_singles"] and row["bit_stable"] and
+              torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+              and (same_as is None or row["equal_to"]["bitwise"]))
+        results[case] = got
+        del again, singles, want
+        row["ms"] = time_ms([call], reps=10)
+        row["singles_ms"] = time_ms(
+            [lambda i=i: call(i) for i in range(G)], reps=5) * G
+        row["speedup_vs_singles"] = row["singles_ms"] / row["ms"]
+        row["plain_ms"] = time_ms([plain], reps=3)
+        row["bound_ms"], row["bound_by"] = G * one_ms, by
+        row["bound_ms_one_instance"] = one_ms
+        if lib is None:
+            row["library_ms"] = None
+            row["library_error"] = ("one library call for B1 and B3 (B2 "
+                                    "and B4) is the same; see the "
+                                    f"{cases[same_as][0]} row")
+        else:
+            # the first library call that runs and agrees (dense results)
+            if lib[0] == "sddmm":
+                _, arrays, m, shape, dc, b = lib
+                want_lib = ops.materialize_dense(arrays._replace(
+                    vals=got.float()), m)
+                candidates = sddmm_lib(arrays, m, shape, dc, b)
+            else:
+                want_lib = got.float()
+                candidates = spmm_lib(*lib)
+            errors = []
+            for lib_name, fn in candidates:
+                def check_lib(fn=fn):
+                    if not torch.allclose(fn().float(), want_lib, rtol=2e-2,
+                                          atol=2e-2):
+                        raise ValueError("its result differs")
+                row["library_ms"], lib_err = _library([fn], check_lib,
+                                                      timer=time_ms_eager)
+                if lib_err is None:
+                    row["library_call"] = lib_name
+                    break
+                errors.append(f"{lib_name}: {lib_err}")
+            if row["library_ms"] is None:
+                row["library_error"] = "; ".join(errors)
+            del candidates, want_lib
+        row["card"] = smi
+        log("[batched] " + json.dumps(row))
+        check(ok, f"[batched] {case}: {kname} over {G} instances is not "
+              f"one launch equal to its single launches and within {tol} "
+              f"of its plain version (max|err| {err:.3g}, launches "
+              f"{launched})")
+        rows[case] = row
+    del cases, results, probs, t_vals, scores, q, k, v, g, fvals, xt, dct
+    torch.cuda.empty_cache()
+    return rows
+
+
 def _attn_cfg(**attn_kw):
     """smat-attn-1.3b with the attention spec's fields replaced.  Decode
     keeps the registered ``paged_decode="auto"`` unless a phase passes
@@ -3120,10 +3395,11 @@ def obs_phase(model):
 def _attn_train_counts(cfg, per_step_b5):
     """Launches per training step of smat-attn-1.3b, derived from the code:
     the FFN as in ``[train]`` (B1 forward and dB, B2 dvals), B5 forward,
-    and the B5 backward's composed path per head and layer: two SDDMMs
-    (scores recomputed, d(probs)) and two SpMMs (context recomputed, dQ)
-    on the kernels ``backend="auto"`` resolves for the mask, and two B1
-    launches over the transpose structure (dV, dK)."""
+    and the B5 backward's composed path per layer, each product one launch
+    over all the layer's heads: two SDDMMs (scores recomputed, d(probs))
+    and two SpMMs (context recomputed, dQ) on the kernels
+    ``backend="auto"`` resolves for the mask, and two B1 launches over the
+    transpose structure (dV, dK)."""
     from repro_torch.kernels import ops
     from repro_torch.models import attention as A
     sp = cfg.attn_sparsity
@@ -3132,19 +3408,25 @@ def _attn_train_counts(cfg, per_step_b5):
         "auto", None, meta, cfg.head_dim, op="sddmm", device=DEVICE)[0]]
     spmm = {"nnz_stream": B1, "row_loop": B3}[ops.resolve_backend(
         "auto", None, meta, cfg.head_dim, op="spmm", device=DEVICE)[0]]
-    per_head = {sddmm: 2, spmm: 2}
-    per_head[B1] = per_head.get(B1, 0) + 2
+    per_layer = {sddmm: 2, spmm: 2}
+    per_layer[B1] = per_layer.get(B1, 0) + 2
     counts = {B5: per_step_b5, B1: 6 * cfg.n_layers, B2: 3 * cfg.n_layers}
-    for name, n in per_head.items():
-        counts[name] = counts.get(name, 0) + n * cfg.n_heads * cfg.n_layers
+    for name, n in per_layer.items():
+        counts[name] = counts.get(name, 0) + n * cfg.n_layers
     return _counts(**counts), (sddmm, spmm)
+
+
+# the attention training step while B5's backward looped over the heads
+# (one launch a head and product): NVIDIA H100 80GB HBM3, 700.00 W
+ATTN_TRAIN_PER_HEAD = {"step_ms": (2735.0, 3020.0), "peak_gb": 38.81}
 
 
 def train_attn_phase(smi):
     """ATTN_TRAIN_STEPS AdamW steps of 1 x 8192 tokens of smat-attn-1.3b at
     full width, bf16, no remat, through ``train.loop.train``: finite losses,
     exact launch counts per step (``_attn_train_counts``), step ms,
-    tokens/s and peak memory."""
+    tokens/s and peak memory, beside the per-head loop's
+    (``ATTN_TRAIN_PER_HEAD``)."""
     from repro_torch.configs.base import ShapeCell
     from repro_torch.optim import adamw
     from repro_torch.train import loop
@@ -3170,7 +3452,10 @@ def train_attn_phase(smi):
         f"remat none, AdamW: losses {res.losses}; step ms "
         f"{[round(1e3 * t, 3) for t in res.step_times]}; steady "
         f"{step_ms:.3f} ms = {ATTN_SEQ / step_ms * 1e3:.1f} tokens/s; peak "
-        f"memory {peak:.2f} GB; {smi}")
+        f"memory {peak:.2f} GB (the per-head loop: steady "
+        f"{ATTN_TRAIN_PER_HEAD['step_ms'][0]:.0f}-"
+        f"{ATTN_TRAIN_PER_HEAD['step_ms'][1]:.0f} ms, peak "
+        f"{ATTN_TRAIN_PER_HEAD['peak_gb']:.2f} GB); {smi}")
     log(f"[train-attn] kernel launches {launches}; expected {want} (per "
         f"step {per_step}: the backward's composed path resolves its SDDMM "
         f"to {sddmm} and its SpMM to {spmm})")
@@ -3721,7 +4006,8 @@ def prefill_attn_sharded_phase(smi):
     """smat-attn-1.3b at full width and depth with
     ``AttnSparsitySpec(shards=4)`` (always composed): one 8,192-token
     prefill, exactly 24 x 16 x 4 = 1,536 context products on the
-    spmm-family kernels (plus the FFN's 72 B1) and 384 score SDDMMs; its
+    spmm-family kernels (one a head and shard; plus the FFN's 72 B1) and 24
+    score SDDMMs (one a layer over its 16 heads); its
     last-position logits against the ``shards=0`` composed prefill (the
     same kernels, unpartitioned) within max(2e-2, 2 x that path's own
     noise: FFN ``dense`` against ``nnz_stream``)."""
@@ -3752,7 +4038,7 @@ def prefill_attn_sharded_phase(smi):
     _measured("prefill_attn_sharded", cfg, "prefill", 1, ATTN_SEQ, dt * 1e3)
     spmm_n, sddmm_n = _family(counts)
     want_spmm = cfg.n_layers * cfg.n_heads * 4 + 3 * cfg.n_layers
-    want_sddmm = cfg.n_layers * cfg.n_heads
+    want_sddmm = cfg.n_layers
     refs = {}
     for ffn in ("nnz_stream", "dense"):
         c = dataclasses.replace(_attn_cfg(backend="nnz_stream"),
@@ -4518,6 +4804,7 @@ def main():
     timed_dist = phase(dist_timing_phase, smi)
     timed_attn = phase(attn_timing_phase, smi, mask_s)
     timed_bwd = phase(attn_bwd_timing_phase, smi)
+    timed_batched = phase(batched_phase, smi)
     cfg, model, launches, tok_s, stream0 = phase(main_path_phase)
     phase(model_vs_plain_phase, cfg, model)
     phase(profile_phase, cfg, model)
@@ -4643,6 +4930,14 @@ def main():
                 "bound_by": rows["down"]["bound_by"],
                 "launches_by_path": by_path, **extra}
     b1, b2, b3, b4, b5 = KERNELS
+
+    # each kernel's [batched] rows: one launch over BATCHED_G instances
+    def batched(name):
+        return {case: {key: r[key] for key in (
+            "G", "launches", *bwd_keys, "singles_ms", "speedup_vs_singles",
+            "max_abs_err", "bit_equal_to_singles") if key in r}
+            for case, r in timed_batched.items()
+            if r["case"].startswith(name + " ")}
     attn_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                  "composed_ms", "composed_launches",
                  "dense_causal_sdpa_bf16_ms")
@@ -4675,16 +4970,19 @@ def main():
               attn_bwd_f32_context={key: timed_bwd["context"][key]
                                     for key in bwd_keys},
               attn_bwd_f32_dKdV={key: timed_bwd["dK/dV"][key]
-                                 for key in bwd_keys}),
+                                 for key in bwd_keys},
+              batched=batched(B1)),
         entry(b2, max(err_b2, *held_b2), sd, dense_ms=mix(sd, "dense_ms"),
               prefill_width={key: mix(sd_pre, key) for key in keys},
               attn_bwd_f32_scores={key: timed_bwd["scores"][key]
-                                   for key in bwd_keys}),
+                                   for key in bwd_keys},
+              batched=batched(B2)),
         entry(b3, max(err_b3, err_lib), rl[(B3, N_SLOTS)],
               train_forward={key: mix(rl[(B3, TRAIN_N)], key)
                              for key in keys},
               prefill_forward={key: mix(rl[(B3, PREFILL_N)], key)
-                               for key in keys}),
+                               for key in keys},
+              batched=batched(B3)),
         entry(b4, max(err_b4, *(rl[(B4, n)][s]["max_abs_err"]
                                 for n in (N_SLOTS, TRAIN_N, PREFILL_N)
                                 for s in FULL_WIDTH)),
@@ -4695,7 +4993,8 @@ def main():
               prefill_width={key: mix(rl[(B4, PREFILL_N)], key)
                              for key in (*keys, "b2_ms")},
               attn_bwd_f32_scores={key: timed_bwd["scores row_loop"][key]
-                                   for key in bwd_keys}),
+                                   for key in bwd_keys},
+              batched=batched(B4)),
         {"name": b5["name"], "route": b5["route"], "source": b5["source"],
          "replaces": b5["replaces"],
          "launches": sum(c[B5] for c in paths.values()),
@@ -4731,7 +5030,8 @@ def main():
         f"Kernel times per launch: {B1} and {B3} at the decode shape "
         f"(N={N_SLOTS}; train_forward and train_dB at N={TRAIN_N}, "
         f"prefill_* at N={PREFILL_N}, attn_bwd_f32_* one head at "
-        f"L={ATTN_SEQ}, N=128), {B2} and "
+        f"L={ATTN_SEQ}, N=128; batched: {BATCHED_G} instances a launch), "
+        f"{B2} and "
         f"{B4} at N={TRAIN_N} (their prefill_width at N={PREFILL_N}, "
         f"the attention training's FFN); each averaged 2:1 over the gate/up "
         f"and down shapes.  {ATTN_ARCH}: prefill {prefilled['prefill_ms']:.3f} ms "

@@ -371,23 +371,25 @@ def _spmm_tile(n: int, h: int, bn: Optional[int]):
 def derive_grid(meta, family: str, n: int, bn: Optional[int] = None, *,
                 backend: str = "row_loop", instances: int = 1,
                 dv: Optional[int] = None):
-    """The CUDA grid one launch of ``family`` runs with (``n`` is N for
-    the spmm/sddmm families, the head width d for attn): B1/B3
-    ``(nbr, ceil(N/BN), ceil(h/BM))`` (``spmm_tile.cuh`` ``launch_one``);
-    B2/B4 ``(entries, ceil(h/64), ceil(w/64))`` with ``entries`` the
-    stored entries (B2, ``backend="nnz_stream"``) or schedule slots (B4)
-    (``sddmm_tile.cuh``); B5 ``(nbr * slices, instances, ceil(dv/128))``
-    with ``slices`` the CTAs a block-row's rows take (``bcsr_attn.cu``)."""
+    """The CUDA grid one launch of ``family`` over ``instances`` instances
+    runs with (``n`` is N for the spmm/sddmm families, the head width d for
+    attn): B1/B3 ``(nbr * instances, ceil(N/BN), ceil(h/BM))``
+    (``spmm_tile.cuh`` ``launch``: the instance axis folded into x);
+    B2/B4 ``(entries * instances, ceil(h/64), ceil(w/64))`` with
+    ``entries`` the stored entries (B2, ``backend="nnz_stream"``) or
+    schedule slots (B4) (``sddmm_tile.cuh``); B5 ``(nbr * slices,
+    instances, ceil(dv/128))`` with ``slices`` the CTAs a block-row's rows
+    take (``bcsr_attn.cu``)."""
     h, w = meta.block
     nbr = meta.n_block_rows
     if family == "spmm":
         bm, tile = _spmm_tile(n, h, bn)
-        return (nbr, -(-n // tile), -(-h // bm))
+        return (nbr * instances, -(-n // tile), -(-h // bm))
     if family == "sddmm":
         entries = meta.nnzb if backend in ("nnz_stream", "pallas") \
             else nbr * meta.max_bpr
         t = workspace.SDDMM_TILE
-        return (entries, -(-h // t), -(-w // t))
+        return (entries * instances, -(-h // t), -(-w // t))
     if family == "attn":
         slices = -(-h // (16 * workspace.attn_warps(h)))
         return (nbr * slices, instances,
@@ -457,14 +459,16 @@ def _family_for(backend: str, op: str) -> Optional[str]:
 
 def verify_launch(meta, backend: str, *, n: int, bn: Optional[int] = None,
                   op: str = "spmm",
-                  vmem_budget: int = workspace.H100_SMEM_PER_CTA) -> list:
+                  vmem_budget: int = workspace.H100_SMEM_PER_CTA,
+                  instances: int = 1) -> list:
     """All static checks for one resolved (meta, backend, n, bn, op)
-    launch: meta invariants, schedule feasibility for the backend's
-    family, the kernel's grid against the card's limits, its widths (B5:
-    d <= 256, block width <= 128) and its CTA's shared memory against
-    ``vmem_budget`` (the JAX name kept; by default the H100's 232,448
-    bytes a CTA).  ``n`` is N, or the head width d (= dv) for
-    ``op="attn"``.  Returns error strings (empty = ok)."""
+    launch over ``instances`` instances: meta invariants, schedule
+    feasibility for the backend's family, the kernel's grid against the
+    card's limits, its widths (B5: d <= 256, block width <= 128) and its
+    CTA's shared memory against ``vmem_budget`` (the JAX name kept; by
+    default the H100's 232,448 bytes a CTA).  ``n`` is N, or the head
+    width d (= dv) for ``op="attn"``.  Returns error strings (empty =
+    ok)."""
     errs = list(verify_meta(meta))
     family = _family_for(backend, op)
     if family is not None and meta.max_bpr <= 0:
@@ -479,9 +483,10 @@ def verify_launch(meta, backend: str, *, n: int, bn: Optional[int] = None,
     if kernel is None or (family is not None and meta.max_bpr <= 0):
         return errs
     kfam = _KERNEL_FAMILY[kernel]
-    what = f" of {kernel} (block={meta.block}, n={n}, bn={bn})"
-    errs += grid_errors(derive_grid(meta, kfam, n, bn, backend=backend),
-                        what)
+    each = f", instances={instances}" if instances > 1 else ""
+    what = f" of {kernel} (block={meta.block}, n={n}, bn={bn}{each})"
+    errs += grid_errors(derive_grid(meta, kfam, n, bn, backend=backend,
+                                    instances=instances), what)
     if kernel == "B5":
         w = meta.block[1]
         if n > workspace.ATTN_MAX_D or w > workspace.ATTN_MAX_W:
@@ -500,17 +505,20 @@ def verify_launch(meta, backend: str, *, n: int, bn: Optional[int] = None,
 
 def assert_launch_ok(meta, backend: str, *, n: int, bn: Optional[int] = None,
                      op: str = "spmm",
-                     vmem_budget: int = workspace.H100_SMEM_PER_CTA):
-    """Raise ``LaunchError`` if the resolved launch violates any static
-    contract -- the ``REPRO_VERIFY_LAUNCH=1`` hook in
-    ``ops.resolve_backend``.  ``vmem_budget`` keeps the JAX package's name
-    for the shared-memory budget of a CTA."""
+                     vmem_budget: int = workspace.H100_SMEM_PER_CTA,
+                     instances: int = 1):
+    """Raise ``LaunchError`` if the resolved launch (over ``instances``
+    instances) violates any static contract -- the
+    ``REPRO_VERIFY_LAUNCH=1`` hook in ``ops.resolve_backend``.
+    ``vmem_budget`` keeps the JAX package's name for the shared-memory
+    budget of a CTA."""
     errs = verify_launch(meta, backend, n=n, bn=bn, op=op,
-                         vmem_budget=vmem_budget)
+                         vmem_budget=vmem_budget, instances=instances)
     if errs:
+        each = f", instances={instances}" if instances > 1 else ""
         raise LaunchError(
             f"pre-launch verification failed for backend={backend!r}, "
-            f"op={op!r}, n={n}, bn={bn}:\n  - " + "\n  - ".join(errs))
+            f"op={op!r}, n={n}, bn={bn}{each}:\n  - " + "\n  - ".join(errs))
 
 
 def verify_chunk_schedule(bounds, n: int, *, block=None,

@@ -8,10 +8,23 @@ kernels are ``csrc/bcsr_spmm.cu``, ``csrc/bcsr_spmm_row_loop.cu``,
 say how they are laid out and what bounds them.  Each wrapper dispatches on
 the device of its operands: a CPU tensor goes to the plain version in
 ``ref``, a CUDA tensor launches the kernel or raises -- it never falls back.
+
+Each wrapper also takes G instances over one structure (the JAX package's
+``vmap`` of the op): ``vals`` ``[G, nnzb, h, w]`` with ``b`` ``[G, K, N]``,
+or ``dc`` ``[G, M, N]`` with ``b`` ``[G, K, N]``, and returns the results
+stacked on the leading axis.  The index arrays are shared; the dense
+operands may be strided views (the folded attention heads), each instance
+a batch stride from the last.  Every operand is batched, or none is.  One
+launch covers all G instances and counts once in ``LAUNCHES``; its tile
+and staging are those of one instance (only the copy width may narrow,
+where a batch stride is less aligned than the base address), so it gives
+the bits of G single launches.
 """
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import Optional
 
 import torch
 
@@ -28,29 +41,30 @@ SDDMM_TILE = (64, 64)            # the output tile one B2 or B4 CTA owns
 _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _C, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # (source, C symbol) -> argument types of the C interface
+_BATCH = [_I, _LL, _LL, _LL]           # instances, three batch strides
 _ARGTYPES = {
     ("bcsr_spmm", "bcsr_spmm_nnz_stream"): [
         _C, _C, _C, _C, _C,              # vals rowptr col_ids b out
         _I, _I, _I, _I, _LL, _LL,        # nbr h w N, b's strides
         _I, _I, _I, _I,                  # bn bm vec kmajor
-        _I, _I, _C],                     # in_type out_type stream
+        _I, _I, *_BATCH, _C],            # in_type out_type, G (vals b out)
     ("bcsr_sddmm", "bcsr_sddmm"): [
         _C, _C, _C, _C, _C,              # dc b row_ids col_ids out
         _I, _I, _I, _I,                  # nnzb h w N
         _LL, _LL, _LL, _LL,              # dc's strides, b's strides
         _I, _I, _I,                      # vec ak bk
-        _I, _I, _C],                     # in_type out_type stream
+        _I, _I, *_BATCH, _C],            # in_type out_type, G (dc b out)
     ("bcsr_spmm_row_loop", "bcsr_spmm_row_loop"): [
         _C, _C, _C, _C, _C, _C,          # vals flat_idx flat_col row_len b out
         _I, _I, _I, _I, _I, _LL, _LL,    # nbr max_bpr h w N, b's strides
         _I, _I, _I, _I,                  # bn bm vec kmajor
-        _I, _I, _C],                     # in_type out_type stream
+        _I, _I, *_BATCH, _C],            # in_type out_type, G (vals b out)
     ("bcsr_sddmm_row_loop", "bcsr_sddmm_row_loop"): [
         _C, _C, _C, _C, _C,              # dc b flat_idx flat_col out
         _I, _I, _I, _I, _I, _I,          # nbr max_bpr nnzb h w N
         _LL, _LL, _LL, _LL,              # dc's strides, b's strides
         _I, _I, _I,                      # vec ak bk
-        _I, _I, _C],                     # in_type out_type stream
+        _I, _I, *_BATCH, _C],            # in_type out_type, G (dc b out)
     # each library's queries for the static analyzer (``query``)
     ("bcsr_spmm", "bcsr_spmm_nnz_stream_smem_bytes"): [_I] * 4,
     ("bcsr_spmm", "bcsr_spmm_nnz_stream_threads"): [_I],
@@ -142,10 +156,30 @@ def spmm_launch_config(n: int, h: int, w: int, dtype, vals_ptr: int,
     return bm, esize, int(kmajor)
 
 
+def _address(t: torch.Tensor, batched: bool) -> int:
+    """The address a copy width must divide in every instance of ``t``:
+    its data pointer, and for a batched ``t`` the batch stride in bytes too
+    (their greatest common divisor)."""
+    if not batched:
+        return t.data_ptr()
+    return math.gcd(t.data_ptr(), t.stride(0) * t.element_size())
+
+
+def _batch_args(G: Optional[int], *tensors) -> tuple:
+    """``(instances, batch strides)`` of the C interfaces: ``(1, 0, ...)``
+    for an unbatched call (G None), else G and each tensor's leading
+    stride."""
+    if G is None:
+        return (1,) + (0,) * len(tensors)
+    return (G, *(t.stride(0) for t in tensors))
+
+
 def _launch_config(vals: torch.Tensor, b: torch.Tensor):
-    _, h, w = vals.shape
-    return spmm_launch_config(b.shape[1], h, w, b.dtype, vals.data_ptr(),
-                              b.data_ptr(), b.stride(0), b.stride(1))
+    h, w = vals.shape[-2:]
+    batched = b.dim() == 3
+    return spmm_launch_config(b.shape[-1], h, w, b.dtype,
+                              _address(vals, batched), _address(b, batched),
+                              b.stride(-2), b.stride(-1))
 
 
 def sddmm_launch_config(n: int, h: int, w: int, dtype, dc_ptr: int,
@@ -189,13 +223,15 @@ def sddmm_launch_args(dc: torch.Tensor, b: torch.Tensor, h: int, w: int,
     """The launch arguments B2 and B4 share, in the order of their C
     interfaces after the entry list or schedule: ``(h, w, N, sdm, sdn, sbk,
     sbn, vec, ak, bk, in_type, out_type)``, with ``vec, ak, bk`` from
-    ``sddmm_launch_config``.  A pure function of the operands' shapes,
+    ``sddmm_launch_config``: those of one instance where ``dc`` and ``b``
+    carry the instance axis.  A pure function of the operands' shapes,
     strides, types and addresses; it reads no element."""
-    n = dc.shape[1]
+    n = dc.shape[-1]
+    batched = dc.dim() == 3
     _, vec, ak, bk = sddmm_launch_config(
-        n, h, w, dc.dtype, dc.data_ptr(), b.data_ptr(), *dc.stride(),
-        *b.stride())
-    return (h, w, n, *dc.stride(), *b.stride(), vec, ak, bk,
+        n, h, w, dc.dtype, _address(dc, batched), _address(b, batched),
+        *dc.stride()[-2:], *b.stride()[-2:])
+    return (h, w, n, *dc.stride()[-2:], *b.stride()[-2:], vec, ak, bk,
             _TYPE_CODES[dc.dtype], _TYPE_CODES[out_dtype])
 
 
@@ -209,8 +245,12 @@ def _check_int32(device, **tensors) -> None:
 
 
 def _check_vals(vals: torch.Tensor, device) -> None:
-    if vals.device != device or not vals.is_contiguous():
-        raise ValueError(f"vals must be a contiguous tensor on {device}")
+    """``vals`` lies on ``device``, each instance contiguous (a batch
+    stride of its own is fine)."""
+    one = vals[0] if vals.dim() == 4 and vals.shape[0] else vals
+    if vals.device != device or not one.is_contiguous():
+        raise ValueError(f"vals must be a contiguous tensor on {device} "
+                         "(each instance contiguous)")
 
 
 def _check_types(a, b, out_dtype, names) -> None:
@@ -243,16 +283,18 @@ def bcsr_spmm_nnz_stream(vals: torch.Tensor, row_ids: torch.Tensor,
     ``row_ids`` when not given).  ``b`` is [K, N] with K a multiple of w and
     may be strided; ``bn`` is the N tile (one of ``SPMM_TILES``; default
     ``tile_n(N)``).  The result is a new contiguous tensor in ``out_dtype``
-    (default ``b.dtype``), accumulated in float32."""
+    (default ``b.dtype``), accumulated in float32.  With ``vals`` [G, nnzb,
+    h, w] and ``b`` [G, K, N], one launch gives [G, nbr*h, N]."""
     out_dtype = out_dtype or b.dtype
+    G = ref.instances(vals, b, 3, ("vals", "b"))
     if b.device.type == "cpu":
         return ref.bcsr_spmm_ref(vals, row_ids, col_ids, b, n_block_rows,
                                  out_dtype=out_dtype)
     if b.device.type != "cuda":
         raise ValueError(f"bcsr_spmm_nnz_stream: no kernel for device "
                          f"{b.device}")
-    nnzb, h, w = vals.shape
-    K, N = b.shape
+    nnzb, h, w = vals.shape[-3:]
+    K, N = b.shape[-2:]
     if rowptr is None:
         rowptr = rowptr_from_rows(row_ids, n_block_rows)
     _check_int32(b.device, rowptr=rowptr, col_ids=col_ids)
@@ -264,16 +306,18 @@ def bcsr_spmm_nnz_stream(vals: torch.Tensor, row_ids: torch.Tensor,
                          f"b {tuple(b.shape)}, rowptr {tuple(rowptr.shape)}, "
                          f"col_ids {tuple(col_ids.shape)}, "
                          f"n_block_rows {n_block_rows}")
-    out = torch.empty((n_block_rows * h, N), dtype=out_dtype, device=b.device)
-    if N == 0 or n_block_rows == 0:
+    out = torch.empty((*b.shape[:-2], n_block_rows * h, N), dtype=out_dtype,
+                      device=b.device)
+    if out.numel() == 0:
         return out
     fn = _lib("bcsr_spmm", "bcsr_spmm_nnz_stream")
     with torch.cuda.device(b.device):
         err = fn(vals.data_ptr(), rowptr.data_ptr(), col_ids.data_ptr(),
                  b.data_ptr(), out.data_ptr(), n_block_rows, h, w, N,
-                 b.stride(0), b.stride(1), _tile(bn, N),
+                 b.stride(-2), b.stride(-1), _tile(bn, N),
                  *_launch_config(vals, b), _TYPE_CODES[vals.dtype],
-                 _TYPE_CODES[out_dtype], _stream(b))
+                 _TYPE_CODES[out_dtype], *_batch_args(G, vals, b, out),
+                 _stream(b))
     if err:
         raise RuntimeError(f"bcsr_spmm_nnz_stream: kernel launch failed with "
                            f"CUDA error {err}")
@@ -290,33 +334,37 @@ def bcsr_sddmm(dc: torch.Tensor, b: torch.Tensor, row_ids: torch.Tensor,
     w; both may be strided views, each staged along its contiguous axis
     (``sddmm_launch_config``).  Accumulated in float32 over N (f32 operands
     as 3xTF32 on the tensor cores); the result is a new contiguous tensor
-    in ``out_dtype`` (default ``dc.dtype``)."""
+    in ``out_dtype`` (default ``dc.dtype``).  With ``dc`` [G, M, N] and
+    ``b`` [G, K, N], one launch gives [G, nnzb, h, w]."""
     out_dtype = out_dtype or dc.dtype
+    G = ref.instances(dc, b, 2, ("dc", "b"))
     if dc.device.type == "cpu":
         return ref.bcsr_sddmm_ref(dc, b, row_ids, col_ids, h, w,
                                   out_dtype=out_dtype)
     if dc.device.type != "cuda":
         raise ValueError(f"bcsr_sddmm: no kernel for device {dc.device}")
-    M, N = dc.shape
-    K = b.shape[0]
+    M, N = dc.shape[-2:]
+    K = b.shape[-2]
     nnzb = row_ids.shape[0]
     if b.device != dc.device:
         raise ValueError(f"b is on {b.device}, dc on {dc.device}")
     _check_int32(dc.device, row_ids=row_ids, col_ids=col_ids)
     _check_types(dc, b, out_dtype, ("dc", "b"))
-    if M % h or K % w or b.shape[1] != N or col_ids.shape != (nnzb,):
+    if M % h or K % w or b.shape[-1] != N or col_ids.shape != (nnzb,):
         raise ValueError(f"shapes do not fit: dc {tuple(dc.shape)}, b "
                          f"{tuple(b.shape)}, block ({h}, {w}), row_ids "
                          f"{tuple(row_ids.shape)}, col_ids "
                          f"{tuple(col_ids.shape)}")
-    out = torch.empty((nnzb, h, w), dtype=out_dtype, device=dc.device)
-    if nnzb == 0:
+    out = torch.empty((*dc.shape[:-2], nnzb, h, w), dtype=out_dtype,
+                      device=dc.device)
+    if out.numel() == 0:
         return out
     fn = _lib("bcsr_sddmm", "bcsr_sddmm")
     with torch.cuda.device(dc.device):
         err = fn(dc.data_ptr(), b.data_ptr(), row_ids.data_ptr(),
                  col_ids.data_ptr(), out.data_ptr(), nnzb,
-                 *sddmm_launch_args(dc, b, h, w, out_dtype), _stream(dc))
+                 *sddmm_launch_args(dc, b, h, w, out_dtype),
+                 *_batch_args(G, dc, b, out), _stream(dc))
     if err:
         raise RuntimeError(f"bcsr_sddmm: kernel launch failed with CUDA "
                            f"error {err}")
@@ -331,9 +379,11 @@ def bcsr_spmm_row_loop(vals: torch.Tensor, flat_idx: torch.Tensor,
     """C[nbr*h, N] = A_bcsr @ B through SMaT's static schedule: block-row i
     runs slots t = 0 .. max_bpr-1, slot t holding entry ``flat_idx[i *
     max_bpr + t]`` of block-col ``flat_col[i * max_bpr + t]``, live while
-    ``t < row_len[i]`` (``ops._row_loop_schedule``).  ``b`` as for
-    ``bcsr_spmm_nnz_stream``; accumulated in float32."""
+    ``t < row_len[i]`` (``ops._row_loop_schedule``).  ``b``, and the
+    instance axis, as for ``bcsr_spmm_nnz_stream``; accumulated in
+    float32."""
     out_dtype = out_dtype or b.dtype
+    G = ref.instances(vals, b, 3, ("vals", "b"))
     if b.device.type == "cpu":
         return ref.bcsr_spmm_row_loop_ref(vals, flat_idx, flat_col, row_len,
                                           b, n_block_rows,
@@ -341,8 +391,8 @@ def bcsr_spmm_row_loop(vals: torch.Tensor, flat_idx: torch.Tensor,
     if b.device.type != "cuda":
         raise ValueError(f"bcsr_spmm_row_loop: no kernel for device "
                          f"{b.device}")
-    nnzb, h, w = vals.shape
-    K, N = b.shape
+    nnzb, h, w = vals.shape[-3:]
+    K, N = b.shape[-2:]
     _check_int32(b.device, flat_idx=flat_idx, flat_col=flat_col,
                  row_len=row_len)
     _check_vals(vals, b.device)
@@ -357,16 +407,18 @@ def bcsr_spmm_row_loop(vals: torch.Tensor, flat_idx: torch.Tensor,
                          f"{tuple(flat_col.shape)}, row_len "
                          f"{tuple(row_len.shape)}, n_block_rows "
                          f"{n_block_rows}")
-    out = torch.empty((n_block_rows * h, N), dtype=out_dtype, device=b.device)
-    if N == 0 or n_block_rows == 0:
+    out = torch.empty((*b.shape[:-2], n_block_rows * h, N), dtype=out_dtype,
+                      device=b.device)
+    if out.numel() == 0:
         return out
     fn = _lib("bcsr_spmm_row_loop", "bcsr_spmm_row_loop")
     with torch.cuda.device(b.device):
         err = fn(vals.data_ptr(), flat_idx.data_ptr(), flat_col.data_ptr(),
                  row_len.data_ptr(), b.data_ptr(), out.data_ptr(),
-                 n_block_rows, max_bpr, h, w, N, b.stride(0), b.stride(1),
+                 n_block_rows, max_bpr, h, w, N, b.stride(-2), b.stride(-1),
                  _tile(bn, N), *_launch_config(vals, b),
-                 _TYPE_CODES[vals.dtype], _TYPE_CODES[out_dtype], _stream(b))
+                 _TYPE_CODES[vals.dtype], _TYPE_CODES[out_dtype],
+                 *_batch_args(G, vals, b, out), _stream(b))
     if err:
         raise RuntimeError(f"bcsr_spmm_row_loop: kernel launch failed with "
                            f"CUDA error {err}")
@@ -387,8 +439,10 @@ def bcsr_sddmm_row_loop(dc: torch.Tensor, b: torch.Tensor,
     off: the same values).  ``dc`` [M, N] and ``b`` [K, N] may be strided
     views, staged as B2 stages them (``sddmm_launch_args``); accumulated
     in float32 over N (f32 operands as 3xTF32), bit-equal to
-    ``bcsr_sddmm`` on every stored entry."""
+    ``bcsr_sddmm`` on every stored entry.  The instance axis as for
+    ``bcsr_sddmm``."""
     out_dtype = out_dtype or dc.dtype
+    G = ref.instances(dc, b, 2, ("dc", "b"))
     if dc.device.type == "cpu":
         return ref.bcsr_sddmm_row_loop_ref(dc, b, flat_idx, flat_col,
                                            n_block_rows, nnzb, h, w,
@@ -396,14 +450,14 @@ def bcsr_sddmm_row_loop(dc: torch.Tensor, b: torch.Tensor,
     if dc.device.type != "cuda":
         raise ValueError(f"bcsr_sddmm_row_loop: no kernel for device "
                          f"{dc.device}")
-    M, N = dc.shape
-    K = b.shape[0]
+    M, N = dc.shape[-2:]
+    K = b.shape[-2]
     if b.device != dc.device:
         raise ValueError(f"b is on {b.device}, dc on {dc.device}")
     _check_int32(dc.device, flat_idx=flat_idx, flat_col=flat_col)
     _check_types(dc, b, out_dtype, ("dc", "b"))
     max_bpr = flat_idx.shape[0] // max(n_block_rows, 1)
-    if M % h or K % w or b.shape[1] != N or M // h < n_block_rows or \
+    if M % h or K % w or b.shape[-1] != N or M // h < n_block_rows or \
             flat_idx.shape != (n_block_rows * max_bpr,) or \
             flat_col.shape != flat_idx.shape:
         raise ValueError(f"shapes do not fit: dc {tuple(dc.shape)}, b "
@@ -411,15 +465,16 @@ def bcsr_sddmm_row_loop(dc: torch.Tensor, b: torch.Tensor,
                          f"{tuple(flat_idx.shape)}, flat_col "
                          f"{tuple(flat_col.shape)}, n_block_rows "
                          f"{n_block_rows}")
-    out = torch.empty((nnzb, h, w), dtype=out_dtype, device=dc.device)
-    if flat_idx.numel():
+    out = torch.empty((*dc.shape[:-2], nnzb, h, w), dtype=out_dtype,
+                      device=dc.device)
+    if flat_idx.numel() and G != 0:
         fn = _lib("bcsr_sddmm_row_loop", "bcsr_sddmm_row_loop")
         with torch.cuda.device(dc.device):
             err = fn(dc.data_ptr(), b.data_ptr(), flat_idx.data_ptr(),
                      flat_col.data_ptr(), out.data_ptr(), n_block_rows,
                      max_bpr, nnzb, *sddmm_launch_args(dc, b, h, w,
                                                        out_dtype),
-                     _stream(dc))
+                     *_batch_args(G, dc, b, out), _stream(dc))
         if err:
             raise RuntimeError(f"bcsr_sddmm_row_loop: kernel launch failed "
                                f"with CUDA error {err}")

@@ -52,20 +52,25 @@ struct EntrySource {
 }  // namespace
 
 // Type codes: 0 = float32, 1 = bfloat16.  `dc` and `b` share in_type.
-// `out` is a contiguous [nnzb, h, w].  `vec` the copy width in bytes,
-// `ak` / `bk` 1 where dC / B is staged k-major (its row axis contiguous);
-// the rule is `bcsr_spmm.sddmm_launch_config`.  Returns the launch's
-// cudaError_t (0 = launched).
+// `out` is a contiguous [nnzb, h, w] for each of `instances` G products
+// over the one entry list, their `dc`, `b` and `out` s_dc, s_b and s_out
+// elements apart (G = 1 with zero strides: one product).  `vec` the copy
+// width in bytes, `ak` / `bk` 1 where dC / B is staged k-major (its row
+// axis contiguous); the rule is `bcsr_spmm.sddmm_launch_config`.  Returns
+// the launch's cudaError_t (0 = launched).
 extern "C" int bcsr_sddmm(const void* dc, const void* b, const void* row_ids,
                           const void* col_ids, void* out, int nnzb, int h,
                           int w, int n_cols, long long sdm, long long sdn,
                           long long sbk, long long sbn, int vec, int ak,
-                          int bk, int in_type, int out_type, void* stream) {
+                          int bk, int in_type, int out_type, int instances,
+                          long long s_dc, long long s_b, long long s_out,
+                          void* stream) {
   const EntrySource src{static_cast<const int*>(row_ids),
                         static_cast<const int*>(col_ids)};
-  sddmm_tile::Args g{dc, b, out, h, w, n_cols, sdm, sdn, sbk, sbn, vec, 0, 0};
-  return sddmm_tile::launch(src, g, nnzb, ak, bk, in_type, out_type,
-                            static_cast<cudaStream_t>(stream));
+  sddmm_tile::Args g{dc, b, out, h, w, n_cols, sdm, sdn, sbk, sbn, vec,
+                     0, 0, 0, s_dc, s_b, s_out};
+  return sddmm_tile::launch(src, g, nnzb, instances, ak, bk, in_type,
+                            out_type, static_cast<cudaStream_t>(stream));
 }
 
 // The static analyzer's queries (analysis/workspace.py mirrors them):

@@ -66,9 +66,10 @@ struct ScheduleSource {
 }  // namespace
 
 // Type codes: 0 = float32, 1 = bfloat16.  `dc` and `b` share in_type.
-// flat_idx and flat_col hold nbr * max_bpr slots; `out` is a contiguous
-// [nnzb, h, w].  `vec`, `ak`, `bk` as for bcsr_sddmm (the rule is
-// `bcsr_spmm.sddmm_launch_config`; the tile routine checks them again).
+// flat_idx and flat_col hold nbr * max_bpr slots, one schedule for all
+// `instances`; `out` is a contiguous [nnzb, h, w] for each.  `instances`
+// and the batch strides as for bcsr_sddmm; `vec`, `ak`, `bk` too (the rule
+// is `bcsr_spmm.sddmm_launch_config`; the tile routine checks them again).
 // Returns the launch's cudaError_t (0 = launched).
 extern "C" int bcsr_sddmm_row_loop(const void* dc, const void* b,
                                    const void* flat_idx, const void* flat_col,
@@ -76,14 +77,18 @@ extern "C" int bcsr_sddmm_row_loop(const void* dc, const void* b,
                                    int h, int w, int n_cols, long long sdm,
                                    long long sdn, long long sbk, long long sbn,
                                    int vec, int ak, int bk, int in_type,
-                                   int out_type, void* stream) {
+                                   int out_type, int instances,
+                                   long long s_dc, long long s_b,
+                                   long long s_out, void* stream) {
   if (nbr < 0 || max_bpr <= 0 || nnzb < 0 ||
       (long long)nbr * max_bpr > INT_MAX)
     return cudaErrorInvalidValue;
   const ScheduleSource src{static_cast<const int*>(flat_idx),
                            static_cast<const int*>(flat_col), max_bpr, nnzb};
-  sddmm_tile::Args g{dc, b, out, h, w, n_cols, sdm, sdn, sbk, sbn, vec, 0, 0};
-  return sddmm_tile::launch(src, g, nbr * max_bpr, ak, bk, in_type, out_type,
+  sddmm_tile::Args g{dc, b, out, h, w, n_cols, sdm, sdn, sbk, sbn, vec,
+                     0, 0, 0, s_dc, s_b, s_out};
+  return sddmm_tile::launch(src, g, nbr * max_bpr, instances, ak, bk,
+                            in_type, out_type,
                             static_cast<cudaStream_t>(stream));
 }
 

@@ -63,22 +63,27 @@ struct RowptrSource {
 }  // namespace
 
 // Type codes: 0 = float32, 1 = bfloat16.  `vals` and `b` share in_type.
-// `bn` the N tile (8, 16, 32, 64), `bm` the rows a CTA owns (16 or 128; the
-// rule is `bcsr_spmm.spmm_launch_config`), `vec` the copy width in bytes,
-// `kmajor` 1 where B is staged k-major (row-major B, sbn == 1), 0 where it
-// is the x^T view (sbk == 1).
+// `instances` G products over the one entry list, their `vals`, `b` and
+// `out` s_vals, s_b and s_out elements apart (G = 1 with zero strides: one
+// product).  `bn` the N tile (8, 16, 32, 64), `bm` the rows a CTA owns (16
+// or 128; the rule is `bcsr_spmm.spmm_launch_config`), `vec` the copy width
+// in bytes, `kmajor` 1 where B is staged k-major (row-major B, sbn == 1), 0
+// where it is the x^T view (sbk == 1).
 // Returns the launch's cudaError_t (0 = launched).
 extern "C" int bcsr_spmm_nnz_stream(const void* vals, const void* rowptr,
                                     const void* col_ids, const void* b,
                                     void* out, int nbr, int h, int w,
                                     int n_cols, long long sbk, long long sbn,
                                     int bn, int bm, int vec, int kmajor,
-                                    int in_type, int out_type, void* stream) {
+                                    int in_type, int out_type, int instances,
+                                    long long s_vals, long long s_b,
+                                    long long s_out, void* stream) {
   const RowptrSource src{static_cast<const int*>(rowptr),
                          static_cast<const int*>(col_ids)};
-  spmm_tile::Args g{vals, b, out, h, w, n_cols, sbk, sbn, vec, 0, 0};
-  return spmm_tile::launch(src, g, nbr, bn, bm, kmajor, in_type, out_type,
-                           static_cast<cudaStream_t>(stream));
+  spmm_tile::Args g{vals, b, out, h, w, n_cols, sbk, sbn, vec,
+                    0, 0, 0, s_vals, s_b, s_out};
+  return spmm_tile::launch(src, g, nbr, instances, bn, bm, kmajor, in_type,
+                           out_type, static_cast<cudaStream_t>(stream));
 }
 
 // The static analyzer's queries (analysis/workspace.py mirrors them):

@@ -50,8 +50,9 @@ struct ScheduleSource {
 }  // namespace
 
 // Type codes: 0 = float32, 1 = bfloat16.  `vals` and `b` share in_type.
-// flat_idx and flat_col hold nbr * max_bpr slots, row_len nbr counts.
-// `bn`, `bm`, `vec`, `kmajor` as for bcsr_spmm_nnz_stream.
+// flat_idx and flat_col hold nbr * max_bpr slots, row_len nbr counts, one
+// schedule for all `instances`.  `instances`, the batch strides, `bn`,
+// `bm`, `vec` and `kmajor` as for bcsr_spmm_nnz_stream.
 // Returns the launch's cudaError_t (0 = launched).
 extern "C" int bcsr_spmm_row_loop(const void* vals, const void* flat_idx,
                                   const void* flat_col, const void* row_len,
@@ -59,13 +60,16 @@ extern "C" int bcsr_spmm_row_loop(const void* vals, const void* flat_idx,
                                   int max_bpr, int h, int w, int n_cols,
                                   long long sbk, long long sbn, int bn,
                                   int bm, int vec, int kmajor, int in_type,
-                                  int out_type, void* stream) {
+                                  int out_type, int instances,
+                                  long long s_vals, long long s_b,
+                                  long long s_out, void* stream) {
   const ScheduleSource src{static_cast<const int*>(flat_idx),
                            static_cast<const int*>(flat_col),
                            static_cast<const int*>(row_len), max_bpr};
-  spmm_tile::Args g{vals, b, out, h, w, n_cols, sbk, sbn, vec, 0, 0};
-  return spmm_tile::launch(src, g, nbr, bn, bm, kmajor, in_type, out_type,
-                           static_cast<cudaStream_t>(stream));
+  spmm_tile::Args g{vals, b, out, h, w, n_cols, sbk, sbn, vec,
+                    0, 0, 0, s_vals, s_b, s_out};
+  return spmm_tile::launch(src, g, nbr, instances, bn, bm, kmajor, in_type,
+                           out_type, static_cast<cudaStream_t>(stream));
 }
 
 // The static analyzer's queries (analysis/workspace.py mirrors them):

@@ -41,6 +41,14 @@
 // Epilogue.  The accumulators go through shared memory (reusing the ring)
 // and are written once, in the output type, as 16-byte stores where the
 // output rows allow it.
+//
+// Instances.  One launch can cover G instances that share the entry list
+// or schedule (the JAX package's `vmap`: the attention heads): dC, B and
+// the output each step by their own batch stride, and grid x runs
+// instance-major over (instance, source), so x holds entries * G CTAs.  A
+// CTA offsets its operands and output by its instance's batch strides and
+// otherwise runs the single-instance tile unchanged: a launch over G
+// instances gives the bits of G launches of one.
 #pragma once
 
 #include "spmm_tile.cuh"
@@ -61,14 +69,16 @@ constexpr int kCStride = kBW + 8;  // f32 epilogue rows
 
 // Runtime arguments of one launch (a kernel parameter).
 struct Args {
-  const void* dc;     // [M, N], strides (sdm, sdn) in elements
-  const void* b;      // [K, N], strides (sbk, sbn) in elements
-  void* out;          // [stored entries, h, w], contiguous
+  const void* dc;     // [G, M, N], strides (s_dc, sdm, sdn) in elements
+  const void* b;      // [G, K, N], strides (s_b, sbk, sbn) in elements
+  void* out;          // [G, stored entries, h, w], each instance contiguous
   int h, w, n;
   long long sdm, sdn, sbk, sbn;
   int vec;            // copy width in bytes: 16, 8, 4 (or 2 for bf16)
   int out_bf16;       // output type: 0 = float32, 1 = bfloat16
   int out_vec;        // 1: output rows take 16-byte stores
+  int entries;        // sources: the CTA columns along x of one instance
+  long long s_dc, s_b, s_out;  // batch strides in elements (0 for G = 1)
 };
 
 // Staging of one operand: KMAJ = staged [KC][64] (its row axis contiguous
@@ -286,9 +296,10 @@ __device__ __forceinline__ void chunk_mma(float (&acc)[2][4][4],
 // --------------------------------------------------------------- epilogue
 template <typename TOut>
 __device__ __forceinline__ void store_tile(const float* c_s, const Args& g,
-                                           long long e, int r0, int c0,
-                                           int rows, int cols) {
-  TOut* out = static_cast<TOut*>(g.out) + (e * g.h + r0) * g.w + c0;
+                                           int inst, long long e, int r0,
+                                           int c0, int rows, int cols) {
+  TOut* out = static_cast<TOut*>(g.out) + inst * g.s_out +
+              (e * g.h + r0) * g.w + c0;
   constexpr int kVE = 16 / sizeof(TOut);
   if (g.out_vec) {   // w * sizeof(TOut) % 16 == 0 and out aligned
     for (int v = threadIdx.x; v < kBM * kBW / kVE; v += kThreads) {
@@ -318,11 +329,12 @@ __device__ __forceinline__ void store_tile(const float* c_s, const Args& g,
 }
 
 // ------------------------------------------------------------------ the CTA
-// Grid (entries, ceil(h / 64), ceil(w / 64)), kThreads threads, Layout::
-// kSmemBytes of dynamic shared memory.  src.get(blockIdx.x, e, row, col)
-// names the output entry, the dC block-row and the B block-col, and
-// returns false where the CTA has no work (the same for all its threads):
-// the CTA then returns before its first load and its first __syncthreads.
+// Grid (entries * G, ceil(h / 64), ceil(w / 64)), kThreads threads,
+// Layout::kSmemBytes of dynamic shared memory; x = instance * entries + s.
+// src.get(s, e, row, col) names the output entry, the dC block-row and the
+// B block-col, and returns false where the CTA has no work (the same for
+// all its threads): the CTA then returns before its first load and its
+// first __syncthreads.
 template <class Source, typename T, bool AK, bool BK>
 __global__ void __launch_bounds__(kThreads, 4)
 sddmm_kernel(const Source src, const Args g) {
@@ -330,14 +342,17 @@ sddmm_kernel(const Source src, const Args g) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* ring = reinterpret_cast<T*>(smem);
 
+  const int inst = blockIdx.x / g.entries;
   long long e, row, col;
-  if (!src.get(blockIdx.x, e, row, col)) return;
+  if (!src.get(blockIdx.x - inst * g.entries, e, row, col)) return;
   const int r0 = blockIdx.y * kBM, c0 = blockIdx.z * kBW;
   const int rows = min(kBM, g.h - r0), cols = min(kBW, g.w - c0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int m0 = (warp % 2) * 32, n0 = (warp / 2) * 32;
-  const T* a_src = static_cast<const T*>(g.dc) + (row * g.h + r0) * g.sdm;
-  const T* b_src = static_cast<const T*>(g.b) + (col * g.w + c0) * g.sbk;
+  const T* a_src = static_cast<const T*>(g.dc) + inst * g.s_dc +
+                   (row * g.h + r0) * g.sdm;
+  const T* b_src = static_cast<const T*>(g.b) + inst * g.s_b +
+                   (col * g.w + c0) * g.sbk;
 
   float acc[2][4][4];
 #pragma unroll
@@ -386,9 +401,9 @@ sddmm_kernel(const Source src, const Args g) {
     }
   __syncthreads();
   if (g.out_bf16)
-    store_tile<__nv_bfloat16>(c_s, g, e, r0, c0, rows, cols);
+    store_tile<__nv_bfloat16>(c_s, g, inst, e, r0, c0, rows, cols);
   else
-    store_tile<float>(c_s, g, e, r0, c0, rows, cols);
+    store_tile<float>(c_s, g, inst, e, r0, c0, rows, cols);
 }
 
 // ------------------------------------------------------------------- host
@@ -397,8 +412,9 @@ sddmm_kernel(const Source src, const Args g) {
 // aligned, the staged axis contiguous, and every staged row start and edge
 // (the block's rows, N) on a multiple of `vec` bytes.
 inline bool operand_vec_ok(const void* p, int vec, int esize, int rows,
-                           int n, long long sr, long long sk, bool kmaj) {
-  if (!spmm_tile::aligned(p, vec)) return false;
+                           int n, long long sr, long long sk, long long sg,
+                           bool kmaj) {
+  if (!spmm_tile::aligned(p, vec) || sg * esize % vec) return false;
   if (kmaj)
     return sr == 1 && (long long)rows * esize % vec == 0 &&
            (n == 1 || sk * esize % vec == 0);
@@ -411,12 +427,13 @@ inline bool vec_ok(const Args& g, int esize, bool ak, bool bk) {
   if (v == esize) return v == 2 || v == 4;
   if (v != 4 && v != 8 && v != 16) return false;
   if (v < esize) return false;
-  return operand_vec_ok(g.dc, v, esize, g.h, g.n, g.sdm, g.sdn, ak) &&
-         operand_vec_ok(g.b, v, esize, g.w, g.n, g.sbk, g.sbn, bk);
+  return operand_vec_ok(g.dc, v, esize, g.h, g.n, g.sdm, g.sdn, g.s_dc,
+                        ak) &&
+         operand_vec_ok(g.b, v, esize, g.w, g.n, g.sbk, g.sbn, g.s_b, bk);
 }
 
 template <class Source, typename T, bool AK, bool BK>
-cudaError_t launch_one(const Source& src, const Args& g, int entries,
+cudaError_t launch_one(const Source& src, const Args& g, int grid_x,
                        cudaStream_t stream) {
   using L = Layout<T, AK, BK>;
   auto kernel = sddmm_kernel<Source, T, AK, BK>;
@@ -424,42 +441,48 @@ cudaError_t launch_one(const Source& src, const Args& g, int entries,
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmemBytes);
   if (attr != cudaSuccess) return attr;
-  dim3 grid(entries, cdiv(g.h, kBM), cdiv(g.w, kBW));
+  dim3 grid(grid_x, cdiv(g.h, kBM), cdiv(g.w, kBW));
   kernel<<<grid, kThreads, L::kSmemBytes, stream>>>(src, g);
   return cudaGetLastError();
 }
 
 template <class Source, typename T>
-cudaError_t launch_major(const Source& src, const Args& g, int entries,
+cudaError_t launch_major(const Source& src, const Args& g, int grid_x,
                          int ak, int bk, cudaStream_t st) {
   if (ak)
-    return bk ? launch_one<Source, T, true, true>(src, g, entries, st)
-              : launch_one<Source, T, true, false>(src, g, entries, st);
-  return bk ? launch_one<Source, T, false, true>(src, g, entries, st)
-            : launch_one<Source, T, false, false>(src, g, entries, st);
+    return bk ? launch_one<Source, T, true, true>(src, g, grid_x, st)
+              : launch_one<Source, T, true, false>(src, g, grid_x, st);
+  return bk ? launch_one<Source, T, false, true>(src, g, grid_x, st)
+            : launch_one<Source, T, false, false>(src, g, grid_x, st);
 }
 
 // Launch one SDDMM over `entries` sources (B2's stored entries, B4's
-// schedule slots), each a column of CTAs over the block.  Type codes: 0 =
+// schedule slots), each a column of CTAs over the block, for each of
+// `instances` instances (g's batch strides apart).  Type codes: 0 =
 // float32, 1 = bfloat16 (`dc` and `b` share in_type).  `ak` / `bk`: dC /
 // B staged k-major (their row axis contiguous).  Returns the launch's
 // cudaError_t (0 = launched); cudaErrorInvalidValue for a copy width or
-// type it does not take.
+// type it does not take, or a grid x past 2^31 - 1.
 template <class Source>
-cudaError_t launch(const Source& src, Args g, int entries, int ak, int bk,
-                   int in_type, int out_type, cudaStream_t stream) {
+cudaError_t launch(const Source& src, Args g, int entries, int instances,
+                   int ak, int bk, int in_type, int out_type,
+                   cudaStream_t stream) {
   if ((in_type != 0 && in_type != 1) || (out_type != 0 && out_type != 1) ||
-      g.h <= 0 || g.w <= 0 || g.n < 0)
+      g.h <= 0 || g.w <= 0 || g.n < 0 || entries < 0 || instances < 1 ||
+      (long long)entries * instances > INT_MAX)
     return cudaErrorInvalidValue;
   const int esize = in_type == 1 ? 2 : 4;
   if (!vec_ok(g, esize, ak != 0, bk != 0)) return cudaErrorInvalidValue;
+  const int osize = out_type == 1 ? 2 : 4;
   g.out_bf16 = out_type;
   g.out_vec = spmm_tile::aligned(g.out, 16) &&
-              (long long)g.w * (out_type == 1 ? 2 : 4) % 16 == 0;
+              (long long)g.w * osize % 16 == 0 && g.s_out * osize % 16 == 0;
+  g.entries = entries;
   if (entries == 0) return cudaSuccess;
+  const int grid_x = entries * instances;
   if (in_type == 0)
-    return launch_major<Source, float>(src, g, entries, ak, bk, stream);
-  return launch_major<Source, __nv_bfloat16>(src, g, entries, ak, bk,
+    return launch_major<Source, float>(src, g, grid_x, ak, bk, stream);
+  return launch_major<Source, __nv_bfloat16>(src, g, grid_x, ak, bk,
                                              stream);
 }
 

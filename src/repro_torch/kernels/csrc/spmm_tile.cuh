@@ -48,11 +48,22 @@
 // Epilogue.  The accumulators go through shared memory (reusing the ring)
 // and are written once, in the output type, as 16-byte stores where the
 // output row allows it.
+//
+// Instances.  One launch can cover G instances that share the entry list
+// (the JAX package's `vmap` of the op: the attention heads): `vals`, B and
+// the output each step by their own batch stride from one instance to the
+// next, and grid x runs instance-major over (instance, block-row), so x
+// holds nbr * G CTAs (gridDim.x takes up to 2^31 - 1; y and z only
+// 65,535).  A CTA offsets its loads and stores by its instance's batch
+// strides and otherwise runs the single-instance tile unchanged, so a
+// launch over G instances gives the bits of G launches of one.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <climits>
 
 namespace spmm_tile {
 
@@ -65,14 +76,16 @@ constexpr int kWin = 128;       // entries whose ids are staged at once
 
 // Runtime arguments of one launch (a kernel parameter).
 struct Args {
-  const void* vals;   // [nnzb, h, w], contiguous
-  const void* b;      // [K, N], strides (sbk, sbn) in elements
-  void* out;          // [nbr * h, N], contiguous
+  const void* vals;   // [G, nnzb, h, w], each instance contiguous
+  const void* b;      // [G, K, N], strides (s_b, sbk, sbn) in elements
+  void* out;          // [G, nbr * h, N], each instance contiguous
   int h, w, n_cols;
   long long sbk, sbn;
   int vec;            // copy width in bytes: 16, 8, 4 (or 2 for bf16)
   int out_bf16;       // output type: 0 = float32, 1 = bfloat16
   int out_vec;        // 1: output rows take 16-byte stores
+  int nbr;            // block-rows: the CTAs along x of one instance
+  long long s_vals, s_b, s_out;  // batch strides in elements (0 for G = 1)
 };
 
 template <typename T, int BM, int BN, bool KMAJ>
@@ -218,17 +231,18 @@ __device__ __forceinline__ void for_copies(const Body& body) {
   }
 }
 
-// Copy chunk (entry block s of block-col cb, columns k0 .. k0 + KC) into one
-// ring slot.
+// Copy chunk (entry block s of block-col cb, columns k0 .. k0 + KC) of
+// instance `inst` into one ring slot.
 template <typename T, int BM, int BN, bool KMAJ, int VEC>
 __device__ __forceinline__ void load_chunk(T* a_s, T* b_s, const Args& g,
-                                           long long s, long long cb, int k0,
-                                           int r0, int rows, int n0) {
+                                           int inst, long long s,
+                                           long long cb, int k0, int r0,
+                                           int rows, int n0) {
   using L = Layout<T, BM, BN, KMAJ>;
   constexpr int kVE = VEC / L::kEsize;          // elements per copy
   constexpr int kRowV = L::kKC / kVE;           // copies per staged row
-  const T* vals = static_cast<const T*>(g.vals);
-  const T* b = static_cast<const T*>(g.b);
+  const T* vals = static_cast<const T*>(g.vals) + inst * g.s_vals;
+  const T* b = static_cast<const T*>(g.b) + inst * g.s_b;
   const T* a_src = vals + (s * g.h + r0) * g.w + k0;
   for_copies<VEC, BM * kRowV, L::kThreads>([&](int v) {
     const int r = v / kRowV, kk = (v % kRowV) * kVE;
@@ -257,17 +271,21 @@ __device__ __forceinline__ void load_chunk(T* a_s, T* b_s, const Args& g,
 
 template <typename T, int BM, int BN, bool KMAJ>
 __device__ __forceinline__ void load_any(T* a_s, T* b_s, const Args& g,
-                                         long long s, long long cb, int k0,
-                                         int r0, int rows, int n0) {
+                                         int inst, long long s, long long cb,
+                                         int k0, int r0, int rows, int n0) {
   // the width is uniform over the launch, so this branch never diverges
   if (g.vec == 16) {
-    load_chunk<T, BM, BN, KMAJ, 16>(a_s, b_s, g, s, cb, k0, r0, rows, n0);
+    load_chunk<T, BM, BN, KMAJ, 16>(a_s, b_s, g, inst, s, cb, k0, r0, rows,
+                                    n0);
   } else if (g.vec == 8) {
-    load_chunk<T, BM, BN, KMAJ, 8>(a_s, b_s, g, s, cb, k0, r0, rows, n0);
+    load_chunk<T, BM, BN, KMAJ, 8>(a_s, b_s, g, inst, s, cb, k0, r0, rows,
+                                   n0);
   } else if (sizeof(T) == 4 || g.vec == 4) {
-    load_chunk<T, BM, BN, KMAJ, 4>(a_s, b_s, g, s, cb, k0, r0, rows, n0);
+    load_chunk<T, BM, BN, KMAJ, 4>(a_s, b_s, g, inst, s, cb, k0, r0, rows,
+                                   n0);
   } else if constexpr (sizeof(T) == 2) {
-    load_chunk<T, BM, BN, KMAJ, 2>(a_s, b_s, g, s, cb, k0, r0, rows, n0);
+    load_chunk<T, BM, BN, KMAJ, 2>(a_s, b_s, g, inst, s, cb, k0, r0, rows,
+                                   n0);
   }
 }
 
@@ -358,9 +376,10 @@ __device__ __forceinline__ void chunk_mma(float (&acc)[BN / 8][4],
 // --------------------------------------------------------------- epilogue
 template <typename TOut, int BM, int BN, int WK, int kThreads>
 __device__ __forceinline__ void store_tile(const float* c_s, int cstride,
-                                           const Args& g, long long row0,
-                                           int rows, int n0) {
-  TOut* out = static_cast<TOut*>(g.out);
+                                           const Args& g, int inst,
+                                           long long row0, int rows,
+                                           int n0) {
+  TOut* out = static_cast<TOut*>(g.out) + inst * g.s_out;
   const int cols = min(BN, g.n_cols - n0);
   constexpr int kVE = 16 / sizeof(TOut);
   auto sum = [&](int r, int c) {
@@ -397,9 +416,10 @@ __device__ __forceinline__ void store_tile(const float* c_s, int cstride,
 }
 
 // ------------------------------------------------------------------ the CTA
-// Grid (nbr, ceil(N / BN), ceil(h / BM)), Layout::kThreads threads, Layout::
-// kSmemBytes of dynamic shared memory.  Source supplies block-row i's entry
-// count and, for entries e0 .. e0 + n - 1, their block ids and block-cols.
+// Grid (nbr * G, ceil(N / BN), ceil(h / BM)), Layout::kThreads threads,
+// Layout::kSmemBytes of dynamic shared memory; x = instance * nbr + i.
+// Source supplies block-row i's entry count and, for entries e0 .. e0 + n -
+// 1, their block ids and block-cols (the same for every instance).
 template <class Source, typename T, int BM, int BN, bool KMAJ>
 __global__ void __launch_bounds__(threads_for(BM))
 spmm_kernel(const Source src, const Args g) {
@@ -409,7 +429,8 @@ spmm_kernel(const Source src, const Args g) {
   __shared__ int col_s[kWin];
   T* ring = reinterpret_cast<T*>(smem);
 
-  const int i = blockIdx.x;
+  const int inst = blockIdx.x / g.nbr;
+  const int i = blockIdx.x - inst * g.nbr;
   const int n0 = blockIdx.y * BN;
   const int r0 = blockIdx.z * BM;
   const int rows = min(BM, g.h - r0);
@@ -432,9 +453,9 @@ spmm_kernel(const Source src, const Args g) {
       __syncthreads();
     }
     T* a_s = ring + (j % kStages) * L::kStageElems;
-    load_any<T, BM, BN, KMAJ>(a_s, a_s + L::kAElems, g, idx_s[e - wbase],
-                              col_s[e - wbase], (j % kpe) * L::kKC, r0, rows,
-                              n0);
+    load_any<T, BM, BN, KMAJ>(a_s, a_s + L::kAElems, g, inst,
+                              idx_s[e - wbase], col_s[e - wbase],
+                              (j % kpe) * L::kKC, r0, rows, n0);
   };
 
   float acc[L::kNT][4];
@@ -475,10 +496,10 @@ spmm_kernel(const Source src, const Args g) {
   const long long row0 = (long long)i * g.h + r0;
   if (g.out_bf16)
     store_tile<__nv_bfloat16, BM, BN, L::kWK, L::kThreads>(
-        c_s, L::kCStride, g, row0, rows, n0);
+        c_s, L::kCStride, g, inst, row0, rows, n0);
   else
-    store_tile<float, BM, BN, L::kWK, L::kThreads>(c_s, L::kCStride, g, row0,
-                                                   rows, n0);
+    store_tile<float, BM, BN, L::kWK, L::kThreads>(c_s, L::kCStride, g, inst,
+                                                   row0, rows, n0);
 }
 
 // ------------------------------------------------------------------- host
@@ -494,7 +515,8 @@ inline bool vec_ok(const Args& g, int esize, bool kmajor) {
   if (v == esize) return v == 2 || v == 4;
   if (v != 4 && v != 8 && v != 16) return false;
   if (v < esize || !aligned(g.vals, v) || !aligned(g.b, v) ||
-      (long long)g.w * esize % v)
+      (long long)g.w * esize % v || g.s_vals * esize % v ||
+      g.s_b * esize % v)
     return false;
   if (kmajor)
     return g.sbn == 1 && g.sbk * esize % v == 0 &&
@@ -503,7 +525,7 @@ inline bool vec_ok(const Args& g, int esize, bool kmajor) {
 }
 
 template <class Source, typename T, int BM, int BN, bool KMAJ>
-cudaError_t launch_one(const Source& src, Args g, int nbr,
+cudaError_t launch_one(const Source& src, Args g, int grid_x,
                        cudaStream_t stream) {
   using L = Layout<T, BM, BN, KMAJ>;
   auto kernel = spmm_kernel<Source, T, BM, BN, KMAJ>;
@@ -511,59 +533,66 @@ cudaError_t launch_one(const Source& src, Args g, int nbr,
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmemBytes);
   if (attr != cudaSuccess) return attr;
-  dim3 grid(nbr, (g.n_cols + BN - 1) / BN, (g.h + BM - 1) / BM);
+  dim3 grid(grid_x, (g.n_cols + BN - 1) / BN, (g.h + BM - 1) / BM);
   kernel<<<grid, L::kThreads, L::kSmemBytes, stream>>>(src, g);
   return cudaGetLastError();
 }
 
 template <class Source, typename T, int BM, int BN>
-cudaError_t launch_kmajor(const Source& src, const Args& g, int nbr,
+cudaError_t launch_kmajor(const Source& src, const Args& g, int grid_x,
                           int kmajor, cudaStream_t st) {
-  return kmajor ? launch_one<Source, T, BM, BN, true>(src, g, nbr, st)
-                : launch_one<Source, T, BM, BN, false>(src, g, nbr, st);
+  return kmajor ? launch_one<Source, T, BM, BN, true>(src, g, grid_x, st)
+                : launch_one<Source, T, BM, BN, false>(src, g, grid_x, st);
 }
 
 template <class Source, typename T, int BM>
-cudaError_t launch_bn(const Source& src, const Args& g, int nbr, int bn,
+cudaError_t launch_bn(const Source& src, const Args& g, int grid_x, int bn,
                       int kmajor, cudaStream_t st) {
+  const int x = grid_x;
   switch (bn) {
-    case 8: return launch_kmajor<Source, T, BM, 8>(src, g, nbr, kmajor, st);
-    case 16: return launch_kmajor<Source, T, BM, 16>(src, g, nbr, kmajor, st);
-    case 32: return launch_kmajor<Source, T, BM, 32>(src, g, nbr, kmajor, st);
-    case 64: return launch_kmajor<Source, T, BM, 64>(src, g, nbr, kmajor, st);
+    case 8: return launch_kmajor<Source, T, BM, 8>(src, g, x, kmajor, st);
+    case 16: return launch_kmajor<Source, T, BM, 16>(src, g, x, kmajor, st);
+    case 32: return launch_kmajor<Source, T, BM, 32>(src, g, x, kmajor, st);
+    case 64: return launch_kmajor<Source, T, BM, 64>(src, g, x, kmajor, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// Launch one SpMM.  Type codes: 0 = float32, 1 = bfloat16 (`vals` and `b`
-// share in_type).  Returns the launch's cudaError_t (0 = launched);
-// cudaErrorInvalidValue for a tile, row block or copy width it does not
-// take.
+// Launch one SpMM over `instances` instances (g's batch strides apart).
+// Type codes: 0 = float32, 1 = bfloat16 (`vals` and `b` share in_type).
+// Returns the launch's cudaError_t (0 = launched); cudaErrorInvalidValue
+// for a tile, row block or copy width it does not take, or a grid x past
+// 2^31 - 1.
 template <class Source>
-cudaError_t launch(const Source& src, Args g, int nbr, int bn, int bm,
-                   int kmajor, int in_type, int out_type,
+cudaError_t launch(const Source& src, Args g, int nbr, int instances,
+                   int bn, int bm, int kmajor, int in_type, int out_type,
                    cudaStream_t stream) {
   if ((in_type != 0 && in_type != 1) || (out_type != 0 && out_type != 1) ||
-      g.h <= 0 || g.w <= 0)
+      g.h <= 0 || g.w <= 0 || nbr < 0 || instances < 1 ||
+      (long long)nbr * instances > INT_MAX)
     return cudaErrorInvalidValue;
   const int esize = in_type == 1 ? 2 : 4;
   if (!vec_ok(g, esize, kmajor != 0)) return cudaErrorInvalidValue;
+  const int osize = out_type == 1 ? 2 : 4;
   g.out_bf16 = out_type;
-  g.out_vec = aligned(g.out, 16) &&
-              (long long)g.n_cols * (out_type == 1 ? 2 : 4) % 16 == 0;
+  g.out_vec = aligned(g.out, 16) && (long long)g.n_cols * osize % 16 == 0 &&
+              g.s_out * osize % 16 == 0;
+  g.nbr = nbr;
   if (nbr == 0 || g.n_cols == 0) return cudaSuccess;
+  const int grid_x = nbr * instances;
   if (in_type == 0) {
-    if (bm == 16) return launch_bn<Source, float, 16>(src, g, nbr, bn, kmajor,
-                                                      stream);
+    if (bm == 16)
+      return launch_bn<Source, float, 16>(src, g, grid_x, bn, kmajor, stream);
     if (bm == 128)
-      return launch_bn<Source, float, 128>(src, g, nbr, bn, kmajor, stream);
+      return launch_bn<Source, float, 128>(src, g, grid_x, bn, kmajor,
+                                           stream);
   } else {
     if (bm == 16)
-      return launch_bn<Source, __nv_bfloat16, 16>(src, g, nbr, bn, kmajor,
+      return launch_bn<Source, __nv_bfloat16, 16>(src, g, grid_x, bn, kmajor,
                                                   stream);
     if (bm == 128)
-      return launch_bn<Source, __nv_bfloat16, 128>(src, g, nbr, bn, kmajor,
-                                                   stream);
+      return launch_bn<Source, __nv_bfloat16, 128>(src, g, grid_x, bn,
+                                                   kmajor, stream);
   }
   return cudaErrorInvalidValue;
 }

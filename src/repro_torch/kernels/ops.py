@@ -34,6 +34,13 @@ bounce between the two ``torch.autograd.Function``s, as the JAX package's
 custom VJPs do.  Without grad (serving runs under
 ``torch.inference_mode()``) the ops call their forward directly and add no
 autograd work.
+
+Both ops also take G instances over one structure, as the JAX package's
+ops run under ``jax.vmap`` (the attention heads): ``spmm`` with
+``arrays.vals`` ``[G, nnzb, h, w]`` and ``b`` ``[G, K, N]``, ``sddmm``
+with ``x`` ``[G, M, N]`` and ``y`` ``[G, K, N]``; the index arrays are
+shared.  Each product, forward or backward, is then one launch over all G
+instances, and the call is one dispatch.
 """
 from __future__ import annotations
 
@@ -356,15 +363,18 @@ def prepare(a: bcsr_lib.BCSR, dtype=torch.bfloat16, *,
 
 # ------------------------------------------------------------------- forward
 def materialize_dense(arrays: SparseArrays, meta: SparseMeta) -> torch.Tensor:
-    """Scatter the blocks into the padded dense matrix."""
+    """Scatter the blocks into the padded dense matrix (one per instance
+    of batched ``vals``)."""
     h, w = meta.block
     nbr, nbc = meta.n_block_rows, meta.n_block_cols
-    flat = torch.zeros((nbr * nbc, h, w), dtype=arrays.vals.dtype,
-                       device=arrays.vals.device)
-    flat.index_add_(0, (arrays.row_ids * nbc + arrays.col_ids).long(),
-                    arrays.vals)
-    dense = flat.reshape(nbr, nbc, h, w).permute(0, 2, 1, 3)
-    return dense.reshape(nbr * h, nbc * w)
+    vals = arrays.vals
+    lead = vals.shape[:-3]
+    flat = torch.zeros((*lead, nbr * nbc, h, w), dtype=vals.dtype,
+                       device=vals.device)
+    flat.index_add_(vals.dim() - 3,
+                    (arrays.row_ids * nbc + arrays.col_ids).long(), vals)
+    dense = flat.reshape(*lead, nbr, nbc, h, w).transpose(-3, -2)
+    return dense.reshape(*lead, nbr * h, nbc * w)
 
 
 def _fwd_impl(cfg: SpmmConfig, meta: SparseMeta, arrays: SparseArrays,
@@ -372,7 +382,7 @@ def _fwd_impl(cfg: SpmmConfig, meta: SparseMeta, arrays: SparseArrays,
     h, w = meta.block
     M, K = meta.shape
     out_dtype = cfg.out_dtype or b.dtype
-    k_pad = meta.n_block_cols * w - b.shape[0]
+    k_pad = meta.n_block_cols * w - b.shape[-2]
     if k_pad:
         # the kernel reads whole w-row panels of B; N is never padded (the
         # kernel masks its ragged N edge itself)
@@ -395,11 +405,11 @@ def _fwd_impl(cfg: SpmmConfig, meta: SparseMeta, arrays: SparseArrays,
         out = ref.spmm_dense_ref(dense, b, out_dtype=out_dtype)
     else:
         raise ValueError(f"unknown backend {cfg.backend!r}")
-    out = out[:M]
+    out = out[..., :M, :]
     if meta.reorder != "identity" and arrays.inv_perm is not None:
         # the kernel computed C' = A' B in permuted row order; hand back
         # C = P^T C' so the permutation never leaks to callers
-        out = out.index_select(0, arrays.inv_perm.long())
+        out = out.index_select(-2, arrays.inv_perm.long())
     return out
 
 
@@ -413,10 +423,13 @@ def _check_schedule(arrays: SparseArrays, field: str) -> None:
 def transposed_vals(vals: torch.Tensor, t_perm: torch.Tensor) -> torch.Tensor:
     """The blocks of A^T in the transpose structure's order, [nnzb_t, w, h]
     contiguous: ``vals[t_perm]`` transposed, where ``t_perm == nnzb`` picks
-    the sentinel zero block of an empty block-row of A^T."""
-    sentinel = vals.new_zeros((1,) + tuple(vals.shape[1:]))
-    t_vals = torch.cat([vals, sentinel])[t_perm.long()]
-    return t_vals.transpose(1, 2).contiguous()
+    the sentinel zero block of an empty block-row of A^T.  Batched ``vals``
+    [G, nnzb, h, w] give [G, nnzb_t, w, h], gathered along the entry
+    axis."""
+    sentinel = vals.new_zeros(vals.shape[:-3] + (1,) + vals.shape[-2:])
+    t_vals = torch.cat([vals, sentinel], dim=-3).index_select(
+        -3, t_perm.long())
+    return t_vals.transpose(-1, -2).contiguous()
 
 
 def _dx_impl(cfg: SpmmConfig, meta: SparseMeta, arrays: SparseArrays,
@@ -425,7 +438,8 @@ def _dx_impl(cfg: SpmmConfig, meta: SparseMeta, arrays: SparseArrays,
     SpMM kernel over ``t_row_ids``/``t_col_ids``/``t_rowptr`` with the
     blocks of ``transposed_vals``.  ``g`` [M, N] may be a strided view; its
     rows are padded to ``n_block_rows * h``, since the kernel reads whole
-    h-row panels."""
+    h-row panels.  Batched ``vals`` and ``g`` [G, M, N] give [G, nbc*w, N]
+    in one launch."""
     h, w = meta.block
     vals = arrays.vals
     # row_loop is a forward-schedule choice; the backward always streams the
@@ -439,7 +453,7 @@ def _dx_impl(cfg: SpmmConfig, meta: SparseMeta, arrays: SparseArrays,
             "a derivative of dB = A^T dC through the streamed kernel is not "
             "supported; take higher derivatives with backend='xla'")
     t_vals = transposed_vals(vals, arrays.t_perm)
-    m_pad = meta.n_block_rows * h - g.shape[0]
+    m_pad = meta.n_block_rows * h - g.shape[-2]
     if m_pad:
         g = F.pad(g, (0, 0, 0, m_pad))
     if kernel:
@@ -457,13 +471,14 @@ def _sddmm_impl(cfg: SpmmConfig, meta: SparseMeta, arrays: SparseArrays,
     prepared with a reorder; callers pass X in ORIGINAL row order).  X is
     padded to ``n_block_rows * h`` rows and Y to ``n_block_cols * w``; N is
     never padded (the kernel masks its ragged N edge).  Padding entries
-    (``real_mask`` False) are zeroed: they are structural, not values."""
+    (``real_mask`` False) are zeroed: they are structural, not values.
+    Batched X [G, M, N] and Y [G, K, N] give [G, nnzb, h, w]."""
     h, w = meta.block
     if meta.reorder != "identity" and arrays.row_perm is not None:
-        x = x.index_select(0, arrays.row_perm.long())
+        x = x.index_select(-2, arrays.row_perm.long())
     out_dtype = cfg.out_dtype or x.dtype
-    x_pad = meta.n_block_rows * h - x.shape[0]
-    y_pad = meta.n_block_cols * w - y.shape[0]
+    x_pad = meta.n_block_rows * h - x.shape[-2]
+    y_pad = meta.n_block_cols * w - y.shape[-2]
     if x_pad:
         x = F.pad(x, (0, 0, 0, x_pad))
     if y_pad:
@@ -511,8 +526,9 @@ class _Spmm(torch.autograd.Function):
             if meta.reorder != "identity" and arrays.row_perm is not None:
                 # the cotangent arrives in ORIGINAL row order; the stored
                 # structure is A' = P A, so dB = A'^T (P dC)
-                gp = g2.index_select(0, arrays.row_perm.long())
-            db = _dx_impl(cfg, meta, arrays, gp)[: b.shape[0], : b.shape[1]]
+                gp = g2.index_select(-2, arrays.row_perm.long())
+            db = _dx_impl(cfg, meta, arrays, gp)[..., : b.shape[-2],
+                                                 : b.shape[-1]]
         if ctx.needs_input_grad[3]:
             # dvals through the SDDMM op: SpMM and SDDMM are mutual duals
             cfg_d = dataclasses.replace(cfg, bn=None, out_dtype=vals.dtype)
@@ -545,8 +561,9 @@ class _Sddmm(torch.autograd.Function):
             garr = SparseArrays(gm.to(y.dtype), *rest)
             xp = x
             if meta.reorder != "identity" and garr.row_perm is not None:
-                xp = x.index_select(0, garr.row_perm.long())
-            dy = _dx_impl(cfg_b, meta, garr, xp)[: y.shape[0], : y.shape[1]]
+                xp = x.index_select(-2, garr.row_perm.long())
+            dy = _dx_impl(cfg_b, meta, garr, xp)[..., : y.shape[-2],
+                                                 : y.shape[-1]]
             dy = dy.to(y.dtype)
         return None, None, None, dx, dy
 
@@ -557,8 +574,8 @@ def _needs_graph(*tensors) -> bool:
 
 # ------------------------------------------------------------------ public API
 def resolve_backend(backend: str, bn: Optional[int], meta: SparseMeta,
-                    n: int, op: str = "spmm",
-                    device="cuda") -> Tuple[str, Optional[int]]:
+                    n: int, op: str = "spmm", device="cuda",
+                    instances: int = 1) -> Tuple[str, Optional[int]]:
     """Normalize aliases, resolve ``auto`` and check the choice: returns
     ``(backend, bn)``.
 
@@ -570,9 +587,11 @@ def resolve_backend(backend: str, bn: Optional[int], meta: SparseMeta,
     ``nnz_stream``.  ``bn`` is the SpMM kernels' N tile: None (or 0) lets
     the kernel choose, otherwise it must be one of ``kernel_tiles(backend,
     op)``.  An explicit ``row_loop`` for a meta without ``max_bpr``
-    raises.  With ``REPRO_VERIFY_LAUNCH=1`` the resolved launch goes
-    through ``analysis.verify_launch.assert_launch_ok`` first, which
-    raises ``LaunchError`` before any kernel runs."""
+    raises.  ``n`` is the N of one instance, so a batched call picks what
+    each of its ``instances`` would (JAX's ``vmap`` traces one instance).
+    With ``REPRO_VERIFY_LAUNCH=1`` the resolved launch, over all its
+    instances, goes through ``analysis.verify_launch.assert_launch_ok``
+    first, which raises ``LaunchError`` before any kernel runs."""
     if op not in OPS:
         raise ValueError(f"unknown op {op!r}; want 'spmm' or 'sddmm'")
     if backend == "auto":
@@ -602,7 +621,8 @@ def resolve_backend(backend: str, bn: Optional[int], meta: SparseMeta,
         # capacity, the CUDA grid's limits and the kernel's shared memory
         # against the H100's, all on the host (repro_torch.analysis)
         from repro_torch.analysis import verify_launch as _verify_launch
-        _verify_launch.assert_launch_ok(meta, backend, n=n, bn=bn, op=op)
+        _verify_launch.assert_launch_ok(meta, backend, n=n, bn=bn, op=op,
+                                        instances=instances)
     # host-side dispatch record (static info only)
     obs_trace.event("ops.dispatch", op=op, backend=backend, bn=bn, n=n,
                     nnzb=meta.nnzb, max_bpr=meta.max_bpr)
@@ -618,7 +638,9 @@ def spmm(arrays: SparseArrays, meta: SparseMeta, b: torch.Tensor,
     A is the BCSR operand from ``prepare``; B is ``[K, N]`` dense and may be
     a strided view.  Outputs come back in ORIGINAL row order, whatever
     ``reorder`` prepared A.  ``bn`` is the kernel's N tile
-    (``resolve_backend``).
+    (``resolve_backend``).  G instances over A's structure: ``arrays.vals``
+    ``[G, nnzb, h, w]`` and B ``[G, K, N]`` give ``[G, M, N]``, one launch
+    a product.
 
     >>> import numpy as np, torch
     >>> from repro_torch.core import bcsr as bcsr_lib
@@ -635,8 +657,9 @@ def spmm(arrays: SparseArrays, meta: SparseMeta, b: torch.Tensor,
     >>> bool(torch.allclose(c, torch.as_tensor(dense) @ b, atol=1e-5))
     True
     """
+    G = ref.instances(arrays.vals, b, 3, ("vals", "b"))
     backend, bn = resolve_backend(backend, bn, meta, int(b.shape[-1]),
-                                  device=b.device)
+                                  device=b.device, instances=G or 1)
     cfg = SpmmConfig(backend=backend, bn=bn, out_dtype=out_dtype)
     if _needs_graph(arrays.vals, b):
         return _Spmm.apply(cfg, meta, tuple(arrays[1:]), arrays.vals, b)
@@ -652,7 +675,8 @@ def sddmm(arrays: SparseArrays, meta: SparseMeta, x: torch.Tensor,
     The result is ``[nnzb, h, w]`` with padding entries (``real_mask``
     False) zeroed.  Differentiable w.r.t. ``x`` and ``y``; ``arrays.vals``
     is not read.  ``bn`` is checked as ``resolve_backend`` says; the SDDMM
-    kernels have one N chunk each.
+    kernels have one N chunk each.  G instances: ``X`` ``[G, M, N]`` and
+    ``Y`` ``[G, K, N]`` give ``[G, nnzb, h, w]``, one launch a product.
 
     >>> import numpy as np, torch
     >>> from repro_torch.core import bcsr as bcsr_lib
@@ -673,8 +697,10 @@ def sddmm(arrays: SparseArrays, meta: SparseMeta, x: torch.Tensor,
     >>> bool(torch.allclose(vals, blk, atol=1e-4))
     True
     """
+    G = ref.instances(x, y, 2, ("x", "y"))
     backend, bn = resolve_backend(backend, bn, meta, int(x.shape[-1]),
-                                  op="sddmm", device=x.device)
+                                  op="sddmm", device=x.device,
+                                  instances=G or 1)
     cfg = SpmmConfig(backend=backend, bn=bn, out_dtype=out_dtype)
     if _needs_graph(x, y):
         return _Sddmm.apply(cfg, meta, tuple(arrays[1:]), x, y)

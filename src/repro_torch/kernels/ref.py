@@ -14,6 +14,13 @@ backends, ``spmm_csr_ref`` the scalar CSR yardstick of the benchmarks.
 kernel's twin: its two passes over the mask schedule (the row max, then
 the denominator and the context together, divided once at the end).
 Products accumulate in float32.
+
+The four kernel twins also take G instances over one structure (the JAX
+package's ``vmap``): ``vals`` ``[G, nnzb, h, w]`` with ``b`` ``[G, K, N]``
+gives ``[G, M, N]``, and ``dc`` ``[G, M, N]`` with ``b`` ``[G, K, N]``
+gives ``[G, nnzb, h, w]``; the index arrays are shared, and every operand is
+batched or none is.  The instances are folded into one structure G times
+as large (``_fold``), so each gives the bits of its own call.
 """
 from __future__ import annotations
 
@@ -23,6 +30,27 @@ import torch
 from torch.nn import functional as F
 
 from repro_torch.core.attention_mask import NEG_INF
+
+
+def _fold(ids: torch.Tensor, G: int, step: int) -> torch.Tensor:
+    """``ids`` repeated for G instances, instance g's shifted by ``g *
+    step``: the index array of G structures laid end to end."""
+    shift = torch.arange(G, device=ids.device, dtype=ids.dtype) * step
+    return (ids[None, :] + shift[:, None]).reshape(-1)
+
+
+def instances(a: torch.Tensor, b: torch.Tensor, rank: int,
+              names=("a", "b")) -> Optional[int]:
+    """G of a call whose operand ``a`` has ``rank`` dimensions per
+    instance and ``b`` two: None where neither has the leading instance
+    axis, else the axis' length, which both must share."""
+    if a.dim() == rank and b.dim() == 2:
+        return None
+    if a.dim() == rank + 1 and b.dim() == 3 and a.shape[0] == b.shape[0]:
+        return a.shape[0]
+    raise ValueError(f"{names[0]} {tuple(a.shape)} and {names[1]} "
+                     f"{tuple(b.shape)} must both carry one leading instance "
+                     "axis of the same length, or neither")
 
 
 def bcsr_spmm_ref(vals: torch.Tensor, row_ids: torch.Tensor,
@@ -36,6 +64,14 @@ def bcsr_spmm_ref(vals: torch.Tensor, row_ids: torch.Tensor,
     b        [K, N] dense (K must be a multiple of w)
     returns  [n_block_rows * h, N]
     """
+    if instances(vals, b, 3) is not None:
+        G, nnzb, h, w = vals.shape
+        K, N = b.shape[1:]
+        out = bcsr_spmm_ref(vals.reshape(G * nnzb, h, w),
+                            _fold(row_ids, G, n_block_rows),
+                            _fold(col_ids, G, K // w), b.reshape(G * K, N),
+                            G * n_block_rows, out_dtype)
+        return out.reshape(G, n_block_rows * h, N)
     nnzb, h, w = vals.shape
     K, N = b.shape
     if K % w:
@@ -60,6 +96,14 @@ def bcsr_spmm_row_loop_ref(vals: torch.Tensor, flat_idx: torch.Tensor,
     flat_idx, flat_col [n_block_rows * max_bpr]; row_len [n_block_rows]
     returns [n_block_rows * h, N]
     """
+    if instances(vals, b, 3) is not None:
+        G, nnzb, h, w = vals.shape
+        K, N = b.shape[1:]
+        out = bcsr_spmm_row_loop_ref(
+            vals.reshape(G * nnzb, h, w), _fold(flat_idx, G, nnzb),
+            _fold(flat_col, G, K // w), row_len.repeat(G),
+            b.reshape(G * K, N), G * n_block_rows, out_dtype)
+        return out.reshape(G, n_block_rows * h, N)
     nnzb, h, w = vals.shape
     K, N = b.shape
     if K % w:
@@ -90,6 +134,13 @@ def bcsr_sddmm_ref(dc: torch.Tensor, b: torch.Tensor, row_ids: torch.Tensor,
     b        [K, N]   the dense forward operand (K multiple of w)
     returns  [nnzb, h, w]
     """
+    if instances(dc, b, 2) is not None:
+        G, M, N = dc.shape
+        K = b.shape[1]
+        out = bcsr_sddmm_ref(dc.reshape(G * M, N), b.reshape(G * K, N),
+                             _fold(row_ids, G, M // h),
+                             _fold(col_ids, G, K // w), h, w, out_dtype)
+        return out.reshape(G, -1, h, w)
     M, N = dc.shape
     K, _ = b.shape
     dc_blocks = dc.reshape(M // h, h, N)[row_ids.long()]     # [nnzb, h, N]
@@ -111,6 +162,18 @@ def bcsr_sddmm_row_loop_ref(dc: torch.Tensor, b: torch.Tensor,
     dc [M, N] (M multiple of h), b [K, N] (K multiple of w)
     returns [nnzb, h, w]
     """
+    if instances(dc, b, 2) is not None:
+        G, _, N = dc.shape
+        K = b.shape[1]
+        # instance g's entries shifted by g * nnzb, its padding slots onto
+        # the sentinel of all G (G * nnzb); its block-rows are g * nbr + i
+        idx = _fold(flat_idx, G, nnzb)
+        idx = torch.where(flat_idx.repeat(G) == nnzb, G * nnzb, idx)
+        out = bcsr_sddmm_row_loop_ref(
+            dc[:, :n_block_rows * h].reshape(G * n_block_rows * h, N),
+            b.reshape(G * K, N), idx, _fold(flat_col, G, K // w),
+            G * n_block_rows, G * nnzb, h, w, out_dtype)
+        return out.reshape(G, nnzb, h, w)
     M, N = dc.shape
     K, _ = b.shape
     max_bpr = flat_idx.shape[0] // n_block_rows
@@ -128,17 +191,20 @@ def bcsr_sddmm_dense_ref(dc: torch.Tensor, b: torch.Tensor,
                          row_ids: torch.Tensor, col_ids: torch.Tensor,
                          h: int, w: int, out_dtype=None) -> torch.Tensor:
     """The dense arm of SDDMM: the FULL ``dC @ B^T`` in float32, then the
-    stored blocks gathered out of it."""
-    M, N = dc.shape
-    K, _ = b.shape
-    full = dc.float() @ b.float().T                          # [M, K]
-    blocks = full.reshape(M // h, h, K // w, w).permute(0, 2, 1, 3)
-    return blocks[row_ids.long(), col_ids.long()].to(out_dtype or dc.dtype)
+    stored blocks gathered out of it (for each instance of batched
+    operands)."""
+    lead = dc.shape[:-2] if instances(dc, b, 2) is not None else ()
+    M, K = dc.shape[-2], b.shape[-2]
+    full = dc.float() @ b.float().transpose(-1, -2)          # [.., M, K]
+    blocks = full.reshape(*lead, M // h, h, K // w, w).transpose(-3, -2)
+    return blocks[..., row_ids.long(), col_ids.long(), :, :].to(
+        out_dtype or dc.dtype)
 
 
 def spmm_dense_ref(a_dense: torch.Tensor, b: torch.Tensor,
                    out_dtype=None) -> torch.Tensor:
-    """Multiply the (explicitly padded) dense matrix in float32."""
+    """Multiply the (explicitly padded) dense matrix in float32 (each
+    instance of a batched pair by its own)."""
     out = a_dense.float() @ b.float()
     return out.to(out_dtype or b.dtype)
 

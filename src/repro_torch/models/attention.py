@@ -13,8 +13,9 @@ kernel B5 (``kernels.bcsr_attn.bcsr_attn_fused``), which computes the
 score blocks in two passes (the row max, then the softmax sums and the
 context together) and writes no score or probability block to device
 memory.  Its backward recomputes the composed path and
-differentiates it, one head at a time: SpMM and SDDMM are mutual duals, so
-d(ctx)/d{Q,K,V} runs on their kernels.
+differentiates it over all heads at once, as the JAX package does: SpMM and
+SDDMM are mutual duals, so d(ctx)/d{Q,K,V} runs on their kernels, one
+launch a product for all the (batch, head) instances.
 
 Masks are static (a pure function of ``(mask_spec, seq_len, block)``): the
 host pipeline (``attention_mask_bcsr``, ``_meta``, ``_arrays``,
@@ -245,13 +246,14 @@ def block_softmax(scores: torch.Tensor, elem_mask: torch.Tensor,
                   flat_idx: torch.Tensor) -> torch.Tensor:
     """Masked softmax over a BCSR score matrix, per GLOBAL query row.
 
-    scores     [nnzb, h, w] f32 logits (already scaled)
+    scores     [nnzb, h, w] f32 logits (already scaled), or [G, nnzb, h, w]:
+               G instances over the one structure, each its own softmax
     elem_mask  [nnzb, h, w] bool: valid (stored AND allowed) elements
     row_ids    [nnzb] block-row of each block, sorted
     flat_idx   [nbr * max_bpr] the entry schedule (padding -> nnzb), as
                ``ops.prepare`` builds it (``sddmm_flat_idx``)
-    returns    [nnzb, h, w] probabilities; masked elements are exactly 0,
-               each valid query row sums to 1 across its stored blocks.
+    returns    [(G,) nnzb, h, w] probabilities; masked elements are exactly
+               0, each valid query row sums to 1 across its stored blocks.
 
     The JAX package reduces over block-rows with ``segment_max`` and
     ``segment_sum``.  Here both reductions go through the schedule: the
@@ -265,17 +267,20 @@ def block_softmax(scores: torch.Tensor, elem_mask: torch.Tensor,
     logits = torch.where(elem_mask, scores, NEG_INF)
     slots = flat_idx.long()
     rows = row_ids.long()
-    h = scores.shape[1]
-    blk_max = logits.amax(dim=2)                                # [nnzb, h]
-    pad = blk_max.new_full((1, h), float("-inf"))
-    row_max = torch.cat([blk_max, pad])[slots].reshape(
-        n_block_rows, -1, h).amax(dim=1).clamp_min(-1e30)        # [nbr, h]
-    z = torch.exp(logits - row_max[rows][:, :, None])
+    lead, h = scores.shape[:-3], scores.shape[-2]
+
+    def per_row(blk, pad):
+        # [.., nnzb, h] per block -> [.., nbr, max_bpr, h] over the schedule
+        padded = torch.cat([blk, blk.new_full((*lead, 1, h), pad)], dim=-2)
+        return padded.index_select(-2, slots).reshape(
+            *lead, n_block_rows, -1, h)
+
+    blk_max = logits.amax(dim=-1)                               # [.., nnzb, h]
+    row_max = per_row(blk_max, float("-inf")).amax(dim=-2).clamp_min(-1e30)
+    z = torch.exp(logits - row_max.index_select(-2, rows)[..., None])
     z = torch.where(elem_mask, z, 0.0)
-    blk_sum = z.sum(dim=2)                                       # [nnzb, h]
-    denom = torch.cat([blk_sum, blk_sum.new_zeros((1, h))])[slots].reshape(
-        n_block_rows, -1, h).sum(dim=1).clamp_min(1e-30)         # [nbr, h]
-    return z / denom[rows][:, :, None]
+    denom = per_row(z.sum(dim=-1), 0.0).sum(dim=-2).clamp_min(1e-30)
+    return z / denom.index_select(-2, rows)[..., None]
 
 
 def mask_sharded(spec: AttnMaskSpec, seq_len: int, block: Tuple[int, int],
@@ -310,10 +315,12 @@ def _mask_sharded(spec: AttnMaskSpec, seq_len: int, block: Tuple[int, int],
 def _context_spmm(probs: torch.Tensor, arrays: ops.SparseArrays,
                   meta: ops.SparseMeta, v: torch.Tensor,
                   spec: AttnSparsitySpec) -> torch.Tensor:
-    """ctx = probs @ V over the mask structure: unsharded, or through the
-    ``dist_spmm`` row partition when ``spec.shards > 0`` (over the ambient
-    spmm mesh when its ``spmm`` axis has ``spec.shards`` ranks, else
-    in-process, as the JAX package falls back)."""
+    """ctx = probs @ V over the mask structure, for G instances (probs
+    [G, nnzb, h, w], V [G, L, d]): unsharded, one batched SpMM, or through
+    the ``dist_spmm`` row partition when ``spec.shards > 0`` (over the
+    ambient spmm mesh when its ``spmm`` axis has ``spec.shards`` ranks,
+    else in-process, as the JAX package falls back), which takes one
+    instance a call."""
     if spec.shards > 0:
         from repro_torch.launch import dist_spmm  # local: layering
         sharr, smeta = mask_sharded(spec.mask, meta.shape[0], meta.block,
@@ -323,9 +330,9 @@ def _context_spmm(probs: torch.Tensor, arrays: ops.SparseArrays,
             from repro_torch.launch.mesh import axis_sizes
             if axis_sizes(mesh).get(dist_spmm.AXIS_ROW) != spec.shards:
                 mesh = None     # incompatible ambient mesh: in-process
-        return dist_spmm.spmm_sharded(
-            sharr._replace(vals=probs), smeta, v, backend=spec.backend,
-            mesh=mesh)
+        return torch.stack([dist_spmm.spmm_sharded(
+            sharr._replace(vals=p), smeta, vi, backend=spec.backend,
+            mesh=mesh) for p, vi in zip(probs, v)])
     return ops.spmm(arrays._replace(vals=probs), meta, v,
                     backend=spec.backend)
 
@@ -343,23 +350,19 @@ def _composed_heads(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
                     spec: AttnSparsitySpec, scale: float,
                     cap: Optional[float]) -> torch.Tensor:
     """SDDMM -> block softmax -> SpMM over folded ``[G, L, d]`` heads: the
-    three-dispatch path (and the backward route of the fused forward).  The
-    ops take one instance at a time, so the G instances run in a loop
-    (the JAX package ``vmap``s them): 2 kernel launches per instance."""
+    three-dispatch path (and the backward route of the fused forward).
+    Each op runs once over all G instances, as the JAX package's ``vmap``
+    of one head does: 2 kernel launches in all, whatever G (the sharded
+    context product, ``spec.shards > 0``, one per instance and shard)."""
     spec = _composed_spec(spec)
     mt = mask_tensors(spec.mask, qf.shape[1], tuple(spec.block), qf.device)
     arrays, meta = mt.arrays, mt.meta
-
-    def one_head(qi, ki, vi):
-        scores = ops.sddmm(arrays, meta, qi, ki, backend=spec.backend,
-                           out_dtype=torch.float32)
-        probs = block_softmax(scores * scale, mt.elem_mask, arrays.row_ids,
-                              meta.n_block_rows, cap=cap,
-                              flat_idx=arrays.sddmm_flat_idx)
-        return _context_spmm(probs, arrays, meta, vi, spec)
-
-    return torch.stack([one_head(qf[g], kf[g], vf[g])
-                        for g in range(qf.shape[0])])
+    probs = block_softmax(
+        ops.sddmm(arrays, meta, qf, kf, backend=spec.backend,
+                  out_dtype=torch.float32) * scale,
+        mt.elem_mask, arrays.row_ids, meta.n_block_rows, cap=cap,
+        flat_idx=arrays.sddmm_flat_idx)
+    return _context_spmm(probs, arrays, meta, vf, spec)
 
 
 def _fused_heads(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
@@ -376,10 +379,12 @@ def _fused_heads(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
 
 class _AttnFused(torch.autograd.Function):
     """Fused forward (kernel B5), composed backward.  The backward
-    recomputes the composed path and differentiates it one instance at a
-    time: one head's scores, probabilities and their gradients at 8,192
-    tokens come to about 0.5 GB, all 16 at once to 8 GB.  The instances
-    are independent, so this equals the gradient of the whole batch."""
+    recomputes the composed path over all G instances and differentiates
+    it, as the JAX package's ``_attn_fused_bwd`` takes the VJP of its
+    ``vmap``ped ``_composed_heads``: each product of the backward is one
+    launch over the G instances.  Its transient is a few ``[G, nnzb, h,
+    w]`` f32 tensors (1.66 GB each for 16 heads at 8,192 tokens in
+    ``banded(4096)``)."""
 
     @staticmethod
     def forward(ctx, spec, scale, cap, qf, kf, vf):
@@ -389,16 +394,10 @@ class _AttnFused(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        qf, kf, vf = ctx.saved_tensors
-        grads = [torch.empty_like(t) for t in (qf, kf, vf)]
-        for i in range(qf.shape[0]):
-            with torch.enable_grad():
-                qkv = [t[i:i + 1].detach().requires_grad_()
-                       for t in (qf, kf, vf)]
-                out = _composed_heads(*qkv, ctx.spec, ctx.scale, ctx.cap)
-                parts = torch.autograd.grad(out, qkv, g[i:i + 1])
-            for dst, part in zip(grads, parts):
-                dst[i:i + 1] = part
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = _composed_heads(*qkv, ctx.spec, ctx.scale, ctx.cap)
+            grads = torch.autograd.grad(out, qkv, g)
         return (None, None, None, *grads)
 
 
@@ -437,9 +436,9 @@ def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              reference on the mask support.
 
     Each (batch, head) instance is SDDMM -> block softmax -> SpMM, either
-    as three dispatches or, when ``resolve_attn_impl`` picks the fused path,
-    as one launch of kernel B5, whose backward differentiates the composed
-    path.  ``shards > 0`` runs the context product over the mask's row
+    as three dispatches over all B * H instances at once or, when
+    ``resolve_attn_impl`` picks the fused path, as one launch of kernel B5,
+    whose backward differentiates the composed path.  ``shards > 0`` runs the context product over the mask's row
     partition (composed).
 
     >>> import numpy as np, torch

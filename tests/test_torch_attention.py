@@ -15,6 +15,7 @@ pytest.importorskip("torch")
 
 import dataclasses
 import doctest
+import functools
 import importlib
 
 import jax
@@ -350,28 +351,41 @@ def test_fused_equals_composed_on_the_cpu():
                                    atol=1e-5)
 
 
-@pytest.mark.parametrize("mask", ["banded", "blockwise_causal"])
-@pytest.mark.parametrize("backend", ["fused", "nnz_stream"])
-def test_gradients_equal_jax_grad(mask, backend):
-    """Through the fused Function (composed backward, one head at a time)
-    and the composed path, against ``jax.grad`` of JAX's attention:
-    rtol = atol = 1e-5 (``test_attn_fused.py``'s gradient tolerance)."""
-    jm, tm = MASKS[mask]
-    q, k, v = _qkv(64, seed=3)
+@functools.lru_cache(maxsize=None)
+def _jax_attention_grads(mask, B, H):
+    """``jax.grad`` of the sum of squares of JAX's attention (``xla``)
+    at ``_qkv(64, B=B, H=H, seed=3)``: numpy (dq, dk, dv)."""
+    jm, _ = MASKS[mask]
 
     def jloss(q, k, v):
         return jnp.sum(JA.block_sparse_attention(
             q, k, v, JA.AttnSparsitySpec(mask=jm, block=BLOCK,
                                          backend="xla")) ** 2)
-    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
-    tq, tk, tv = _t(q, k, v, grad=True)
-    out = A.block_sparse_attention(tq, tk, tv, A.AttnSparsitySpec(
-        mask=tm, block=BLOCK, backend=backend))
-    (out ** 2).sum().backward()
-    for got, w in zip((tq.grad, tk.grad, tv.grad), want):
-        np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=1e-5,
-                                   atol=1e-5)
-        assert float(got.abs().sum()) > 0
+    grads = jax.grad(jloss, argnums=(0, 1, 2))(
+        *map(jnp.asarray, _qkv(64, B=B, H=H, seed=3)))
+    return tuple(np.asarray(g) for g in grads)
+
+
+@pytest.mark.parametrize("mask", ["banded", "blockwise_causal"])
+@pytest.mark.parametrize("backend", ["fused", "nnz_stream"])
+def test_gradients_equal_jax_grad(mask, backend):
+    """Through the fused Function (composed backward over all G = B * H
+    instances at once, as JAX's ``vmap``) and the composed path, against
+    ``jax.grad`` of JAX's attention, at G = 4 (B = H = 2) and G = 3 (B =
+    1, H = 3: the folded heads a strided view): rtol = atol = 1e-5
+    (``test_attn_fused.py``'s gradient tolerance)."""
+    _, tm = MASKS[mask]
+    for B, H in ((2, 2), (1, 3)):
+        q, k, v = _qkv(64, B=B, H=H, seed=3)
+        want = _jax_attention_grads(mask, B, H)
+        tq, tk, tv = _t(q, k, v, grad=True)
+        out = A.block_sparse_attention(tq, tk, tv, A.AttnSparsitySpec(
+            mask=tm, block=BLOCK, backend=backend))
+        (out ** 2).sum().backward()
+        for got, w in zip((tq.grad, tk.grad, tv.grad), want):
+            np.testing.assert_allclose(got.numpy(), np.asarray(w),
+                                       rtol=1e-5, atol=1e-5)
+            assert float(got.abs().sum()) > 0
 
 
 # ========================================================== dispatch rules

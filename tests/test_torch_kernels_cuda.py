@@ -452,6 +452,80 @@ def test_sddmm_row_loop_padding_slots_on_card(card, dtype, block):
                         dc, b, r, c, h, w)), case
 
 
+def _heads(rng, G, rows, n, dt, device, layout):
+    """A [G, rows, n] operand: contiguous, the model's folded heads (a
+    view of one [1, rows, G, n] tensor: batch stride n, row stride G * n),
+    or the x^T view of a [G, n, rows] tensor (rows contiguous)."""
+    if layout == "xT":
+        t = rng.standard_normal((G, n, rows)).astype(np.float32)
+        return torch.from_numpy(t).to(device, dt).transpose(1, 2)
+    if layout == "heads":
+        t = rng.standard_normal((1, rows, G, n)).astype(np.float32)
+        return torch.from_numpy(t).to(device, dt).transpose(1, 2)[0]
+    t = rng.standard_normal((G, rows, n)).astype(np.float32)
+    return torch.from_numpy(t).to(device, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "heads", "xT"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_batched_kernels_equal_single_launches_on_card(card, dtype, layout):
+    """B1-B4 over G = 3 instances in one launch (counted once): bit-equal
+    to G single launches on the instances' views, whatever the dense
+    operands' layout (the folded heads are strided views), and within
+    tolerance of the batched plain versions (f32 rtol = atol = 1e-4; bf16
+    1e-2); B3 bit-equal to B1 and B4 to B2."""
+    dt, tol = getattr(torch, dtype), (1e-4 if dtype == "float32" else 1e-2)
+    rng = np.random.default_rng(3)
+    G = 3
+    for shape, block, density in SHAPES[:3]:
+        arrays, meta = tops.prepare(tb.random_bcsr(0, shape, block, density),
+                                    dt, device=card)
+        h, w = meta.block
+        nbr, M, K = meta.n_block_rows, meta.n_block_rows * h, \
+            meta.n_block_cols * w
+        vals = torch.from_numpy(rng.standard_normal(
+            (G, *arrays.vals.shape)).astype(np.float32)).to(card, dt)
+        for n in (8, 100):
+            b = _heads(rng, G, K, n, dt, card, layout)
+            dc = _heads(rng, G, M, n, dt, card, layout)
+            calls = {
+                "nnz_stream": lambda s: bcsr_spmm.bcsr_spmm_nnz_stream(
+                    vals[s], arrays.row_ids, arrays.col_ids, b[s], nbr,
+                    rowptr=arrays.rowptr),
+                "row_loop": lambda s: bcsr_spmm.bcsr_spmm_row_loop(
+                    vals[s], arrays.flat_idx, arrays.flat_col,
+                    arrays.row_len, b[s], nbr),
+                "sddmm": lambda s: bcsr_spmm.bcsr_sddmm(
+                    dc[s], b[s], arrays.row_ids, arrays.col_ids, h, w),
+                "sddmm_row_loop": lambda s: bcsr_spmm.bcsr_sddmm_row_loop(
+                    dc[s], b[s], arrays.sddmm_flat_idx, arrays.flat_col,
+                    nbr, meta.nnzb, h, w)}
+            plain = {
+                "nnz_stream": lambda: ref.bcsr_spmm_ref(
+                    vals, arrays.row_ids, arrays.col_ids, b, nbr,
+                    out_dtype=torch.float32),
+                "sddmm": lambda: ref.bcsr_sddmm_ref(
+                    dc, b, arrays.row_ids, arrays.col_ids, h, w,
+                    out_dtype=torch.float32)}
+            plain["row_loop"] = plain["nnz_stream"]
+            plain["sddmm_row_loop"] = plain["sddmm"]
+            got = {}
+            for name, call in calls.items():
+                case = (shape, n, layout, name)
+                before = dict(bcsr_spmm.LAUNCHES)
+                got[name] = call(slice(None))
+                after = dict(bcsr_spmm.LAUNCHES)
+                assert after == {**before, name: before[name] + 1}, case
+                singles = torch.stack([call(g) for g in range(G)])
+                assert torch.equal(got[name], singles), case
+                torch.testing.assert_close(
+                    got[name].float(), plain[name]().to(dt).float(),
+                    rtol=tol, atol=tol, msg=str(case))
+            assert torch.equal(got["row_loop"], got["nnz_stream"])
+            assert torch.equal(got["sddmm_row_loop"], got["sddmm"])
+
+
 @pytest.mark.cuda
 def test_smoke_train_step_row_loop_with_reorder_matches_plain(card):
     """One f32 training step of ``smat-ffn-1.3b:smoke`` with
