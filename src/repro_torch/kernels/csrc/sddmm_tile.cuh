@@ -48,7 +48,8 @@
 // instance-major over (instance, source), so x holds entries * G CTAs.  A
 // CTA offsets its operands and output by its instance's batch strides and
 // otherwise runs the single-instance tile unchanged: a launch over G
-// instances gives the bits of G launches of one.
+// instances gives the bits of G launches of one.  A launch of one instance
+// runs the MULTI = false instantiation, which has no instance arithmetic.
 #pragma once
 
 #include "spmm_tile.cuh"
@@ -330,21 +331,24 @@ __device__ __forceinline__ void store_tile(const float* c_s, const Args& g,
 
 // ------------------------------------------------------------------ the CTA
 // Grid (entries * G, ceil(h / 64), ceil(w / 64)), kThreads threads,
-// Layout::kSmemBytes of dynamic shared memory; x = instance * entries + s.
+// Layout::kSmemBytes of dynamic shared memory; x = instance * entries + s
+// (G = 1 unless MULTI).
 // src.get(s, e, row, col) names the output entry, the dC block-row and the
 // B block-col, and returns false where the CTA has no work (the same for
 // all its threads): the CTA then returns before its first load and its
 // first __syncthreads.
-template <class Source, typename T, bool AK, bool BK>
+template <class Source, typename T, bool AK, bool BK, bool MULTI>
 __global__ void __launch_bounds__(kThreads, 4)
 sddmm_kernel(const Source src, const Args g) {
   using L = Layout<T, AK, BK>;
   extern __shared__ __align__(16) unsigned char smem[];
   T* ring = reinterpret_cast<T*>(smem);
 
-  const int inst = blockIdx.x / g.entries;
+  const int inst = MULTI ? blockIdx.x / g.entries : 0;
   long long e, row, col;
-  if (!src.get(blockIdx.x - inst * g.entries, e, row, col)) return;
+  if (!src.get(MULTI ? blockIdx.x - inst * g.entries : blockIdx.x, e, row,
+               col))
+    return;
   const int r0 = blockIdx.y * kBM, c0 = blockIdx.z * kBW;
   const int rows = min(kBM, g.h - r0), cols = min(kBW, g.w - c0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -432,11 +436,11 @@ inline bool vec_ok(const Args& g, int esize, bool ak, bool bk) {
          operand_vec_ok(g.b, v, esize, g.w, g.n, g.sbk, g.sbn, g.s_b, bk);
 }
 
-template <class Source, typename T, bool AK, bool BK>
+template <class Source, typename T, bool AK, bool BK, bool MULTI>
 cudaError_t launch_one(const Source& src, const Args& g, int grid_x,
                        cudaStream_t stream) {
   using L = Layout<T, AK, BK>;
-  auto kernel = sddmm_kernel<Source, T, AK, BK>;
+  auto kernel = sddmm_kernel<Source, T, AK, BK, MULTI>;
   // set once per instantiation; its error is every later launch's error
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmemBytes);
@@ -446,14 +450,22 @@ cudaError_t launch_one(const Source& src, const Args& g, int grid_x,
   return cudaGetLastError();
 }
 
+template <class Source, typename T, bool AK, bool BK>
+cudaError_t launch_multi(const Source& src, const Args& g, int grid_x,
+                         cudaStream_t st) {
+  return grid_x > g.entries
+             ? launch_one<Source, T, AK, BK, true>(src, g, grid_x, st)
+             : launch_one<Source, T, AK, BK, false>(src, g, grid_x, st);
+}
+
 template <class Source, typename T>
 cudaError_t launch_major(const Source& src, const Args& g, int grid_x,
                          int ak, int bk, cudaStream_t st) {
   if (ak)
-    return bk ? launch_one<Source, T, true, true>(src, g, grid_x, st)
-              : launch_one<Source, T, true, false>(src, g, grid_x, st);
-  return bk ? launch_one<Source, T, false, true>(src, g, grid_x, st)
-            : launch_one<Source, T, false, false>(src, g, grid_x, st);
+    return bk ? launch_multi<Source, T, true, true>(src, g, grid_x, st)
+              : launch_multi<Source, T, true, false>(src, g, grid_x, st);
+  return bk ? launch_multi<Source, T, false, true>(src, g, grid_x, st)
+            : launch_multi<Source, T, false, false>(src, g, grid_x, st);
 }
 
 // Launch one SDDMM over `entries` sources (B2's stored entries, B4's

@@ -56,7 +56,10 @@
 // holds nbr * G CTAs (gridDim.x takes up to 2^31 - 1; y and z only
 // 65,535).  A CTA offsets its loads and stores by its instance's batch
 // strides and otherwise runs the single-instance tile unchanged, so a
-// launch over G instances gives the bits of G launches of one.
+// launch over G instances gives the bits of G launches of one.  A launch
+// of one instance runs the kernel's MULTI = false instantiation, which has
+// no instance arithmetic (the per-instance index and offsets cost a
+// register, and some instantiations spill with it).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -417,10 +420,11 @@ __device__ __forceinline__ void store_tile(const float* c_s, int cstride,
 
 // ------------------------------------------------------------------ the CTA
 // Grid (nbr * G, ceil(N / BN), ceil(h / BM)), Layout::kThreads threads,
-// Layout::kSmemBytes of dynamic shared memory; x = instance * nbr + i.
-// Source supplies block-row i's entry count and, for entries e0 .. e0 + n -
-// 1, their block ids and block-cols (the same for every instance).
-template <class Source, typename T, int BM, int BN, bool KMAJ>
+// Layout::kSmemBytes of dynamic shared memory; x = instance * nbr + i (G =
+// 1 unless MULTI).  Source supplies block-row i's entry count and, for
+// entries e0 .. e0 + n - 1, their block ids and block-cols (the same for
+// every instance).
+template <class Source, typename T, int BM, int BN, bool KMAJ, bool MULTI>
 __global__ void __launch_bounds__(threads_for(BM))
 spmm_kernel(const Source src, const Args g) {
   using L = Layout<T, BM, BN, KMAJ>;
@@ -429,8 +433,8 @@ spmm_kernel(const Source src, const Args g) {
   __shared__ int col_s[kWin];
   T* ring = reinterpret_cast<T*>(smem);
 
-  const int inst = blockIdx.x / g.nbr;
-  const int i = blockIdx.x - inst * g.nbr;
+  const int inst = MULTI ? blockIdx.x / g.nbr : 0;
+  const int i = MULTI ? blockIdx.x - inst * g.nbr : blockIdx.x;
   const int n0 = blockIdx.y * BN;
   const int r0 = blockIdx.z * BM;
   const int rows = min(BM, g.h - r0);
@@ -524,11 +528,11 @@ inline bool vec_ok(const Args& g, int esize, bool kmajor) {
   return g.sbk == 1 && (g.n_cols == 1 || g.sbn * esize % v == 0);
 }
 
-template <class Source, typename T, int BM, int BN, bool KMAJ>
+template <class Source, typename T, int BM, int BN, bool KMAJ, bool MULTI>
 cudaError_t launch_one(const Source& src, Args g, int grid_x,
                        cudaStream_t stream) {
   using L = Layout<T, BM, BN, KMAJ>;
-  auto kernel = spmm_kernel<Source, T, BM, BN, KMAJ>;
+  auto kernel = spmm_kernel<Source, T, BM, BN, KMAJ, MULTI>;
   // set once per instantiation; its error is every later launch's error
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmemBytes);
@@ -538,11 +542,20 @@ cudaError_t launch_one(const Source& src, Args g, int grid_x,
   return cudaGetLastError();
 }
 
+template <class Source, typename T, int BM, int BN, bool KMAJ>
+cudaError_t launch_multi(const Source& src, const Args& g, int grid_x,
+                         cudaStream_t st) {
+  return grid_x > g.nbr
+             ? launch_one<Source, T, BM, BN, KMAJ, true>(src, g, grid_x, st)
+             : launch_one<Source, T, BM, BN, KMAJ, false>(src, g, grid_x,
+                                                          st);
+}
+
 template <class Source, typename T, int BM, int BN>
 cudaError_t launch_kmajor(const Source& src, const Args& g, int grid_x,
                           int kmajor, cudaStream_t st) {
-  return kmajor ? launch_one<Source, T, BM, BN, true>(src, g, grid_x, st)
-                : launch_one<Source, T, BM, BN, false>(src, g, grid_x, st);
+  return kmajor ? launch_multi<Source, T, BM, BN, true>(src, g, grid_x, st)
+                : launch_multi<Source, T, BM, BN, false>(src, g, grid_x, st);
 }
 
 template <class Source, typename T, int BM>
