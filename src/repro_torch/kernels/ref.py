@@ -19,8 +19,8 @@ The four kernel twins also take G instances over one structure (the JAX
 package's ``vmap``): ``vals`` ``[G, nnzb, h, w]`` with ``b`` ``[G, K, N]``
 gives ``[G, M, N]``, and ``dc`` ``[G, M, N]`` with ``b`` ``[G, K, N]``
 gives ``[G, nnzb, h, w]``; the index arrays are shared, and every operand is
-batched or none is.  The instances are folded into one structure G times
-as large (``_fold``), so each gives the bits of its own call.
+batched or none is.  Each instance is its own call, and the G results are
+stacked (``_each``), so each gives the bits of its own call.
 """
 from __future__ import annotations
 
@@ -32,11 +32,9 @@ from torch.nn import functional as F
 from repro_torch.core.attention_mask import NEG_INF
 
 
-def _fold(ids: torch.Tensor, G: int, step: int) -> torch.Tensor:
-    """``ids`` repeated for G instances, instance g's shifted by ``g *
-    step``: the index array of G structures laid end to end."""
-    shift = torch.arange(G, device=ids.device, dtype=ids.dtype) * step
-    return (ids[None, :] + shift[:, None]).reshape(-1)
+def _each(G: int, one) -> torch.Tensor:
+    """``one(g)`` for the G instances, stacked on a leading axis."""
+    return torch.stack([one(g) for g in range(G)])
 
 
 def instances(a: torch.Tensor, b: torch.Tensor, rank: int,
@@ -64,14 +62,10 @@ def bcsr_spmm_ref(vals: torch.Tensor, row_ids: torch.Tensor,
     b        [K, N] dense (K must be a multiple of w)
     returns  [n_block_rows * h, N]
     """
-    if instances(vals, b, 3) is not None:
-        G, nnzb, h, w = vals.shape
-        K, N = b.shape[1:]
-        out = bcsr_spmm_ref(vals.reshape(G * nnzb, h, w),
-                            _fold(row_ids, G, n_block_rows),
-                            _fold(col_ids, G, K // w), b.reshape(G * K, N),
-                            G * n_block_rows, out_dtype)
-        return out.reshape(G, n_block_rows * h, N)
+    G = instances(vals, b, 3)
+    if G is not None:
+        return _each(G, lambda g: bcsr_spmm_ref(
+            vals[g], row_ids, col_ids, b[g], n_block_rows, out_dtype))
     nnzb, h, w = vals.shape
     K, N = b.shape
     if K % w:
@@ -96,14 +90,11 @@ def bcsr_spmm_row_loop_ref(vals: torch.Tensor, flat_idx: torch.Tensor,
     flat_idx, flat_col [n_block_rows * max_bpr]; row_len [n_block_rows]
     returns [n_block_rows * h, N]
     """
-    if instances(vals, b, 3) is not None:
-        G, nnzb, h, w = vals.shape
-        K, N = b.shape[1:]
-        out = bcsr_spmm_row_loop_ref(
-            vals.reshape(G * nnzb, h, w), _fold(flat_idx, G, nnzb),
-            _fold(flat_col, G, K // w), row_len.repeat(G),
-            b.reshape(G * K, N), G * n_block_rows, out_dtype)
-        return out.reshape(G, n_block_rows * h, N)
+    G = instances(vals, b, 3)
+    if G is not None:
+        return _each(G, lambda g: bcsr_spmm_row_loop_ref(
+            vals[g], flat_idx, flat_col, row_len, b[g], n_block_rows,
+            out_dtype))
     nnzb, h, w = vals.shape
     K, N = b.shape
     if K % w:
@@ -134,13 +125,10 @@ def bcsr_sddmm_ref(dc: torch.Tensor, b: torch.Tensor, row_ids: torch.Tensor,
     b        [K, N]   the dense forward operand (K multiple of w)
     returns  [nnzb, h, w]
     """
-    if instances(dc, b, 2) is not None:
-        G, M, N = dc.shape
-        K = b.shape[1]
-        out = bcsr_sddmm_ref(dc.reshape(G * M, N), b.reshape(G * K, N),
-                             _fold(row_ids, G, M // h),
-                             _fold(col_ids, G, K // w), h, w, out_dtype)
-        return out.reshape(G, -1, h, w)
+    G = instances(dc, b, 2)
+    if G is not None:
+        return _each(G, lambda g: bcsr_sddmm_ref(
+            dc[g], b[g], row_ids, col_ids, h, w, out_dtype))
     M, N = dc.shape
     K, _ = b.shape
     dc_blocks = dc.reshape(M // h, h, N)[row_ids.long()]     # [nnzb, h, N]
@@ -162,18 +150,11 @@ def bcsr_sddmm_row_loop_ref(dc: torch.Tensor, b: torch.Tensor,
     dc [M, N] (M multiple of h), b [K, N] (K multiple of w)
     returns [nnzb, h, w]
     """
-    if instances(dc, b, 2) is not None:
-        G, _, N = dc.shape
-        K = b.shape[1]
-        # instance g's entries shifted by g * nnzb, its padding slots onto
-        # the sentinel of all G (G * nnzb); its block-rows are g * nbr + i
-        idx = _fold(flat_idx, G, nnzb)
-        idx = torch.where(flat_idx.repeat(G) == nnzb, G * nnzb, idx)
-        out = bcsr_sddmm_row_loop_ref(
-            dc[:, :n_block_rows * h].reshape(G * n_block_rows * h, N),
-            b.reshape(G * K, N), idx, _fold(flat_col, G, K // w),
-            G * n_block_rows, G * nnzb, h, w, out_dtype)
-        return out.reshape(G, nnzb, h, w)
+    G = instances(dc, b, 2)
+    if G is not None:
+        return _each(G, lambda g: bcsr_sddmm_row_loop_ref(
+            dc[g], b[g], flat_idx, flat_col, n_block_rows, nnzb, h, w,
+            out_dtype))
     M, N = dc.shape
     K, _ = b.shape
     max_bpr = flat_idx.shape[0] // n_block_rows

@@ -80,7 +80,9 @@ def _inputs(case, seed=0):
 @functools.lru_cache(maxsize=None)
 def _jax_reference(case, backend):
     """``jax.vmap`` of JAX's spmm and sddmm over the G instances, and
-    ``jax.grad`` of each against a fixed cotangent: numpy results."""
+    ``jax.grad`` of each against a fixed cotangent, each under ``jax.jit``
+    (op-by-op dispatch of the interpret-mode kernels takes seconds a
+    call): numpy results."""
     j_arrays, j_meta, _, _ = _prepared(case)
     inp = _inputs(case)
     kw = dict(backend=backend, bn=N, interpret=True)
@@ -94,11 +96,11 @@ def _jax_reference(case, backend):
             j_arrays, j_meta, xi, yi, **kw))(x, y)
     v, b, x = (jnp.asarray(inp[k]) for k in ("vals", "b", "x"))
     g_out, g_vals = jnp.asarray(inp["g_out"]), jnp.asarray(inp["g_vals"])
-    out = {"spmm": spmm(v, b), "sddmm": sddmm(x, b)}
-    out["spmm_grads"] = jax.grad(
-        lambda v, b: jnp.sum(spmm(v, b) * g_out), argnums=(0, 1))(v, b)
-    out["sddmm_grads"] = jax.grad(
-        lambda x, y: jnp.sum(sddmm(x, y) * g_vals), argnums=(0, 1))(x, b)
+    out = {"spmm": jax.jit(spmm)(v, b), "sddmm": jax.jit(sddmm)(x, b)}
+    out["spmm_grads"] = jax.jit(jax.grad(
+        lambda v, b: jnp.sum(spmm(v, b) * g_out), argnums=(0, 1)))(v, b)
+    out["sddmm_grads"] = jax.jit(jax.grad(
+        lambda x, y: jnp.sum(sddmm(x, y) * g_vals), argnums=(0, 1)))(x, b)
     return jax.tree_util.tree_map(np.asarray, out)
 
 
