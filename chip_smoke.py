@@ -2711,7 +2711,8 @@ def batched_phase(smi):
     (one ``torch.sparse_bsr_tensor`` with the instances' blocks along its
     diagonal @ the instances' dense operands stacked, built outside the
     timed call; ``torch.sparse.sampled_addmm`` over a batched element
-    CSR), whose refusal is recorded."""
+    CSR), whose refusal is recorded; B3's and B4's rows carry B1's and
+    B2's library time, the same call on the same inputs."""
     from repro_torch.kernels import bcsr_spmm as pk
     from repro_torch.kernels import ops, ref
     from repro_torch.models import attention as A
@@ -2783,7 +2784,7 @@ def batched_phase(smi):
     attn = f"f32 banded(4096) L={L} nnzb={meta.nnzb} N={d}"
     ffn = f"bf16 gate_up {M}x{K} nnzb={fmeta.nnzb} N={n}"
     # case -> (kernel, batched call (s: the instances), plain version,
-    #          library call or None, one instance's bound, kernel it equals)
+    #          library call or None, one instance's bound, case it equals)
     cases = {
         "attn context": (B1, spmm(B1, probs, a, meta.n_block_rows, v),
                          spmm_plain(probs, a, meta.n_block_rows, v),
@@ -2859,10 +2860,12 @@ def batched_phase(smi):
         row["bound_ms"], row["bound_by"] = G * one_ms, by
         row["bound_ms_one_instance"] = one_ms
         if lib is None:
-            row["library_ms"] = None
-            row["library_error"] = ("one library call for B1 and B3 (B2 "
-                                    "and B4) is the same; see the "
-                                    f"{cases[same_as][0]} row")
+            # B3 (B4) computes B1's (B2's) function on the same inputs: one
+            # library call, timed once on that kernel's row
+            same = rows[same_as]
+            row["library_ms"] = same["library_ms"]
+            row.update({k: same[k] for k in ("library_call", "library_error")
+                        if k in same})
         else:
             # the first library call that runs and agrees (dense results)
             if lib[0] == "sddmm":
