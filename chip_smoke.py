@@ -31,7 +31,11 @@ mesh); ``[train-mesh]`` trains ``smat-ffn-1.3b`` at full width through
 ``train.loop.train(cfg, shape, mesh)`` on a one-rank nccl ``(data,
 model)`` mesh, parameters and AdamW state stored as ``DTensor``s under
 the sharding rules (losses bit-equal to ``[train]``'s), then checks a
-mesh-agnostic checkpoint and the int8 gradient compression on the card.
+mesh-agnostic checkpoint and the int8 gradient compression on the card;
+``[train-tp]`` splits the mesh's ``model`` axis over two processes on the
+one card (a ``(1, 2)`` mesh, gloo with CUDA tensors): ``smat-ffn-1.3b``
+(8 layers, bf16) and ``smat-attn-1.3b`` (2 layers, f32, 8,192 tokens)
+against a one-rank mesh, each rank's launches and halved kernel widths.
 Right after ``[build]``, ``[analysis]`` runs the static contract
 analyzer (``python -m repro_torch.analysis --all``), holds every kernel
 instantiation's shared-memory formula to the library's own query and its
@@ -55,10 +59,10 @@ their roofline shares.  After them, the rest of the JAX package's
 layouts and inputs, again with the B1-B5 counters at 0:
 ``[gemma-serve]`` (``gemma2-27b`` at full width and depth, 28.41 B
 parameters), ``[gemma-model]``, ``[gemma-train]`` (one pair; then step 0
-under every ``remat`` policy against ``"none"``), ``[hybrid-serve]``,
-``[hybrid-model]`` and ``[hybrid-train]`` (``zamba2-7b``),
-``[audio-serve]`` and ``[audio-train]`` (``musicgen-medium``, codebook
-rows), ``[vlm-prefill]`` (``pixtral-12b``: 1,024 patch embeddings +
+under every ``remat`` policy against ``"none"``), ``[hybrid-serve]``
+(4 of 13 units), ``[hybrid-model]`` and ``[hybrid-train]``
+(``zamba2-7b``), ``[audio-serve]`` (16 of 48 layers) and
+``[audio-train]`` (``musicgen-medium``, codebook rows), ``[vlm-prefill]`` (``pixtral-12b``: 1,024 patch embeddings +
 1,024 tokens), ``[vlm-model]``, ``[vlm-train]`` and ``[dense-model]``
 (``h2o-danube-1.8b``, ``minitron-4b``, ``qwen2.5-14b``).  Every phase
 checks its results; any failure exits non-zero before the last line.
@@ -4299,6 +4303,253 @@ def train_mesh_phase(cfg, smi, trained):
                       "losses": res.losses}
 
 
+# ------------------------------------ the training mesh's model axis, split
+TP_RANKS = 2           # the (data, model) = (1, 2) mesh's ranks, one card
+# (tag, arch, layers, dtype, steps, batch, seq, relative loss tolerance
+# against the one-rank mesh): smat-ffn-1.3b at 8 of its 24 layers (the
+# script's time limit), smat-attn-1.3b at 2 in float32
+TP_RUNS = (("ffn", "smat-ffn-1.3b", 8, "bfloat16", 3, TRAIN_BATCH, TRAIN_SEQ,
+            1e-2),
+           ("attn", ATTN_ARCH, 2, "float32", 2, 1, ATTN_SEQ, 1e-4))
+TP_TIMEOUT_S = 600
+TP_COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor",
+                  "all_reduce")
+
+
+@contextlib.contextmanager
+def _tp_widths():
+    """Every B1, B2 and B5 wrapper call's width, by kernel: ``(G, N)`` for
+    B1 and B2 (G = 1 unbatched; N the panel's columns), ``(G,)`` for B5."""
+    from repro_torch.kernels import bcsr_attn
+    from repro_torch.kernels import bcsr_spmm as pk
+    seen = {B1: [], B2: [], B5: []}
+    own = (pk.bcsr_spmm_nnz_stream, pk.bcsr_sddmm, bcsr_attn.bcsr_attn_fused)
+
+    def spmm(vals, row_ids, col_ids, b, *args, **kw):
+        seen[B1].append((vals.shape[0] if vals.dim() == 4 else 1,
+                         b.shape[-1]))
+        return own[0](vals, row_ids, col_ids, b, *args, **kw)
+
+    def sddmm(dc, b, *args, **kw):
+        seen[B2].append((dc.shape[0] if dc.dim() == 3 else 1, dc.shape[-1]))
+        return own[1](dc, b, *args, **kw)
+
+    def attn(q, *args, **kw):
+        seen[B5].append((q.shape[0],))
+        return own[2](q, *args, **kw)
+    pk.bcsr_spmm_nnz_stream, pk.bcsr_sddmm = spmm, sddmm
+    bcsr_attn.bcsr_attn_fused = attn
+    try:
+        yield seen
+    finally:
+        pk.bcsr_spmm_nnz_stream, pk.bcsr_sddmm = own[:2]
+        bcsr_attn.bcsr_attn_fused = own[2]
+
+
+@contextlib.contextmanager
+def _tp_collectives():
+    """Calls of each ``torch.distributed`` collective the split runs."""
+    import torch.distributed as dist
+    calls = dict.fromkeys(TP_COLLECTIVES, 0)
+    own = {name: getattr(dist, name) for name in TP_COLLECTIVES}
+
+    def counted(name):
+        def call(*args, **kw):
+            calls[name] += 1
+            return own[name](*args, **kw)
+        return call
+    for name in TP_COLLECTIVES:
+        setattr(dist, name, counted(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in own.items():
+            setattr(dist, name, fn)
+
+
+def _tp_train(run, mesh, device):
+    """One of TP_RUNS through ``train.loop.train(cfg, shape, mesh)``: its
+    losses, step times, launches, kernel widths, collective calls and
+    peak memory on this process's card."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    tag, arch, layers, dtype, steps, batch, seq, _ = run
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers, dtype=dtype)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    with _tp_widths() as widths, _tp_collectives() as calls:
+        res = loop.train(cfg, ShapeCell("chip", "train", seq, batch), mesh,
+                         total_steps=steps, remat="none",
+                         opt_cfg=adamw.AdamWConfig(total_steps=steps))
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" \
+        else 0.0
+    steady = res.step_times[1:]
+    return {"losses": res.losses, "step_times": res.step_times,
+            "step_ms": 1e3 * sum(steady) / len(steady),
+            "launches": launches, "peak_gb": peak, "collectives": calls,
+            "widths": {k: sorted(set(v)) for k, v in widths.items()},
+            "calls": {k: len(v) for k, v in widths.items()}}
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _nccl_two_ranks(rank, port):
+    """What an nccl group of two ranks on one card does with an
+    all-reduce: the error it raises (NCCL refuses a second rank on a
+    device it already drives), or "accepted"."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=TP_RANKS, rank=rank)
+    try:
+        dist.all_reduce(torch.ones(1, device="cuda"))
+        torch.cuda.synchronize()
+        return "accepted"
+    except Exception as e:          # reported: the phase logs it
+        return f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_worker(rank, ports, out_dir, runs, device):
+    """One rank of the (1, TP_RANKS) mesh, a process of its own on the one
+    card: the nccl check, then a gloo group (CUDA tensors) and every run
+    of ``runs``; its results to ``out_dir/tp_rank<rank>.pt``."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+    out = {}
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        out["nccl"] = _nccl_two_ranks(rank, ports[1])
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{ports[0]}",
+                            world_size=TP_RANKS, rank=rank)
+    try:
+        mesh = mesh_lib.make_mesh((1, TP_RANKS), ("data", "model"),
+                                  device_type=device)
+        out["model_index"] = mesh_lib.model_group(mesh)[1]
+        out["runs"] = {run[0]: _tp_train(run, mesh, device) for run in runs}
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, f"{out_dir}/tp_rank{rank}.pt")
+
+
+def _tp_spawn(runs, device):
+    """Every rank's results of ``_tp_worker``; fails if a rank fails or the
+    group outlasts TP_TIMEOUT_S (its processes are killed)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(
+            _tp_worker, args=((_free_port(), _free_port()), tmp, runs,
+                              device),
+            nprocs=TP_RANKS, join=False, start_method="spawn")
+        deadline = time.monotonic() + TP_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                check(time.monotonic() < deadline, f"[train-tp] the "
+                      f"{TP_RANKS} ranks did not finish in {TP_TIMEOUT_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        return [torch.load(f"{tmp}/tp_rank{r}.pt") for r in range(TP_RANKS)]
+
+
+def train_tp_phase(smi, runs=TP_RUNS):
+    """The training mesh's ``model`` axis split (``launch.steps.
+    split_leaves``) on the card: a ``(data, model) = (1, 2)`` mesh of two
+    processes on the one card, each a rank of a ``gloo`` group holding
+    CUDA tensors (NCCL refuses two ranks on one device: each rank tries an
+    nccl all-reduce first and the phase logs the error), through
+    ``train.loop.train(cfg, shape, mesh)`` for each of TP_RUNS.  Each run
+    is held against the same run on a one-rank nccl ``(1, 1)`` mesh in
+    this process (same depth, seed-0 weights and batches): the losses
+    within the run's tolerance, both ranks' losses equal, each rank's
+    launches equal to the one-rank run's and to the path's table (144 B1 +
+    72 B2 a step at 24 layers for the FFN; 240 + 120 + 24 B5 for the
+    attention, scaled by depth), and each rank's widths halved: the FFN's
+    B1/B2 on half the tokens, B5 and the attention backward's batched
+    products on half the heads.  Logs per-rank step ms, peak memory and
+    collective calls beside the card's name and power limit."""
+    from repro_torch.launch import mesh as mesh_lib
+    ref = {}
+    with _one_rank_nccl():
+        mesh = mesh_lib.make_mesh((1, 1), ("data", "model"),
+                                  device_type=DEVICE)
+        for run in runs:
+            ref[run[0]] = _tp_train(run, mesh, DEVICE)
+    torch.cuda.empty_cache()
+    ranks = _tp_spawn(runs, DEVICE)
+    out = {}
+    for run in runs:
+        tag, arch, layers, dtype, steps, batch, seq, tol = run
+        one, got = ref[tag], [r["runs"][tag] for r in ranks]
+        if tag == "attn":
+            from repro_torch.configs import get_config
+            per_step, _ = _attn_train_counts(dataclasses.replace(
+                get_config(arch), n_layers=layers), layers)
+        else:
+            per_step = _counts(**{B1: 6 * layers, B2: 3 * layers})
+        want = {n: c * steps for n, c in per_step.items()}
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got[0]["losses"],
+                                                      one["losses"]))
+        same = all(g["losses"] == got[0]["losses"] for g in got)
+        half = {k: sorted((w[0] // TP_RANKS,) if k == B5 else
+                          (1, w[1] // TP_RANKS) if w[0] == 1 else
+                          (w[0] // TP_RANKS, w[1]) for w in ws)
+                for k, ws in one["widths"].items()}
+        halved = all(g["widths"] == half for g in got)
+        log(f"[train-tp] {arch} {tag}: {layers} layers, full width, {dtype}, "
+            f"{batch} x {seq} tokens, {steps} steps on a (1, {TP_RANKS}) "
+            f"mesh of {TP_RANKS} processes on one card (gloo, CUDA "
+            f"tensors): losses {got[0]['losses']} (both ranks equal: "
+            f"{same}); one-rank mesh {one['losses']}; max relative "
+            f"difference {rel:.3g} (tolerance {tol})")
+        for r, g in enumerate(got):
+            log(f"[train-tp] {tag} rank {r}: step ms "
+                f"{[round(1e3 * t, 3) for t in g['step_times']]}, steady "
+                f"{g['step_ms']:.3f} ms; peak {g['peak_gb']:.2f} GB; "
+                f"launches {g['launches']}; widths (G, N) {g['widths']}; "
+                f"collective calls {g['collectives']}; {smi}")
+        log(f"[train-tp] {tag} one-rank mesh: steady {one['step_ms']:.3f} "
+            f"ms; peak {one['peak_gb']:.2f} GB; launches {one['launches']} "
+            f"(expected {want}); widths {one['widths']}; {smi}")
+        check(rel <= tol and same, f"[train-tp] {tag}: losses differ from "
+              f"the one-rank mesh's ({rel:.3g} > {tol}) or between ranks")
+        check(one["launches"] == want and all(
+            g["launches"] == want and g["calls"] == one["calls"]
+            for g in got), f"[train-tp] {tag}: launch counts differ from "
+              f"{want}")
+        check(halved, f"[train-tp] {tag}: a rank's kernel widths are not "
+              f"half the one-rank mesh's")
+        out[tag] = {"ranks": got, "one_rank": one}
+    log(f"[train-tp] nccl with {TP_RANKS} ranks on one card: "
+        f"{[r.get('nccl') for r in ranks]}; the split ran on gloo with CUDA "
+        f"tensors, every collective natively "
+        f"({', '.join(TP_COLLECTIVES)}); model indices "
+        f"{[r['model_index'] for r in ranks]}")
+    check(sorted(r["model_index"] for r in ranks) == list(range(TP_RANKS)),
+          "[train-tp] the ranks' model indices are not 0..n-1")
+    launches = {k["name"]: sum(o["ranks"][0]["launches"][k["name"]]
+                               for o in out.values()) for k in KERNELS}
+    return launches, out
+
+
 # ------------------------------------------- the MLA/MoE and SSD layouts
 MOE_ARCH, SSD_ARCH = "deepseek-v2-lite-16b", "mamba2-1.3b"
 # the 16.21 B-parameter model does not fit AdamW on one card: [moe-train]
@@ -4313,8 +4564,9 @@ SSD_TRAIN_REMAT = "full"
 MODEL_CHECK_LEN = {MOE_ARCH: 16, SSD_ARCH: 512}   # [*-model] tokens a row
 
 
-def layout_serve_phase(arch, tag, smi):
-    """``arch`` at full width with seed-0 weights drawn on the card, served
+def layout_serve_phase(arch, tag, smi, cut=None):
+    """``arch`` at full width (its depth cut by ``cut``'s fields when
+    given) with seed-0 weights drawn on the card, served
     through ``ServeEngine`` (N_SLOTS slots, N_REQUESTS requests of
     PROMPT_LEN + NEW_TOKENS tokens, as ``[main]``): tok/s, ms a decode
     call, peak memory, and a ``torch.profiler`` row (launches a call, the
@@ -4325,7 +4577,7 @@ def layout_serve_phase(arch, tag, smi):
     from repro_torch.models import transformer as T
     from repro_torch.serve.engine import ServeEngine
 
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch), **(cut or {}))
     before_gb = torch.cuda.memory_allocated() / 1e9
     t0 = time.perf_counter()
     model = T.init_params(cfg, seed=0, device=DEVICE)
@@ -4574,6 +4826,12 @@ HYBRID_TRAIN_STEPS = 3
 HYBRID_MODEL_CUT = {"hybrid_n_units": 1, "hybrid_unit_len": 2,
                     "hybrid_tail": 1, "n_layers": 1 * 3 + 1}
 AUDIO_TRAIN_STEPS, AUDIO_TRAIN_REMAT = 5, "none"
+# the script's time limit (with [train-tp]): [hybrid-serve] serves
+# 4 of zamba2-7b's 13 units (and the tail of 3), [audio-serve] 16 of
+# musicgen-medium's 48 layers; their engine == decode_step loop checks
+# take most of each phase (57.5 and 45.3 s at full depth)
+HYBRID_SERVE_CUT = {"hybrid_n_units": 4, "n_layers": 4 * 6 + 3}
+AUDIO_SERVE_CUT = {"n_layers": 16}
 VLM_TEXT, VLM_DECODE = 1024, 16   # [vlm-prefill]: after 1,024 patches
 VLM_TRAIN_SEQ, VLM_TRAIN_STEPS = 2048, 3      # 1,024 patches + 1,024 text
 VLM_MODEL_PATCHES = 16            # [vlm-model]'s patch embeddings a row
@@ -4847,6 +5105,7 @@ def main():
                                           trained["losses"])
     train_mesh_launches, trained_mesh = phase(train_mesh_phase, cfg, smi,
                                               trained)
+    train_tp_launches, trained_tp = phase(train_tp_phase, smi)
     phase(train_vs_plain_phase, cfg)
     phase(train_row_loop_vs_plain_phase, cfg)
     phase(restart_phase)
@@ -4872,12 +5131,13 @@ def main():
     policies = phase(remat_policy_phase, GEMMA_ARCH, "gemma-train",
                      GEMMA_CUT)
     served_hybrid = phase(layout_serve_phase, HYBRID_ARCH, "hybrid-serve",
-                          smi)
+                          smi, HYBRID_SERVE_CUT)
     model_hybrid = phase(layout_model_phase, HYBRID_ARCH, "hybrid-model",
                          HYBRID_MODEL_CUT)
     trained_hybrid = phase(layout_train_phase, HYBRID_ARCH, "hybrid-train",
                            smi, HYBRID_TRAIN_CUT, HYBRID_TRAIN_STEPS, "none")
-    served_audio = phase(layout_serve_phase, AUDIO_ARCH, "audio-serve", smi)
+    served_audio = phase(layout_serve_phase, AUDIO_ARCH, "audio-serve", smi,
+                         AUDIO_SERVE_CUT)
     trained_audio = phase(layout_train_phase, AUDIO_ARCH, "audio-train", smi,
                           None, AUDIO_TRAIN_STEPS, AUDIO_TRAIN_REMAT)
     prefilled_vlm = phase(vlm_prefill_phase, smi)
@@ -4933,6 +5193,8 @@ def main():
              "serve_sharded": serve_sh_launches,
              "train_sharded": train_sh_launches,
              "train_mesh": train_mesh_launches,
+             # rank 0 of the (1, 2) mesh, both runs
+             "train_tp": train_tp_launches,
              "prefill_attn_sharded": prefill_sh_launches,
              # the paths without a TPU kernel: 0 launches each
              **{path: r["launches"] for path, r in (
@@ -5042,6 +5304,12 @@ def main():
                   for key in ("smem_bytes", "regs", "ctas_per_sm")},
                  resources_by_shape=res)
     dense_err = {a: r["card_vs_cpu"] for a, r in model_dense.items()}
+
+    def ms_gb(r):
+        return round(r["step_ms"], 3), round(r["peak_gb"], 2)
+    tp_ranks = {t: [ms_gb(r) for r in o["ranks"]]
+                for t, o in trained_tp.items()}
+    tp_one = {t: ms_gb(o["one_rank"]) for t, o in trained_tp.items()}
     log(f"[main] REPRO_VERIFY_LAUNCH=1 hook: {hook_counts} dispatches "
         "checked, outputs bit-equal without it")
     log(f"[main] serving: {tok_s:.1f} tok/s (nnz_stream), {tok_s_rl:.1f} "
@@ -5051,7 +5319,9 @@ def main():
         f"tokens/s (row_loop); on a one-rank (1, 1) mesh "
         f"{trained_mesh['step_ms']:.3f} ms per step, peak "
         f"{trained_mesh['peak_gb']:.2f} GB ([train] "
-        f"{trained['peak_gb']:.2f} GB).  Autotune winners: "
+        f"{trained['peak_gb']:.2f} GB); split over a (1, {TP_RANKS}) mesh "
+        f"on one card, ms a step and peak GB per rank {tp_ranks} (one-rank "
+        f"mesh {tp_one}).  Autotune winners: "
         f"{ {f'{k[0]} {k[1]} N={k[2]}': v for k, v in winners.items()} }.  "
         f"Kernel times per launch: {B1} and {B3} at the decode shape "
         f"(N={N_SLOTS}; train_forward and train_dB at N={TRAIN_N}, "
@@ -5096,11 +5366,12 @@ def main():
         f"{ {r: round(v['above_base_gb'], 3) for r, v in policies.items()} }"
         f" GB; "
         f"f32 card vs CPU {model_gemma['card_vs_cpu']:.3g}.  {HYBRID_ARCH}: "
-        f"serving {served_hybrid['tok_s']:.1f} tok/s, "
+        f"serving (4 units) {served_hybrid['tok_s']:.1f} tok/s, "
         f"{served_hybrid['ms_per_call']:.3f} ms a decode call; training (2 "
         f"units) {trained_hybrid['step_ms']:.3f} ms a step; f32 card vs CPU "
         f"{model_hybrid['card_vs_cpu']:.3g}.  {AUDIO_ARCH}: serving "
-        f"{served_audio['tok_s']:.1f} tok/s (codebook rows), training "
+        f"(16 layers) {served_audio['tok_s']:.1f} tok/s (codebook rows), "
+        f"training "
         f"{trained_audio['step_ms']:.3f} ms a step (remat "
         f"{trained_audio['remat']}), peak {trained_audio['peak_gb']:.2f} GB."
         f"  {VLM_ARCH}: prefill {prefilled_vlm['prefill_ms']:.3f} ms, "

@@ -392,8 +392,11 @@ def apply_sparse_linear(params, meta, x: torch.Tensor,
     slice, over the mesh ``dist_spmm.use_spmm_mesh`` installed or
     in-process when none is, with the panel in ``spec.shard_chunks``
     column chunks (``dist_spmm.spmm_sharded``).  The ``constrain`` calls
-    stand where the JAX package's do; with no training mesh in the port
-    yet they return their input."""
+    stand where the JAX package's do and return their input: under a
+    training mesh whose compute splits over ``model``
+    (``launch.steps.split_leaves``) ``x`` already holds this rank's tokens
+    (the sequence-split carry), so B1 forward, B1 dB and B2 dvals run on
+    them against the replicated weights, with no collective here."""
     lead = x.shape[:-1]
     xt = x.reshape(-1, x.shape[-1]).T                # [K, T]
     if is_sharded(spec):

@@ -1,34 +1,77 @@
-"""Mesh-aware activation sharding constraints, and the active training mesh.
+"""Mesh-aware activation sharding, the active training mesh, and the
+collectives of the compute split over ``model``.
 
 ``use_mesh(mesh)`` makes ``mesh`` the active training mesh for the code it
 wraps (the JAX package's ``with mesh:``); ``train.loop.train`` enters it,
-and ``current_mesh()`` returns it (None outside).
+and ``current_mesh()`` returns it (None outside).  ``use_mesh(mesh,
+split=True)`` also splits the compute over the mesh's ``model`` axis: the
+mesh step enters it for the layouts whose split the port runs
+(``launch.steps.split_leaves``: ``attn_mlp`` with token inputs, on a
+sequence the axis divides).  Inside, ``model_split()`` gives the split
+(this rank's model group, its index and the group's size), and the model
+code computes on shards as the JAX package's sharding rules and
+``constrain`` calls have GSPMD do: the residual stream is carried
+sequence-split (norms and the block-sparse FFN on the rank's positions),
+attention runs the rank's heads on the whole sequence, the dense FFN its
+hidden columns, embedding and logits its vocab slice.  Outside a split
+(no mesh, ``model`` = 1, the other layouts, which keep replicated compute)
+``model_split()`` is None and every collective below is the identity.
+
+The JAX ``fit`` rule holds for the split (``launch.steps.split_leaves``):
+a dim the ``model`` axis does not divide stays replicated (2 kv heads on
+a ``model`` axis of 4: ``wk``/``wv`` whole on every rank).
+
+The collectives sit where GSPMD would insert them, each an autograd
+``Function`` over the model group with its backward:
+
+  * ``gather(x, dim)``:  all-gather along ``dim``; backward reduce-scatter;
+  * ``scatter(x, dim)``: reduce-scatter along ``dim``; backward all-gather;
+  * ``reduce(x)``:       all-reduce; backward the identity;
+  * ``enter(x)``:        the identity; backward all-reduce (a replicated
+    operand entering split compute, where no gather brings it in).
+
+Sums over the model group of 16-bit tensors run in float32 and round once
+(every reduction backend supports float32).  ``local_seq(x, dim)`` takes
+this rank's chunk with no collective: its backward leaves zeros at the
+other ranks' positions, this rank's share of a replicated computation's
+gradient, which the gather before it, or the gradient sum of a replicated
+leaf over the model group (``psum_model``), completes.
 
 ``constrain(x, axis0, axis1, ...)`` names the logical mesh axes an
-activation's dims should be sharded over.  The port's mesh step computes
-on local tensors (each rank its batch rows, with the parameters gathered:
-``launch.steps.make_train_step``), so ``constrain`` returns ``x``
-unchanged, with a mesh or without; the call sites stand where the JAX
-package's do.
+activation's dims should be sharded over, where the JAX package's calls
+stand.  The port's split is explicit (the carry arrives split; the layers
+compute on their shards and call the collectives above), so ``constrain``
+returns ``x`` unchanged.
 
 ``psum_data`` sums tensors over the active mesh's data group (the ranks
 that share a ``model`` coordinate, ``launch.mesh.data_group``): what the
 losses' global counts and the gradients are summed over, where GSPMD would
-sum over the global batch.
+sum over the global batch; ``psum_model`` over the model group, with no
+gradient.
 
 ``BATCH`` is the conventional hierarchical batch axis (pod+data).
 """
 from __future__ import annotations
 
 import contextlib
-from typing import List, Sequence
+from typing import Any, List, NamedTuple, Optional, Sequence
 
 import torch
 
 BATCH = ("pod", "data")
 MODEL = "model"
 
-# the active meshes, innermost last: (mesh, its data group or None)
+
+class ModelSplit(NamedTuple):
+    """The active split over ``model``: this rank's model group (never
+    None: a split has more than one rank), its index there, the size."""
+    group: Any
+    index: int
+    size: int
+
+
+# the active meshes, innermost last: (mesh, its data group or None, the
+# ModelSplit or None)
 _ACTIVE: list = []
 
 
@@ -37,15 +80,21 @@ def constrain(x, *axes):
 
 
 @contextlib.contextmanager
-def use_mesh(mesh):
+def use_mesh(mesh, split: bool = False):
     """Make ``mesh`` (a ``DeviceMesh``, or None for no mesh) the active
-    training mesh inside the block.  Entering builds the mesh's data group
-    the first time (a collective: every rank of the mesh enters)."""
-    group = None
+    training mesh inside the block, its compute split over ``model`` with
+    ``split`` (where that axis has more than one rank).  Entering builds
+    the mesh's data group, and with ``split`` its model group, the first
+    time it asks (a collective: every rank of the mesh enters)."""
+    group, tp = None, None
     if mesh is not None:
-        from repro_torch.launch.mesh import data_group
+        from repro_torch.launch.mesh import data_group, model_group
         group = data_group(mesh)[0]
-    _ACTIVE.append((mesh, group))
+        if split:
+            m_group, index, size = model_group(mesh)
+            if m_group is not None:
+                tp = ModelSplit(m_group, index, size)
+    _ACTIVE.append((mesh, group, tp))
     try:
         yield mesh
     finally:
@@ -63,6 +112,147 @@ def data_parallel() -> bool:
     return bool(_ACTIVE) and _ACTIVE[-1][1] is not None
 
 
+def model_split() -> Optional[ModelSplit]:
+    """The active split over ``model``, or None (replicated compute)."""
+    return _ACTIVE[-1][2] if _ACTIVE else None
+
+
+# ------------------------------------------------ the model group's sums
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as a contiguous tensor the sum can run in: float32 for a
+    16-bit float (a new tensor), else ``x`` itself when contiguous."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return x.float()
+    return x.contiguous()
+
+
+def _all_gather(x: torch.Tensor, dim: int, tp: ModelSplit) -> torch.Tensor:
+    import torch.distributed as dist
+    x = x.contiguous()
+    out = x.new_empty((tp.size * x.numel(),))
+    dist.all_gather_into_tensor(out, x.reshape(-1), group=tp.group)
+    return torch.cat(out.view(tp.size, *x.shape).unbind(0), dim=dim)
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int,
+                    tp: ModelSplit) -> torch.Tensor:
+    import torch.distributed as dist
+    if x.shape[dim] % tp.size:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {tp.size} ranks")
+    parts = _wide(torch.stack(x.chunk(tp.size, dim=dim)))
+    out = parts.new_empty(parts.shape[1:])
+    dist.reduce_scatter_tensor(out.view(-1), parts.view(-1), group=tp.group)
+    return out.to(x.dtype)
+
+
+def _all_reduce(x: torch.Tensor, tp: ModelSplit, op=None) -> torch.Tensor:
+    import torch.distributed as dist
+    out = _wide(x)
+    out = out.clone() if out is x else out
+    dist.all_reduce(out, op=op or dist.ReduceOp.SUM, group=tp.group)
+    return out.to(x.dtype)
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, tp):
+        ctx.dim, ctx.tp = dim, tp
+        return _all_gather(x, dim, tp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.dim, ctx.tp), None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, tp):
+        ctx.dim, ctx.tp = dim, tp
+        return _reduce_scatter(x, dim, tp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.tp), None, None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        return _all_reduce(x, tp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.tp), None
+
+
+def gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The ranks' chunks of ``x`` concatenated along ``dim`` in model order
+    (all-gather; backward reduce-scatter); ``x`` with no split."""
+    tp = model_split()
+    return x if tp is None else _Gather.apply(x, dim, tp)
+
+
+def scatter(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's chunk along ``dim`` of the ranks' ``x`` summed
+    (reduce-scatter; backward all-gather); ``x`` with no split."""
+    tp = model_split()
+    return x if tp is None else _Scatter.apply(x, dim, tp)
+
+
+def reduce(x: torch.Tensor) -> torch.Tensor:
+    """The ranks' ``x`` summed (all-reduce; backward the identity: every
+    rank carries the same downstream gradient); ``x`` with no split."""
+    tp = model_split()
+    return x if tp is None else _Reduce.apply(x, tp)
+
+
+def enter(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (replicated) as an operand of split compute: the identity,
+    whose backward sums the ranks' partial gradients (all-reduce)."""
+    tp = model_split()
+    return x if tp is None else _Enter.apply(x, tp)
+
+
+def local_seq(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """This rank's chunk of ``x`` along ``dim`` (a view; no collective);
+    ``x`` with no split."""
+    tp = model_split()
+    if tp is None:
+        return x
+    return x.chunk(tp.size, dim=dim)[tp.index]
+
+
+def pmax_model(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise maximum of the ranks' ``x``, with no gradient;
+    ``x`` with no split."""
+    tp = model_split()
+    if tp is None:
+        return x
+    import torch.distributed as dist
+    return _all_reduce(x.detach(), tp, op=dist.ReduceOp.MAX)
+
+
+def _psum(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
+    import torch.distributed as dist
+    out = [t.detach().contiguous() for t in tensors]
+    works = [dist.all_reduce(t, group=group, async_op=True) for t in out]
+    for work in works:
+        work.wait()
+    return out
+
+
 def psum_data(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """``tensors`` summed over the active mesh's data group, in place, as a
     list in the same order of their detached (contiguous) selves; the
@@ -70,13 +260,17 @@ def psum_data(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     rank.  Each tensor is its own ``all_reduce``, all of them in flight at
     once, so the sum needs no copy beside the tensors; no gradient flows
     through it."""
-    out = list(tensors)
     if not data_parallel():
-        return out
-    import torch.distributed as dist
-    group = _ACTIVE[-1][1]
-    out = [t.detach().contiguous() for t in out]
-    works = [dist.all_reduce(t, group=group, async_op=True) for t in out]
-    for work in works:
-        work.wait()
-    return out
+        return list(tensors)
+    return _psum(tensors, _ACTIVE[-1][1])
+
+
+def psum_model(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """``tensors`` summed over the model group of the active split (16-bit
+    ones in float32, rounded back), all in flight at once, with no
+    gradient; the tensors themselves with no split."""
+    tp = model_split()
+    if tp is None:
+        return list(tensors)
+    wide = _psum([_wide(t.detach()) for t in tensors], tp.group)
+    return [w.to(t.dtype) for w, t in zip(wide, tensors)]

@@ -12,8 +12,9 @@ card; ``"cpu"`` builds a mesh for ``gloo`` process groups (the CPU tests).
 ``make_abstract_mesh`` gives the shape and axis names alone, with no
 process group: what the sharding rules read.  ``data_group`` gives a
 rank's data-parallel group under a mesh (the training mesh's gradient and
-loss sums run over it).  The functions touch no process state until
-called.
+loss sums run over it), ``model_group`` its tensor-parallel group (the
+split compute's collectives run over it).  The functions touch no process
+state until called.
 """
 from __future__ import annotations
 
@@ -107,8 +108,36 @@ def model_axis(mesh) -> str:
     return "model"
 
 
-# data_group's result per mesh: {id(mesh): (mesh, result)}
-_DATA_GROUPS: Dict[int, tuple] = {}
+# data_group's and model_group's results per mesh: {(id(mesh), kind):
+# (mesh, result)}
+_GROUPS: Dict[tuple, tuple] = {}
+
+
+def _axis_group(mesh, kind: str, inner) -> Tuple[
+        Optional["dist.ProcessGroup"], int, int]:
+    """``(group, index, size)`` of the ranks that share this rank's
+    coordinate on every axis outside ``inner``, ordered along ``inner``'s
+    axes major to minor in mesh order.  Every rank creates every such
+    group with ``dist.new_group``, in the same order, the first time it
+    asks (cached per mesh and ``kind``); ``group`` is None for one rank."""
+    hit = _GROUPS.get((id(mesh), kind))
+    if hit is not None and hit[0] is mesh:
+        return hit[1]
+    names = axis_names(mesh)
+    i_dims = [i for i, n in enumerate(names) if n in inner]
+    o_dims = [i for i in range(len(names)) if i not in i_dims]
+    size = int(np.prod([mesh.mesh.shape[i] for i in i_dims], dtype=np.int64))
+    rows = mesh.mesh.permute(*o_dims, *i_dims).reshape(-1, size).tolist()
+    me = dist.get_rank()
+    out = None
+    for row in rows:
+        group = dist.new_group(row) if size > 1 else None
+        if me in row:
+            out = (group, row.index(me), size)
+    if out is None:
+        raise ValueError(f"rank {me} is not in the mesh {mesh}")
+    _GROUPS[(id(mesh), kind)] = (mesh, out)
+    return out
 
 
 def data_group(mesh) -> Tuple[Optional["dist.ProcessGroup"], int, int]:
@@ -120,24 +149,14 @@ def data_group(mesh) -> Tuple[Optional["dist.ProcessGroup"], int, int]:
     None when the group has one rank.
 
     The groups are built with ``dist.new_group`` over the ranks of each
-    ``model`` coordinate (every rank creates every group, in the same
-    order, the first time it asks; cached per mesh), not with the private
-    ``DeviceMesh._flatten``."""
-    hit = _DATA_GROUPS.get(id(mesh))
-    if hit is not None and hit[0] is mesh:
-        return hit[1]
-    names = axis_names(mesh)
-    d_dims = [i for i, n in enumerate(names) if n in ("pod", "data")]
-    o_dims = [i for i in range(len(names)) if i not in d_dims]
-    size = int(np.prod([mesh.mesh.shape[i] for i in d_dims], dtype=np.int64))
-    rows = mesh.mesh.permute(*o_dims, *d_dims).reshape(-1, size).tolist()
-    me = dist.get_rank()
-    out = None
-    for row in rows:
-        group = dist.new_group(row) if size > 1 else None
-        if me in row:
-            out = (group, row.index(me), size)
-    if out is None:
-        raise ValueError(f"rank {me} is not in the mesh {mesh}")
-    _DATA_GROUPS[id(mesh)] = (mesh, out)
-    return out
+    ``model`` coordinate, not with the private ``DeviceMesh._flatten``."""
+    return _axis_group(mesh, "data", ("pod", "data"))
+
+
+def model_group(mesh) -> Tuple[Optional["dist.ProcessGroup"], int, int]:
+    """``(group, index, size)`` of this rank's tensor-parallel group under
+    a ``DeviceMesh``: the ranks that share its data coordinate (``pod`` and
+    ``data``), ordered along ``model``; ``index`` is this rank's ``model``
+    coordinate, the shard of a model-sharded dim it holds.  ``group`` is
+    None when the ``model`` axis has one rank (or the mesh none)."""
+    return _axis_group(mesh, "model", ("model",))

@@ -32,9 +32,11 @@ both, major to minor in mesh order, as JAX nests them), ``local_shard``
 this rank's block of a full tensor (a view: no communication),
 ``shard_tensor`` a ``DTensor`` that owns a copy of that block, and
 ``distribute_tree`` does it for every leaf of a tree.  Back from a
-``DTensor``: ``full`` gathers it whole (a collective), ``local`` takes this
-rank's block (a view); both pass a plain tensor through and map over a
-nested mapping.
+``DTensor``: ``full`` gathers it whole (a collective), ``gather_to`` to
+another spec (``keep_axes`` drops a spec's other axes: the mesh step
+gathers a model-split parameter over the data axes only), ``local`` takes
+this rank's block (a view); ``full`` and ``local`` pass a plain tensor
+through and map over a nested mapping.
 """
 from __future__ import annotations
 
@@ -204,6 +206,19 @@ def spmm_shard_count(mesh=None) -> int:
     if mesh is None:
         return max(torch.cuda.device_count(), 1)
     return max(int(np.prod(list(axis_sizes(mesh).values()))), 1)
+
+
+def keep_axes(spec, axes) -> PartitionSpec:
+    """``spec`` with every mesh axis outside ``axes`` dropped (the dims it
+    sharded are then whole over those axes)."""
+    def keep(a):
+        if a is None:
+            return None
+        if isinstance(a, tuple):
+            kept = tuple(x for x in a if x in axes)
+            return kept or None
+        return a if a in axes else None
+    return P(*[keep(a) for a in spec])
 
 
 def _strip_data_axes(spec) -> PartitionSpec:
@@ -399,6 +414,21 @@ def _leafwise(fn, tree):
     if isinstance(tree, Mapping):
         return {k: _leafwise(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def gather_to(mesh, d, spec) -> torch.Tensor:
+    """This rank's block of the ``DTensor`` ``d`` redistributed under
+    ``spec`` (a collective over the mesh dims whose placement changes; a
+    mesh dim of one rank needs none, and when none does the block is
+    ``d``'s own, a view).  ``gather_to(mesh, d, keep_axes(spec,
+    ("model",)))`` gathers a parameter over the data axes and keeps its
+    ``model`` shard."""
+    target = placements(mesh, spec)
+    moved = [a != b for a, b, n in zip(d.placements, target,
+                                        mesh.mesh.shape) if int(n) > 1]
+    if not any(moved):
+        return d.to_local()
+    return d.redistribute(mesh, target).to_local()
 
 
 def full(tree) -> Any:

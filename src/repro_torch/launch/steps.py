@@ -17,13 +17,28 @@ Under a training mesh (``make_train_step(..., mesh=mesh)``) the step runs
 gather-then-compute over ZeRO-3 storage: a ``MeshModel`` (``shard_model``)
 stores each parameter as a ``DTensor`` under
 ``launch.sharding.param_shardings`` and AdamW's moments under
-``opt_state_shardings`` (``init_opt_state``).  A step gathers every
-parameter to a full local tensor, runs the unchanged model forward and
-backward on this rank's batch rows (so the kernels get plain local
-tensors), sums the gradients over the data group, clips with the norm of
-that full gradient, and updates each rank's own shard of parameters and
-moments.  Compute over the ``model`` axis is replicated: no
-tensor-parallel product is taken.
+``opt_state_shardings`` (``init_opt_state``).  A step gathers the
+parameters, runs the model forward and backward on this rank's batch rows
+(the kernels get plain local tensors), sums the gradients, clips with the
+norm of the full gradient, and updates each rank's own shard of
+parameters and moments.
+
+Where the ``model`` axis has more than one rank, the ``attn_mlp`` layout
+with token inputs splits its compute over it, as the JAX package's
+sharding rules and ``constrain`` calls have GSPMD do (``split_leaves``;
+``launch.constrain.use_mesh(mesh, split=True)``): the head-, hidden- and
+vocab-sharded leaves are gathered over the data axes only, so each rank
+computes with its ``model`` shard of ``wq``/``wk``/``wv``/``wo``, the
+dense FFN's ``w_gate``/``w_up``/``w_down``, ``embed`` and ``lm_head``;
+the residual stream is carried sequence-split; the block-sparse FFN runs
+its B1/B2 on the rank's tokens against replicated BCSR weights, B5 and
+the attention backward's batched products on its heads.  A split leaf's
+gradient is summed over the data group; a replicated leaf's (norms,
+``vals``, ``wk``/``wv`` where the axis does not divide the kv heads) over
+the data and model groups.  The other layouts (``mla_moe``, ``ssd``,
+``gemma_pair``, ``zamba``) and inputs (``codebooks``, ``tokens+patches``),
+a ``model`` axis of one rank, and a sequence the axis does not divide
+gather every parameter whole and replicate the compute over ``model``.
 """
 from __future__ import annotations
 
@@ -31,11 +46,13 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.core.sparse_linear import meta_spec as _spec
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import sharding as sh
-from repro_torch.launch.constrain import psum_data, use_mesh
+from repro_torch.launch.constrain import psum_data, psum_model, use_mesh
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 
@@ -166,23 +183,71 @@ def state_specs(model: MeshModel, opt_state) -> Dict[str, Any]:
             "opt": opt_shardings(model.mesh, opt_state)}
 
 
+# the leaves the split computes on their ``model`` shard, by leaf name:
+# the config dims the ``model`` axis must divide (the JAX fit rule on the
+# activations they make: heads, kv heads, hidden, vocab)
+_SPLIT_DIMS = {
+    "embed": ("vocab_size",), "lm_head": ("vocab_size",),
+    "wq": ("n_heads",), "bq": ("n_heads",), "wo": ("n_heads",),
+    "wk": ("n_heads", "n_kv_heads"), "bk": ("n_heads", "n_kv_heads"),
+    "wv": ("n_heads", "n_kv_heads"), "bv": ("n_heads", "n_kv_heads"),
+    "w_gate": ("d_ff",), "w_up": ("d_ff",), "w_down": ("d_ff",),
+}
+
+
+def split_leaves(cfg: ModelConfig, mesh, specs: Dict[str, Any],
+                 seq_len: int) -> frozenset:
+    """Names of the parameters the mesh step computes on their ``model``
+    shard (``specs``: the parameters' ``param_shardings``): the head-,
+    hidden- and vocab-sharded leaves of the ``attn_mlp`` layout with token
+    inputs, each where the ``model`` axis divides its dims, when that axis
+    has more than one rank and divides the sequence (the carry is split
+    over it).  Empty otherwise: the step then gathers every parameter
+    whole and replicates the compute over ``model``, as for the other
+    layouts and inputs."""
+    m = mesh_lib.axis_sizes(mesh).get("model", 1)
+    if m == 1 or cfg.layout != "attn_mlp" or cfg.input_mode != "tokens" \
+            or seq_len % m:
+        return frozenset()
+
+    def splits(name, spec):
+        dims = _SPLIT_DIMS.get(name.rsplit(".", 1)[-1])
+        return dims is not None and "model" in sh.keep_axes(spec, ("model",)) \
+            and all(getattr(cfg, f) % m == 0 for f in dims)
+    return frozenset(n for n, spec in specs.items() if splits(n, spec))
+
+
 def mesh_loss_and_grads(cfg: ModelConfig, model: MeshModel, batch: Dict,
                         remat: str = "full"):
-    """The mesh step's forward and backward: gather every parameter into
-    the module (``DTensor.full_tensor``: an all-gather over the mesh dims
-    that shard it), run ``T.train_loss`` on this rank's rows of ``batch``
-    (``DTensor`` leaves under ``batch_shardings``, or local tensors), release
-    the gathered parameters, and sum the gradients and the loss terms over
-    the data group.  Returns ``(metrics, grads)``: the global ``loss``,
-    ``lm_loss`` and ``aux_loss``, and the full gradient of the global loss
-    by parameter name."""
+    """The mesh step's forward and backward: gather the parameters into
+    the module, run ``T.train_loss`` on this rank's rows of ``batch``
+    (``DTensor`` leaves under ``batch_shardings``, or local tensors),
+    release the gathered parameters, and sum the gradients and the loss
+    terms over the data group.  Returns ``(metrics, grads)``: the global
+    ``loss``, ``lm_loss`` and ``aux_loss``, and the full gradient of the
+    global loss by parameter name.
+
+    Where ``split_leaves`` names leaves, the compute is split over
+    ``model`` (``use_mesh(..., split=True)``): those leaves are gathered
+    over the data axes only (``gather_to``; each rank keeps its ``model``
+    shard) and their gradients, summed over the data group, come back as
+    ``DTensor``s sharded over ``model`` (the shard on each rank); every
+    other leaf is gathered whole and its gradient, the rank's share (its
+    positions, its heads), is summed over the model group too.  Otherwise
+    every parameter is gathered whole (``DTensor.full_tensor``) and the
+    compute is replicated over ``model``."""
+    mesh = model.mesh
     params = dict(model.module.named_parameters())
-    with use_mesh(model.mesh):
+    batch = sh.local(batch)
+    split = split_leaves(cfg, mesh, model.specs, batch["tokens"].shape[1])
+    keep = {n: sh.keep_axes(model.specs[n], ("model",)) for n in split}
+    with use_mesh(mesh, split=bool(split)):
         for name, p in params.items():
-            p.data = model.shards[name].full_tensor()
+            d = model.shards[name]
+            p.data = sh.gather_to(mesh, d, keep[name]) if name in split \
+                else d.full_tensor()
             p.grad = None
-        loss, parts = T.train_loss(cfg, model.module, sh.local(batch),
-                                   remat=remat)
+        loss, parts = T.train_loss(cfg, model.module, batch, remat=remat)
         loss.backward()
         grads = {n: p.grad for n, p in params.items()}
         for p in params.values():
@@ -192,9 +257,31 @@ def mesh_loss_and_grads(cfg: ModelConfig, model: MeshModel, batch: Dict,
         terms = [t.detach().float() for t in (loss, *parts.values())]
         *summed, total = psum_data([*(grads[n] for n in names),
                                     torch.stack(terms)])
+        whole = [i for i, n in enumerate(names) if n not in split]
+        for i, g in zip(whole, psum_model([summed[i] for i in whole])):
+            summed[i] = g
     grads.update(zip(names, summed))
+    for name in split:
+        if grads[name] is not None:
+            grads[name] = sh.from_local(mesh, grads[name], keep[name],
+                                        model.shards[name].shape)
     metrics = dict(zip(("loss", *parts), total.unbind()))
     return metrics, grads
+
+
+def _split_norm(mesh, grads) -> torch.Tensor:
+    """The full gradient's norm, for ``mesh_loss_and_grads``' gradients:
+    ``adamw.global_norm`` where no leaf is split over ``model``; else each
+    split leaf's shard counted on its rank and summed over the model
+    group, and each whole leaf once."""
+    split = {n: g for n, g in grads.items() if isinstance(g, DTensor)}
+    if not split:
+        return adamw.global_norm(grads)
+    sq = adamw.sum_squares({n: g.to_local() for n, g in split.items()})
+    group = mesh_lib.model_group(mesh)[0]
+    torch.distributed.all_reduce(sq, group=group)
+    rest = {n: g for n, g in grads.items() if n not in split}
+    return torch.sqrt(sq + adamw.sum_squares(rest))
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
@@ -216,10 +303,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
             if model.mesh is not mesh:
                 raise ValueError("the model is stored on another mesh")
             metrics, grads = mesh_loss_and_grads(cfg, model, batch, remat)
-            gnorm = adamw.global_norm(grads)
-            local_grads = {n: None if g is None else
-                           sh.local_shard(mesh, g, model.specs[n])
-                           for n, g in grads.items()}
+            gnorm = _split_norm(mesh, grads)
+            data = mesh_lib.data_axes(mesh)
+            local_grads = {
+                n: None if g is None else
+                sh.local_shard(mesh, g.to_local(),
+                               sh.keep_axes(model.specs[n], data))
+                if isinstance(g, DTensor) else
+                sh.local_shard(mesh, g, model.specs[n])
+                for n, g in grads.items()}
             state = sh.local(opt_state)
             _, state, om = adamw.update(opt_cfg, local_grads, state,
                                         sh.local(model.shards),

@@ -32,7 +32,8 @@ from repro_torch.core.sparse_linear import (SparseLinear,
                                             init_sparse_linear,
                                             merge_sparse_metas,
                                             sparse_linear_meta)
-from repro_torch.launch.constrain import BATCH, MODEL, constrain
+from repro_torch.launch.constrain import (BATCH, MODEL, constrain, gather,
+                                          local_seq, model_split, scatter)
 from repro_torch.obs import shapemon
 
 # chunk size for q-blocked (O(L*chunk) memory) attention
@@ -302,13 +303,35 @@ def attention(cfg, p, x, *, window=None, cache=None, pos=None,
     With ``cfg.attn_sparsity`` set, train/prefill score the static BCSR
     mask (``models.attention``) and decode applies the SAME mask spec:
     through the paged KV gather (``_paged_decode``) where the spec's
-    ``paged_decode`` resolves a page table, else as a positional bias."""
+    ``paged_decode`` resolves a page table, else as a positional bias.
+
+    Under a split over ``model`` (training: ``launch.constrain.
+    model_split``) ``x`` holds this rank's positions and ``p`` its shards:
+    the sequence is gathered, q/k/v computed for the rank's heads (k/v
+    whole where the axis does not divide the kv heads: projected on the
+    rank's positions and gathered) with rope at global positions, and ``wo``'s row-parallel partial sums reduce-scattered back
+    to the rank's positions."""
+    split = model_split() if cache is None else None
+    mine = x                              # this rank's positions
+    if split is not None:
+        x = gather(x, 1)                  # the whole sequence
     B, L, D = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     theta = rope_theta or cfg.rope_theta
-    q = _dense(x, p.wq, p.bq).reshape(B, L, h, dh)
-    k = _dense(x, p.wk, p.bk).reshape(B, L, kv, dh)
-    v = _dense(x, p.wv, p.bv).reshape(B, L, kv, dh)
+    heads = p.wq.shape[-1] // dh          # this rank's: h / model if split
+    q = _dense(x, p.wq, p.bq).reshape(B, L, heads, dh)
+    if heads < h and p.wk.shape[-1] == kv * dh:
+        # q split, k/v whole (the model axis does not divide the kv heads):
+        # k/v of this rank's positions, gathered (the ranks' gradients meet
+        # before the projection's), at the kv head of each of its q heads
+        first = split.index * heads
+        idx = torch.arange(first, first + heads, device=x.device) // (h // kv)
+        k, v = (gather(_dense(mine, w, b), 1).reshape(B, L, kv, dh)
+                .index_select(2, idx) for w, b in ((p.wk, p.bk),
+                                                    (p.wv, p.bv)))
+    else:
+        k = _dense(x, p.wk, p.bk).reshape(B, L, -1, dh)
+        v = _dense(x, p.wv, p.bv).reshape(B, L, -1, dh)
 
     positions = torch.arange(L, dtype=torch.int64, device=x.device)
     if cache is not None and pos is not None:
@@ -367,7 +390,11 @@ def attention(cfg, p, x, *, window=None, cache=None, pos=None,
                                                  q_pos, k_pos)
             ctx = _sdpa(q, kc, vc, bias[None].expand(B, 1, Sc), cap, scale)
 
-    y = _dense(ctx.reshape(B, L, h * dh).to(x.dtype), p.wo)
+    y = _dense(ctx.reshape(B, L, heads * dh).to(x.dtype), p.wo)
+    if split is not None:
+        # row-parallel wo: the heads' partial sums, reduce-scattered back to
+        # the sequence split (replicated heads: this rank's positions)
+        y = scatter(y, 1) if heads < h else local_seq(y, 1)
     return y, cache
 
 
@@ -596,7 +623,10 @@ def mlp(cfg, p, x, d_ff=None, seed_hints=(0,)):
     """Gated MLP (dense, or block-sparse when ``cfg.ffn_sparsity`` is set
     AND ``p`` holds sparse layers).  Pass the ``seed_hints`` the layer was
     built with; the port runs one layer at a time, so a layer passes its
-    own."""
+    own.  Under a split over ``model`` ``x`` holds this rank's positions:
+    the block-sparse FFN runs on them against its replicated weights; a
+    dense one split by the rules gathers the sequence, runs its hidden
+    columns and reduce-scatters ``w_down``'s partial sums."""
     act = F.silu if cfg.mlp_act == "silu" else \
         functools.partial(F.gelu, approximate="tanh")
     if cfg.ffn_sparsity is not None and isinstance(
@@ -608,4 +638,9 @@ def mlp(cfg, p, x, d_ff=None, seed_hints=(0,)):
         u = apply_sparse_linear(p.up.params(), meta_in, x, cfg.ffn_sparsity)
         return apply_sparse_linear(p.down.params(), meta_out, act(g) * u,
                                    cfg.ffn_sparsity)
+    if model_split() is not None and p.w_gate.shape[-1] < (d_ff or cfg.d_ff):
+        # column-parallel gate/up, row-parallel down on the whole sequence
+        x = gather(x, 1)
+        return scatter(_dense(act(_dense(x, p.w_gate)) * _dense(x, p.w_up),
+                              p.w_down), 1)
     return _dense(act(_dense(x, p.w_gate)) * _dense(x, p.w_up), p.w_down)

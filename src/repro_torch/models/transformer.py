@@ -32,6 +32,16 @@ of the shared block with an attention cache of its own) so a layer's cache
 is a view into it.  ``forward``'s third value sums the layers' MoE
 load-balance losses, as the JAX package's scan carries it.
 
+Under a training mesh whose compute splits over ``model``
+(``launch.constrain.model_split``; ``launch.steps.split_leaves``:
+``attn_mlp`` with token inputs) the residual stream is carried
+sequence-split: ``_embed`` looks up the rank's vocab slice and
+reduce-scatters the rows over the sequence, the blocks' norms and the
+block-sparse FFN run on the rank's positions (``layers.attention`` and a
+dense ``layers.mlp`` gather the sequence and compute their shards), and
+``_head`` gathers the sequence for vocab-split logits, whose
+cross-entropy ``lm_loss`` reduces over the model group.
+
 ``forward``'s ``remat`` replaces the JAX package's ``jax.checkpoint``
 policies with ``torch.utils.checkpoint`` over each block: ``"full"``
 recomputes everything; ``"dots"`` and ``"names"`` run a selective
@@ -54,7 +64,10 @@ from torch.utils import checkpoint as torch_checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sparse_linear import meta_spec as _spec
 from repro_torch.core.sparse_linear import sparse_linear_specs
-from repro_torch.launch.constrain import BATCH, MODEL, constrain, psum_data
+from repro_torch.launch.constrain import (BATCH, MODEL, ModelSplit,
+                                          constrain, gather, local_seq,
+                                          model_split, pmax_model, psum_data,
+                                          reduce, scatter)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
@@ -362,8 +375,27 @@ def _embed_scale(d_model: int, dtype: torch.dtype) -> float:
     return float(torch.tensor(d_model ** 0.5, dtype=dtype))
 
 
+def _split_embed(embed: torch.Tensor, tokens: torch.Tensor, vocab: int,
+                 split: ModelSplit) -> torch.Tensor:
+    """This rank's positions of the embedded ``tokens`` [B, L] under a
+    split over ``model``.  A vocab-split ``embed`` [V/m, D] looks up every
+    position in its slice (zero rows outside it) and the ranks' rows are
+    reduce-scattered over the sequence (each sum has one nonzero term: the
+    rows are exact); a replicated one looks up the rank's positions."""
+    if embed.shape[0] == vocab:
+        return embed[local_seq(tokens, 1)]
+    rows = embed.shape[0]
+    ids = tokens - split.index * rows
+    hit = (ids >= 0) & (ids < rows)
+    x = torch.where(hit[..., None], embed[ids.clamp(0, rows - 1)], 0)
+    return scatter(x, 1)
+
+
 def _embed(cfg: ModelConfig, params, batch_in) -> torch.Tensor:
     tokens = batch_in["tokens"]
+    split = model_split()
+    if split is not None:
+        return _split_embed(params.embed, tokens, cfg.vocab_size, split)
     if cfg.input_mode == "codebooks":
         # tokens [B, L, n_cb]: the codebook embeddings summed in order, in
         # the model dtype (the JAX package's Python ``sum``)
@@ -385,6 +417,8 @@ def _head(cfg: ModelConfig, params, x) -> torch.Tensor:
     if cfg.input_mode == "codebooks":
         logits = torch.einsum("bld,cdv->blcv", x, params.lm_head)
     else:
+        if params.lm_head.shape[-1] < cfg.vocab_size:
+            x = gather(x, 1)    # vocab-split logits [B, L, V/m]
         logits = x @ params.lm_head
     return L.softcap(logits.float(), cfg.final_logit_softcap)
 
@@ -524,13 +558,47 @@ def lm_loss(cfg: ModelConfig, logits, labels) -> torch.Tensor:
     training mesh whose data group has more than one rank
     (``launch.constrain.data_parallel``) it is this rank's share: its rows'
     summed NLL over the global batch's count of valid labels, so that the
-    shares sum to the loss of the global batch, as GSPMD's mean is."""
+    shares sum to the loss of the global batch, as GSPMD's mean is.
+
+    Under a split over ``model`` every rank of the model group returns the
+    same loss.  Vocab-split logits [B, L, V/m] give each position's NLL
+    from the row max, the sum of exponentials and the target logit, each
+    reduced over the model group (no rank holds [B, L, V]); logits of this
+    rank's positions [B, L/m, V] give its positions' share, summed over the
+    group."""
+    split = model_split()
+    if split is not None:
+        valid = labels >= 0
+        count, = psum_data([valid.sum()])
+        if logits.shape[-1] == cfg.vocab_size:
+            mine = local_seq(labels, 1)
+            nll = _nll(logits, mine.clamp_min(0).long())
+            return reduce((nll * (mine >= 0)).sum() / count.clamp_min(1))
+        nll = _split_nll(logits, labels.clamp_min(0).long(), split)
+        return (nll * valid).sum() / count.clamp_min(1)
     valid = labels >= 0
     lab = labels.clamp_min(0).long()
-    lp = torch.log_softmax(logits, dim=-1)
-    nll = -lp.gather(-1, lab[..., None])[..., 0]
+    nll = _nll(logits, lab)
     count, = psum_data([valid.sum()])
     return (nll * valid).sum() / count.clamp_min(1)
+
+
+def _nll(logits, lab) -> torch.Tensor:
+    lp = torch.log_softmax(logits, dim=-1)
+    return -lp.gather(-1, lab[..., None])[..., 0]
+
+
+def _split_nll(logits, lab, split: ModelSplit) -> torch.Tensor:
+    """-log softmax at ``lab`` of logits split over the vocab: this rank's
+    slice [..., V/m] holds ids ``index * V/m`` onwards."""
+    rows = logits.shape[-1]
+    mx = pmax_model(logits.detach().amax(dim=-1))
+    total = reduce(torch.exp(logits - mx[..., None]).sum(dim=-1))
+    ids = lab - split.index * rows
+    hit = (ids >= 0) & (ids < rows)
+    mine = logits.gather(-1, ids.clamp(0, rows - 1)[..., None])[..., 0]
+    target = reduce(torch.where(hit, mine, 0))
+    return torch.log(total) + mx - target
 
 
 def train_loss(cfg: ModelConfig, params: Transformer, batch_in,

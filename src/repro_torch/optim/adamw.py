@@ -53,11 +53,16 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
-def global_norm(grads: Dict[str, Optional[torch.Tensor]]) -> torch.Tensor:
-    """sqrt of the sum of squares of every floating gradient, in float32."""
+def sum_squares(grads: Dict[str, Optional[torch.Tensor]]) -> torch.Tensor:
+    """The sum of squares of every floating gradient, in float32."""
     sq = [g.float().square().sum() for g in grads.values()
           if g is not None and g.is_floating_point()]
-    return torch.sqrt(torch.stack(sq).sum())
+    return torch.stack(sq).sum()
+
+
+def global_norm(grads: Dict[str, Optional[torch.Tensor]]) -> torch.Tensor:
+    """sqrt of the sum of squares of every floating gradient, in float32."""
+    return torch.sqrt(sum_squares(grads))
 
 
 def update(cfg: AdamWConfig, grads: Dict[str, Optional[torch.Tensor]],

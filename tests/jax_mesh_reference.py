@@ -4,7 +4,7 @@ rank).
 
     python tests/jax_mesh_reference.py OUT_DIR
 
-First writes ``OUT_DIR/inputs.npz``: the JAX seed-0 weights of the two
+First writes ``OUT_DIR/inputs.npz``: the JAX seed-0 weights of the three
 archs the mesh tests train (``w/<arch>/<path>``, float32), which the JAX
 runs below start from too, and R = 4 ranks' error feedback gradients
 (``g/<name>``, stacked on a leading rank axis).  Then
@@ -13,10 +13,14 @@ runs below start from too, and R = 4 ranks' error feedback gradients
 * ``loss/<case>``: the JAX loop's losses, ``train(cfg, shape,
   make_mesh((1, 1), ("data", "model")))`` (GSPMD gives the same result on
   any mesh), for ``ffn`` (``smat-ffn-1.3b:smoke`` on 4 x 32 tokens, 4
-  steps); ``loss/small``: its step-0 loss on 2 x 32 tokens (``train_loss``
-  on the first batch); ``loss/moe`` and ``aux/moe``:
+  steps) and ``attn`` (``smat-attn-1.3b:smoke``, the same);
+  ``loss/small``: the ffn arch's step-0 loss on 2 x 32 tokens
+  (``train_loss`` on the first batch); ``loss/moe`` and ``aux/moe``:
   ``deepseek-v2-lite-16b:smoke``'s step-0 loss and MoE load-balance loss
   on 4 x 32;
+* ``grad/<case>/<path>``: ``jax.grad`` of ``train_loss`` on the first 4 x
+  32 batch for ``ffn`` and ``attn``, by the JAX tree's path (the block
+  leaves stacked on a leading layer axis);
 * ``ef/g_hat/<step>/<name>``, ``ef/r/<step>/<name>``: two steps of
   ``ef_compress_grads`` over the R ranks, simulated with ``jax.vmap(...,
   axis_name="data")`` (which binds the ``psum``), and ``ef/psum``:
@@ -43,6 +47,7 @@ from repro.optim import compress
 from repro.train import loop
 
 ARCH, MOE = "smat-ffn-1.3b:smoke", "deepseek-v2-lite-16b:smoke"
+ATTN = "smat-attn-1.3b:smoke"
 SHAPE = ShapeCell("t", "train", 32, 4)
 SMALL = ShapeCell("t", "train", 32, 2)
 STEPS, EF_STEPS, R = 4, 2, 4
@@ -98,6 +103,18 @@ def _step0(arch, shape):
             np.asarray(parts["aux_loss"], np.float64))
 
 
+def _grads0(arch, shape):
+    """``jax.grad`` of ``train_loss`` on the first batch: its floating
+    leaves by the tree's path."""
+    cfg = _cfg(arch)
+    batch = {k: jnp.asarray(v) for k, v in make_batch(cfg, shape, 0).items()}
+    grads = jax.jit(jax.grad(
+        lambda p, b: JT.train_loss(cfg, p, b, remat="none")[0],
+        allow_int=True))(JT.init_params(cfg, seed=0), batch)
+    return {k: v for k, v in _flat(grads, "")
+            if np.issubdtype(v.dtype, np.floating)}
+
+
 def _error_feedback(grads):
     g = {k: jnp.asarray(v, jnp.bfloat16) if k.startswith("bf16")
          else jnp.asarray(v) for k, v in grads.items()}
@@ -120,7 +137,8 @@ def _init_once():
     """Draw each arch's seed-0 weights once and make ``init_params`` return
     a copy of them (the loop donates its parameters), so the JAX runs
     start from the weights written for the port."""
-    params = {arch: JT.init_params(_cfg(arch), seed=0) for arch in (ARCH, MOE)}
+    params = {arch: JT.init_params(_cfg(arch), seed=0)
+              for arch in (ARCH, MOE, ATTN)}
     JT.init_params = lambda cfg, seed=0: jax.tree.map(jnp.copy,
                                                       params[cfg.name])
     return params
@@ -134,6 +152,10 @@ def main(out_dir):
     _write(out_dir, "inputs.npz", inputs)
     ref = _error_feedback(grads)
     ref["loss/ffn"] = _losses(ARCH, SHAPE, STEPS)
+    ref["loss/attn"] = _losses(ATTN, SHAPE, STEPS)
+    for case, arch in (("ffn", ARCH), ("attn", ATTN)):
+        ref.update({f"grad/{case}/{k}": v
+                    for k, v in _grads0(arch, SHAPE).items()})
     ref["loss/small"], _ = _step0(ARCH, SMALL)
     ref["loss/moe"], ref["aux/moe"] = _step0(MOE, SHAPE)
     _write(out_dir, "reference.npz", ref)

@@ -8,16 +8,36 @@ One group of 4 processes (``torch.multiprocessing``, a ``FileStore`` under
 a temporary directory; no TCP port) runs every case; each test reads its
 case's results (rank by rank).  Beside it, a child process runs the JAX
 side (``jax_mesh_reference.py``): it writes the weights every run starts
-from and the R = 4 ranks' gradients first, then the JAX losses and error
-feedback outputs.  This process runs the unsharded runs and a one-rank
+from and the R = 4 ranks' gradients first, then the JAX losses, step-0
+gradients and error feedback outputs.  This process runs the unsharded
+runs (and the same runs in float64, for the floors below) and a one-rank
 ``(1, 1)`` gloo mesh meanwhile.
 
-* ``(1, 4)``: ``smat-ffn-1.3b:smoke`` in float32, 4 steps: losses, step-0
-  gradients and the final checkpoint (parameters and AdamW state) bit-equal
-  to the unsharded run's (one data rank; compute is replicated over
-  ``model``), the checkpoint byte for byte;
-* ``(2, 2)`` and ``(4, 1)``: losses within 1e-5 relative, the step-0
-  gradients summed over the data group within 1e-6 x max|grad|;
+* compute split over ``model`` (``launch.steps.split_leaves``):
+  ``smat-ffn-1.3b:smoke`` on ``(1, 4)`` (2 kv heads: ``wk``/``wv`` stay
+  whole) and ``(2, 2)``, ``smat-attn-1.3b:smoke`` and ``minitron-4b:smoke``
+  (a dense FFN, and two variants whose heads, hidden or vocab the axis
+  does not divide) on ``(1, 4)``, float32, 4 steps, against the
+  unsharded run: losses within 1e-5 relative; step-0 gradients, gathered
+  over ``model``, within 1e-6 x max|grad| plus the leaf's float32 floor
+  (the unsharded float32 gradient's distance from the float64 one: up to
+  2e-6 x max on ``wk``/``wq``, where the heads' partial sums meet in
+  another order); the final parameters within 1e-5 x max plus twice their
+  float64 floor (AdamW turns float32 noise in a near-zero gradient into a
+  step-sized difference); against the JAX loop's losses (1e-5) and
+  ``jax.grad`` (1e-6 x max plus twice the floor); per rank, the gathered
+  shapes (1/model of the head-, hidden- and vocab-split leaves), B1/B2 on
+  1/model of the tokens and B5 and the batched products on 1/model of the
+  heads, with the unsharded step's number of calls; the collectives and
+  their backwards against their definitions, and which leaves split;
+* ``(1, 4)`` with ``deepseek-v2-lite-16b:smoke`` (``mla_moe``, whose
+  compute stays replicated over ``model``): losses, step-0 gradients and
+  the final checkpoint (parameters and AdamW state) bit-equal to the
+  unsharded run's, the checkpoint byte for byte; the one-rank ``(1, 1)``
+  mesh's losses bit-equal too;
+* ``(2, 2, 1)`` (pod, data, model) and ``(4, 1)``, data-parallel only:
+  losses within 1e-5 relative, the step-0 gradients summed over the data
+  group within 1e-6 x max|grad|;
 * storage: each rank's bytes of every parameter, buffer, AdamW leaf and
   batch leaf equal ``launch.dryrun``'s per-device bytes at that mesh
   (``_cell_leaves``, which divides by ``_per_device_bytes``);
@@ -52,6 +72,7 @@ pytest.importorskip("torch")
 
 import contextlib
 import dataclasses
+import io
 import os
 import subprocess
 import sys
@@ -80,10 +101,30 @@ from repro_torch.optim import adamw, compress
 from repro_torch.train import loop
 
 ARCH, MOE = "smat-ffn-1.3b:smoke", "deepseek-v2-lite-16b:smoke"
+ATTN = "smat-attn-1.3b:smoke"
+DENSE = "minitron-4b:smoke"                # a dense FFN
 SHAPE = ShapeCell("t", "train", 32, 4)
 SMALL = ShapeCell("t", "train", 32, 2)    # (4, 1) does not divide it
 STEPS, MOE_STEPS, EF_STEPS = 4, 2, 2
 MESHES = ((1, 4), (2, 2), (4, 1))
+DATA_MESHES = ((2, 2, 1), (4, 1))         # model = 1: data-parallel only
+# the runs whose compute splits over ``model``: (case, arch, mesh)
+SPLIT = (("ffn1x4", ARCH, (1, 4)), ("ffn2x2", ARCH, (2, 2)),
+         ("attn1x4", ATTN, (1, 4)))
+# the fit rule's other side: a dim the model axis does not divide stays
+# replicated (6 heads: attention whole on every rank; d_ff 258: the dense
+# FFN token-wise on the rank's positions; vocab 514: embedding and loss on
+# the rank's positions)
+HEADS6 = DENSE + "/heads6"
+VOCAB514 = DENSE + "/vocab514"
+VARIANTS = {"heads6": {"n_heads": 6, "d_ff": 258}, "vocab514":
+            {"vocab_size": 514}}
+# no JAX reference for these
+SPLIT_ALL = SPLIT + (("dense1x4", DENSE, (1, 4)),
+                     ("heads61x4", HEADS6, (1, 4)),
+                     ("vocab5141x4", VOCAB514, (1, 4)))
+REFS = {"ffn": ARCH, "attn": ATTN, "dense": DENSE, "heads6": HEADS6,
+        "vocab514": VOCAB514}
 WORLD = 4
 SPAWN_TIMEOUT_S = 300      # the group takes about 25 s
 JAX_TOL = 1e-4
@@ -91,7 +132,11 @@ TESTS = Path(__file__).resolve().parent
 
 
 def _cfg(arch):
-    return dataclasses.replace(get_config(arch), dtype="float32")
+    """``arch``'s config in float32 (``<arch>/<variant>``: with VARIANTS'
+    fields replaced)."""
+    base, _, variant = arch.partition("/")
+    return dataclasses.replace(get_config(base), dtype="float32",
+                               **VARIANTS.get(variant, {}))
 
 
 def _kw(steps=STEPS):
@@ -107,6 +152,61 @@ def _mesh(shape):
 
 def _batch(cfg, shape, step=0):
     return loop.batch_to_device(make_batch(cfg, shape, step), "cpu")
+
+
+def _name(shape):
+    return "x".join(map(str, shape))
+
+
+@contextlib.contextmanager
+def _widths():
+    """Record the widths every kernel wrapper is called at, by wrapper:
+    ``(G, N)`` for the SpMM (B1) and SDDMM (B2) ones (G = 1 for an
+    unbatched call; N the panel's columns), ``(G,)`` for B5."""
+    from repro_torch.kernels import bcsr_attn
+    from repro_torch.kernels import bcsr_spmm as pk
+    seen = {"spmm": [], "sddmm": [], "attn": []}
+    own = {"spmm": pk.bcsr_spmm_nnz_stream, "sddmm": pk.bcsr_sddmm,
+           "attn": bcsr_attn.bcsr_attn_fused}
+
+    def spmm(vals, row_ids, col_ids, b, *args, **kw):
+        seen["spmm"].append((vals.shape[0] if vals.dim() == 4 else 1,
+                             b.shape[-1]))
+        return own["spmm"](vals, row_ids, col_ids, b, *args, **kw)
+
+    def sddmm(dc, b, *args, **kw):
+        seen["sddmm"].append((dc.shape[0] if dc.dim() == 3 else 1,
+                              dc.shape[-1]))
+        return own["sddmm"](dc, b, *args, **kw)
+
+    def attn(q, *args, **kw):
+        seen["attn"].append((q.shape[0],))
+        return own["attn"](q, *args, **kw)
+    pk.bcsr_spmm_nnz_stream, pk.bcsr_sddmm = spmm, sddmm
+    bcsr_attn.bcsr_attn_fused = attn
+    try:
+        yield seen
+    finally:
+        pk.bcsr_spmm_nnz_stream, pk.bcsr_sddmm = own["spmm"], own["sddmm"]
+        bcsr_attn.bcsr_attn_fused = own["attn"]
+
+
+@contextlib.contextmanager
+def _gathered_shapes():
+    """Record the shape of every module parameter as ``T.train_loss``
+    sees it (the mesh step's gathered parameters)."""
+    own = T.train_loss
+    shapes = {}
+
+    def train_loss(cfg, params, *args, **kw):
+        shapes.update({n: tuple(p.shape)
+                       for n, p in params.named_parameters()})
+        return own(cfg, params, *args, **kw)
+    T.train_loss = train_loss
+    try:
+        yield shapes
+    finally:
+        T.train_loss = own
 
 
 def _nbytes(t):
@@ -184,18 +284,26 @@ def _storage_and_grads(mesh, cfg):
                  for k, v in T.flat_specs(opt).items()})
     held.update({"batch." + k: _nbytes(v) for k, v in batch.items()})
     want, _, _ = dryrun._cell_leaves(cfg, SHAPE, mesh, False, "meta")
-    metrics, grads = st.mesh_loss_and_grads(cfg, model, batch, remat="none")
+    with _widths() as widths, _gathered_shapes() as shapes:
+        metrics, grads = st.mesh_loss_and_grads(cfg, model, batch,
+                                                remat="none")
+    split = sorted(n for n, g in grads.items() if hasattr(g, "to_local"))
     return {"held": held, "want": want, "loss0": float(metrics["loss"]),
-            "grads": grads}
+            "grads": sh.full(grads), "split": split, "widths": widths,
+            "shapes": shapes,
+            "model_index": mesh_lib.model_group(mesh)[1],
+            "batch_rows": sh.local(batch)["tokens"].shape[0]}
 
 
-def _case_ffn(shape, out_dir):
+def _case_run(name, arch, shape, out_dir, steps=STEPS):
+    """Step-0 storage and gradients on ``shape``, then ``steps`` steps of
+    ``loop.train`` checkpointed under ``out_dir/ckpt_<name>``."""
     mesh = _mesh(shape)
-    cfg = _cfg(ARCH)
+    cfg = _cfg(arch)
     out = _storage_and_grads(mesh, cfg)
-    ckpt = f"{out_dir}/ckpt_{shape[0]}x{shape[1]}"
+    ckpt = f"{out_dir}/ckpt_{name}"
     out["result"] = dataclasses.asdict(
-        loop.train(cfg, SHAPE, mesh, ckpt_dir=ckpt, **_kw()))
+        loop.train(cfg, SHAPE, mesh, ckpt_dir=ckpt, **_kw(steps)))
     return out
 
 
@@ -237,6 +345,47 @@ def _case_pod_order(out_dir):
             one.to_local().data_ptr()}
 
 
+def _rank_tensor(rank, shape, dtype=torch.float32):
+    """A tensor every rank can rebuild for any rank."""
+    n = int(np.prod(shape))
+    return (torch.arange(n, dtype=torch.float64).reshape(shape) * 0.37
+            + 100.0 * rank - n / 5).to(dtype)
+
+
+def _case_collectives(out_dir):
+    """Each collective of the split, forward and backward, on a ``(1, 4)``
+    mesh: an input and an upstream gradient that depend on the rank
+    (``_rank_tensor``); the same calls with no split."""
+    rank = dist.get_rank()
+    out = {}
+
+    def run(name, fn, x_shape, dtype=torch.float32):
+        x = _rank_tensor(rank, x_shape, dtype).requires_grad_()
+        y = fn(x)
+        y.backward(_rank_tensor(rank + 7, y.shape, dtype))
+        out[name] = (y.detach(), x.grad)
+    with constrain.use_mesh(_mesh((1, 4)), split=True):
+        split = constrain.model_split()
+        out["split"] = (split.index, split.size)
+        run("gather", lambda x: constrain.gather(x, 1), (2, 3, 5))
+        run("scatter", lambda x: constrain.scatter(x, 1), (2, 8, 5))
+        run("scatter_bf16", lambda x: constrain.scatter(x, 2), (3, 2, 8),
+            torch.bfloat16)
+        run("reduce", constrain.reduce, (4, 3))
+        run("enter", lambda x: constrain.enter(x) * 1.0, (4, 3))
+        run("local_seq", lambda x: constrain.local_seq(x, 1), (2, 8, 3))
+        out["pmax"] = constrain.pmax_model(_rank_tensor(rank, (5,)))
+    with constrain.use_mesh(_mesh((1, 4))):    # no split: identities
+        x = _rank_tensor(rank, (2, 8))
+        out["no_split"] = (constrain.model_split(),
+                           all(f(x) is x for f in (
+                               lambda t: constrain.gather(t, 1),
+                               lambda t: constrain.scatter(t, 1),
+                               constrain.reduce, constrain.enter,
+                               constrain.local_seq, constrain.pmax_model)))
+    return out
+
+
 def _case_error_feedback(grads):
     """This rank's row of ``grads`` (bf16 where the name says so) through
     EF_STEPS steps of ``ef_compress_grads``, and ``compressed_psum`` of
@@ -258,8 +407,14 @@ def _case_error_feedback(grads):
     return out
 
 
-CASES = {**{f"ffn{a}x{b}": (lambda o, s=(a, b): _case_ffn(s, o))
-            for a, b in MESHES},
+CASES = {**{f"ffn{_name(m)}": (
+    lambda o, m=m: _case_run(f"ffn{_name(m)}", ARCH, m, o))
+    for m in MESHES + DATA_MESHES},
+         "attn1x4": lambda o: _case_run("attn1x4", ATTN, (1, 4), o),
+         **{c: (lambda o, c=c, a=a: _case_run(c, a, (1, 4), o))
+            for c, a, _ in SPLIT_ALL[3:]},
+         "moe1x4": lambda o: _case_run("moe1x4", MOE, (1, 4), o, MOE_STEPS),
+         "collectives": _case_collectives,
          "moe": _case_moe, "undivided": _case_undivided,
          "elastic": _case_elastic}
 
@@ -303,16 +458,37 @@ def ranks():
         torch.set_num_threads(threads)
 
 
+def _step0(cfg, dtype=None):
+    """The unsharded step-0 loss, gradients and kernel widths (the model in
+    ``dtype`` when given)."""
+    model = T.init_params(cfg, seed=0, device="cpu")
+    if dtype is not None:
+        model = model.to(dtype)
+    with _widths() as widths:
+        loss, _ = T.train_loss(cfg, model, _batch(cfg, SHAPE), remat="none")
+        loss.backward()
+    return {"loss0": float(loss.detach()), "widths": widths,
+            "grads": {n: p.grad for n, p in model.named_parameters()}}
+
+
 def _unsharded(tmp):
     cfg = _cfg(ARCH)
-    model = T.init_params(cfg, seed=0, device="cpu")
-    loss, _ = T.train_loss(cfg, model, _batch(cfg, SHAPE), remat="none")
-    loss.backward()
-    return {"loss0": float(loss.detach()),
-            "grads": {n: p.grad for n, p in model.named_parameters()},
-            "ffn": loop.train(cfg, SHAPE, device="cpu",
-                              ckpt_dir=f"{tmp}/ckpt_ref", **_kw()),
+    return {**{f"{k}0": _step0(_cfg(a)) for k, a in REFS.items()},
+            "moe0": _step0(_cfg(MOE)),
+            # the same steps in float64 (the attention core computes in
+            # float32 either way): each leaf's float32 rounding floor
+            "f64": {k: _step0(_cfg(a), torch.float64)["grads"]
+                    for k, a in REFS.items()},
+            **{k: loop.train(_cfg(a), SHAPE, device="cpu",
+                             ckpt_dir=f"{tmp}/ckpt_ref_{k}", **_kw())
+               for k, a in REFS.items()},
+            # the same runs in float64: the final parameters' floor
+            **{f"{k}64": loop.train(
+                dataclasses.replace(_cfg(a), dtype="float64"), SHAPE,
+                device="cpu", ckpt_dir=f"{tmp}/ckpt_ref64_{k}", **_kw())
+               for k, a in REFS.items()},
             "moe": loop.train(_cfg(MOE), SHAPE, device="cpu",
+                              ckpt_dir=f"{tmp}/ckpt_ref_moe",
                               **_kw(MOE_STEPS)),
             "small": loop.train(cfg, SMALL, device="cpu", **_kw())}
 
@@ -362,12 +538,18 @@ def _spawn_and_reference():
             if jax_proc.poll() is None:
                 jax_proc.kill()
         got = [torch.load(f"{tmp}/rank{r}.pt") for r in range(WORLD)]
-        ckpts = {name: {f: (Path(tmp) / name / "step_00000004" / f)
-                        .read_bytes()
-                        for f in ("arrays.npz", "manifest.json")}
-                 for name in ("ckpt_ref", "ckpt_1x4")}
+        last = {"ckpt_ref_moe": MOE_STEPS, "ckpt_moe1x4": MOE_STEPS}
+        ckpts = {name: {f: (Path(tmp) / name /
+                            f"step_{last.get(name, STEPS):08d}" / f)
+                        .read_bytes() for f in ("arrays.npz",
+                                                "manifest.json")}
+                 for name in (*(f"ckpt_ref_{k}" for k in REFS),
+                              *(f"ckpt_ref64_{k}" for k in REFS),
+                              "ckpt_ref_moe",
+                              *(f"ckpt_{c}" for c, _, _ in SPLIT_ALL),
+                              "ckpt_moe1x4")}
         steps = {name: sorted(os.listdir(Path(tmp) / name))
-                 for name in ("ckpt_ref", "ckpt_1x4", "elastic")}
+                 for name in ("ckpt_ref_moe", "ckpt_moe1x4", "elastic")}
     return got, ref, ckpts, steps, jax_ref
 
 
@@ -390,32 +572,180 @@ def _same_result(got):
 
 
 def test_one_data_rank_is_bit_equal_to_unsharded(ranks):
+    """``deepseek-v2-lite-16b:smoke`` (``mla_moe``, whose compute stays
+    replicated over ``model``) on ``(1, 4)``: one data rank, so every step
+    is the unsharded one, bit for bit."""
     got, ref, ckpts, steps, _ = ranks
-    case = _case(got, "ffn1x4")
+    case = _case(got, "moe1x4")
     res = _same_result(case)
-    assert res["losses"] == ref["ffn"].losses
-    assert case[0]["loss0"] == ref["loss0"]
-    for name, want in ref["grads"].items():
+    assert res["losses"] == ref["moe"].losses
+    assert res["aux_losses"] == ref["moe"].aux_losses
+    assert case[0]["loss0"] == ref["moe0"]["loss0"]
+    assert case[0]["split"] == []
+    for name, want in ref["moe0"]["grads"].items():
         assert torch.equal(case[0]["grads"][name], want), name
     # the final parameters and AdamW state, written on the mesh: the same
     # bytes as the unsharded run's checkpoint at the same step
-    assert steps["ckpt_1x4"] == steps["ckpt_ref"] == ["step_00000002",
-                                                      "step_00000004"]
-    assert ckpts["ckpt_1x4"] == ckpts["ckpt_ref"]
+    assert steps["ckpt_moe1x4"] == steps["ckpt_ref_moe"] == ["step_00000002"]
+    assert ckpts["ckpt_moe1x4"] == ckpts["ckpt_ref_moe"]
 
 
-@pytest.mark.parametrize("mesh", [(2, 2), (4, 1)])
+def test_model_axis_of_one_is_bit_equal_to_unsharded(ranks):
+    """A ``model`` axis of one rank keeps the replicated step: the one-rank
+    ``(1, 1)`` gloo mesh's losses equal the unsharded run's bit for bit."""
+    _, ref, _, _, _ = ranks
+    assert ref["one_rank"].losses == ref["ffn"].losses
+
+
+@pytest.mark.parametrize("mesh", DATA_MESHES)
 def test_data_parallel_mesh_matches_unsharded(ranks, mesh):
     got, ref, _, _, _ = ranks
-    case = _case(got, f"ffn{mesh[0]}x{mesh[1]}")
+    case = _case(got, f"ffn{_name(mesh)}")
     res = _same_result(case)
+    assert case[0]["split"] == []
     _close(res["losses"], ref["ffn"].losses)
-    _close(case[0]["loss0"], ref["loss0"])
-    for name, want in ref["grads"].items():
+    _close(case[0]["loss0"], ref["ffn0"]["loss0"])
+    for name, want in ref["ffn0"]["grads"].items():
         for r, c in enumerate(case):      # every rank holds the full sum
             diff = (c["grads"][name] - want).abs().max().item()
             assert diff <= 1e-6 * want.abs().max().item(), (mesh, r, name,
                                                             diff)
+
+
+# ------------------------------------------- compute split over ``model``
+def _split_case(ranks, case):
+    got, ref, ckpts, _, jax_ref = ranks
+    key = case[:-3]                       # a key of REFS
+    return _case(got, case), ref[f"{key}0"], ref, ckpts, jax_ref, key
+
+
+def _grad_tol(want, f64):
+    """1e-6 x max|grad|, over the leaf's own float32 rounding floor: the
+    unsharded float32 gradient's distance from the float64 one."""
+    return 1e-6 * want.abs().max().item() + \
+        (want.double() - f64).abs().max().item()
+
+
+@pytest.mark.parametrize("case,arch,mesh", SPLIT_ALL)
+def test_split_losses_match_unsharded(ranks, case, arch, mesh):
+    got, want, ref, _, _, key = _split_case(ranks, case)
+    _close(_same_result(got)["losses"], ref[key].losses)
+    _close(got[0]["loss0"], want["loss0"])
+
+
+@pytest.mark.parametrize("case,arch,mesh", SPLIT_ALL)
+def test_split_step0_gradients_match_unsharded(ranks, case, arch, mesh):
+    """Every rank's step-0 gradient, gathered over ``model``, against the
+    unsharded one within 1e-6 x max|grad| plus the leaf's float32 floor
+    (the split sums the heads' and ranks' partial products in another
+    order; on ``wk``/``wq`` the floor reads up to 2e-6 x max)."""
+    got, want, ref, _, _, key = _split_case(ranks, case)
+    for name, g in want["grads"].items():
+        tol = _grad_tol(g, ref["f64"][key][name])
+        for r, c in enumerate(got):
+            diff = (c["grads"][name] - g).abs().max().item()
+            assert diff <= tol, (case, r, name, diff, tol)
+
+
+@pytest.mark.parametrize("case,arch,mesh", SPLIT_ALL[:4])
+def test_split_final_parameters_match_unsharded(ranks, case, arch, mesh):
+    """The parameters after 4 steps, written on the mesh, against the
+    unsharded run's at the same step: within 1e-5 x max|param| plus twice
+    the leaf's floor, the unsharded float32 run's distance from the same
+    run in float64.  AdamW's m / sqrt(v) turns float32 noise in a
+    near-zero gradient into a step-sized difference: 3.9e-5 x max in one
+    ``embed`` element even on the data-parallel ``(4, 1)``, which splits
+    nothing.  (The two fit-rule variants sum more partial gradients over
+    the model group and move single elements past this floor, 7e-5 x max
+    of ``wk`` with 6 heads; their losses and gradients are held above.)"""
+    _, _, _, ckpts, _, key = _split_case(ranks, case)
+    got, want, f64 = (np.load(io.BytesIO(ckpts[n]["arrays.npz"]))
+                      for n in (f"ckpt_{case}", f"ckpt_ref_{key}",
+                                f"ckpt_ref64_{key}"))
+    params = [k for k in want.files if k.startswith("params")]
+    assert params and sorted(got.files) == sorted(want.files)
+    for k in params:
+        w = want[k]
+        if not np.issubdtype(w.dtype, np.floating):
+            np.testing.assert_array_equal(got[k], w, err_msg=k)
+            continue
+        floor = np.abs(w.astype(np.float64) - f64[k]).max()
+        tol = 1e-5 * np.abs(w).max() + 2 * floor
+        diff = np.abs(got[k] - w).max()
+        assert diff <= tol, (case, k, diff, tol)
+
+
+@pytest.mark.parametrize("case,arch,mesh", SPLIT)
+def test_split_matches_jax_loop(ranks, case, arch, mesh):
+    """Against the JAX package: the 4 losses of its loop (1e-5 relative),
+    and ``jax.grad`` at step 0 within 1e-6 x max|grad| plus twice the
+    leaf's float32 floor (each package rounds on its own)."""
+    got, want, ref, _, jax_ref, key = _split_case(ranks, case)
+    _close(_same_result(got)["losses"], jax_ref[f"loss/{key}"])
+    for name, g in want["grads"].items():
+        path = name.split(".")
+        if path[0] == "blocks":
+            j = jax_ref["grad/" + "/".join([key, "blocks", *path[2:]])]
+            j = torch.from_numpy(j[int(path[1])])
+        else:
+            j = torch.from_numpy(jax_ref[f"grad/{key}/{name}"])
+        tol = 1e-6 * j.abs().max().item() + \
+            2 * (g.double() - ref["f64"][key][name]).abs().max().item()
+        diff = (got[0]["grads"][name] - j).abs().max().item()
+        assert diff <= tol, (case, name, diff, tol)
+
+
+@pytest.mark.parametrize("case,arch,mesh", SPLIT_ALL)
+def test_split_rank_shapes_and_widths(ranks, case, arch, mesh):
+    """Each rank holds 1/model of every head-, hidden- and vocab-split
+    weight (``wk``/``wv`` whole where the axis does not divide the kv
+    heads), runs the unsharded step's kernel calls, the FFN's B1/B2 on
+    1/model of the tokens, B5 and the attention backward's batched
+    products on 1/model of the heads."""
+    got, want, _, _, _, _ = _split_case(ranks, case)
+    cfg = _cfg(arch)
+    m = mesh[1]
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    V, F = cfg.vocab_size, cfg.d_ff
+    split = {}
+    if V % m == 0:
+        split.update({"embed": (V // m, D), "lm_head": (D, V // m)})
+    heads = H % m == 0
+    kv = heads and KV % m == 0
+    for i in range(cfg.n_layers * heads):
+        a = f"blocks.{i}.attn."
+        split.update({a + "wq": (D, H * hd // m), a + "wo": (H * hd // m, D)})
+        if kv:
+            split.update({a + "wk": (D, KV * hd // m),
+                          a + "wv": (D, KV * hd // m)})
+        if cfg.qkv_bias:
+            split[a + "bq"] = (H * hd // m,)
+            if kv:
+                split.update({a + "bk": (KV * hd // m,),
+                              a + "bv": (KV * hd // m,)})
+    for i in range(cfg.n_layers * (cfg.ffn_sparsity is None and F % m == 0)):
+        f = f"blocks.{i}.mlp."
+        split.update({f + "w_gate": (D, F // m), f + "w_up": (D, F // m),
+                      f + "w_down": (F // m, D)})
+    for r, c in enumerate(got):
+        assert c["model_index"] == r % m
+        assert c["split"] == sorted(split), (r, c["split"])
+        shapes = {**{n: tuple(g.shape) for n, g in want["grads"].items()},
+                  **split}
+        assert c["shapes"] == shapes, r
+        if not kv:
+            assert c["shapes"]["blocks.0.attn.wk"] == (D, KV * hd)
+        rows = c["batch_rows"]
+        tokens = rows * SHAPE.seq_len // m
+        for kind, calls in c["widths"].items():
+            assert len(calls) == len(want["widths"][kind]), (r, kind)
+            for call in calls:
+                if call[0] == 1:             # the FFN: its tokens
+                    assert call[1] == tokens, (r, kind, call)
+                else:                        # attention: its heads
+                    assert call[0] == rows * H // m, (r, kind, call)
+    assert len(got[0]["widths"]["attn"]) == (
+        cfg.n_layers if cfg.attn_sparsity else 0)
 
 
 @pytest.mark.parametrize("mesh", MESHES)
@@ -492,6 +822,83 @@ def test_mesh_losses_match_jax_loop(ranks, case, want, first):
     if case == "moe":
         np.testing.assert_allclose(res["aux_losses"][0], jax_ref["aux/moe"],
                                    rtol=JAX_TOL, atol=JAX_TOL)
+
+
+def _want_collective(name, r):
+    """``(y, dx)`` of ``_case_collectives``' ``name`` on rank ``r`` of 4,
+    from the definitions."""
+    xs = {"gather": (2, 3, 5), "scatter": (2, 8, 5), "reduce": (4, 3),
+          "enter": (4, 3), "local_seq": (2, 8, 3)}[name]
+    x = [_rank_tensor(q, xs) for q in range(WORLD)]
+    if name == "gather":                    # backward: reduce-scatter
+        g = [_rank_tensor(q + 7, (2, 12, 5)) for q in range(WORLD)]
+        return torch.cat(x, 1), sum(g).chunk(WORLD, 1)[r]
+    if name == "scatter":                   # backward: all-gather
+        g = [_rank_tensor(q + 7, (2, 2, 5)) for q in range(WORLD)]
+        return sum(x).chunk(WORLD, 1)[r], torch.cat(g, 1)
+    if name == "reduce":                    # backward: the identity
+        return sum(x), _rank_tensor(r + 7, xs)
+    if name == "enter":                     # backward: all-reduce
+        return x[r], sum(_rank_tensor(q + 7, xs) for q in range(WORLD))
+    grad = torch.zeros(xs)                  # local_seq: zeros elsewhere
+    grad[:, 2 * r:2 * r + 2] = _rank_tensor(r + 7, (2, 2, 3))
+    return x[r][:, 2 * r:2 * r + 2], grad
+
+
+@pytest.mark.parametrize("name", ["gather", "scatter", "reduce", "enter",
+                                  "local_seq"])
+def test_split_collectives_and_their_backwards(ranks, name):
+    got, _, _, _, _ = ranks
+    for r, case in enumerate(_case(got, "collectives")):
+        assert case["split"] == (r, WORLD)
+        y, dx = case[name]
+        want_y, want_dx = _want_collective(name, r)
+        torch.testing.assert_close(y, want_y, rtol=1e-6, atol=0)
+        torch.testing.assert_close(dx, want_dx, rtol=1e-6, atol=0)
+
+
+def test_split_max_and_bf16_sums(ranks):
+    """``pmax_model`` is the elementwise maximum; a bf16 reduce-scatter
+    sums in float32 and rounds once; with no split every collective
+    returns its input."""
+    got, _, _, _, _ = ranks
+    for r, case in enumerate(_case(got, "collectives")):
+        torch.testing.assert_close(case["pmax"], _rank_tensor(3, (5,)))
+        x = [_rank_tensor(q, (3, 2, 8), torch.bfloat16) for q in range(WORLD)]
+        total = sum(t.float() for t in x).to(torch.bfloat16)
+        y, dx = case["scatter_bf16"]
+        assert torch.equal(y, total.chunk(WORLD, 2)[r])
+        assert dx.dtype == torch.bfloat16 and dx.shape == (3, 2, 8)
+        assert case["no_split"] == (None, True)
+
+
+@pytest.mark.parametrize("arch,shape,seq,want", [
+    (ARCH, (1, 4), 32, {"embed", "lm_head", "wq", "wo"}),
+    (ARCH, (2, 2), 32, {"embed", "lm_head", "wq", "wo", "wk", "wv"}),
+    (ATTN, (4, 2), 64, {"embed", "lm_head", "wq", "wo", "wk", "wv"}),
+    (DENSE, (1, 4), 32, {"embed", "lm_head", "wq", "wo", "w_gate", "w_up",
+                         "w_down"}),
+    ("qwen2.5-14b:smoke", (1, 2), 32, {"embed", "lm_head", "wq", "wo", "wk",
+                                       "wv", "bq", "bk", "bv", "w_gate",
+                                       "w_up", "w_down"}),
+    (ARCH, (4, 1), 32, set()),          # model = 1
+    (ARCH, (1, 4), 30, set()),          # the axis does not divide L
+    (MOE, (1, 4), 32, set()),           # mla_moe: replicated compute
+    ("mamba2-1.3b:smoke", (1, 4), 32, set()),
+    ("musicgen-medium:smoke", (1, 4), 32, set()),   # codebooks
+])
+def test_split_leaves_follow_the_fit_rule(arch, shape, seq, want):
+    """The leaves the mesh step computes on their ``model`` shard, by leaf
+    name, on an abstract mesh (no process group)."""
+    cfg = get_config(arch)
+    mesh = mesh_lib.make_abstract_mesh(shape, ("data", "model"))
+    specs = sh.param_shardings(mesh, T.flat_specs(T.param_specs(
+        cfg, device="meta")))
+    names = st.split_leaves(cfg, mesh, specs, seq)
+    assert {n.rsplit(".", 1)[-1] for n in names} == want
+    per_layer = len(want - {"embed", "lm_head"})
+    assert len(names) == len(want & {"embed", "lm_head"}) + \
+        per_layer * cfg.n_layers
 
 
 def test_error_feedback_over_four_ranks_matches_jax(ranks):
