@@ -50,15 +50,16 @@ over 16 instances in one launch (the instance axis the composed attention
 path and B5's backward run on) bit-equal to 16 single launches and to its
 plain version, and times it against them.  The MLA/MoE and SSD layouts (no TPU kernel on their paths, so the B1-B5
 counters must read 0): ``[moe-serve]`` and ``[ssd-serve]`` serve
-``deepseek-v2-lite-16b`` and ``mamba2-1.3b`` at full width through
+``deepseek-v2-lite-16b`` (8 of 27 layers) and ``mamba2-1.3b`` (16 of
+48) at full width through
 ``ServeEngine`` (streams == ``decode_step`` loops), ``[moe-model]`` and
 ``[ssd-model]`` hold a 2-layer float32 copy card against CPU and prefill
 against decode, and ``[moe-train]`` (2 layers) and ``[ssd-train]`` train
 them at full width (these six run after ``[restart]``); ``[dryrun]`` adds
 their roofline shares.  After them, the rest of the JAX package's
 layouts and inputs, again with the B1-B5 counters at 0:
-``[gemma-serve]`` (``gemma2-27b`` at full width and depth, 28.41 B
-parameters), ``[gemma-model]``, ``[gemma-train]`` (one pair; then step 0
+``[gemma-serve]`` (``gemma2-27b`` at full width, 12 of 46 layers),
+``[gemma-model]``, ``[gemma-train]`` (one pair; then step 0
 under every ``remat`` policy against ``"none"``), ``[hybrid-serve]``
 (4 of 13 units), ``[hybrid-model]`` and ``[hybrid-train]``
 (``zamba2-7b``), ``[audio-serve]`` (16 of 48 layers) and
@@ -182,12 +183,20 @@ def build_phase():
     from repro_torch.kernels import _build
     log(f"[build] nvcc {_build.find_nvcc()} {' '.join(_build.NVCC_FLAGS)}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:   # one nvcc per source
-        list(pool.map(lambda k: _build.load(k["build"]), KERNELS))
     cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
     check(cuobjdump.is_file(), f"cuobjdump not found beside nvcc "
           f"({cuobjdump}): the tensor-core check cannot run")
-    for k in KERNELS:
+
+    def built(k):
+        """Build one source, then read its library's SASS."""
+        _build.load(k["build"])
+        return subprocess.run(
+            [str(cuobjdump), "-sass", str(_build.library_path(k["build"]))],
+            capture_output=True, text=True, check=True, timeout=300).stdout
+    # one nvcc (then one cuobjdump) per source, all started together
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        sasses = list(pool.map(built, KERNELS))
+    for k, sass in zip(KERNELS, sasses):
         info = _build.BUILD_INFO[k["build"]]
         ptxas = [ln.strip() for ln in info["log"].splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -202,9 +211,6 @@ def build_phase():
         for ln in ptxas:
             log(f"[build]   {ln}")
         # the tensor cores: count the SASS matrix instructions
-        sass = subprocess.run(
-            [str(cuobjdump), "-sass", str(_build.library_path(k["build"]))],
-            capture_output=True, text=True, check=True, timeout=300).stdout
         hmma = len(re.findall(r"\bHMMA\b", sass))
         hgmma = len(re.findall(r"\bHGMMA\b", sass))
         log(f"[build] {k['source']}: {hmma} HMMA, {hgmma} HGMMA instructions "
@@ -672,12 +678,23 @@ def _operand(seed, shape, block, nnzb=None, density=None, dtype=torch.float32):
     }
 
 
+def _gen(seed):
+    """A torch generator on the card, seeded: the timed operands are drawn
+    there (host-side numpy draws of their sizes took most of the timing
+    phases' time)."""
+    return torch.Generator(device=DEVICE).manual_seed(seed)
+
+
+def _normal(gen, shape):
+    """float32 standard normals of ``shape``, drawn on the card."""
+    return torch.randn(shape, generator=gen, device=DEVICE)
+
+
 def _b(seed, k, n, dtype, transposed=False, offset=0):
-    """B [k, n]: row-major, or the x^T view the model passes; ``offset``
-    elements into its storage (a misaligned base: a narrower copy)."""
-    rng = np.random.default_rng(seed)
-    flat = torch.from_numpy(rng.standard_normal(k * n + offset).astype(
-        np.float32)).to(DEVICE, dtype)[offset:]
+    """B [k, n] of standard normals from ``seed``: row-major, or the x^T
+    view the model passes; ``offset`` elements into its storage (a
+    misaligned base: a narrower copy)."""
+    flat = _normal(_gen(seed), (k * n + offset,)).to(dtype)[offset:]
     return flat.view(n, k).T if transposed else flat.view(k, n)
 
 
@@ -1203,6 +1220,17 @@ def _requests(cfg):
         for r in range(N_REQUESTS)]
 
 
+# tokens of the one request that warms an engine up (its first-call
+# set-up, untimed): a prefill and a decode step
+WARM_TOKENS = 2
+
+
+def _warm_requests(cfg):
+    """Request 0 of ``_requests``, cut to WARM_TOKENS new tokens."""
+    return [dataclasses.replace(_requests(cfg)[0],
+                                max_new_tokens=WARM_TOKENS)]
+
+
 def _tok_list(stream):
     """A stream of tokens (ints, or codebook rows) as plain lists."""
     return [np.asarray(t).tolist() for t in stream]
@@ -1247,7 +1275,7 @@ def main_path_phase():
         f"{time.perf_counter() - t0:.1f}s")
     warm = ServeEngine(cfg, model, n_slots=N_SLOTS, cache_len=CACHE_LEN,
                        device=DEVICE)
-    list(warm.generate(_requests(cfg)[:1]))   # first-call set-up, untimed
+    list(warm.generate(_warm_requests(cfg)))   # first-call set-up, untimed
 
     engine = ServeEngine(cfg, model, n_slots=N_SLOTS, cache_len=CACHE_LEN,
                          device=DEVICE)
@@ -1916,7 +1944,7 @@ def serve_row_loop_phase(cfg, model, stream0):
     cfg_rl = _with_backend(cfg, "row_loop")
     warm = ServeEngine(cfg_rl, model, n_slots=N_SLOTS, cache_len=CACHE_LEN,
                        device=DEVICE)
-    list(warm.generate(_requests(cfg)[:1]))
+    list(warm.generate(_warm_requests(cfg)))
     engine = ServeEngine(cfg_rl, model, n_slots=N_SLOTS, cache_len=CACHE_LEN,
                          device=DEVICE)
     requests = _requests(cfg)
@@ -2242,12 +2270,11 @@ def autotune_phase(mip1_perm, smi):
     sddmm_counters = {"nnz_stream": B2, "row_loop": B4}
     for name, a, n, layout in cases:
         arrays, meta = ops.prepare(a, dtype, device=DEVICE)
-        rng = np.random.default_rng(3)
+        gen = _gen(3)
 
         def operand(rows):
             shape = (n, rows) if layout == "token_major" else (rows, n)
-            t = torch.from_numpy(rng.standard_normal(shape).astype(
-                np.float32)).to(DEVICE, dtype)
+            t = _normal(gen, shape).to(dtype)
             return t.T if layout == "token_major" else t
         b, x = operand(meta.shape[1]), operand(meta.shape[0])
         for op in ("spmm", "sddmm"):
@@ -2311,15 +2338,14 @@ ATTN_PLAIN_CHUNK = 4    # instances a plain B5 call holds at 32768 tokens
 
 
 def _attn_case(mask, L, block, d, dv, G, cap, seed):
-    """Operands of one B5 call: q, k, v drawn from a numpy seed, the mask's
-    cached device tensors; returns (mask tensors, args, keywords).  The
+    """Operands of one B5 call: q, k, v drawn on the card from ``seed``,
+    the mask's cached device tensors; returns (mask tensors, args, keywords).  The
     keywords carry the mask's cached bits (``ebits``), as the model passes
     them; ``_b5_plain`` reads the f32 ``emask`` instead."""
     from repro_torch.models import attention as A
     mt = A.mask_tensors(mask, L, block, DEVICE)
-    rng = np.random.default_rng(seed)
-    q, k, v = (torch.from_numpy(rng.standard_normal((G, L, n)).astype(
-        np.float32)).to(DEVICE) for n in (d, d, dv))
+    gen = _gen(seed)
+    q, k, v = (_normal(gen, (G, L, n)) for n in (d, d, dv))
     kw = dict(n_block_rows=mt.meta.n_block_rows,
               n_block_cols=mt.meta.n_block_cols, block=tuple(block),
               scale=d ** -0.5, cap=cap, ebits=mt.ebits)
@@ -2655,16 +2681,15 @@ def attn_bwd_timing_phase(smi):
 BATCHED_G = 16         # instances of a [batched] launch: smat-attn-1.3b's heads
 
 
-def _folded(rng, G, rows, n, dtype, kmajor=False):
-    """A [G, rows, n] operand as the model folds its heads: instance g is
-    column block g of one [1, rows, G, n] tensor (batch stride n, row
-    stride G * n); with ``kmajor`` the x^T view of a [G, n, rows] tensor
-    (its row axis contiguous), as the FFN's backward passes x and dC."""
+def _folded(gen, G, rows, n, dtype, kmajor=False):
+    """A [G, rows, n] operand as the model folds its heads, drawn on the
+    card from the generator ``gen``: instance g is column block g of one
+    [1, rows, G, n] tensor (batch stride n, row stride G * n); with
+    ``kmajor`` the x^T view of a [G, n, rows] tensor (its row axis
+    contiguous), as the FFN's backward passes x and dC."""
     if kmajor:
-        t = rng.standard_normal((G, n, rows)).astype(np.float32)
-        return torch.from_numpy(t).to(DEVICE, dtype).transpose(1, 2)
-    t = rng.standard_normal((1, rows, G, n)).astype(np.float32)
-    return torch.from_numpy(t).to(DEVICE, dtype).transpose(1, 2)[0]
+        return _normal(gen, (G, n, rows)).to(dtype).transpose(1, 2)
+    return _normal(gen, (1, rows, G, n)).to(dtype).transpose(1, 2)[0]
 
 
 def _block_diagonal_bsr(rowptr, col_ids, vals, shape):
@@ -2721,12 +2746,12 @@ def batched_phase(smi):
     from repro_torch.kernels import ops, ref
     from repro_torch.models import attention as A
     G = BATCHED_G
-    rng = np.random.default_rng(17)
+    gen = _gen(17)
     L, d = ATTN_SEQ, 128
     f32, bf16 = torch.float32, torch.bfloat16
     mt = A.mask_tensors(A.banded(4096), L, (128, 128), DEVICE)
     a, meta = mt.arrays, mt.meta
-    q, k, v, g = (_folded(rng, G, L, d, f32) for _ in range(4))
+    q, k, v, g = (_folded(gen, G, L, d, f32) for _ in range(4))
     scores = pk.bcsr_sddmm(q, k, a.row_ids, a.col_ids, 128, 128)
     probs = A.block_softmax(scores * d ** -0.5, mt.elem_mask, a.row_ids,
                             meta.n_block_rows, flat_idx=a.sddmm_flat_idx)
@@ -2734,9 +2759,8 @@ def batched_phase(smi):
     fa, fmeta = _prepared(3, FULL_WIDTH["gate_up"][0], (128, 128),
                           nnzb=FULL_WIDTH["gate_up"][1], dtype=bf16)
     (M, K), n = fmeta.shape, TRAIN_N
-    fvals = torch.from_numpy(rng.standard_normal(
-        (G, *fa.vals.shape)).astype(np.float32)).to(DEVICE, bf16)
-    xt, dct = (_folded(rng, G, rows, n, bf16, kmajor=True)
+    fvals = _normal(gen, (G, *fa.vals.shape)).to(bf16)
+    xt, dct = (_folded(gen, G, rows, n, bf16, kmajor=True)
                for rows in (K, M))
 
     def spmm(kern, vals, arrays, nbr, b, t=False):
@@ -3161,7 +3185,7 @@ def serve_attn_phase():
     model = T.init_params(cfg, seed=0, device=DEVICE)
     warm = ServeEngine(cfg, model, n_slots=N_SLOTS, cache_len=CACHE_LEN,
                        device=DEVICE)
-    list(warm.generate(_requests(cfg)[:1]))
+    list(warm.generate(_warm_requests(cfg)))
     engine = ServeEngine(cfg, model, n_slots=N_SLOTS, cache_len=CACHE_LEN,
                          device=DEVICE)
     requests = _requests(cfg)
@@ -3218,7 +3242,7 @@ def serve_attn_paged_phase(smi):
     model = T.init_params(cfg, seed=0, device=DEVICE)
     warm = ServeEngine(cfg, model, n_slots=N_SLOTS, cache_len=ATTN_CACHE,
                        device=DEVICE)
-    list(warm.generate(_requests(cfg)[:1]))
+    list(warm.generate(_warm_requests(cfg)))
     del warm
     torch.cuda.empty_cache()
     engine = ServeEngine(cfg, model, n_slots=N_SLOTS, cache_len=ATTN_CACHE,
@@ -3872,7 +3896,7 @@ def serve_sharded_phase(cfg, model0, smi):
             f"N={N_SLOTS}: {list(picks)}")
     warm = ServeEngine(cfg_s, model, n_slots=N_SLOTS, cache_len=CACHE_LEN,
                        device=DEVICE)
-    list(warm.generate(_requests(cfg)[:1]))
+    list(warm.generate(_warm_requests(cfg)))
     engine = ServeEngine(cfg_s, model, n_slots=N_SLOTS, cache_len=CACHE_LEN,
                          device=DEVICE)
     requests = _requests(cfg)
@@ -4592,7 +4616,7 @@ def layout_serve_phase(arch, tag, smi, cut=None):
         f"({before_gb:.2f} GB allocated before the phase)")
     warm = ServeEngine(cfg, model, n_slots=N_SLOTS, cache_len=CACHE_LEN,
                        device=DEVICE)
-    list(warm.generate(_requests(cfg)[:1]))   # first-call set-up, untimed
+    list(warm.generate(_warm_requests(cfg)))   # first-call set-up, untimed
     del warm
 
     engine = ServeEngine(cfg, model, n_slots=N_SLOTS, cache_len=CACHE_LEN,
@@ -4828,10 +4852,14 @@ HYBRID_MODEL_CUT = {"hybrid_n_units": 1, "hybrid_unit_len": 2,
 AUDIO_TRAIN_STEPS, AUDIO_TRAIN_REMAT = 5, "none"
 # the script's time limit (with [train-tp]): [hybrid-serve] serves
 # 4 of zamba2-7b's 13 units (and the tail of 3), [audio-serve] 16 of
-# musicgen-medium's 48 layers; their engine == decode_step loop checks
-# take most of each phase (57.5 and 45.3 s at full depth)
+# musicgen-medium's 48 layers, [moe-serve] 8 of deepseek-v2-lite-16b's 27,
+# [ssd-serve] 16 of mamba2-1.3b's 48 and [gemma-serve] 6 of gemma2-27b's
+# 23 pairs; their engine == decode_step loop checks take most of each
+# phase (57.5, 45.3, 64.6, 32.7 and 62.9 s at full depth)
 HYBRID_SERVE_CUT = {"hybrid_n_units": 4, "n_layers": 4 * 6 + 3}
 AUDIO_SERVE_CUT = {"n_layers": 16}
+MOE_SERVE_CUT, SSD_SERVE_CUT = {"n_layers": 8}, {"n_layers": 16}
+GEMMA_SERVE_CUT = {"n_layers": 12}
 VLM_TEXT, VLM_DECODE = 1024, 16   # [vlm-prefill]: after 1,024 patches
 VLM_TRAIN_SEQ, VLM_TRAIN_STEPS = 2048, 3      # 1,024 patches + 1,024 text
 VLM_MODEL_PATCHES = 16            # [vlm-model]'s patch embeddings a row
@@ -5111,19 +5139,22 @@ def main():
     phase(restart_phase)
     # the MLA/MoE and SSD layouts (no TPU kernel on their paths), before
     # the attention phases, whose cached mask tensors stay on the card
-    served_moe = phase(layout_serve_phase, MOE_ARCH, "moe-serve", smi)
+    served_moe = phase(layout_serve_phase, MOE_ARCH, "moe-serve", smi,
+                       MOE_SERVE_CUT)
     model_moe = phase(layout_model_phase, MOE_ARCH, "moe-model")
     trained_moe = phase(layout_train_phase, MOE_ARCH, "moe-train", smi,
                         {"n_layers": MOE_TRAIN_LAYERS}, MOE_TRAIN_STEPS,
                         "none")
-    served_ssd = phase(layout_serve_phase, SSD_ARCH, "ssd-serve", smi)
+    served_ssd = phase(layout_serve_phase, SSD_ARCH, "ssd-serve", smi,
+                       SSD_SERVE_CUT)
     model_ssd = phase(layout_model_phase, SSD_ARCH, "ssd-model")
     trained_ssd = phase(layout_train_phase, SSD_ARCH, "ssd-train", smi,
                         None, SSD_TRAIN_STEPS, SSD_TRAIN_REMAT)
     # the gemma_pair, zamba, codebooks and tokens+patches families (no TPU
-    # kernel on their paths either); gemma2-27b's 56.8 GB of weights first,
-    # every earlier model freed
-    served_gemma = phase(layout_serve_phase, GEMMA_ARCH, "gemma-serve", smi)
+    # kernel on their paths either); gemma2-27b first, every earlier model
+    # freed
+    served_gemma = phase(layout_serve_phase, GEMMA_ARCH, "gemma-serve", smi,
+                         GEMMA_SERVE_CUT)
     model_gemma = phase(layout_model_phase, GEMMA_ARCH, "gemma-model",
                         GEMMA_CUT)
     trained_gemma = phase(layout_train_phase, GEMMA_ARCH, "gemma-train", smi,
@@ -5348,16 +5379,19 @@ def main():
         f"{prefilled_sh['prefill_ms']:.3f} ms; tune_shard_count winner "
         f"S={timed_dist['tune']['measured']} (analytic "
         f"S={timed_dist['tune']['analytic']}).  {MOE_ARCH}: serving "
-        f"{served_moe['tok_s']:.1f} tok/s, {served_moe['ms_per_call']:.3f} "
+        f"({MOE_SERVE_CUT['n_layers']} layers) {served_moe['tok_s']:.1f} "
+        f"tok/s, {served_moe['ms_per_call']:.3f} "
         f"ms a decode call, peak {served_moe['peak_gb']:.2f} GB; training "
         f"({MOE_TRAIN_LAYERS} layers) {trained_moe['step_ms']:.3f} ms a "
         f"step, peak {trained_moe['peak_gb']:.2f} GB; f32 card vs CPU "
         f"{model_moe['card_vs_cpu']:.3g}.  {SSD_ARCH}: serving "
-        f"{served_ssd['tok_s']:.1f} tok/s, {served_ssd['ms_per_call']:.3f} "
+        f"({SSD_SERVE_CUT['n_layers']} layers) {served_ssd['tok_s']:.1f} "
+        f"tok/s, {served_ssd['ms_per_call']:.3f} "
         f"ms a decode call; training {trained_ssd['step_ms']:.3f} ms a step "
         f"(remat {trained_ssd['remat']}), peak {trained_ssd['peak_gb']:.2f} "
         f"GB; f32 card vs CPU {model_ssd['card_vs_cpu']:.3g}.  {GEMMA_ARCH}: "
-        f"serving {served_gemma['tok_s']:.1f} tok/s, "
+        f"serving ({GEMMA_SERVE_CUT['n_layers']} layers) "
+        f"{served_gemma['tok_s']:.1f} tok/s, "
         f"{served_gemma['ms_per_call']:.3f} ms a decode call, peak "
         f"{served_gemma['peak_gb']:.2f} GB; training (1 pair) "
         f"{trained_gemma['step_ms']:.3f} ms a step, peak "
@@ -5387,5 +5421,47 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def _end_children():
+    """End every process this one started that still runs: each is named
+    on stderr, sent SIGTERM, then SIGKILL if it has not exited after 2 s,
+    and reaped.  The multiprocessing resource tracker that ``[train-tp]``'s
+    spawn starts outlives the ranks (and ignores SIGTERM): it is first
+    stopped its own way, which reaps it."""
+    import os
+    import signal
+    from multiprocessing import resource_tracker
+    stop = getattr(resource_tracker._resource_tracker, "_stop", None)
+    if stop is not None:
+        stop()
+    me = str(os.getpid())
+    alive = set()
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            if stat.read_text().rsplit(")", 1)[1].split()[1] == me:
+                cmd = (stat.parent / "cmdline").read_bytes().replace(
+                    b"\0", b" ").decode(errors="replace")
+                print(f"[exit] ending child {stat.parent.name}: {cmd[:160]}",
+                      file=sys.stderr, flush=True)
+                alive.add(int(stat.parent.name))
+        except (OSError, IndexError):
+            continue            # a process that ended while it was read
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in alive:
+            with contextlib.suppress(OSError):
+                os.kill(pid, sig)
+        deadline = time.monotonic() + 2
+        while alive and time.monotonic() < deadline:
+            for pid in list(alive):
+                try:
+                    if os.waitpid(pid, os.WNOHANG)[0]:
+                        alive.discard(pid)
+                except ChildProcessError:   # already reaped
+                    alive.discard(pid)
+            time.sleep(0.05)
+
+
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        _end_children()

@@ -30,7 +30,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()                 # guards _NAME_LOCKS
+# one lock a source: threads that load different sources build at once
+_NAME_LOCKS: Dict[str, threading.Lock] = {}
 # name -> {"seconds": build time (0.0 when the library was already built),
 #          "log": nvcc's output, ptxas register/shared-memory report included
 #                 (read back from ``log_path`` when the library was built)}
@@ -96,8 +98,11 @@ def build(name: str) -> Path:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu``, built on first use.  Only
+    loads of the same source wait for each other."""
     with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         lib = _LIBS.get(name)
         if lib is None:
             lib = _LIBS[name] = ctypes.CDLL(str(build(name)))
