@@ -35,7 +35,10 @@ mesh-agnostic checkpoint and the int8 gradient compression on the card;
 ``[train-tp]`` splits the mesh's ``model`` axis over two processes on the
 one card (a ``(1, 2)`` mesh, gloo with CUDA tensors): ``smat-ffn-1.3b``
 (8 layers, bf16) and ``smat-attn-1.3b`` (2 layers, f32, 8,192 tokens)
-against a one-rank mesh, each rank's launches and halved kernel widths.
+against a one-rank mesh, each rank's launches and halved kernel widths;
+``deepseek-v2-lite-16b`` (2 layers) and ``mamba2-1.3b`` (4 layers, remat
+"full"), bf16, full width, each rank's halved leaves (32 of 64 experts,
+8 of 16 heads, half the vocab) and B1-B5 counters at 0.
 Right after ``[build]``, ``[analysis]`` runs the static contract
 analyzer (``python -m repro_torch.analysis --all``), holds every kernel
 instantiation's shared-memory formula to the library's own query and its
@@ -4329,12 +4332,34 @@ def train_mesh_phase(cfg, smi, trained):
 
 # ------------------------------------ the training mesh's model axis, split
 TP_RANKS = 2           # the (data, model) = (1, 2) mesh's ranks, one card
+MOE_ARCH, SSD_ARCH = "deepseek-v2-lite-16b", "mamba2-1.3b"
 # (tag, arch, layers, dtype, steps, batch, seq, relative loss tolerance
-# against the one-rank mesh): smat-ffn-1.3b at 8 of its 24 layers (the
-# script's time limit), smat-attn-1.3b at 2 in float32
+# against the one-rank mesh, remat): smat-ffn-1.3b at 8 of its 24 layers
+# (the script's time limit), smat-attn-1.3b at 2 in float32,
+# deepseek-v2-lite-16b at 2 of its 27 (1.59 B parameters, as
+# [moe-train]), mamba2-1.3b at 4 of its 48 under remat="full" (its
+# training default on the card: the collectives run again in the
+# backward's recompute)
 TP_RUNS = (("ffn", "smat-ffn-1.3b", 8, "bfloat16", 3, TRAIN_BATCH, TRAIN_SEQ,
-            1e-2),
-           ("attn", ATTN_ARCH, 2, "float32", 2, 1, ATTN_SEQ, 1e-4))
+            1e-2, "none"),
+           ("attn", ATTN_ARCH, 2, "float32", 2, 1, ATTN_SEQ, 1e-4, "none"),
+           ("moe", MOE_ARCH, 2, "bfloat16", 2, TRAIN_BATCH, TRAIN_SEQ, 1e-2,
+            "none"),
+           ("ssd", SSD_ARCH, 4, "bfloat16", 2, TRAIN_BATCH, TRAIN_SEQ, 1e-2,
+            "full"))
+# the runs whose path launches B1-B5: their launch tables and halved
+# kernel widths are checked; the others' B1-B5 counters must read 0 and
+# their split leaves' shapes are checked (TP_HALVED)
+TP_KERNEL_RUNS = ("ffn", "attn")
+# the leaves of the MLA/MoE and SSD layouts a rank of the (1, 2) mesh
+# holds half of, by module and name (the last two parts of the path), and
+# the dim halved: MLA's per-head projections, the routed experts (expert
+# parallelism), the shared experts' hidden columns, the vocab
+TP_HALVED = {("", "embed"): 0, ("", "lm_head"): 1,
+             ("mla", "wq"): 1, ("mla", "wkv_b"): 1, ("mla", "wo"): 0,
+             ("moe", "w_gate"): 0, ("moe", "w_up"): 0, ("moe", "w_down"): 0,
+             ("shared", "w_gate"): 1, ("shared", "w_up"): 1,
+             ("shared", "w_down"): 0}
 TP_TIMEOUT_S = 600
 TP_COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor",
                   "all_reduce")
@@ -4391,24 +4416,45 @@ def _tp_collectives():
             setattr(dist, name, fn)
 
 
+@contextlib.contextmanager
+def _tp_shapes():
+    """The shape of every module parameter as ``T.train_loss`` sees it
+    (the mesh step's gathered parameters: a rank's shard of a split
+    leaf)."""
+    from repro_torch.models import transformer as T
+    own, shapes = T.train_loss, {}
+
+    def train_loss(cfg, params, *args, **kw):
+        shapes.update({n: tuple(p.shape)
+                       for n, p in params.named_parameters()})
+        return own(cfg, params, *args, **kw)
+    T.train_loss = train_loss
+    try:
+        yield shapes
+    finally:
+        T.train_loss = own
+
+
 def _tp_train(run, mesh, device):
     """One of TP_RUNS through ``train.loop.train(cfg, shape, mesh)``: its
-    losses, step times, launches, kernel widths, collective calls and
-    peak memory on this process's card."""
+    losses, step times, launches, kernel widths, the parameters' shapes
+    the step computes with, collective calls and peak memory on this
+    process's card."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeCell
     from repro_torch.optim import adamw
     from repro_torch.train import loop
-    tag, arch, layers, dtype, steps, batch, seq, _ = run
+    tag, arch, layers, dtype, steps, batch, seq, _, remat = run
     cfg = dataclasses.replace(get_config(arch), n_layers=layers, dtype=dtype)
     if device == "cuda":
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     _reset_counts()
-    with _tp_widths() as widths, _tp_collectives() as calls:
+    with _tp_widths() as widths, _tp_collectives() as calls, \
+            _tp_shapes() as shapes:
         res = loop.train(cfg, ShapeCell("chip", "train", seq, batch), mesh,
-                         total_steps=steps, remat="none",
+                         total_steps=steps, remat=remat,
                          opt_cfg=adamw.AdamWConfig(total_steps=steps))
     launches = _read_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" \
@@ -4418,7 +4464,22 @@ def _tp_train(run, mesh, device):
             "step_ms": 1e3 * sum(steady) / len(steady),
             "launches": launches, "peak_gb": peak, "collectives": calls,
             "widths": {k: sorted(set(v)) for k, v in widths.items()},
-            "calls": {k: len(v) for k, v in widths.items()}}
+            "calls": {k: len(v) for k, v in widths.items()},
+            "shapes": shapes, "aux_losses": res.aux_losses}
+
+
+def _tp_halved(shapes):
+    """The shapes a rank of the (1, 2) mesh should compute with, from the
+    one-rank mesh's: TP_HALVED's leaves with their dim halved."""
+    out = {}
+    for name, shape in shapes.items():
+        parts = name.split(".")
+        dim = TP_HALVED.get((parts[-2] if len(parts) > 1 else "", parts[-1]))
+        if dim is not None:
+            shape = tuple(n // TP_RANKS if d == dim else n
+                          for d, n in enumerate(shape))
+        out[name] = shape
+    return out
 
 
 def _free_port():
@@ -4502,14 +4563,18 @@ def train_tp_phase(smi, runs=TP_RUNS):
     nccl all-reduce first and the phase logs the error), through
     ``train.loop.train(cfg, shape, mesh)`` for each of TP_RUNS.  Each run
     is held against the same run on a one-rank nccl ``(1, 1)`` mesh in
-    this process (same depth, seed-0 weights and batches): the losses
-    within the run's tolerance, both ranks' losses equal, each rank's
-    launches equal to the one-rank run's and to the path's table (144 B1 +
-    72 B2 a step at 24 layers for the FFN; 240 + 120 + 24 B5 for the
-    attention, scaled by depth), and each rank's widths halved: the FFN's
-    B1/B2 on half the tokens, B5 and the attention backward's batched
-    products on half the heads.  Logs per-rank step ms, peak memory and
-    collective calls beside the card's name and power limit."""
+    this process (same depth, seed-0 weights and batches; freed before
+    the spawn): the losses within the run's tolerance and both ranks'
+    losses equal.  TP_KERNEL_RUNS: each rank's launches equal to the
+    one-rank run's and to the path's table (144 B1 + 72 B2 a step at 24
+    layers for the FFN; 240 + 120 + 24 B5 for the attention, scaled by
+    depth), and each rank's widths halved: the FFN's B1/B2 on half the
+    tokens, B5 and the attention backward's batched products on half the
+    heads.  The MLA/MoE and SSD runs: every B1-B5 counter at 0 on both
+    ranks, and each rank computing with half of TP_HALVED's leaves (32 of
+    64 experts, 8 of 16 heads, half the vocab) and the one-rank run's
+    other leaves whole.  Logs per-rank step ms, peak memory and
+    collective calls a step beside the card's name and power limit."""
     from repro_torch.launch import mesh as mesh_lib
     ref = {}
     with _one_rank_nccl():
@@ -4521,46 +4586,34 @@ def train_tp_phase(smi, runs=TP_RUNS):
     ranks = _tp_spawn(runs, DEVICE)
     out = {}
     for run in runs:
-        tag, arch, layers, dtype, steps, batch, seq, tol = run
+        tag, arch, layers, dtype, steps, batch, seq, tol, remat = run
         one, got = ref[tag], [r["runs"][tag] for r in ranks]
-        if tag == "attn":
-            from repro_torch.configs import get_config
-            per_step, _ = _attn_train_counts(dataclasses.replace(
-                get_config(arch), n_layers=layers), layers)
-        else:
-            per_step = _counts(**{B1: 6 * layers, B2: 3 * layers})
-        want = {n: c * steps for n, c in per_step.items()}
         rel = max(abs(a - b) / abs(b) for a, b in zip(got[0]["losses"],
                                                       one["losses"]))
         same = all(g["losses"] == got[0]["losses"] for g in got)
-        half = {k: sorted((w[0] // TP_RANKS,) if k == B5 else
-                          (1, w[1] // TP_RANKS) if w[0] == 1 else
-                          (w[0] // TP_RANKS, w[1]) for w in ws)
-                for k, ws in one["widths"].items()}
-        halved = all(g["widths"] == half for g in got)
         log(f"[train-tp] {arch} {tag}: {layers} layers, full width, {dtype}, "
-            f"{batch} x {seq} tokens, {steps} steps on a (1, {TP_RANKS}) "
-            f"mesh of {TP_RANKS} processes on one card (gloo, CUDA "
-            f"tensors): losses {got[0]['losses']} (both ranks equal: "
-            f"{same}); one-rank mesh {one['losses']}; max relative "
-            f"difference {rel:.3g} (tolerance {tol})")
+            f"{batch} x {seq} tokens, {steps} steps, remat {remat}, on a "
+            f"(1, {TP_RANKS}) mesh of {TP_RANKS} processes on one card "
+            f"(gloo, CUDA tensors): losses {got[0]['losses']} (both ranks "
+            f"equal: {same}); one-rank mesh {one['losses']}; max relative "
+            f"difference {rel:.3g} (tolerance {tol}); aux losses "
+            f"{got[0]['aux_losses']} (one-rank {one['aux_losses']})")
         for r, g in enumerate(got):
+            per_step = {k: v / steps for k, v in g["collectives"].items()}
             log(f"[train-tp] {tag} rank {r}: step ms "
                 f"{[round(1e3 * t, 3) for t in g['step_times']]}, steady "
                 f"{g['step_ms']:.3f} ms; peak {g['peak_gb']:.2f} GB; "
                 f"launches {g['launches']}; widths (G, N) {g['widths']}; "
-                f"collective calls {g['collectives']}; {smi}")
+                f"collective calls a step {per_step}; {smi}")
         log(f"[train-tp] {tag} one-rank mesh: steady {one['step_ms']:.3f} "
-            f"ms; peak {one['peak_gb']:.2f} GB; launches {one['launches']} "
-            f"(expected {want}); widths {one['widths']}; {smi}")
+            f"ms; peak {one['peak_gb']:.2f} GB; launches {one['launches']}; "
+            f"widths {one['widths']}; {smi}")
         check(rel <= tol and same, f"[train-tp] {tag}: losses differ from "
               f"the one-rank mesh's ({rel:.3g} > {tol}) or between ranks")
-        check(one["launches"] == want and all(
-            g["launches"] == want and g["calls"] == one["calls"]
-            for g in got), f"[train-tp] {tag}: launch counts differ from "
-              f"{want}")
-        check(halved, f"[train-tp] {tag}: a rank's kernel widths are not "
-              f"half the one-rank mesh's")
+        if tag in TP_KERNEL_RUNS:
+            _tp_check_kernels(run, one, got)
+        else:
+            _tp_check_shapes(run, one, got)
         out[tag] = {"ranks": got, "one_rank": one}
     log(f"[train-tp] nccl with {TP_RANKS} ranks on one card: "
         f"{[r.get('nccl') for r in ranks]}; the split ran on gloo with CUDA "
@@ -4574,8 +4627,66 @@ def train_tp_phase(smi, runs=TP_RUNS):
     return launches, out
 
 
+def _tp_check_kernels(run, one, got):
+    """A TP_KERNEL_RUNS run: launches equal to the path's table on the
+    one-rank mesh and on each rank, and each rank's widths half the
+    one-rank run's."""
+    tag, arch, layers, _, steps = run[:5]
+    if tag == "attn":
+        from repro_torch.configs import get_config
+        per_step, _ = _attn_train_counts(dataclasses.replace(
+            get_config(arch), n_layers=layers), layers)
+    else:
+        per_step = _counts(**{B1: 6 * layers, B2: 3 * layers})
+    want = {n: c * steps for n, c in per_step.items()}
+    half = {k: sorted((w[0] // TP_RANKS,) if k == B5 else
+                      (1, w[1] // TP_RANKS) if w[0] == 1 else
+                      (w[0] // TP_RANKS, w[1]) for w in ws)
+            for k, ws in one["widths"].items()}
+    log(f"[train-tp] {tag}: launches expected {want}")
+    check(one["launches"] == want and all(
+        g["launches"] == want and g["calls"] == one["calls"]
+        for g in got), f"[train-tp] {tag}: launch counts differ from "
+          f"{want}")
+    check(all(g["widths"] == half for g in got), f"[train-tp] {tag}: a "
+          f"rank's kernel widths are not half the one-rank mesh's")
+
+
+def _tp_check_shapes(run, one, got):
+    """An MLA/MoE or SSD run: no B1-B5 launch anywhere, and each rank's
+    parameters TP_HALVED's halves of the one-rank run's (the rest whole):
+    for ``mla_moe`` E/2 experts of the routed bank, h/2 heads of MLA's
+    ``wq``, ``wkv_b`` and ``wo``; V/2 rows of ``embed`` and ``lm_head``."""
+    from repro_torch.configs import get_config
+    tag, arch = run[:2]
+    cfg = get_config(arch)
+    m, D, V, H = TP_RANKS, cfg.d_model, cfg.vocab_size, cfg.n_heads
+    want = _tp_halved(one["shapes"])
+    named = {"embed": (V // m, D), "lm_head": (D, V // m)}
+    if cfg.layout == "mla_moe":
+        E, F = cfg.n_experts, cfg.expert_d_ff
+        nope, rope, vd = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+        named.update({
+            "blocks.0.moe.w_gate": (E // m, D, F),
+            "blocks.0.moe.w_down": (E // m, F, D),
+            "blocks.0.mla.wq": (D, H // m * (nope + rope)),
+            "blocks.0.mla.wkv_b": (cfg.kv_lora_rank, H // m * (nope + vd)),
+            "blocks.0.mla.wo": (H // m * vd, D)})
+    split = sorted(n for n, sh in want.items() if sh != one["shapes"][n])
+    shown = {n: (want[n], one["shapes"][n]) for n in split
+             if not n.startswith("blocks.") or n.startswith("blocks.0.")}
+    log(f"[train-tp] {tag}: {len(split)} leaves split a rank (shape a "
+        f"rank, one-rank mesh): {shown}")
+    check(one["launches"] == _counts() and all(
+        g["launches"] == _counts() for g in got),
+        f"[train-tp] {tag}: a B1-B5 kernel launched")
+    check(split and all(want[n] == sh for n, sh in named.items()) and
+          all(g["shapes"] == want for g in got),
+          f"[train-tp] {tag}: a rank's parameter shapes are not the "
+          f"one-rank mesh's with TP_HALVED's leaves halved ({named})")
+
+
 # ------------------------------------------- the MLA/MoE and SSD layouts
-MOE_ARCH, SSD_ARCH = "deepseek-v2-lite-16b", "mamba2-1.3b"
 # the 16.21 B-parameter model does not fit AdamW on one card: [moe-train]
 # keeps its full width at 2 of its 27 layers (1.59 B parameters)
 MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 3

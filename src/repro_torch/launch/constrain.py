@@ -6,20 +6,25 @@ wraps (the JAX package's ``with mesh:``); ``train.loop.train`` enters it,
 and ``current_mesh()`` returns it (None outside).  ``use_mesh(mesh,
 split=True)`` also splits the compute over the mesh's ``model`` axis: the
 mesh step enters it for the layouts whose split the port runs
-(``launch.steps.split_leaves``: ``attn_mlp`` with token inputs, on a
-sequence the axis divides).  Inside, ``model_split()`` gives the split
-(this rank's model group, its index and the group's size), and the model
-code computes on shards as the JAX package's sharding rules and
-``constrain`` calls have GSPMD do: the residual stream is carried
-sequence-split (norms and the block-sparse FFN on the rank's positions),
-attention runs the rank's heads on the whole sequence, the dense FFN its
-hidden columns, embedding and logits its vocab slice.  Outside a split
-(no mesh, ``model`` = 1, the other layouts, which keep replicated compute)
-``model_split()`` is None and every collective below is the identity.
+(``launch.steps.split_leaves``: ``attn_mlp``, ``mla_moe`` and ``ssd``
+with token inputs, on a sequence the axis divides).  Inside,
+``model_split()`` gives the split (this rank's model group, its index and
+the group's size), and the model code computes on shards as the JAX
+package's sharding rules and ``constrain`` calls have GSPMD do: the
+residual stream is carried sequence-split (norms and the block-sparse FFN
+on the rank's positions), attention and MLA run the rank's heads on the
+whole sequence (MLA gathers its latent, not the per-head K/V), the dense
+FFN and the shared experts their hidden columns, the routed experts the
+rank's slice of the bank (expert parallelism), the Mamba2 mixer the whole
+sequence on every rank, embedding and logits the rank's vocab slice.
+Outside a split (no mesh, ``model`` = 1, the other layouts, which keep
+replicated compute) ``model_split()`` is None and every collective below
+is the identity.
 
 The JAX ``fit`` rule holds for the split (``launch.steps.split_leaves``):
 a dim the ``model`` axis does not divide stays replicated (2 kv heads on
-a ``model`` axis of 4: ``wk``/``wv`` whole on every rank).
+a ``model`` axis of 4: ``wk``/``wv`` whole on every rank; 6 routed
+experts: the bank whole on every rank).
 
 The collectives sit where GSPMD would insert them, each an autograd
 ``Function`` over the model group with its backward:

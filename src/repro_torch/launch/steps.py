@@ -23,22 +23,27 @@ parameters, runs the model forward and backward on this rank's batch rows
 norm of the full gradient, and updates each rank's own shard of
 parameters and moments.
 
-Where the ``model`` axis has more than one rank, the ``attn_mlp`` layout
-with token inputs splits its compute over it, as the JAX package's
-sharding rules and ``constrain`` calls have GSPMD do (``split_leaves``;
-``launch.constrain.use_mesh(mesh, split=True)``): the head-, hidden- and
-vocab-sharded leaves are gathered over the data axes only, so each rank
-computes with its ``model`` shard of ``wq``/``wk``/``wv``/``wo``, the
-dense FFN's ``w_gate``/``w_up``/``w_down``, ``embed`` and ``lm_head``;
-the residual stream is carried sequence-split; the block-sparse FFN runs
-its B1/B2 on the rank's tokens against replicated BCSR weights, B5 and
-the attention backward's batched products on its heads.  A split leaf's
-gradient is summed over the data group; a replicated leaf's (norms,
-``vals``, ``wk``/``wv`` where the axis does not divide the kv heads) over
-the data and model groups.  The other layouts (``mla_moe``, ``ssd``,
-``gemma_pair``, ``zamba``) and inputs (``codebooks``, ``tokens+patches``),
-a ``model`` axis of one rank, and a sequence the axis does not divide
-gather every parameter whole and replicate the compute over ``model``.
+Where the ``model`` axis has more than one rank, the ``attn_mlp``,
+``mla_moe`` and ``ssd`` layouts with token inputs split their compute
+over it, as the JAX package's sharding rules and ``constrain`` calls have
+GSPMD do (``split_leaves``; ``launch.constrain.use_mesh(mesh,
+split=True)``): the head-, hidden-, expert- and vocab-sharded leaves are
+gathered over the data axes only, so each rank computes with its
+``model`` shard of ``wq``/``wk``/``wv``/``wo``, the dense FFN's
+``w_gate``/``w_up``/``w_down``, MLA's ``wq`` (or ``wq_b``), ``wkv_b`` and
+``wo``, the routed experts' bank (``gather`` dispatch) and the shared
+experts' hidden columns, ``embed`` and ``lm_head``; the residual stream
+is carried sequence-split; the block-sparse FFN runs its B1/B2 on the
+rank's tokens against replicated BCSR weights, B5 and the attention
+backward's batched products on its heads; the Mamba2 mixer runs the
+whole sequence on every rank.  A split leaf's gradient is summed over the
+data group; a replicated leaf's (norms, ``vals``, ``wk``/``wv`` where the
+axis does not divide the kv heads, MLA's ``wkv_a``/``wq_a``, the router,
+every Mamba2 leaf) over the data and model groups.  The other layouts
+(``gemma_pair``, ``zamba``) and inputs (``codebooks``,
+``tokens+patches``), a ``model`` axis of one rank, and a sequence the
+axis does not divide gather every parameter whole and replicate the
+compute over ``model``.
 """
 from __future__ import annotations
 
@@ -183,37 +188,51 @@ def state_specs(model: MeshModel, opt_state) -> Dict[str, Any]:
             "opt": opt_shardings(model.mesh, opt_state)}
 
 
-# the leaves the split computes on their ``model`` shard, by leaf name:
-# the config dims the ``model`` axis must divide (the JAX fit rule on the
-# activations they make: heads, kv heads, hidden, vocab)
+# the leaves the split computes on their ``model`` shard, keyed by their
+# module's name and their own (the last two parts of the path: the rules
+# tell the routed expert bank ``moe.w_gate`` from the shared experts'
+# ``shared.w_gate`` and the dense FFN's ``mlp.w_gate`` so), each with the
+# head counts the ``model`` axis must divide too (the JAX fit rule on the
+# activations: a dim of heads x head_dim can divide where the heads do
+# not; vocab, hidden and expert dims are the weight's own, which
+# ``param_shardings``' fit rule already holds)
 _SPLIT_DIMS = {
-    "embed": ("vocab_size",), "lm_head": ("vocab_size",),
-    "wq": ("n_heads",), "bq": ("n_heads",), "wo": ("n_heads",),
-    "wk": ("n_heads", "n_kv_heads"), "bk": ("n_heads", "n_kv_heads"),
-    "wv": ("n_heads", "n_kv_heads"), "bv": ("n_heads", "n_kv_heads"),
-    "w_gate": ("d_ff",), "w_up": ("d_ff",), "w_down": ("d_ff",),
+    ("", "embed"): (), ("", "lm_head"): (),
+    **{("attn", n): ("n_heads",) for n in ("wq", "bq", "wo")},
+    **{("attn", n): ("n_heads", "n_kv_heads")
+       for n in ("wk", "bk", "wv", "bv")},
+    **{("mla", n): ("n_heads",) for n in ("wq", "wq_b", "wkv_b", "wo")},
+    **{(module, n): () for module in ("mlp", "moe", "shared")
+       for n in ("w_gate", "w_up", "w_down")},
 }
+_SPLIT_LAYOUTS = ("attn_mlp", "mla_moe", "ssd")
 
 
 def split_leaves(cfg: ModelConfig, mesh, specs: Dict[str, Any],
                  seq_len: int) -> frozenset:
     """Names of the parameters the mesh step computes on their ``model``
     shard (``specs``: the parameters' ``param_shardings``): the head-,
-    hidden- and vocab-sharded leaves of the ``attn_mlp`` layout with token
-    inputs, each where the ``model`` axis divides its dims, when that axis
-    has more than one rank and divides the sequence (the carry is split
-    over it).  Empty otherwise: the step then gathers every parameter
-    whole and replicates the compute over ``model``, as for the other
-    layouts and inputs."""
+    hidden-, expert- and vocab-sharded leaves of the ``attn_mlp``,
+    ``mla_moe`` and ``ssd`` layouts with token inputs (``_SPLIT_DIMS``;
+    the routed experts' bank with the ``gather`` dispatch only: the JAX
+    package constrains nothing in the ``einsum`` one), each where the
+    ``model`` axis divides its dims, when that axis has more than one rank
+    and divides the sequence (the carry is split over it).  Empty
+    otherwise: the step then gathers every parameter whole and replicates
+    the compute over ``model``, as for the other layouts and inputs."""
     m = mesh_lib.axis_sizes(mesh).get("model", 1)
-    if m == 1 or cfg.layout != "attn_mlp" or cfg.input_mode != "tokens" \
-            or seq_len % m:
+    if m == 1 or cfg.layout not in _SPLIT_LAYOUTS or \
+            cfg.input_mode != "tokens" or seq_len % m:
         return frozenset()
 
     def splits(name, spec):
-        dims = _SPLIT_DIMS.get(name.rsplit(".", 1)[-1])
-        return dims is not None and "model" in sh.keep_axes(spec, ("model",)) \
-            and all(getattr(cfg, f) % m == 0 for f in dims)
+        parts = name.split(".")
+        key = (parts[-2] if len(parts) > 1 else "", parts[-1])
+        dims = _SPLIT_DIMS.get(key)
+        if dims is None or key[0] == "moe" and cfg.moe_dispatch != "gather":
+            return False
+        return "model" in sh.keep_axes(spec, ("model",)) and \
+            all(getattr(cfg, f) % m == 0 for f in dims)
     return frozenset(n for n, spec in specs.items() if splits(n, spec))
 
 

@@ -469,7 +469,13 @@ def mla_attention(cfg, p, x, *, cache=None, pos=None, slot_mask=None):
         (a ring read back at ``pos % S`` only while ``L <= S``);
       decode (L == 1, ``pos`` an int): the absorbed form in float32
         against the ring, written in place at ``pos % S`` (only the rows
-        where ``slot_mask`` [B] is True, when given)."""
+        where ``slot_mask`` [B] is True, when given).
+
+    Under a split over ``model`` (training: ``launch.constrain.
+    model_split``) ``x`` holds this rank's positions: ``_split_mla``."""
+    split = model_split() if cache is None else None
+    if split is not None:
+        return _split_mla(cfg, p, x, split), None
     B, L, D = x.shape
     h = cfg.n_heads
     nope, rope, vd, r = (cfg.nope_head_dim, cfg.rope_head_dim,
@@ -493,12 +499,11 @@ def mla_attention(cfg, p, x, *, cache=None, pos=None, slot_mask=None):
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
 
-    scale = (nope + rope) ** -0.5
-    w_kv_b = p.wkv_b.reshape(r, h, nope + vd)
-    w_uk, w_uv = w_kv_b[..., :nope], w_kv_b[..., nope:]
-
     if cache is not None and L == 1:
         # ---- absorbed decode: score against the latent cache directly
+        scale = (nope + rope) ** -0.5
+        w_kv_b = p.wkv_b.reshape(r, h, nope + vd)
+        w_uk, w_uv = w_kv_b[..., :nope], w_kv_b[..., nope:]
         ckv_c, krope_c = cache["ckv"], cache["krope"]
         Sc = ckv_c.shape[1]
         slot = pos % Sc
@@ -524,17 +529,8 @@ def mla_attention(cfg, p, x, *, cache=None, pos=None, slot_mask=None):
         ctx_lat = torch.einsum("bhls,bsr->blhr", probs, ckv_c.float())
         ctx = torch.einsum("blhr,rhv->blhv", ctx_lat, w_uv.float())
     else:
-        # ---- train/prefill: materialize per-head K, V (heads over
-        # ``model``, where the JAX package constrains them)
-        k_nope = torch.einsum("blr,rhn->blhn", c_kv, w_uk.to(c_kv.dtype))
-        v = torch.einsum("blr,rhv->blhv", c_kv, w_uv.to(c_kv.dtype))
-        k = torch.cat([k_nope, k_rope.expand(B, L, h, rope)], dim=-1)
-        qq = constrain(torch.cat([q_nope, q_rope], dim=-1), BATCH, None,
-                       MODEL)
-        k = constrain(k, BATCH, None, MODEL)
-        v = constrain(v, BATCH, None, MODEL)
-        ctx = _causal_attention(qq, k, v, None, None, scale)  # [B,L,h,vd]
-        ctx = checkpoint_name(ctx, "attn_ctx")
+        # ---- train/prefill: materialize per-head K, V
+        ctx = _mla_heads(cfg, p, q_nope, q_rope, c_kv, k_rope)
         if cache is not None:               # prefill: write latent cache
             ckv_c, krope_c = cache["ckv"], cache["krope"]
             Sc = ckv_c.shape[1]
@@ -544,6 +540,70 @@ def mla_attention(cfg, p, x, *, cache=None, pos=None, slot_mask=None):
 
     y = _dense(ctx.reshape(B, L, h * vd).to(x.dtype), p.wo)
     return y, cache
+
+
+def _mla_heads(cfg, p, q_nope, q_rope, c_kv, k_rope):
+    """Causal attention of the heads ``p.wkv_b`` holds (all of them, or
+    this rank's under a split over ``model``): their K [.., nope + rope]
+    and V [.., v_head_dim] built from the latent ``c_kv`` [B, L, r] and
+    the shared rope key ``k_rope`` [B, L, 1, rope], their queries
+    ``q_nope``/``q_rope`` [B, L, heads, .]; returns ctx [B, L, heads,
+    v_head_dim] (heads over ``model``, where the JAX package constrains
+    them)."""
+    B, L = c_kv.shape[:2]
+    nope, rope, vd, r = (cfg.nope_head_dim, cfg.rope_head_dim,
+                         cfg.v_head_dim, cfg.kv_lora_rank)
+    heads = p.wkv_b.shape[-1] // (nope + vd)
+    w_kv_b = p.wkv_b.reshape(r, heads, nope + vd)
+    w_uk, w_uv = w_kv_b[..., :nope], w_kv_b[..., nope:]
+    k_nope = torch.einsum("blr,rhn->blhn", c_kv, w_uk.to(c_kv.dtype))
+    v = torch.einsum("blr,rhv->blhv", c_kv, w_uv.to(c_kv.dtype))
+    k = torch.cat([k_nope, k_rope.expand(B, L, heads, rope)], dim=-1)
+    qq = constrain(torch.cat([q_nope, q_rope], dim=-1), BATCH, None, MODEL)
+    k = constrain(k, BATCH, None, MODEL)
+    v = constrain(v, BATCH, None, MODEL)
+    ctx = _causal_attention(qq, k, v, None, None, (nope + rope) ** -0.5)
+    return checkpoint_name(ctx, "attn_ctx")
+
+
+def _split_mla(cfg, p, x, split):
+    """MLA's training forward under a split over ``model``: ``x`` [B, L/m,
+    D] holds this rank's positions, ``p`` its shards; returns this rank's
+    positions of the output.  The latent and the rope key (``wkv_a``,
+    ``kv_norm``; rope at the positions' global indices) are computed on
+    the rank's positions and gathered: the 576-wide latent crosses, not
+    the per-head K/V (the JAX package's choice), and each rank's gradient
+    reaches its positions once.  q is computed on the gathered sequence
+    (with ``q_lora_rank``: the rank's normed ``wq_a`` latent, gathered)
+    for the rank's heads, K/V from its columns of ``wkv_b``; ``wo`` is
+    row-parallel and its partial sums are reduce-scattered back to the
+    rank's positions.  Where the axis does not divide the heads the
+    weights are whole: every rank runs every head on the whole sequence
+    and keeps its positions."""
+    B, Lm, _ = x.shape
+    nope, rope, vd, r = (cfg.nope_head_dim, cfg.rope_head_dim,
+                         cfg.v_head_dim, cfg.kv_lora_rank)
+    heads = p.wkv_b.shape[-1] // (nope + vd)
+    kv_a = _dense(x, p.wkv_a)                           # [B, L/m, r + rope]
+    mine = torch.arange(split.index * Lm, (split.index + 1) * Lm,
+                        dtype=torch.int64, device=x.device)
+    k_rope = apply_rope(kv_a[..., None, r:], mine[None].expand(B, Lm),
+                        cfg.rope_theta)
+    latent = gather(torch.cat([rms_norm(kv_a[..., :r], p.kv_norm),
+                               k_rope[:, :, 0]], dim=-1), 1)
+    c_kv, k_rope = latent[..., :r], latent[..., None, r:]
+    if cfg.q_lora_rank:
+        q = _dense(gather(rms_norm(_dense(x, p.wq_a), p.q_norm), 1), p.wq_b)
+    else:
+        q = _dense(gather(x, 1), p.wq)
+    L = q.shape[1]
+    q = q.reshape(B, L, heads, nope + rope)
+    positions = torch.arange(L, dtype=torch.int64, device=x.device)
+    q_rope = apply_rope(q[..., nope:], positions[None].expand(B, L),
+                        cfg.rope_theta)
+    ctx = _mla_heads(cfg, p, q[..., :nope], q_rope, c_kv, k_rope)
+    y = _dense(ctx.reshape(B, L, heads * vd).to(x.dtype), p.wo)
+    return scatter(y, 1) if heads < cfg.n_heads else local_seq(y, 1)
 
 
 def init_mla_cache(cfg, batch, cache_len, dtype, *, device):

@@ -21,6 +21,22 @@ greedy streams repeat bit for bit.
 The shared experts are one dense gated MLP of width ``expert_d_ff *
 n_shared_experts``, dense even for sparse-FFN archs (as in the JAX
 package: ``layers.mlp`` dispatches on the module's weights).
+
+Under a split over ``model`` (training: ``launch.constrain.model_split``)
+``moe_ffn`` takes this rank's positions and returns them: the sequence is
+gathered and every rank routes all of it, so the capacity and the slot
+order, and with them the drops, are the unsharded ones.  With the
+``gather`` dispatch each rank runs the experts of its slice of the bank
+(expert parallelism: the bank's ``DTensor`` shard of dim 0, experts
+``index * E/m`` onwards) and combines their cells, reading zero for the
+other ranks' ones; the partial sums are reduce-scattered back to the
+rank's positions: the JAX package's one psum of [B, L, D].  The
+``einsum`` dispatch, and a bank the axis does not divide, run every
+expert on every rank and keep the rank's positions.  The shared experts
+take ``layers.mlp``'s split (their hidden columns).  The load-balance loss
+is each rank's share of its positions' router probabilities, summed over
+the model group (``reduce``), so its value is the whole one and its
+gradient counts every position once.
 """
 from __future__ import annotations
 
@@ -33,7 +49,9 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.launch.constrain import (BATCH, MODEL, constrain,
-                                         data_parallel, psum_data)
+                                          data_parallel, gather, local_seq,
+                                          model_split, psum_data, reduce,
+                                          scatter)
 from repro_torch.models import layers as L
 
 
@@ -69,21 +87,25 @@ def _route(cfg, p, xt):
     over the global batch: the expert counts and the token count are summed
     over the data group first, and ``aux`` is this rank's share (its
     tokens' router probabilities over the global count), so the shares sum
-    to the global loss."""
+    to the global loss.  Under a split over ``model`` ``xt`` is the
+    gathered sequence: ``me`` takes the rank's positions and the shares
+    are summed over the model group (``reduce``: every rank returns the
+    loss, and its gradient reaches each position from one rank)."""
     e, k = cfg.n_experts, cfg.moe_top_k
-    logits = torch.einsum("...td,de->...te", xt.float(), p.router)
+    logits = torch.einsum("...td,de->...te", xt.to(p.router.dtype),
+                          p.router)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = torch.topk(probs, k, dim=-1)
     gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
     counts = torch.bincount(gate_idx.reshape(-1), minlength=e)
-    if data_parallel():
+    if data_parallel() or model_split() is not None:
         n_tok = torch.tensor(probs.numel() // e, device=probs.device)
         counts, n_tok = psum_data([counts, n_tok])
-        me = probs.reshape(-1, e).sum(dim=0) / n_tok
+        me = local_seq(probs, -2).reshape(-1, e).sum(dim=0) / n_tok
         onehot_mean = counts.float() / (n_tok * k)
-    else:
-        me = probs.reshape(-1, e).mean(dim=0)
-        onehot_mean = counts.float() / gate_idx.numel()
+        return gate_vals, gate_idx, reduce(e * torch.sum(me * onehot_mean))
+    me = probs.reshape(-1, e).mean(dim=0)
+    onehot_mean = counts.float() / gate_idx.numel()
     aux = e * torch.sum(me * onehot_mean)
     return gate_vals, gate_idx, aux
 
@@ -127,7 +149,7 @@ def _slot_tables(cfg, gate_vals, gate_idx, C):
     slot_tok = torch.full((B, e * C + 1), Lq, dtype=torch.int64,
                           device=gate_idx.device)
     slot_tok.scatter_(1, cell, tok.expand(B, -1))
-    slot_w = torch.zeros((B, e * C + 1), dtype=torch.float32,
+    slot_w = torch.zeros((B, e * C + 1), dtype=gate_vals.dtype,
                          device=gate_idx.device)
     slot_w.scatter_(1, cell, gate_vals.reshape(B, Lq * k))
     return (slot_tok[:, :e * C].reshape(B, e, C),
@@ -135,17 +157,27 @@ def _slot_tables(cfg, gate_vals, gate_idx, C):
 
 
 def _moe_gather(cfg, p, x):
-    """x [B, L, D]; per-row capacity; gather token movement."""
+    """x [B, L, D]; per-row capacity; gather token movement.  With a bank
+    split over ``model`` (``p.w_gate`` [E/m, D, F]) only the rank's
+    experts run, and the output is their partial sum."""
     B, Lq, D = x.shape
     e, k = cfg.n_experts, cfg.moe_top_k
     C = int(cfg.capacity_factor * Lq * k / e) + 1
 
     gate_vals, gate_idx, aux = _route(cfg, p, x)          # [B,L,k]
     slot_tok, slot_w, cell = _slot_tables(cfg, gate_vals, gate_idx, C)
+    bank = p.w_gate.shape[0]
+    if bank < e:
+        # this rank's experts' cells; another rank's read the zero row
+        first = model_split().index * bank
+        slot_tok = slot_tok[:, first:first + bank]
+        slot_w = slot_w[:, first:first + bank]
+        cell = cell - first * C
+        cell = torch.where((cell >= 0) & (cell < bank * C), cell, bank * C)
 
     x_pad = torch.cat([x, x.new_zeros(B, 1, D)], dim=1)   # row L -> zeros
     rows = torch.arange(B, device=x.device)[:, None]
-    xin = x_pad[rows, slot_tok.reshape(B, e * C)].reshape(B, e, C, D)
+    xin = x_pad[rows, slot_tok.reshape(B, bank * C)].reshape(B, bank, C, D)
     xin = constrain(xin, BATCH, MODEL)                     # rows x EP
     eout = _expert_mlp(cfg, p, xin)                        # [B, E, C, D]
     eout = constrain(eout, BATCH, MODEL)
@@ -154,7 +186,7 @@ def _moe_gather(cfg, p, x):
 
     # combine: each (token, slot) reads its cell (a dropped one the zero
     # row past the table) and a token adds its k slots in slot order
-    contrib = torch.cat([contrib.reshape(B, e * C, D),
+    contrib = torch.cat([contrib.reshape(B, bank * C, D),
                          contrib.new_zeros(B, 1, D)], dim=1)
     got = contrib[rows, cell].reshape(B, Lq, k, D)
     y = got[:, :, 0]
@@ -191,11 +223,19 @@ def _moe_einsum(cfg, p, x):
 
 def moe_ffn(cfg, p, x, dispatch: str = "gather"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [B, L, D] -> (y [B, L, D], aux_loss scalar)."""
+    """x [B, L, D] -> (y [B, L, D], aux_loss scalar).  Under a split over
+    ``model`` ``x`` and ``y`` hold this rank's positions: the routed
+    experts run on the gathered sequence, and their output is
+    reduce-scattered where the bank is split (the rank's experts' partial
+    sums), else the rank's positions kept; the shared experts take
+    ``layers.mlp``'s split."""
+    xg = gather(x, 1)
     if dispatch == "gather":
-        y, aux = _moe_gather(cfg, p, x)
+        y, aux = _moe_gather(cfg, p, xg)
     else:
-        y, aux = _moe_einsum(cfg, p, x)
+        y, aux = _moe_einsum(cfg, p, xg)
+    y = scatter(y, 1) if p.w_gate.shape[0] < cfg.n_experts else \
+        local_seq(y, 1)
     if cfg.n_shared_experts:
         fs = cfg.expert_d_ff * cfg.n_shared_experts
         y = y + L.mlp(cfg, p.shared, x, d_ff=fs)

@@ -10,7 +10,7 @@ and an O(1)-state decode path.  Layout per block, as in the JAX package:
   y = gated_rms_norm(y, z) -> out_proj
 
 Everything after the softplus runs in float32, and the state [B, H, P, N]
-is float32.  The decode cache is written in place: in decode only the rows
+is float32 (float64 for a float64 model).  The decode cache is written in place: in decode only the rows
 where ``slot_mask`` [B] is True take the new conv window and state (the JAX
 engine's ``_merge_cache`` for these leaves).
 """
@@ -74,10 +74,11 @@ def _segsum(l):
 def ssd_scan(x, dt, A, B, C, D, chunk: int):
     """Chunked SSD: x [b,L,H,P], dt [b,L,H] (post-softplus), A [H] (negative),
     B,C [b,L,G,N], D [H].  Returns (y [b,L,H,P], final_state [b,H,P,N]),
-    both float32."""
+    both float32 (float64 for a float64 ``x``)."""
     b, Lq, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     rep = H // G
+    f = torch.float64 if x.dtype == torch.float64 else torch.float32
     if Lq % chunk:
         raise ValueError(f"sequence length {Lq} is not a multiple of the "
                          f"chunk {chunk}")
@@ -89,13 +90,13 @@ def ssd_scan(x, dt, A, B, C, D, chunk: int):
 
     xr = x.reshape(b, nc, chunk, H, P)
     dtr = dt.reshape(b, nc, chunk, H)
-    Br = Bh.reshape(b, nc, chunk, H, N).float()
-    Cr = Ch.reshape(b, nc, chunk, H, N).float()
+    Br = Bh.reshape(b, nc, chunk, H, N).to(f)
+    Cr = Ch.reshape(b, nc, chunk, H, N).to(f)
 
     l_t = (dtr * A).transpose(2, 3)                      # [b,nc,H,c] log-decay
     seg = torch.exp(_segsum(l_t))                        # [b,nc,H,c,c]
 
-    xdt = (xr * dtr[..., None]).float()                  # weight inputs by dt
+    xdt = (xr * dtr[..., None]).to(f)                   # weight inputs by dt
 
     # ---- intra-chunk (quadratic within chunk)
     scores = torch.einsum("bzihn,bzjhn->bzhij", Cr, Br)
@@ -113,7 +114,7 @@ def ssd_scan(x, dt, A, B, C, D, chunk: int):
         st, dec = inp                                    # [b,H,P,N], [b,H]
         return h_prev * dec[..., None, None] + st, h_prev
 
-    h0 = torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device)
+    h0 = torch.zeros((b, H, P, N), dtype=f, device=x.device)
     h_final, h_prevs = U.scan(step, h0, (states.transpose(0, 1),
                                          chunk_decay.transpose(0, 1)))
     h_prevs = h_prevs.transpose(0, 1)                    # [b,nc,H,P,N]
@@ -124,7 +125,7 @@ def ssd_scan(x, dt, A, B, C, D, chunk: int):
                          h_prevs)
 
     y = (y_diag + y_off).reshape(b, Lq, H, P)
-    y = y + x.float() * D[None, None, :, None]
+    y = y + x.to(f) * D[None, None, :, None]
     return y, h_final
 
 

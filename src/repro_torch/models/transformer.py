@@ -34,11 +34,13 @@ load-balance losses, as the JAX package's scan carries it.
 
 Under a training mesh whose compute splits over ``model``
 (``launch.constrain.model_split``; ``launch.steps.split_leaves``:
-``attn_mlp`` with token inputs) the residual stream is carried
-sequence-split: ``_embed`` looks up the rank's vocab slice and
-reduce-scatters the rows over the sequence, the blocks' norms and the
-block-sparse FFN run on the rank's positions (``layers.attention`` and a
-dense ``layers.mlp`` gather the sequence and compute their shards), and
+``attn_mlp``, ``mla_moe`` and ``ssd`` with token inputs) the residual
+stream is carried sequence-split: ``_embed`` looks up the rank's vocab
+slice and reduce-scatters the rows over the sequence, the blocks' norms
+and the block-sparse FFN run on the rank's positions (``layers.attention``,
+``layers.mla_attention``, a dense ``layers.mlp`` and ``moe.moe_ffn``
+gather the sequence and compute their shards; the Mamba2 mixer runs the
+gathered sequence on every rank and keeps the rank's positions), and
 ``_head`` gathers the sequence for vocab-split logits, whose
 cross-entropy ``lm_loss`` reduces over the model group.
 
@@ -441,9 +443,12 @@ def _apply_block(cfg: ModelConfig, p: Block, x, cache, pos, slot_mask=None):
         x = constrain(x, BATCH, MODEL)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.layout == "ssd":
-        y, c = S.ssd_block(cfg, p.ssd, L.rms_norm(x, p.ln), cache=cache,
-                           pos=pos, slot_mask=slot_mask)
-        return x + y, c, aux
+        # under a split the mixer, sequential in the positions, runs the
+        # gathered sequence on every rank, which keeps its own positions
+        # (the replicated leaves' gradients meet in ``psum_model``)
+        y, c = S.ssd_block(cfg, p.ssd, gather(L.rms_norm(x, p.ln), 1),
+                           cache=cache, pos=pos, slot_mask=slot_mask)
+        return x + local_seq(y, 1), c, aux
     if cfg.layout == "mla_moe":
         a, c = L.mla_attention(cfg, p.mla, L.rms_norm(x, p.ln1), cache=cache,
                                pos=pos, slot_mask=slot_mask)

@@ -4,7 +4,7 @@ rank).
 
     python tests/jax_mesh_reference.py OUT_DIR
 
-First writes ``OUT_DIR/inputs.npz``: the JAX seed-0 weights of the three
+First writes ``OUT_DIR/inputs.npz``: the JAX seed-0 weights of the four
 archs the mesh tests train (``w/<arch>/<path>``, float32), which the JAX
 runs below start from too, and R = 4 ranks' error feedback gradients
 (``g/<name>``, stacked on a leading rank axis).  Then
@@ -13,13 +13,13 @@ runs below start from too, and R = 4 ranks' error feedback gradients
 * ``loss/<case>``: the JAX loop's losses, ``train(cfg, shape,
   make_mesh((1, 1), ("data", "model")))`` (GSPMD gives the same result on
   any mesh), for ``ffn`` (``smat-ffn-1.3b:smoke`` on 4 x 32 tokens, 4
-  steps) and ``attn`` (``smat-attn-1.3b:smoke``, the same);
-  ``loss/small``: the ffn arch's step-0 loss on 2 x 32 tokens
-  (``train_loss`` on the first batch); ``loss/moe`` and ``aux/moe``:
-  ``deepseek-v2-lite-16b:smoke``'s step-0 loss and MoE load-balance loss
-  on 4 x 32;
+  steps), ``attn`` (``smat-attn-1.3b:smoke``, the same), ``moe``
+  (``deepseek-v2-lite-16b:smoke``, 2 steps) and ``ssd``
+  (``mamba2-1.3b:smoke``, 2 steps); ``loss/small``: the ffn arch's step-0
+  loss on 2 x 32 tokens (``train_loss`` on the first batch); ``aux/moe``:
+  the MoE arch's step-0 load-balance loss on 4 x 32;
 * ``grad/<case>/<path>``: ``jax.grad`` of ``train_loss`` on the first 4 x
-  32 batch for ``ffn`` and ``attn``, by the JAX tree's path (the block
+  32 batch for each of those cases, by the JAX tree's path (the block
   leaves stacked on a leading layer axis);
 * ``ef/g_hat/<step>/<name>``, ``ef/r/<step>/<name>``: two steps of
   ``ef_compress_grads`` over the R ranks, simulated with ``jax.vmap(...,
@@ -47,10 +47,10 @@ from repro.optim import compress
 from repro.train import loop
 
 ARCH, MOE = "smat-ffn-1.3b:smoke", "deepseek-v2-lite-16b:smoke"
-ATTN = "smat-attn-1.3b:smoke"
+ATTN, SSD = "smat-attn-1.3b:smoke", "mamba2-1.3b:smoke"
 SHAPE = ShapeCell("t", "train", 32, 4)
 SMALL = ShapeCell("t", "train", 32, 2)
-STEPS, EF_STEPS, R = 4, 2, 4
+STEPS, MOE_STEPS, EF_STEPS, R = 4, 2, 2, 4
 
 
 def _cfg(arch):
@@ -138,7 +138,7 @@ def _init_once():
     a copy of them (the loop donates its parameters), so the JAX runs
     start from the weights written for the port."""
     params = {arch: JT.init_params(_cfg(arch), seed=0)
-              for arch in (ARCH, MOE, ATTN)}
+              for arch in (ARCH, MOE, ATTN, SSD)}
     JT.init_params = lambda cfg, seed=0: jax.tree.map(jnp.copy,
                                                       params[cfg.name])
     return params
@@ -151,13 +151,14 @@ def main(out_dir):
         inputs.update(_flat(params, f"w/{arch}/"))
     _write(out_dir, "inputs.npz", inputs)
     ref = _error_feedback(grads)
-    ref["loss/ffn"] = _losses(ARCH, SHAPE, STEPS)
-    ref["loss/attn"] = _losses(ATTN, SHAPE, STEPS)
-    for case, arch in (("ffn", ARCH), ("attn", ATTN)):
+    for case, arch, steps in (("ffn", ARCH, STEPS), ("attn", ATTN, STEPS),
+                              ("moe", MOE, MOE_STEPS),
+                              ("ssd", SSD, MOE_STEPS)):
+        ref[f"loss/{case}"] = _losses(arch, SHAPE, steps)
         ref.update({f"grad/{case}/{k}": v
                     for k, v in _grads0(arch, SHAPE).items()})
     ref["loss/small"], _ = _step0(ARCH, SMALL)
-    ref["loss/moe"], ref["aux/moe"] = _step0(MOE, SHAPE)
+    _, ref["aux/moe"] = _step0(MOE, SHAPE)
     _write(out_dir, "reference.npz", ref)
 
 

@@ -17,22 +17,29 @@ runs (and the same runs in float64, for the floors below) and a one-rank
   ``smat-ffn-1.3b:smoke`` on ``(1, 4)`` (2 kv heads: ``wk``/``wv`` stay
   whole) and ``(2, 2)``, ``smat-attn-1.3b:smoke`` and ``minitron-4b:smoke``
   (a dense FFN, and two variants whose heads, hidden or vocab the axis
-  does not divide) on ``(1, 4)``, float32, 4 steps, against the
-  unsharded run: losses within 1e-5 relative; step-0 gradients, gathered
-  over ``model``, within 1e-6 x max|grad| plus the leaf's float32 floor
-  (the unsharded float32 gradient's distance from the float64 one: up to
-  2e-6 x max on ``wk``/``wq``, where the heads' partial sums meet in
-  another order); the final parameters within 1e-5 x max plus twice their
-  float64 floor (AdamW turns float32 noise in a near-zero gradient into a
-  step-sized difference); against the JAX loop's losses (1e-5) and
-  ``jax.grad`` (1e-6 x max plus twice the floor); per rank, the gathered
-  shapes (1/model of the head-, hidden- and vocab-split leaves), B1/B2 on
-  1/model of the tokens and B5 and the batched products on 1/model of the
-  heads, with the unsharded step's number of calls; the collectives and
-  their backwards against their definitions, and which leaves split;
-* ``(1, 4)`` with ``deepseek-v2-lite-16b:smoke`` (``mla_moe``, whose
-  compute stays replicated over ``model``): losses, step-0 gradients and
-  the final checkpoint (parameters and AdamW state) bit-equal to the
+  does not divide) on ``(1, 4)``, float32, 4 steps;
+  ``deepseek-v2-lite-16b:smoke`` (``mla_moe``: MLA's heads, the routed
+  experts over ``model``, the shared experts' hidden columns) on ``(1,
+  4)`` and ``(2, 2)``, ``mamba2-1.3b:smoke`` (``ssd``, under
+  ``remat="full"``), ``deepseek-v2-236b:smoke`` (a ``q_lora_rank``) and two
+  MoE variants whose routed bank stays whole (6 experts; the ``einsum``
+  dispatch) on ``(1, 4)``, 2 steps; against the unsharded run: losses
+  within 1e-5 relative; step-0 gradients, gathered over ``model``, within
+  1e-6 x max|grad| plus the leaf's float32 floor (the unsharded float32
+  gradient's distance from the float64 one: up to 2e-6 x max on
+  ``wk``/``wq``, where the heads' partial sums meet in another order);
+  the MoE load-balance loss within 1e-6 at step 0; the final parameters
+  within 1e-5 x max plus twice their float64 floor (AdamW turns float32
+  noise in a near-zero gradient into a step-sized difference); against
+  the JAX loop's losses (1e-5) and ``jax.grad`` (1e-6 x max plus twice
+  the floor); per rank, the gathered shapes (1/model of the head-,
+  hidden-, expert- and vocab-split leaves), B1/B2 on 1/model of the tokens
+  and B5 and the batched products on 1/model of the heads, with the
+  unsharded step's number of calls; the collectives and their backwards
+  against their definitions, and which leaves split;
+* ``(1, 4)`` with ``gemma2-27b:smoke`` (``gemma_pair``, whose compute
+  stays replicated over ``model``): losses, step-0 gradients and the
+  final checkpoint (parameters and AdamW state) bit-equal to the
   unsharded run's, the checkpoint byte for byte; the one-rank ``(1, 1)``
   mesh's losses bit-equal too;
 * ``(2, 2, 1)`` (pod, data, model) and ``(4, 1)``, data-parallel only:
@@ -40,7 +47,8 @@ runs (and the same runs in float64, for the floors below) and a one-rank
   group within 1e-6 x max|grad|;
 * storage: each rank's bytes of every parameter, buffer, AdamW leaf and
   batch leaf equal ``launch.dryrun``'s per-device bytes at that mesh
-  (``_cell_leaves``, which divides by ``_per_device_bytes``);
+  (``_cell_leaves``, which divides by ``_per_device_bytes``), for the
+  ``smat-ffn-1.3b`` meshes and the split MoE;
 * ``deepseek-v2-lite-16b:smoke`` on ``(4, 1)``: loss and MoE ``aux_loss``
   within 1e-5 (the global means of ``lm_loss`` and ``moe._route``);
 * a batch of 2 on ``(4, 1)``: the data axes do not divide it, so it is
@@ -54,9 +62,9 @@ runs (and the same runs in float64, for the floors below) and a one-rank
 * against the JAX package, within 1e-4 (the ROADMAP's tolerance for model
   loss: the packages sum in float32 in different orders): the JAX loop's
   losses for the ``smat-ffn-1.3b`` cases on 4 x 32 tokens and the
-  one-rank mesh; JAX's ``train_loss`` at step 0 for the undivided batch
-  and the MoE (its ``aux_loss`` too), whose later steps the unsharded
-  port holds;
+  one-rank mesh, and for the MoE on ``(4, 1)`` (its step-0 ``aux_loss``
+  too); JAX's ``train_loss`` at step 0 for the undivided batch, whose
+  later steps the unsharded port holds;
 * ``optim.compress``: two error-feedback steps over a ``("data",)`` mesh of
   the 4 ranks against ``jax.vmap(..., axis_name="data")`` over R = 4
   simulated ranks: residuals bit-equal, the summed ``g_hat`` within 1e-6 x
@@ -103,28 +111,48 @@ from repro_torch.train import loop
 ARCH, MOE = "smat-ffn-1.3b:smoke", "deepseek-v2-lite-16b:smoke"
 ATTN = "smat-attn-1.3b:smoke"
 DENSE = "minitron-4b:smoke"                # a dense FFN
+SSD = "mamba2-1.3b:smoke"
+DS236 = "deepseek-v2-236b:smoke"           # MLA with a q_lora_rank
+GEMMA = "gemma2-27b:smoke"                 # gemma_pair: compute replicated
 SHAPE = ShapeCell("t", "train", 32, 4)
 SMALL = ShapeCell("t", "train", 32, 2)    # (4, 1) does not divide it
 STEPS, MOE_STEPS, EF_STEPS = 4, 2, 2
 MESHES = ((1, 4), (2, 2), (4, 1))
 DATA_MESHES = ((2, 2, 1), (4, 1))         # model = 1: data-parallel only
-# the runs whose compute splits over ``model``: (case, arch, mesh)
+# the runs whose compute splits over ``model`` and the JAX package holds
+# too: (case, arch, mesh)
 SPLIT = (("ffn1x4", ARCH, (1, 4)), ("ffn2x2", ARCH, (2, 2)),
-         ("attn1x4", ATTN, (1, 4)))
+         ("attn1x4", ATTN, (1, 4)), ("moe1x4", MOE, (1, 4)),
+         ("moe2x2", MOE, (2, 2)), ("ssd1x4", SSD, (1, 4)))
 # the fit rule's other side: a dim the model axis does not divide stays
 # replicated (6 heads: attention whole on every rank; d_ff 258: the dense
 # FFN token-wise on the rank's positions; vocab 514: embedding and loss on
-# the rank's positions)
+# the rank's positions; 6 experts: the routed bank whole on every rank);
+# the einsum dispatch keeps the bank whole too (the JAX package constrains
+# nothing in it)
 HEADS6 = DENSE + "/heads6"
 VOCAB514 = DENSE + "/vocab514"
+EXPERTS6 = MOE + "/experts6"
+EINSUM = MOE + "/einsum"
 VARIANTS = {"heads6": {"n_heads": 6, "d_ff": 258}, "vocab514":
-            {"vocab_size": 514}}
-# no JAX reference for these
-SPLIT_ALL = SPLIT + (("dense1x4", DENSE, (1, 4)),
-                     ("heads61x4", HEADS6, (1, 4)),
-                     ("vocab5141x4", VOCAB514, (1, 4)))
+            {"vocab_size": 514}, "experts6": {"n_experts": 6},
+            "einsum": {"moe_dispatch": "einsum"}}
+# every split run (no JAX reference for the others); new cases go last, as
+# a case's place in the list is part of its test's id
+SPLIT_ALL = SPLIT[:3] + (("dense1x4", DENSE, (1, 4)),
+                         ("heads61x4", HEADS6, (1, 4)),
+                         ("vocab5141x4", VOCAB514, (1, 4))) + SPLIT[3:] + (
+    ("ds2361x4", DS236, (1, 4)), ("experts61x4", EXPERTS6, (1, 4)),
+    ("einsum1x4", EINSUM, (1, 4)))
+# the runs whose final parameters are held (and run in float64 for that)
+FINAL = SPLIT_ALL[:4]
 REFS = {"ffn": ARCH, "attn": ATTN, "dense": DENSE, "heads6": HEADS6,
-        "vocab514": VOCAB514}
+        "vocab514": VOCAB514, "moe": MOE, "ssd": SSD, "ds236": DS236,
+        "experts6": EXPERTS6, "einsum": EINSUM}
+# the MLA/MoE and SSD runs train MOE_STEPS steps, the SSD run under
+# remat="full" (the collectives run again in the backward's recompute)
+SHORT = ("moe", "ssd", "ds236", "experts6", "einsum")
+REMAT = {"ssd": "full"}
 WORLD = 4
 SPAWN_TIMEOUT_S = 300      # the group takes about 25 s
 JAX_TOL = 1e-4
@@ -133,16 +161,26 @@ TESTS = Path(__file__).resolve().parent
 
 def _cfg(arch):
     """``arch``'s config in float32 (``<arch>/<variant>``: with VARIANTS'
-    fields replaced)."""
+    fields replaced, and named so: the JAX weights are the base arch's)."""
     base, _, variant = arch.partition("/")
-    return dataclasses.replace(get_config(base), dtype="float32",
+    return dataclasses.replace(get_config(base), dtype="float32", name=arch,
                                **VARIANTS.get(variant, {}))
 
 
-def _kw(steps=STEPS):
-    return dict(total_steps=steps, ckpt_every=2,
+def _kw(steps=STEPS, remat="none"):
+    return dict(total_steps=steps, ckpt_every=2, remat=remat,
                 opt_cfg=adamw.AdamWConfig(lr=1e-3, total_steps=steps,
                                           warmup_steps=1))
+
+
+def _steps(key):
+    """The steps the REFS key ``key``'s runs train."""
+    return MOE_STEPS if key in SHORT else STEPS
+
+
+def _key_kw(key):
+    """``_kw`` of the mesh runs of the REFS key ``key``."""
+    return _kw(_steps(key), REMAT.get(key, "none"))
 
 
 def _mesh(shape):
@@ -289,21 +327,23 @@ def _storage_and_grads(mesh, cfg):
                                                 remat="none")
     split = sorted(n for n, g in grads.items() if hasattr(g, "to_local"))
     return {"held": held, "want": want, "loss0": float(metrics["loss"]),
+            "aux0": float(metrics["aux_loss"]),
             "grads": sh.full(grads), "split": split, "widths": widths,
             "shapes": shapes,
             "model_index": mesh_lib.model_group(mesh)[1],
             "batch_rows": sh.local(batch)["tokens"].shape[0]}
 
 
-def _case_run(name, arch, shape, out_dir, steps=STEPS):
-    """Step-0 storage and gradients on ``shape``, then ``steps`` steps of
-    ``loop.train`` checkpointed under ``out_dir/ckpt_<name>``."""
+def _case_run(name, arch, shape, out_dir, kw=None):
+    """Step-0 storage and gradients on ``shape``, then ``loop.train``
+    (``kw``, default ``_kw()``) checkpointed under
+    ``out_dir/ckpt_<name>``."""
     mesh = _mesh(shape)
     cfg = _cfg(arch)
     out = _storage_and_grads(mesh, cfg)
     ckpt = f"{out_dir}/ckpt_{name}"
     out["result"] = dataclasses.asdict(
-        loop.train(cfg, SHAPE, mesh, ckpt_dir=ckpt, **_kw(steps)))
+        loop.train(cfg, SHAPE, mesh, ckpt_dir=ckpt, **(kw or _kw())))
     return out
 
 
@@ -410,10 +450,11 @@ def _case_error_feedback(grads):
 CASES = {**{f"ffn{_name(m)}": (
     lambda o, m=m: _case_run(f"ffn{_name(m)}", ARCH, m, o))
     for m in MESHES + DATA_MESHES},
-         "attn1x4": lambda o: _case_run("attn1x4", ATTN, (1, 4), o),
-         **{c: (lambda o, c=c, a=a: _case_run(c, a, (1, 4), o))
-            for c, a, _ in SPLIT_ALL[3:]},
-         "moe1x4": lambda o: _case_run("moe1x4", MOE, (1, 4), o, MOE_STEPS),
+         **{c: (lambda o, c=c, a=a, m=m: _case_run(c, a, m, o,
+                                                   _key_kw(c[:-3])))
+            for c, a, m in SPLIT_ALL[2:]},
+         "gemma1x4": lambda o: _case_run("gemma1x4", GEMMA, (1, 4), o,
+                                         _kw(MOE_STEPS)),
          "collectives": _case_collectives,
          "moe": _case_moe, "undivided": _case_undivided,
          "elastic": _case_elastic}
@@ -465,31 +506,34 @@ def _step0(cfg, dtype=None):
     if dtype is not None:
         model = model.to(dtype)
     with _widths() as widths:
-        loss, _ = T.train_loss(cfg, model, _batch(cfg, SHAPE), remat="none")
+        loss, parts = T.train_loss(cfg, model, _batch(cfg, SHAPE),
+                                   remat="none")
         loss.backward()
     return {"loss0": float(loss.detach()), "widths": widths,
+            "aux0": float(parts["aux_loss"].detach()),
             "grads": {n: p.grad for n, p in model.named_parameters()}}
 
 
 def _unsharded(tmp):
     cfg = _cfg(ARCH)
+    final = {c[:-3] for c, _, _ in FINAL}
     return {**{f"{k}0": _step0(_cfg(a)) for k, a in REFS.items()},
-            "moe0": _step0(_cfg(MOE)),
+            "gemma0": _step0(_cfg(GEMMA)),
             # the same steps in float64 (the attention core computes in
             # float32 either way): each leaf's float32 rounding floor
             "f64": {k: _step0(_cfg(a), torch.float64)["grads"]
                     for k, a in REFS.items()},
             **{k: loop.train(_cfg(a), SHAPE, device="cpu",
-                             ckpt_dir=f"{tmp}/ckpt_ref_{k}", **_kw())
+                             ckpt_dir=f"{tmp}/ckpt_ref_{k}", **_kw(_steps(k)))
                for k, a in REFS.items()},
             # the same runs in float64: the final parameters' floor
             **{f"{k}64": loop.train(
-                dataclasses.replace(_cfg(a), dtype="float64"), SHAPE,
+                dataclasses.replace(_cfg(REFS[k]), dtype="float64"), SHAPE,
                 device="cpu", ckpt_dir=f"{tmp}/ckpt_ref64_{k}", **_kw())
-               for k, a in REFS.items()},
-            "moe": loop.train(_cfg(MOE), SHAPE, device="cpu",
-                              ckpt_dir=f"{tmp}/ckpt_ref_moe",
-                              **_kw(MOE_STEPS)),
+               for k in final},
+            "gemma": loop.train(_cfg(GEMMA), SHAPE, device="cpu",
+                                ckpt_dir=f"{tmp}/ckpt_ref_gemma",
+                                **_kw(MOE_STEPS)),
             "small": loop.train(cfg, SMALL, device="cpu", **_kw())}
 
 
@@ -538,18 +582,19 @@ def _spawn_and_reference():
             if jax_proc.poll() is None:
                 jax_proc.kill()
         got = [torch.load(f"{tmp}/rank{r}.pt") for r in range(WORLD)]
-        last = {"ckpt_ref_moe": MOE_STEPS, "ckpt_moe1x4": MOE_STEPS}
+        last = {"ckpt_ref_gemma": MOE_STEPS, "ckpt_gemma1x4": MOE_STEPS}
+        final = [c for c, _, _ in FINAL]
         ckpts = {name: {f: (Path(tmp) / name /
                             f"step_{last.get(name, STEPS):08d}" / f)
                         .read_bytes() for f in ("arrays.npz",
                                                 "manifest.json")}
-                 for name in (*(f"ckpt_ref_{k}" for k in REFS),
-                              *(f"ckpt_ref64_{k}" for k in REFS),
-                              "ckpt_ref_moe",
-                              *(f"ckpt_{c}" for c, _, _ in SPLIT_ALL),
-                              "ckpt_moe1x4")}
+                 for name in (*(f"ckpt_ref_{c[:-3]}" for c in final),
+                              *(f"ckpt_ref64_{c[:-3]}" for c in final),
+                              *(f"ckpt_{c}" for c in final),
+                              "ckpt_ref_gemma", "ckpt_gemma1x4")}
         steps = {name: sorted(os.listdir(Path(tmp) / name))
-                 for name in ("ckpt_ref_moe", "ckpt_moe1x4", "elastic")}
+                 for name in ("ckpt_ref_gemma", "ckpt_gemma1x4",
+                              "elastic")}
     return got, ref, ckpts, steps, jax_ref
 
 
@@ -572,22 +617,23 @@ def _same_result(got):
 
 
 def test_one_data_rank_is_bit_equal_to_unsharded(ranks):
-    """``deepseek-v2-lite-16b:smoke`` (``mla_moe``, whose compute stays
+    """``gemma2-27b:smoke`` (``gemma_pair``, whose compute stays
     replicated over ``model``) on ``(1, 4)``: one data rank, so every step
     is the unsharded one, bit for bit."""
     got, ref, ckpts, steps, _ = ranks
-    case = _case(got, "moe1x4")
+    case = _case(got, "gemma1x4")
     res = _same_result(case)
-    assert res["losses"] == ref["moe"].losses
-    assert res["aux_losses"] == ref["moe"].aux_losses
-    assert case[0]["loss0"] == ref["moe0"]["loss0"]
+    assert res["losses"] == ref["gemma"].losses
+    assert res["aux_losses"] == ref["gemma"].aux_losses
+    assert case[0]["loss0"] == ref["gemma0"]["loss0"]
     assert case[0]["split"] == []
-    for name, want in ref["moe0"]["grads"].items():
+    for name, want in ref["gemma0"]["grads"].items():
         assert torch.equal(case[0]["grads"][name], want), name
     # the final parameters and AdamW state, written on the mesh: the same
     # bytes as the unsharded run's checkpoint at the same step
-    assert steps["ckpt_moe1x4"] == steps["ckpt_ref_moe"] == ["step_00000002"]
-    assert ckpts["ckpt_moe1x4"] == ckpts["ckpt_ref_moe"]
+    assert steps["ckpt_gemma1x4"] == steps["ckpt_ref_gemma"] == \
+        ["step_00000002"]
+    assert ckpts["ckpt_gemma1x4"] == ckpts["ckpt_ref_gemma"]
 
 
 def test_model_axis_of_one_is_bit_equal_to_unsharded(ranks):
@@ -640,6 +686,11 @@ def test_split_step0_gradients_match_unsharded(ranks, case, arch, mesh):
     (the split sums the heads' and ranks' partial products in another
     order; on ``wk``/``wq`` the floor reads up to 2e-6 x max)."""
     got, want, ref, _, _, key = _split_case(ranks, case)
+    if _cfg(arch).layout == "mla_moe":
+        # replicated compute whose gradient a rank could count m times
+        assert {f"blocks.{i}.{n}" for i in (0, 1) for n in (
+            "moe.router", "ln2", "mla.kv_norm", "mla.wkv_a")} <= \
+            set(want["grads"])
     for name, g in want["grads"].items():
         tol = _grad_tol(g, ref["f64"][key][name])
         for r, c in enumerate(got):
@@ -647,7 +698,7 @@ def test_split_step0_gradients_match_unsharded(ranks, case, arch, mesh):
             assert diff <= tol, (case, r, name, diff, tol)
 
 
-@pytest.mark.parametrize("case,arch,mesh", SPLIT_ALL[:4])
+@pytest.mark.parametrize("case,arch,mesh", FINAL)
 def test_split_final_parameters_match_unsharded(ranks, case, arch, mesh):
     """The parameters after 4 steps, written on the mesh, against the
     unsharded run's at the same step: within 1e-5 x max|param| plus twice
@@ -675,11 +726,22 @@ def test_split_final_parameters_match_unsharded(ranks, case, arch, mesh):
         assert diff <= tol, (case, k, diff, tol)
 
 
+# the cases whose unsharded float32 gradient itself stands at or past the
+# bound below from JAX's (SSD: 0.8-1.1 of it on the mixer's leaves, the
+# depthwise conv weight 3.5e-7 against 3.1e-7; the packages sum its
+# gradient over the batch and positions in other orders): their split is
+# held to the unsharded port's distance from JAX plus its own tolerance
+# against the unsharded port, and that distance to 1e-5 x max|grad|
+JAX_FROM_UNSHARDED = ("ssd",)
+
+
 @pytest.mark.parametrize("case,arch,mesh", SPLIT)
 def test_split_matches_jax_loop(ranks, case, arch, mesh):
-    """Against the JAX package: the 4 losses of its loop (1e-5 relative),
+    """Against the JAX package: the losses of its loop (1e-5 relative),
     and ``jax.grad`` at step 0 within 1e-6 x max|grad| plus twice the
-    leaf's float32 floor (each package rounds on its own)."""
+    leaf's float32 floor (each package rounds on its own;
+    JAX_FROM_UNSHARDED's cases: the unsharded port's distance from JAX
+    plus 1e-6 x max|grad| and the floor once)."""
     got, want, ref, _, jax_ref, key = _split_case(ranks, case)
     _close(_same_result(got)["losses"], jax_ref[f"loss/{key}"])
     for name, g in want["grads"].items():
@@ -689,19 +751,52 @@ def test_split_matches_jax_loop(ranks, case, arch, mesh):
             j = torch.from_numpy(j[int(path[1])])
         else:
             j = torch.from_numpy(jax_ref[f"grad/{key}/{name}"])
-        tol = 1e-6 * j.abs().max().item() + \
-            2 * (g.double() - ref["f64"][key][name]).abs().max().item()
+        floor = (g.double() - ref["f64"][key][name]).abs().max().item()
+        tol = 1e-6 * j.abs().max().item() + 2 * floor
+        if key in JAX_FROM_UNSHARDED:
+            off = (g - j).abs().max().item()
+            assert off <= 1e-5 * j.abs().max().item(), (key, name, off)
+            tol += off - floor
         diff = (got[0]["grads"][name] - j).abs().max().item()
         assert diff <= tol, (case, name, diff, tol)
 
 
+def _mla_moe_split(cfg, m):
+    """The shapes of an ``mla_moe`` model's ``model``-split leaves a rank
+    holds: MLA's per-head projections (1/m of the heads), the routed bank
+    (1/m of the experts; ``gather`` dispatch) and the shared experts (1/m
+    of their hidden columns), each where ``m`` divides its dim."""
+    D, H, E = cfg.d_model, cfg.n_heads, cfg.n_experts
+    nope, rope, vd, r = (cfg.nope_head_dim, cfg.rope_head_dim,
+                         cfg.v_head_dim, cfg.kv_lora_rank)
+    fe, fs = cfg.expert_d_ff, cfg.expert_d_ff * cfg.n_shared_experts
+    out = {}
+    for i in range(cfg.n_layers):
+        a, e = f"blocks.{i}.mla.", f"blocks.{i}.moe."
+        if H % m == 0:
+            q = "wq_b" if cfg.q_lora_rank else "wq"
+            out.update({a + q: (cfg.q_lora_rank or D, H * (nope + rope) // m),
+                        a + "wkv_b": (r, H * (nope + vd) // m),
+                        a + "wo": (H * vd // m, D)})
+        if E % m == 0 and cfg.moe_dispatch == "gather":
+            out.update({e + "w_gate": (E // m, D, fe),
+                        e + "w_up": (E // m, D, fe),
+                        e + "w_down": (E // m, fe, D)})
+        if fs % m == 0:
+            out.update({e + "shared.w_gate": (D, fs // m),
+                        e + "shared.w_up": (D, fs // m),
+                        e + "shared.w_down": (fs // m, D)})
+    return out
+
+
 @pytest.mark.parametrize("case,arch,mesh", SPLIT_ALL)
 def test_split_rank_shapes_and_widths(ranks, case, arch, mesh):
-    """Each rank holds 1/model of every head-, hidden- and vocab-split
-    weight (``wk``/``wv`` whole where the axis does not divide the kv
-    heads), runs the unsharded step's kernel calls, the FFN's B1/B2 on
-    1/model of the tokens, B5 and the attention backward's batched
-    products on 1/model of the heads."""
+    """Each rank holds 1/model of every head-, hidden-, expert- and
+    vocab-split weight (``wk``/``wv`` whole where the axis does not divide
+    the kv heads; the routed bank whole where it does not divide the
+    experts or the dispatch is ``einsum``), runs the unsharded step's
+    kernel calls, the FFN's B1/B2 on 1/model of the tokens, B5 and the
+    attention backward's batched products on 1/model of the heads."""
     got, want, _, _, _, _ = _split_case(ranks, case)
     cfg = _cfg(arch)
     m = mesh[1]
@@ -710,7 +805,9 @@ def test_split_rank_shapes_and_widths(ranks, case, arch, mesh):
     split = {}
     if V % m == 0:
         split.update({"embed": (V // m, D), "lm_head": (D, V // m)})
-    heads = H % m == 0
+    if cfg.layout == "mla_moe":
+        split.update(_mla_moe_split(cfg, m))
+    heads = cfg.layout == "attn_mlp" and H % m == 0
     kv = heads and KV % m == 0
     for i in range(cfg.n_layers * heads):
         a = f"blocks.{i}.attn."
@@ -723,7 +820,8 @@ def test_split_rank_shapes_and_widths(ranks, case, arch, mesh):
             if kv:
                 split.update({a + "bk": (KV * hd // m,),
                               a + "bv": (KV * hd // m,)})
-    for i in range(cfg.n_layers * (cfg.ffn_sparsity is None and F % m == 0)):
+    dense = cfg.layout == "attn_mlp" and cfg.ffn_sparsity is None
+    for i in range(cfg.n_layers * (dense and F % m == 0)):
         f = f"blocks.{i}.mlp."
         split.update({f + "w_gate": (D, F // m), f + "w_up": (D, F // m),
                       f + "w_down": (F // m, D)})
@@ -733,7 +831,7 @@ def test_split_rank_shapes_and_widths(ranks, case, arch, mesh):
         shapes = {**{n: tuple(g.shape) for n, g in want["grads"].items()},
                   **split}
         assert c["shapes"] == shapes, r
-        if not kv:
+        if cfg.layout == "attn_mlp" and not kv:
             assert c["shapes"]["blocks.0.attn.wk"] == (D, KV * hd)
         rows = c["batch_rows"]
         tokens = rows * SHAPE.seq_len // m
@@ -757,6 +855,32 @@ def test_rank_bytes_equal_the_dryrun_per_device_bytes(ranks, mesh):
         # the embedding (model, data) is cut in four on every mesh here
         assert 4 * case["held"]["params.embed"] == \
             cfg.vocab_size * cfg.d_model * 4
+
+
+@pytest.mark.parametrize("case", ["moe1x4", "moe2x2"])
+def test_split_moe_rank_bytes_equal_the_dryrun_per_device_bytes(ranks,
+                                                                 case):
+    got, _, _, _, _ = ranks
+    cfg = _cfg(MOE)
+    for r, c in enumerate(_case(got, case)):
+        assert c["held"] == c["want"], (case, r)
+        # the routed bank (model, data): a quarter of it on every rank
+        assert 4 * c["held"]["params.blocks.0.moe.w_gate"] == \
+            cfg.n_experts * cfg.d_model * cfg.expert_d_ff * 4
+
+
+@pytest.mark.parametrize("case,arch,mesh", [
+    c for c in SPLIT_ALL if _cfg(c[1]).layout == "mla_moe"])
+def test_split_aux_loss_matches_unsharded(ranks, case, arch, mesh):
+    """The MoE load-balance loss under the split: every rank routes the
+    whole sequence and counts its positions' share, the shares summed over
+    the model group; at step 0 within 1e-6 of the unsharded value, and
+    over the loop's steps within 1e-5 relative."""
+    got, want, ref, _, _, key = _split_case(ranks, case)
+    assert want["aux0"] > 0
+    for r, c in enumerate(got):
+        assert abs(c["aux0"] - want["aux0"]) <= 1e-6, (case, r, c["aux0"])
+    _close(_same_result(got)["aux_losses"], ref[key].aux_losses)
 
 
 def test_moe_global_aux_loss_matches_unsharded(ranks):
@@ -809,14 +933,14 @@ def test_one_rank_gloo_mesh_loop_matches_jax_loop(ranks):
 def test_mesh_losses_match_jax_loop(ranks, case, want, first):
     """Each 4-rank case's losses against the JAX loop's on a ``(1, 1)``
     mesh from step ``first`` (where the elastic run resumes); the
-    undivided and MoE cases' step-0 loss (and ``aux_loss``) against JAX's
-    ``train_loss`` (their later steps are held against the unsharded port
-    above)."""
+    undivided case's step-0 loss against JAX's ``train_loss`` (its later
+    steps are held against the unsharded port above), and the MoE case's
+    step-0 ``aux_loss`` too."""
     got, _, _, _, jax_ref = ranks
     res = _same_result(_case(got, case))
     want_losses = jax_ref[f"loss/{want}"][first:]
     n = len(want_losses)
-    assert n == (1 if case in ("undivided", "moe") else len(res["losses"]))
+    assert n == (1 if case == "undivided" else len(res["losses"]))
     np.testing.assert_allclose(res["losses"][:n], want_losses, rtol=JAX_TOL,
                                atol=JAX_TOL)
     if case == "moe":
@@ -872,33 +996,76 @@ def test_split_max_and_bf16_sums(ranks):
         assert case["no_split"] == (None, True)
 
 
+_MLA_MOE = {"mla.wq", "mla.wkv_b", "mla.wo", "moe.w_gate", "moe.w_up",
+            "moe.w_down", "moe.shared.w_gate", "moe.shared.w_up",
+            "moe.shared.w_down"}
+
+
 @pytest.mark.parametrize("arch,shape,seq,want", [
-    (ARCH, (1, 4), 32, {"embed", "lm_head", "wq", "wo"}),
-    (ARCH, (2, 2), 32, {"embed", "lm_head", "wq", "wo", "wk", "wv"}),
-    (ATTN, (4, 2), 64, {"embed", "lm_head", "wq", "wo", "wk", "wv"}),
-    (DENSE, (1, 4), 32, {"embed", "lm_head", "wq", "wo", "w_gate", "w_up",
-                         "w_down"}),
-    ("qwen2.5-14b:smoke", (1, 2), 32, {"embed", "lm_head", "wq", "wo", "wk",
-                                       "wv", "bq", "bk", "bv", "w_gate",
-                                       "w_up", "w_down"}),
+    (ARCH, (1, 4), 32, {"embed", "lm_head", "attn.wq", "attn.wo"}),
+    (ARCH, (2, 2), 32, {"embed", "lm_head", "attn.wq", "attn.wo", "attn.wk",
+                        "attn.wv"}),
+    (ATTN, (4, 2), 64, {"embed", "lm_head", "attn.wq", "attn.wo", "attn.wk",
+                        "attn.wv"}),
+    (DENSE, (1, 4), 32, {"embed", "lm_head", "attn.wq", "attn.wo",
+                         "mlp.w_gate", "mlp.w_up", "mlp.w_down"}),
+    ("qwen2.5-14b:smoke", (1, 2), 32, {
+        "embed", "lm_head", "attn.wq", "attn.wo", "attn.wk", "attn.wv",
+        "attn.bq", "attn.bk", "attn.bv", "mlp.w_gate", "mlp.w_up",
+        "mlp.w_down"}),
     (ARCH, (4, 1), 32, set()),          # model = 1
     (ARCH, (1, 4), 30, set()),          # the axis does not divide L
-    (MOE, (1, 4), 32, set()),           # mla_moe: replicated compute
-    ("mamba2-1.3b:smoke", (1, 4), 32, set()),
+    # mla_moe: MLA's heads, the routed bank (EP), the shared experts
+    (MOE, (1, 4), 32, {"embed", "lm_head"} | _MLA_MOE),
+    # ssd: the vocab only (the mixer's leaves stay replicated)
+    ("mamba2-1.3b:smoke", (1, 4), 32, {"embed", "lm_head"}),
     ("musicgen-medium:smoke", (1, 4), 32, set()),   # codebooks
 ])
 def test_split_leaves_follow_the_fit_rule(arch, shape, seq, want):
-    """The leaves the mesh step computes on their ``model`` shard, by leaf
-    name, on an abstract mesh (no process group)."""
-    cfg = get_config(arch)
+    """The leaves the mesh step computes on their ``model`` shard, by
+    module and leaf name (``blocks.<i>.`` dropped), on an abstract mesh
+    (no process group)."""
+    names = _split_names(arch, shape, seq)
+    assert {n.split(".", 2)[-1] if n.startswith("blocks.") else n
+            for n in names} == want
+    per_layer = len(want - {"embed", "lm_head"})
+    assert len(names) == len(want & {"embed", "lm_head"}) + \
+        per_layer * get_config(arch).n_layers
+
+
+def _split_names(arch, shape, seq):
+    base, _, variant = arch.partition("/")
+    cfg = dataclasses.replace(get_config(base), **VARIANTS.get(variant, {}))
     mesh = mesh_lib.make_abstract_mesh(shape, ("data", "model"))
     specs = sh.param_shardings(mesh, T.flat_specs(T.param_specs(
         cfg, device="meta")))
-    names = st.split_leaves(cfg, mesh, specs, seq)
-    assert {n.rsplit(".", 1)[-1] for n in names} == want
-    per_layer = len(want - {"embed", "lm_head"})
-    assert len(names) == len(want & {"embed", "lm_head"}) + \
-        per_layer * cfg.n_layers
+    return st.split_leaves(cfg, mesh, specs, seq)
+
+
+@pytest.mark.parametrize("arch,shape,want", [
+    # a q_lora_rank: wq_b splits, wq_a and q_norm stay replicated
+    (DS236, (1, 4), {"embed", "lm_head", "mla.wq_b", "mla.wkv_b", "mla.wo",
+                     "moe.w_gate", "moe.w_up", "moe.w_down",
+                     "moe.shared.w_gate", "moe.shared.w_up",
+                     "moe.shared.w_down"}),
+    # 6 experts on 4: the bank whole; the einsum dispatch: the bank whole
+    (EXPERTS6, (1, 4), {"embed", "lm_head"} | _MLA_MOE - {
+        "moe.w_gate", "moe.w_up", "moe.w_down"}),
+    (EINSUM, (2, 2), {"embed", "lm_head"} | _MLA_MOE - {
+        "moe.w_gate", "moe.w_up", "moe.w_down"}),
+    # 4 heads and 4 experts on 8: MLA and the bank whole; the shared
+    # experts' 64 hidden columns split
+    (MOE, (1, 8), {"embed", "lm_head", "moe.shared.w_gate",
+                   "moe.shared.w_up", "moe.shared.w_down"}),
+])
+def test_split_leaves_of_mla_moe_follow_the_fit_rule(arch, shape, want):
+    """The path keys tell the routed bank (``moe.w_gate`` [E, D, F]: split
+    over its experts) from the shared experts' ``shared.w_gate`` (its
+    hidden columns) and the dense FFN's ``mlp.w_gate``, and each splits
+    only where the ``model`` axis divides its dim."""
+    names = _split_names(arch, shape, 32)
+    assert {n.split(".", 2)[-1] if n.startswith("blocks.") else n
+            for n in names} == want
 
 
 def test_error_feedback_over_four_ranks_matches_jax(ranks):
