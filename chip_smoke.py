@@ -4339,13 +4339,15 @@ MOE_ARCH, SSD_ARCH = "deepseek-v2-lite-16b", "mamba2-1.3b"
 # deepseek-v2-lite-16b at 2 of its 27 (1.59 B parameters, as
 # [moe-train]), mamba2-1.3b at 4 of its 48 under remat="full" (its
 # training default on the card: the collectives run again in the
-# backward's recompute)
+# backward's recompute).  The MLA/MoE and SSD runs' losses are held to
+# 1e-3: near initialisation a wrong split moves the loss little, and
+# their bf16 gap from the one-rank mesh reads under 1e-4
 TP_RUNS = (("ffn", "smat-ffn-1.3b", 8, "bfloat16", 3, TRAIN_BATCH, TRAIN_SEQ,
             1e-2, "none"),
            ("attn", ATTN_ARCH, 2, "float32", 2, 1, ATTN_SEQ, 1e-4, "none"),
-           ("moe", MOE_ARCH, 2, "bfloat16", 2, TRAIN_BATCH, TRAIN_SEQ, 1e-2,
+           ("moe", MOE_ARCH, 2, "bfloat16", 2, TRAIN_BATCH, TRAIN_SEQ, 1e-3,
             "none"),
-           ("ssd", SSD_ARCH, 4, "bfloat16", 2, TRAIN_BATCH, TRAIN_SEQ, 1e-2,
+           ("ssd", SSD_ARCH, 4, "bfloat16", 2, TRAIN_BATCH, TRAIN_SEQ, 1e-3,
             "full"))
 # the runs whose path launches B1-B5: their launch tables and halved
 # kernel widths are checked; the others' B1-B5 counters must read 0 and
@@ -4361,6 +4363,9 @@ TP_HALVED = {("", "embed"): 0, ("", "lm_head"): 1,
              ("shared", "w_gate"): 1, ("shared", "w_up"): 1,
              ("shared", "w_down"): 0}
 TP_TIMEOUT_S = 600
+# the MoE aux losses' relative tolerance against the one-rank mesh: bf16
+# noise in the split's sums routes a few tokens otherwise, 3.6e-4 read
+TP_AUX_TOL = 2e-3
 TP_COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor",
                   "all_reduce")
 
@@ -4564,17 +4569,18 @@ def train_tp_phase(smi, runs=TP_RUNS):
     ``train.loop.train(cfg, shape, mesh)`` for each of TP_RUNS.  Each run
     is held against the same run on a one-rank nccl ``(1, 1)`` mesh in
     this process (same depth, seed-0 weights and batches; freed before
-    the spawn): the losses within the run's tolerance and both ranks'
-    losses equal.  TP_KERNEL_RUNS: each rank's launches equal to the
-    one-rank run's and to the path's table (144 B1 + 72 B2 a step at 24
-    layers for the FFN; 240 + 120 + 24 B5 for the attention, scaled by
-    depth), and each rank's widths halved: the FFN's B1/B2 on half the
-    tokens, B5 and the attention backward's batched products on half the
-    heads.  The MLA/MoE and SSD runs: every B1-B5 counter at 0 on both
-    ranks, and each rank computing with half of TP_HALVED's leaves (32 of
-    64 experts, 8 of 16 heads, half the vocab) and the one-rank run's
-    other leaves whole.  Logs per-rank step ms, peak memory and
-    collective calls a step beside the card's name and power limit."""
+    the spawn): the losses within the run's tolerance, the MoE aux losses
+    within TP_AUX_TOL, and both ranks' equal.  TP_KERNEL_RUNS: each rank's
+    launches equal to the one-rank run's and to the path's table (144 B1 +
+    72 B2 a step at 24 layers for the FFN; 240 + 120 + 24 B5 for the
+    attention, scaled by depth), and each rank's widths halved: the FFN's
+    B1/B2 on half the tokens, B5 and the attention backward's batched
+    products on half the heads.  The MLA/MoE and SSD runs: every B1-B5
+    counter at 0 on both ranks, and each rank computing with half of
+    TP_HALVED's leaves (32 of 64 experts, 8 of 16 heads, half the vocab)
+    and the one-rank run's other leaves whole.  Logs per-rank step ms, peak
+    memory and collective calls a step beside the card's name and power
+    limit."""
     from repro_torch.launch import mesh as mesh_lib
     ref = {}
     with _one_rank_nccl():
@@ -4590,7 +4596,11 @@ def train_tp_phase(smi, runs=TP_RUNS):
         one, got = ref[tag], [r["runs"][tag] for r in ranks]
         rel = max(abs(a - b) / abs(b) for a, b in zip(got[0]["losses"],
                                                       one["losses"]))
-        same = all(g["losses"] == got[0]["losses"] for g in got)
+        # the MoE aux losses (0.0 without MoE layers: then equal)
+        aux_ok = all(abs(a - b) <= TP_AUX_TOL * abs(b) for a, b in zip(
+            got[0]["aux_losses"], one["aux_losses"]))
+        same = all(g["losses"] == got[0]["losses"] and
+                   g["aux_losses"] == got[0]["aux_losses"] for g in got)
         log(f"[train-tp] {arch} {tag}: {layers} layers, full width, {dtype}, "
             f"{batch} x {seq} tokens, {steps} steps, remat {remat}, on a "
             f"(1, {TP_RANKS}) mesh of {TP_RANKS} processes on one card "
@@ -4608,8 +4618,9 @@ def train_tp_phase(smi, runs=TP_RUNS):
         log(f"[train-tp] {tag} one-rank mesh: steady {one['step_ms']:.3f} "
             f"ms; peak {one['peak_gb']:.2f} GB; launches {one['launches']}; "
             f"widths {one['widths']}; {smi}")
-        check(rel <= tol and same, f"[train-tp] {tag}: losses differ from "
-              f"the one-rank mesh's ({rel:.3g} > {tol}) or between ranks")
+        check(rel <= tol and aux_ok and same, f"[train-tp] {tag}: losses "
+              f"or aux losses differ from the one-rank mesh's ({rel:.3g} > "
+              f"{tol}; aux {TP_AUX_TOL}) or between ranks")
         if tag in TP_KERNEL_RUNS:
             _tp_check_kernels(run, one, got)
         else:

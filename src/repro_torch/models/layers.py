@@ -309,8 +309,9 @@ def attention(cfg, p, x, *, window=None, cache=None, pos=None,
     model_split``) ``x`` holds this rank's positions and ``p`` its shards:
     the sequence is gathered, q/k/v computed for the rank's heads (k/v
     whole where the axis does not divide the kv heads: projected on the
-    rank's positions and gathered) with rope at global positions, and ``wo``'s row-parallel partial sums reduce-scattered back
-    to the rank's positions."""
+    rank's positions and gathered) with rope at global positions, and
+    ``wo``'s row-parallel partial sums reduce-scattered back to the
+    rank's positions."""
     split = model_split() if cache is None else None
     mine = x                              # this rank's positions
     if split is not None:
@@ -472,32 +473,45 @@ def mla_attention(cfg, p, x, *, cache=None, pos=None, slot_mask=None):
         where ``slot_mask`` [B] is True, when given).
 
     Under a split over ``model`` (training: ``launch.constrain.
-    model_split``) ``x`` holds this rank's positions: ``_split_mla``."""
+    model_split``) ``x`` holds this rank's positions and ``p`` its shards.
+    The latent and the rope key (``wkv_a``, ``kv_norm``; rope at the
+    positions' global indices) are computed on the rank's positions and
+    gathered: the 576-wide latent crosses, not the per-head K/V (the JAX
+    package's choice), and each rank's gradient reaches its positions
+    once.  q is computed on the gathered sequence (with ``q_lora_rank``:
+    the rank's normed ``wq_a`` latent, gathered) for the rank's heads, K/V
+    from its columns of ``wkv_b``; ``wo`` is row-parallel and its partial
+    sums are reduce-scattered back to the rank's positions.  Where the
+    axis does not divide the heads the weights are whole: every rank runs
+    every head on the whole sequence and keeps its positions."""
     split = model_split() if cache is None else None
-    if split is not None:
-        return _split_mla(cfg, p, x, split), None
-    B, L, D = x.shape
+    B, Lm, D = x.shape                    # Lm: this rank's positions
     h = cfg.n_heads
     nope, rope, vd, r = (cfg.nope_head_dim, cfg.rope_head_dim,
                          cfg.v_head_dim, cfg.kv_lora_rank)
-
-    if cfg.q_lora_rank:
-        q = _dense(rms_norm(_dense(x, p.wq_a), p.q_norm), p.wq_b)
-    else:
-        q = _dense(x, p.wq)
-    q = q.reshape(B, L, h, nope + rope)
-    q_nope, q_rope = q[..., :nope], q[..., nope:]
-
-    kv_a = _dense(x, p.wkv_a)                            # [B, L, r + rope]
-    c_kv = rms_norm(kv_a[..., :r], p.kv_norm)
-    k_rope = kv_a[..., r:].reshape(B, L, 1, rope)
-
+    heads = p.wkv_b.shape[-1] // (nope + vd)   # this rank's: h / model
+    L = Lm * split.size if split is not None else Lm
     positions = torch.arange(L, dtype=torch.int64, device=x.device)
     if cache is not None and pos is not None:
         positions = positions + pos
     positions = positions[None, :].expand(B, L)
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
+    first = split.index * Lm if split is not None else 0
+
+    kv_a = _dense(x, p.wkv_a)                           # [B, Lm, r + rope]
+    c_kv = rms_norm(kv_a[..., :r], p.kv_norm)
+    k_rope = apply_rope(kv_a[..., r:].reshape(B, Lm, 1, rope),
+                        positions[:, first:first + Lm], cfg.rope_theta)
+    if cfg.q_lora_rank:
+        q_in, w_q = rms_norm(_dense(x, p.wq_a), p.q_norm), p.wq_b
+    else:
+        q_in, w_q = x, p.wq
+    if split is not None:
+        latent = gather(torch.cat([c_kv, k_rope[:, :, 0]], dim=-1), 1)
+        c_kv, k_rope = latent[..., :r], latent[..., None, r:]
+        q_in = gather(q_in, 1)
+    q = _dense(q_in, w_q).reshape(B, L, heads, nope + rope)
+    q_nope = q[..., :nope]
+    q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
 
     if cache is not None and L == 1:
         # ---- absorbed decode: score against the latent cache directly
@@ -538,7 +552,9 @@ def mla_attention(cfg, p, x, *, cache=None, pos=None, slot_mask=None):
             ckv_c[:, :n] = c_kv[:, -Sc:].to(ckv_c.dtype)
             krope_c[:, :n] = k_rope[:, -Sc:, 0].to(krope_c.dtype)
 
-    y = _dense(ctx.reshape(B, L, h * vd).to(x.dtype), p.wo)
+    y = _dense(ctx.reshape(B, L, heads * vd).to(x.dtype), p.wo)
+    if split is not None:
+        y = scatter(y, 1) if heads < h else local_seq(y, 1)
     return y, cache
 
 
@@ -564,46 +580,6 @@ def _mla_heads(cfg, p, q_nope, q_rope, c_kv, k_rope):
     v = constrain(v, BATCH, None, MODEL)
     ctx = _causal_attention(qq, k, v, None, None, (nope + rope) ** -0.5)
     return checkpoint_name(ctx, "attn_ctx")
-
-
-def _split_mla(cfg, p, x, split):
-    """MLA's training forward under a split over ``model``: ``x`` [B, L/m,
-    D] holds this rank's positions, ``p`` its shards; returns this rank's
-    positions of the output.  The latent and the rope key (``wkv_a``,
-    ``kv_norm``; rope at the positions' global indices) are computed on
-    the rank's positions and gathered: the 576-wide latent crosses, not
-    the per-head K/V (the JAX package's choice), and each rank's gradient
-    reaches its positions once.  q is computed on the gathered sequence
-    (with ``q_lora_rank``: the rank's normed ``wq_a`` latent, gathered)
-    for the rank's heads, K/V from its columns of ``wkv_b``; ``wo`` is
-    row-parallel and its partial sums are reduce-scattered back to the
-    rank's positions.  Where the axis does not divide the heads the
-    weights are whole: every rank runs every head on the whole sequence
-    and keeps its positions."""
-    B, Lm, _ = x.shape
-    nope, rope, vd, r = (cfg.nope_head_dim, cfg.rope_head_dim,
-                         cfg.v_head_dim, cfg.kv_lora_rank)
-    heads = p.wkv_b.shape[-1] // (nope + vd)
-    kv_a = _dense(x, p.wkv_a)                           # [B, L/m, r + rope]
-    mine = torch.arange(split.index * Lm, (split.index + 1) * Lm,
-                        dtype=torch.int64, device=x.device)
-    k_rope = apply_rope(kv_a[..., None, r:], mine[None].expand(B, Lm),
-                        cfg.rope_theta)
-    latent = gather(torch.cat([rms_norm(kv_a[..., :r], p.kv_norm),
-                               k_rope[:, :, 0]], dim=-1), 1)
-    c_kv, k_rope = latent[..., :r], latent[..., None, r:]
-    if cfg.q_lora_rank:
-        q = _dense(gather(rms_norm(_dense(x, p.wq_a), p.q_norm), 1), p.wq_b)
-    else:
-        q = _dense(gather(x, 1), p.wq)
-    L = q.shape[1]
-    q = q.reshape(B, L, heads, nope + rope)
-    positions = torch.arange(L, dtype=torch.int64, device=x.device)
-    q_rope = apply_rope(q[..., nope:], positions[None].expand(B, L),
-                        cfg.rope_theta)
-    ctx = _mla_heads(cfg, p, q[..., :nope], q_rope, c_kv, k_rope)
-    y = _dense(ctx.reshape(B, L, heads * vd).to(x.dtype), p.wo)
-    return scatter(y, 1) if heads < cfg.n_heads else local_seq(y, 1)
 
 
 def init_mla_cache(cfg, batch, cache_len, dtype, *, device):
@@ -687,8 +663,6 @@ def mlp(cfg, p, x, d_ff=None, seed_hints=(0,)):
     the block-sparse FFN runs on them against its replicated weights; a
     dense one split by the rules gathers the sequence, runs its hidden
     columns and reduce-scatters ``w_down``'s partial sums."""
-    act = F.silu if cfg.mlp_act == "silu" else \
-        functools.partial(F.gelu, approximate="tanh")
     if cfg.ffn_sparsity is not None and isinstance(
             getattr(p, "gate", None), SparseLinear):
         d, f = cfg.d_model, d_ff or cfg.d_ff
@@ -696,11 +670,24 @@ def mlp(cfg, p, x, d_ff=None, seed_hints=(0,)):
                                              tuple(seed_hints), x.device)
         g = apply_sparse_linear(p.gate.params(), meta_in, x, cfg.ffn_sparsity)
         u = apply_sparse_linear(p.up.params(), meta_in, x, cfg.ffn_sparsity)
-        return apply_sparse_linear(p.down.params(), meta_out, act(g) * u,
+        return apply_sparse_linear(p.down.params(), meta_out,
+                                   mlp_act(cfg)(g) * u,
                                    cfg.ffn_sparsity)
     if model_split() is not None and p.w_gate.shape[-1] < (d_ff or cfg.d_ff):
         # column-parallel gate/up, row-parallel down on the whole sequence
-        x = gather(x, 1)
-        return scatter(_dense(act(_dense(x, p.w_gate)) * _dense(x, p.w_up),
-                              p.w_down), 1)
-    return _dense(act(_dense(x, p.w_gate)) * _dense(x, p.w_up), p.w_down)
+        return scatter(dense_mlp(cfg, p, gather(x, 1)), 1)
+    return dense_mlp(cfg, p, x)
+
+
+def dense_mlp(cfg, p, x):
+    """The dense gated MLP of the hidden columns ``p`` holds: the whole
+    output, or under a split over ``model`` the rank's row-parallel
+    partial sum."""
+    return _dense(mlp_act(cfg)(_dense(x, p.w_gate)) * _dense(x, p.w_up),
+                  p.w_down)
+
+
+def mlp_act(cfg):
+    """The gated MLPs' activation: SiLU, or tanh-approximated GELU."""
+    return F.silu if cfg.mlp_act == "silu" else \
+        functools.partial(F.gelu, approximate="tanh")

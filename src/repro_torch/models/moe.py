@@ -32,8 +32,9 @@ order, and with them the drops, are the unsharded ones.  With the
 other ranks' ones; the partial sums are reduce-scattered back to the
 rank's positions: the JAX package's one psum of [B, L, D].  The
 ``einsum`` dispatch, and a bank the axis does not divide, run every
-expert on every rank and keep the rank's positions.  The shared experts
-take ``layers.mlp``'s split (their hidden columns).  The load-balance loss
+expert on every rank and keep the rank's positions.  Shared experts split
+by their hidden columns run them on the same gathered sequence, and their
+partial sums join the routed ones' reduce-scatter.  The load-balance loss
 is each rank's share of its positions' router probabilities, summed over
 the model group (``reduce``), so its value is the whole one and its
 gradient counts every position once.
@@ -41,7 +42,6 @@ gradient counts every position once.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Tuple
 
 import torch
@@ -112,8 +112,7 @@ def _route(cfg, p, xt):
 
 def _expert_mlp(cfg, p, xin):
     """xin [..., E, C, D] -> [..., E, C, D]"""
-    act = F.silu if cfg.mlp_act == "silu" else \
-        functools.partial(F.gelu, approximate="tanh")
+    act = L.mlp_act(cfg)
     h = act(torch.einsum("...ecd,edf->...ecf", xin, p.w_gate)) * \
         torch.einsum("...ecd,edf->...ecf", xin, p.w_up)
     return torch.einsum("...ecf,efd->...ecd", h, p.w_down)
@@ -227,16 +226,25 @@ def moe_ffn(cfg, p, x, dispatch: str = "gather"
     ``model`` ``x`` and ``y`` hold this rank's positions: the routed
     experts run on the gathered sequence, and their output is
     reduce-scattered where the bank is split (the rank's experts' partial
-    sums), else the rank's positions kept; the shared experts take
-    ``layers.mlp``'s split."""
+    sums), else the rank's positions kept.  Split shared experts run their
+    hidden columns on the same gathered sequence and add their partial
+    sums before that one reduce-scatter (one gather and one scatter a
+    layer); whole ones run on the rank's positions."""
     xg = gather(x, 1)
     if dispatch == "gather":
         y, aux = _moe_gather(cfg, p, xg)
     else:
         y, aux = _moe_einsum(cfg, p, xg)
-    y = scatter(y, 1) if p.w_gate.shape[0] < cfg.n_experts else \
-        local_seq(y, 1)
+    routed_split = p.w_gate.shape[0] < cfg.n_experts
+    fs = cfg.expert_d_ff * cfg.n_shared_experts
+    if cfg.n_shared_experts and p.shared.w_gate.shape[-1] < fs:
+        # the shared experts' hidden columns on the same gathered sequence:
+        # their row-parallel partial sums join the routed ones' scatter
+        ys = L.dense_mlp(cfg, p.shared, xg)
+        if routed_split:
+            return scatter(y + ys, 1), aux
+        return local_seq(y, 1) + scatter(ys, 1), aux
+    y = scatter(y, 1) if routed_split else local_seq(y, 1)
     if cfg.n_shared_experts:
-        fs = cfg.expert_d_ff * cfg.n_shared_experts
-        y = y + L.mlp(cfg, p.shared, x, d_ff=fs)
+        y = y + L.mlp(cfg, p.shared, x, d_ff=fs)   # whole, on x's positions
     return y, aux
