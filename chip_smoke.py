@@ -37,8 +37,11 @@ one card (a ``(1, 2)`` mesh, gloo with CUDA tensors): ``smat-ffn-1.3b``
 (8 layers, bf16) and ``smat-attn-1.3b`` (2 layers, f32, 8,192 tokens)
 against a one-rank mesh, each rank's launches and halved kernel widths;
 ``deepseek-v2-lite-16b`` (2 layers) and ``mamba2-1.3b`` (4 layers, remat
-"full"), bf16, full width, each rank's halved leaves (32 of 64 experts,
-8 of 16 heads, half the vocab) and B1-B5 counters at 0.
+"full"), ``gemma2-27b`` (1 pair), ``zamba2-7b`` (1 unit and a tail of 1),
+``musicgen-medium`` (4 layers, 4 codebooks) and ``pixtral-12b`` (2
+layers, 1,024 patches and 1,024 tokens), bf16, full width, each rank's
+halved leaves (32 of 64 experts, half the heads, hidden columns and
+vocab) and B1-B5 counters at 0.
 Right after ``[build]``, ``[analysis]`` runs the static contract
 analyzer (``python -m repro_torch.analysis --all``), holds every kernel
 instantiation's shared-memory formula to the library's own query and its
@@ -4333,35 +4336,59 @@ def train_mesh_phase(cfg, smi, trained):
 # ------------------------------------ the training mesh's model axis, split
 TP_RANKS = 2           # the (data, model) = (1, 2) mesh's ranks, one card
 MOE_ARCH, SSD_ARCH = "deepseek-v2-lite-16b", "mamba2-1.3b"
-# (tag, arch, layers, dtype, steps, batch, seq, relative loss tolerance
-# against the one-rank mesh, remat): smat-ffn-1.3b at 8 of its 24 layers
-# (the script's time limit), smat-attn-1.3b at 2 in float32,
-# deepseek-v2-lite-16b at 2 of its 27 (1.59 B parameters, as
-# [moe-train]), mamba2-1.3b at 4 of its 48 under remat="full" (its
-# training default on the card: the collectives run again in the
-# backward's recompute).  The MLA/MoE and SSD runs' losses are held to
-# 1e-3: near initialisation a wrong split moves the loss little, and
+GEMMA_ARCH, HYBRID_ARCH = "gemma2-27b", "zamba2-7b"
+AUDIO_ARCH, VLM_ARCH = "musicgen-medium", "pixtral-12b"
+VLM_TRAIN_SEQ = 2048                  # 1,024 patches + 1,024 text tokens
+# (tag, arch, depth cut (config fields), dtype, steps, batch, seq,
+# relative loss tolerance against the one-rank mesh, remat):
+# smat-ffn-1.3b at 8 of its 24 layers (the script's time limit),
+# smat-attn-1.3b at 2 in float32, deepseek-v2-lite-16b at 2 of its 27
+# (1.59 B parameters, as [moe-train]), mamba2-1.3b at 4 of its 48 under
+# remat="full" (its training default on the card: the collectives run
+# again in the backward's recompute), gemma2-27b at 1 of its 23 pairs
+# (3.49 B parameters, [gemma-train]'s cut: AdamW on one card),
+# zamba2-7b at 1 of its 13 units and 1 of its 3 tail layers,
+# musicgen-medium at 4 of its 48 layers and pixtral-12b at 2 of its 40
+# (the script's time limit).  The MLA/MoE and SSD runs' losses are held
+# to 1e-3: near initialisation a wrong split moves the loss little, and
 # their bf16 gap from the one-rank mesh reads under 1e-4
-TP_RUNS = (("ffn", "smat-ffn-1.3b", 8, "bfloat16", 3, TRAIN_BATCH, TRAIN_SEQ,
-            1e-2, "none"),
-           ("attn", ATTN_ARCH, 2, "float32", 2, 1, ATTN_SEQ, 1e-4, "none"),
-           ("moe", MOE_ARCH, 2, "bfloat16", 2, TRAIN_BATCH, TRAIN_SEQ, 1e-3,
-            "none"),
-           ("ssd", SSD_ARCH, 4, "bfloat16", 2, TRAIN_BATCH, TRAIN_SEQ, 1e-3,
-            "full"))
+TP_RUNS = (("ffn", "smat-ffn-1.3b", {"n_layers": 8}, "bfloat16", 3,
+            TRAIN_BATCH, TRAIN_SEQ, 1e-2, "none"),
+           ("attn", ATTN_ARCH, {"n_layers": 2}, "float32", 2, 1, ATTN_SEQ,
+            1e-4, "none"),
+           ("moe", MOE_ARCH, {"n_layers": 2}, "bfloat16", 2, TRAIN_BATCH,
+            TRAIN_SEQ, 1e-3, "none"),
+           ("ssd", SSD_ARCH, {"n_layers": 4}, "bfloat16", 2, TRAIN_BATCH,
+            TRAIN_SEQ, 1e-3, "full"),
+           ("gemma", GEMMA_ARCH, {"n_layers": 2}, "bfloat16", 2,
+            TRAIN_BATCH, TRAIN_SEQ, 1e-2, "none"),
+           # n_layers counts units x (unit_len + the shared block) + tail
+           ("zamba", HYBRID_ARCH, {"hybrid_n_units": 1, "hybrid_tail": 1,
+                                   "n_layers": 1 * 6 + 1}, "bfloat16", 2,
+            TRAIN_BATCH, TRAIN_SEQ, 1e-2, "none"),
+           ("audio", AUDIO_ARCH, {"n_layers": 4}, "bfloat16", 2,
+            TRAIN_BATCH, TRAIN_SEQ, 1e-2, "none"),
+           ("vlm", VLM_ARCH, {"n_layers": 2}, "bfloat16", 2, TRAIN_BATCH,
+            VLM_TRAIN_SEQ, 1e-2, "none"))
 # the runs whose path launches B1-B5: their launch tables and halved
 # kernel widths are checked; the others' B1-B5 counters must read 0 and
 # their split leaves' shapes are checked (TP_HALVED)
 TP_KERNEL_RUNS = ("ffn", "attn")
-# the leaves of the MLA/MoE and SSD layouts a rank of the (1, 2) mesh
-# holds half of, by module and name (the last two parts of the path), and
-# the dim halved: MLA's per-head projections, the routed experts (expert
-# parallelism), the shared experts' hidden columns, the vocab
-TP_HALVED = {("", "embed"): 0, ("", "lm_head"): 1,
+# the leaves of the runs without B1-B5 a rank of the (1, 2) mesh holds
+# half of, by module and name (the last two parts of the path), and the
+# dim halved (from the end for the vocab: a codebook table [n_cb, V, D]
+# and head [n_cb, D, V] halve V too): the vocab, MLA's per-head
+# projections, the routed experts (expert parallelism), the shared
+# experts' hidden columns, attention's heads (every run's kv heads split
+# in two) and the dense MLP's hidden columns
+TP_HALVED = {("", "embed"): -2, ("", "lm_head"): -1,
              ("mla", "wq"): 1, ("mla", "wkv_b"): 1, ("mla", "wo"): 0,
              ("moe", "w_gate"): 0, ("moe", "w_up"): 0, ("moe", "w_down"): 0,
              ("shared", "w_gate"): 1, ("shared", "w_up"): 1,
-             ("shared", "w_down"): 0}
+             ("shared", "w_down"): 0,
+             ("attn", "wq"): 1, ("attn", "wk"): 1, ("attn", "wv"): 1,
+             ("attn", "wo"): 0, ("mlp", "w_gate"): 1, ("mlp", "w_up"): 1,
+             ("mlp", "w_down"): 0}
 TP_TIMEOUT_S = 600
 # the MoE aux losses' relative tolerance against the one-rank mesh: bf16
 # noise in the split's sums routes a few tokens otherwise, 3.6e-4 read
@@ -4449,8 +4476,8 @@ def _tp_train(run, mesh, device):
     from repro_torch.configs.base import ShapeCell
     from repro_torch.optim import adamw
     from repro_torch.train import loop
-    tag, arch, layers, dtype, steps, batch, seq, _, remat = run
-    cfg = dataclasses.replace(get_config(arch), n_layers=layers, dtype=dtype)
+    tag, arch, cut, dtype, steps, batch, seq, _, remat = run
+    cfg = dataclasses.replace(get_config(arch), **cut, dtype=dtype)
     if device == "cuda":
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -4470,7 +4497,8 @@ def _tp_train(run, mesh, device):
             "launches": launches, "peak_gb": peak, "collectives": calls,
             "widths": {k: sorted(set(v)) for k, v in widths.items()},
             "calls": {k: len(v) for k, v in widths.items()},
-            "shapes": shapes, "aux_losses": res.aux_losses}
+            "shapes": shapes, "aux_losses": res.aux_losses,
+            "params": cfg.param_count()}
 
 
 def _tp_halved(shapes):
@@ -4481,7 +4509,7 @@ def _tp_halved(shapes):
         parts = name.split(".")
         dim = TP_HALVED.get((parts[-2] if len(parts) > 1 else "", parts[-1]))
         if dim is not None:
-            shape = tuple(n // TP_RANKS if d == dim else n
+            shape = tuple(n // TP_RANKS if d == dim % len(shape) else n
                           for d, n in enumerate(shape))
         out[name] = shape
     return out
@@ -4575,9 +4603,10 @@ def train_tp_phase(smi, runs=TP_RUNS):
     72 B2 a step at 24 layers for the FFN; 240 + 120 + 24 B5 for the
     attention, scaled by depth), and each rank's widths halved: the FFN's
     B1/B2 on half the tokens, B5 and the attention backward's batched
-    products on half the heads.  The MLA/MoE and SSD runs: every B1-B5
-    counter at 0 on both ranks, and each rank computing with half of
-    TP_HALVED's leaves (32 of 64 experts, 8 of 16 heads, half the vocab)
+    products on half the heads.  The other runs (MLA/MoE, SSD,
+    ``gemma_pair``, ``zamba``, codebooks, patches): every B1-B5 counter at
+    0 on both ranks, and each rank computing with half of TP_HALVED's
+    leaves (32 of 64 experts, half the heads, hidden columns and vocab)
     and the one-rank run's other leaves whole.  Logs per-rank step ms, peak
     memory and collective calls a step beside the card's name and power
     limit."""
@@ -4592,7 +4621,7 @@ def train_tp_phase(smi, runs=TP_RUNS):
     ranks = _tp_spawn(runs, DEVICE)
     out = {}
     for run in runs:
-        tag, arch, layers, dtype, steps, batch, seq, tol, remat = run
+        tag, arch, cut, dtype, steps, batch, seq, tol, remat = run
         one, got = ref[tag], [r["runs"][tag] for r in ranks]
         rel = max(abs(a - b) / abs(b) for a, b in zip(got[0]["losses"],
                                                       one["losses"]))
@@ -4601,7 +4630,9 @@ def train_tp_phase(smi, runs=TP_RUNS):
             got[0]["aux_losses"], one["aux_losses"]))
         same = all(g["losses"] == got[0]["losses"] and
                    g["aux_losses"] == got[0]["aux_losses"] for g in got)
-        log(f"[train-tp] {arch} {tag}: {layers} layers, full width, {dtype}, "
+        depth = ", ".join(f"{k}={v}" for k, v in cut.items())
+        log(f"[train-tp] {arch} {tag}: {depth} ({one['params'] / 1e9:.3f} B "
+            f"parameters), full width, {dtype}, "
             f"{batch} x {seq} tokens, {steps} steps, remat {remat}, on a "
             f"(1, {TP_RANKS}) mesh of {TP_RANKS} processes on one card "
             f"(gloo, CUDA tensors): losses {got[0]['losses']} (both ranks "
@@ -4642,7 +4673,8 @@ def _tp_check_kernels(run, one, got):
     """A TP_KERNEL_RUNS run: launches equal to the path's table on the
     one-rank mesh and on each rank, and each rank's widths half the
     one-rank run's."""
-    tag, arch, layers, _, steps = run[:5]
+    tag, arch, cut, _, steps = run[:5]
+    layers = cut["n_layers"]
     if tag == "attn":
         from repro_torch.configs import get_config
         per_step, _ = _attn_train_counts(dataclasses.replace(
@@ -4664,16 +4696,28 @@ def _tp_check_kernels(run, one, got):
 
 
 def _tp_check_shapes(run, one, got):
-    """An MLA/MoE or SSD run: no B1-B5 launch anywhere, and each rank's
-    parameters TP_HALVED's halves of the one-rank run's (the rest whole):
-    for ``mla_moe`` E/2 experts of the routed bank, h/2 heads of MLA's
-    ``wq``, ``wkv_b`` and ``wo``; V/2 rows of ``embed`` and ``lm_head``."""
+    """A run without B1-B5 on its path: no B1-B5 launch anywhere, and each
+    rank's parameters TP_HALVED's halves of the one-rank run's (the rest
+    whole): for ``mla_moe`` E/2 experts of the routed bank, h/2 heads of
+    MLA's ``wq``, ``wkv_b`` and ``wo``; h/2 heads of attention's ``wq`` and
+    ``wo`` and half the MLP's hidden columns (the first ``attn_mlp`` block,
+    the local half of the first ``gemma_pair`` block, ``zamba``'s shared
+    block); V/2 rows of ``embed`` and ``lm_head`` (of each codebook's)."""
     from repro_torch.configs import get_config
     tag, arch = run[:2]
     cfg = get_config(arch)
     m, D, V, H = TP_RANKS, cfg.d_model, cfg.vocab_size, cfg.n_heads
     want = _tp_halved(one["shapes"])
-    named = {"embed": (V // m, D), "lm_head": (D, V // m)}
+    cb = (cfg.n_codebooks,) if cfg.input_mode == "codebooks" else ()
+    named = {"embed": cb + (V // m, D), "lm_head": cb + (D, V // m)}
+    first = {"attn_mlp": "blocks.0.", "gemma_pair": "blocks.0.local.",
+             "zamba": "shared_attn."}.get(cfg.layout)
+    if first is not None:
+        hd, F = H * cfg.head_dim, cfg.d_ff
+        named.update({first + "attn.wq": (D, hd // m),
+                      first + "attn.wo": (hd // m, D),
+                      first + "mlp.w_gate": (D, F // m),
+                      first + "mlp.w_down": (F // m, D)})
     if cfg.layout == "mla_moe":
         E, F = cfg.n_experts, cfg.expert_d_ff
         nope, rope, vd = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
@@ -4957,8 +5001,7 @@ def layout_train_phase(arch, tag, smi, cut, steps, remat,
 
 
 # ------------- the gemma_pair, zamba, codebooks and tokens+patches families
-GEMMA_ARCH, HYBRID_ARCH = "gemma2-27b", "zamba2-7b"
-AUDIO_ARCH, VLM_ARCH = "musicgen-medium", "pixtral-12b"
+# (their archs are named with TP_RUNS)
 DENSE_ARCHS = ("h2o-danube-1.8b", "minitron-4b", "qwen2.5-14b")
 # gemma2-27b (28.41 B parameters) does not fit AdamW on one card: its
 # [gemma-model] and [gemma-train] keep one pair (2 of its 46 layers)
@@ -4983,7 +5026,7 @@ AUDIO_SERVE_CUT = {"n_layers": 16}
 MOE_SERVE_CUT, SSD_SERVE_CUT = {"n_layers": 8}, {"n_layers": 16}
 GEMMA_SERVE_CUT = {"n_layers": 12}
 VLM_TEXT, VLM_DECODE = 1024, 16   # [vlm-prefill]: after 1,024 patches
-VLM_TRAIN_SEQ, VLM_TRAIN_STEPS = 2048, 3      # 1,024 patches + 1,024 text
+VLM_TRAIN_STEPS = 3
 VLM_MODEL_PATCHES = 16            # [vlm-model]'s patch embeddings a row
 MODEL_CHECK_LEN[HYBRID_ARCH] = 512           # past one 256-token SSD chunk
 

@@ -5,21 +5,21 @@ collectives of the compute split over ``model``.
 wraps (the JAX package's ``with mesh:``); ``train.loop.train`` enters it,
 and ``current_mesh()`` returns it (None outside).  ``use_mesh(mesh,
 split=True)`` also splits the compute over the mesh's ``model`` axis: the
-mesh step enters it for the layouts whose split the port runs
-(``launch.steps.split_leaves``: ``attn_mlp``, ``mla_moe`` and ``ssd``
-with token inputs, on a sequence the axis divides).  Inside,
-``model_split()`` gives the split (this rank's model group, its index and
-the group's size), and the model code computes on shards as the JAX
-package's sharding rules and ``constrain`` calls have GSPMD do: the
-residual stream is carried sequence-split (norms and the block-sparse FFN
-on the rank's positions), attention and MLA run the rank's heads on the
-whole sequence (MLA gathers its latent, not the per-head K/V), the dense
-FFN and the shared experts their hidden columns, the routed experts the
-rank's slice of the bank (expert parallelism), the Mamba2 mixer the whole
-sequence on every rank, embedding and logits the rank's vocab slice.
-Outside a split (no mesh, ``model`` = 1, the other layouts, which keep
-replicated compute) ``model_split()`` is None and every collective below
-is the identity.
+mesh step enters it for every layout and input mode where the axis divides
+the sequence (``launch.steps.split_leaves``; ``tokens+patches`` counts
+its patches).  Inside, ``model_split()`` gives the split (this rank's
+model group, its index and the group's size), and the model code computes
+on shards as the JAX package's sharding rules and ``constrain`` calls have
+GSPMD do: the residual stream is carried sequence-split (norms and the
+block-sparse FFN on the rank's positions), attention (both halves of a
+``gemma_pair`` block, ``zamba``'s shared block) and MLA run the rank's
+heads on the whole sequence (MLA gathers its latent, not the per-head
+K/V), the dense FFN and the shared experts their hidden columns, the
+routed experts the rank's slice of the bank (expert parallelism), the
+Mamba2 mixer the whole sequence on every rank, embedding (each codebook's
+table) and logits the rank's vocab slice.  Outside a split (no mesh,
+``model`` = 1, a sequence the axis does not divide) ``model_split()`` is
+None and every collective below is the identity.
 
 The JAX ``fit`` rule holds for the split (``launch.steps.split_leaves``):
 a dim the ``model`` axis does not divide stays replicated (2 kv heads on

@@ -23,26 +23,26 @@ parameters, runs the model forward and backward on this rank's batch rows
 norm of the full gradient, and updates each rank's own shard of
 parameters and moments.
 
-Where the ``model`` axis has more than one rank, the ``attn_mlp``,
-``mla_moe`` and ``ssd`` layouts with token inputs split their compute
-over it, as the JAX package's sharding rules and ``constrain`` calls have
-GSPMD do (``split_leaves``; ``launch.constrain.use_mesh(mesh,
-split=True)``): the head-, hidden-, expert- and vocab-sharded leaves are
-gathered over the data axes only, so each rank computes with its
-``model`` shard of ``wq``/``wk``/``wv``/``wo``, the dense FFN's
-``w_gate``/``w_up``/``w_down``, MLA's ``wq`` (or ``wq_b``), ``wkv_b`` and
-``wo``, the routed experts' bank (``gather`` dispatch) and the shared
-experts' hidden columns, ``embed`` and ``lm_head``; the residual stream
-is carried sequence-split; the block-sparse FFN runs its B1/B2 on the
-rank's tokens against replicated BCSR weights, B5 and the attention
-backward's batched products on its heads; the Mamba2 mixer runs the
-whole sequence on every rank.  A split leaf's gradient is summed over the
-data group; a replicated leaf's (norms, ``vals``, ``wk``/``wv`` where the
-axis does not divide the kv heads, MLA's ``wkv_a``/``wq_a``, the router,
-every Mamba2 leaf) over the data and model groups.  The other layouts
-(``gemma_pair``, ``zamba``) and inputs (``codebooks``,
-``tokens+patches``), a ``model`` axis of one rank, and a sequence the
-axis does not divide gather every parameter whole and replicate the
+Where the ``model`` axis has more than one rank and divides the sequence,
+the compute splits over it, as the JAX package's sharding rules and
+``constrain`` calls have GSPMD do for every layout and input
+(``split_leaves``; ``launch.constrain.use_mesh(mesh, split=True)``): the
+head-, hidden-, expert- and vocab-sharded leaves are gathered over the
+data axes only, so each rank computes with its ``model`` shard of
+``wq``/``wk``/``wv``/``wo`` (both halves of a ``gemma_pair`` block,
+``zamba``'s shared block), the dense FFN's ``w_gate``/``w_up``/``w_down``,
+MLA's ``wq`` (or ``wq_b``), ``wkv_b`` and ``wo``, the routed experts' bank
+(``gather`` dispatch) and the shared experts' hidden columns, ``embed``
+and ``lm_head`` (each codebook's table too); the residual stream is
+carried sequence-split (``tokens+patches``: the patch positions and the
+text); the block-sparse FFN runs its B1/B2 on the rank's tokens against
+replicated BCSR weights, B5 and the attention backward's batched products
+on its heads; the Mamba2 mixer runs the whole sequence on every rank.  A
+split leaf's gradient is summed over the data group; a replicated leaf's
+(norms, ``vals``, ``wk``/``wv`` where the axis does not divide the kv
+heads, MLA's ``wkv_a``/``wq_a``, the router, every Mamba2 leaf) over the
+data and model groups.  A ``model`` axis of one rank, and a sequence the
+axis does not divide, gather every parameter whole and replicate the
 compute over ``model``.
 """
 from __future__ import annotations
@@ -205,24 +205,22 @@ _SPLIT_DIMS = {
     **{(module, n): () for module in ("mlp", "moe", "shared")
        for n in ("w_gate", "w_up", "w_down")},
 }
-_SPLIT_LAYOUTS = ("attn_mlp", "mla_moe", "ssd")
 
 
 def split_leaves(cfg: ModelConfig, mesh, specs: Dict[str, Any],
                  seq_len: int) -> frozenset:
     """Names of the parameters the mesh step computes on their ``model``
-    shard (``specs``: the parameters' ``param_shardings``): the head-,
-    hidden-, expert- and vocab-sharded leaves of the ``attn_mlp``,
-    ``mla_moe`` and ``ssd`` layouts with token inputs (``_SPLIT_DIMS``;
-    the routed experts' bank with the ``gather`` dispatch only: the JAX
+    shard (``specs``: the parameters' ``param_shardings``; ``seq_len``:
+    the carry's positions, ``tokens+patches``' patches included): the
+    head-, hidden-, expert- and vocab-sharded leaves of ``_SPLIT_DIMS``
+    (the routed experts' bank with the ``gather`` dispatch only: the JAX
     package constrains nothing in the ``einsum`` one), each where the
     ``model`` axis divides its dims, when that axis has more than one rank
     and divides the sequence (the carry is split over it).  Empty
     otherwise: the step then gathers every parameter whole and replicates
-    the compute over ``model``, as for the other layouts and inputs."""
+    the compute over ``model``."""
     m = mesh_lib.axis_sizes(mesh).get("model", 1)
-    if m == 1 or cfg.layout not in _SPLIT_LAYOUTS or \
-            cfg.input_mode != "tokens" or seq_len % m:
+    if m == 1 or seq_len % m:
         return frozenset()
 
     def splits(name, spec):
@@ -258,7 +256,9 @@ def mesh_loss_and_grads(cfg: ModelConfig, model: MeshModel, batch: Dict,
     mesh = model.mesh
     params = dict(model.module.named_parameters())
     batch = sh.local(batch)
-    split = split_leaves(cfg, mesh, model.specs, batch["tokens"].shape[1])
+    seq = batch["tokens"].shape[1] + (batch["patch_embeds"].shape[1]
+                                      if "patch_embeds" in batch else 0)
+    split = split_leaves(cfg, mesh, model.specs, seq)
     keep = {n: sh.keep_axes(model.specs[n], ("model",)) for n in split}
     with use_mesh(mesh, split=bool(split)):
         for name, p in params.items():

@@ -33,16 +33,20 @@ is a view into it.  ``forward``'s third value sums the layers' MoE
 load-balance losses, as the JAX package's scan carries it.
 
 Under a training mesh whose compute splits over ``model``
-(``launch.constrain.model_split``; ``launch.steps.split_leaves``:
-``attn_mlp``, ``mla_moe`` and ``ssd`` with token inputs) the residual
-stream is carried sequence-split: ``_embed`` looks up the rank's vocab
-slice and reduce-scatters the rows over the sequence, the blocks' norms
-and the block-sparse FFN run on the rank's positions (``layers.attention``,
-``layers.mla_attention``, a dense ``layers.mlp`` and ``moe.moe_ffn``
-gather the sequence and compute their shards; the Mamba2 mixer runs the
-gathered sequence on every rank and keeps the rank's positions), and
-``_head`` gathers the sequence for vocab-split logits, whose
-cross-entropy ``lm_loss`` reduces over the model group.
+(``launch.constrain.model_split``; ``launch.steps.split_leaves``: every
+layout and input) the residual stream is carried sequence-split:
+``_embed`` looks up the rank's vocab slice of each table and
+reduce-scatters the rows over the sequence (the codebook sum, the
+``gemma_pair`` scale and the ``tokens+patches`` patch rows follow on the
+rank's positions), the blocks' norms and the block-sparse FFN run on the
+rank's positions (``layers.attention`` (both ``gemma_pair`` halves,
+``zamba``'s shared block in every unit), ``layers.mla_attention``, a dense
+``layers.mlp`` and ``moe.moe_ffn`` gather the sequence and compute their
+shards; the Mamba2 mixer runs the gathered sequence on every rank and
+keeps the rank's positions), and ``_head`` gathers the sequence for
+vocab-split logits (softcapped as they are), whose cross-entropy
+``lm_loss`` reduces over the model group; ``train_loss`` scores the text
+positions of ``tokens+patches`` by their global positions.
 
 ``forward``'s ``remat`` replaces the JAX package's ``jax.checkpoint``
 policies with ``torch.utils.checkpoint`` over each block: ``"full"``
@@ -60,6 +64,7 @@ import functools
 from typing import Any, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as torch_checkpoint
 
@@ -377,50 +382,76 @@ def _embed_scale(d_model: int, dtype: torch.dtype) -> float:
     return float(torch.tensor(d_model ** 0.5, dtype=dtype))
 
 
-def _split_embed(embed: torch.Tensor, tokens: torch.Tensor, vocab: int,
-                 split: ModelSplit) -> torch.Tensor:
-    """This rank's positions of the embedded ``tokens`` [B, L] under a
-    split over ``model``.  A vocab-split ``embed`` [V/m, D] looks up every
-    position in its slice (zero rows outside it) and the ranks' rows are
-    reduce-scattered over the sequence (each sum has one nonzero term: the
-    rows are exact); a replicated one looks up the rank's positions."""
-    if embed.shape[0] == vocab:
-        return embed[local_seq(tokens, 1)]
-    rows = embed.shape[0]
-    ids = tokens - split.index * rows
+def _lookup(table: torch.Tensor, ids: torch.Tensor,
+            split: ModelSplit | None) -> torch.Tensor:
+    """``table``'s rows at ``ids``.  Under ``split`` ``table`` is this
+    rank's vocab slice [V/m, D], holding ids ``index * V/m`` onwards, and
+    the ids outside it read zero rows."""
+    if split is None:
+        return table[ids]
+    rows = table.shape[0]
+    ids = ids - split.index * rows
     hit = (ids >= 0) & (ids < rows)
-    x = torch.where(hit[..., None], embed[ids.clamp(0, rows - 1)], 0)
-    return scatter(x, 1)
+    return torch.where(hit[..., None], table[ids.clamp(0, rows - 1)], 0)
 
 
 def _embed(cfg: ModelConfig, params, batch_in) -> torch.Tensor:
+    """The residual stream's first value: the token rows (``codebooks``:
+    each codebook's rows, summed in order in the model dtype, the JAX
+    package's Python ``sum``), times ``sqrt(d_model)`` for ``gemma_pair``,
+    with ``tokens+patches``' ``patch_embeds`` in front.
+
+    Under a split over ``model`` it is this rank's positions of that
+    stream.  A vocab-split ``embed`` looks up every position in the rank's
+    slice (zero rows outside it), and the ranks' rows, each table's
+    apart, are reduce-scattered over the sequence, with zero rows at the
+    patch positions.  Each sum has one nonzero term, so the rows are
+    exact; a replicated ``embed`` takes the rank's chunk of its rows.  The
+    codebook sum, the scale and the patch rows then act on the rank's
+    positions as they do unsplit, so the rank's rows equal the unsplit
+    stream's bit for bit."""
     tokens = batch_in["tokens"]
+    table = params.embed
     split = model_split()
-    if split is not None:
-        return _split_embed(params.embed, tokens, cfg.vocab_size, split)
+    by_vocab = split if split is not None and \
+        table.shape[-2] < cfg.vocab_size else None
     if cfg.input_mode == "codebooks":
-        # tokens [B, L, n_cb]: the codebook embeddings summed in order, in
-        # the model dtype (the JAX package's Python ``sum``)
-        x = params.embed[0][tokens[..., 0]]
-        for c in range(1, cfg.n_codebooks):
-            x = x + params.embed[c][tokens[..., c]]
+        # tokens [B, L, n_cb]: one table a codebook
+        rows = [_lookup(table[c], tokens[..., c], by_vocab)
+                for c in range(cfg.n_codebooks)]
     else:
-        x = params.embed[tokens]                            # [B, L, D]
+        rows = [_lookup(table, tokens, by_vocab)]               # [B, L, D]
+    pe = batch_in.get("patch_embeds") \
+        if cfg.input_mode == "tokens+patches" else None
+    n_patch = 0 if pe is None else pe.shape[1]
+    if split is not None:
+        x = F.pad(torch.stack(rows, 2), (0, 0, 0, 0, n_patch, 0))
+        rows = (local_seq(x, 1) if by_vocab is None else
+                scatter(x, 1)).unbind(2)
+    x = rows[0]
+    for r in rows[1:]:
+        x = x + r
     if cfg.layout == "gemma_pair":
         x = x * _embed_scale(cfg.d_model, x.dtype)
-    if cfg.input_mode == "tokens+patches" and "patch_embeds" in batch_in:
-        pe = batch_in["patch_embeds"].to(x.dtype)           # [B, P, D]
-        x = torch.cat([pe, x], dim=1)
-    return x
+    if pe is None:
+        return x
+    pe = pe.to(x.dtype)                                     # [B, P, D]
+    if split is None:
+        return torch.cat([pe, x], dim=1)
+    # the patch rows at the rank's positions that hold them
+    n = x.shape[1]
+    pos = split.index * n + torch.arange(n, device=x.device)
+    mine = local_seq(F.pad(pe, (0, 0, 0, split.size * n - n_patch)), 1)
+    return torch.where((pos < n_patch)[:, None], mine, x)
 
 
 def _head(cfg: ModelConfig, params, x) -> torch.Tensor:
     x = L.rms_norm(x, params.final_norm)
+    if params.lm_head.shape[-1] < cfg.vocab_size:
+        x = gather(x, 1)        # vocab-split logits [B, L, (n_cb,) V/m]
     if cfg.input_mode == "codebooks":
         logits = torch.einsum("bld,cdv->blcv", x, params.lm_head)
     else:
-        if params.lm_head.shape[-1] < cfg.vocab_size:
-            x = gather(x, 1)    # vocab-split logits [B, L, V/m]
         logits = x @ params.lm_head
     return L.softcap(logits.float(), cfg.final_logit_softcap)
 
@@ -614,9 +645,16 @@ def train_loss(cfg: ModelConfig, params: Transformer, batch_in,
     leaves out.  Under a data-parallel mesh each term is this rank's share
     (``lm_loss``, ``moe._route``): the shares sum to the global loss."""
     logits, _, aux = forward(cfg, params, batch_in, remat=remat)
+    labels = batch_in["labels"]
     if cfg.input_mode == "tokens+patches":
-        logits = logits[:, cfg.patch_tokens:]
-    loss = lm_loss(cfg, logits, batch_in["labels"])
+        n_patch = cfg.patch_tokens
+        if model_split() is not None and logits.shape[-1] == cfg.vocab_size:
+            # logits of this rank's positions: the patch positions score
+            # nothing (their labels -100), wherever the chunk falls
+            labels = F.pad(labels, (n_patch, 0), value=-100)
+        else:
+            logits = logits[:, n_patch:]
+    loss = lm_loss(cfg, logits, labels)
     return loss + 0.01 * aux, {"lm_loss": loss, "aux_loss": aux}
 
 

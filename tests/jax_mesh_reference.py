@@ -4,7 +4,7 @@ rank).
 
     python tests/jax_mesh_reference.py OUT_DIR
 
-First writes ``OUT_DIR/inputs.npz``: the JAX seed-0 weights of the four
+First writes ``OUT_DIR/inputs.npz``: the JAX seed-0 weights of the eight
 archs the mesh tests train (``w/<arch>/<path>``, float32), which the JAX
 runs below start from too, and R = 4 ranks' error feedback gradients
 (``g/<name>``, stacked on a leading rank axis).  Then
@@ -14,8 +14,11 @@ runs below start from too, and R = 4 ranks' error feedback gradients
   make_mesh((1, 1), ("data", "model")))`` (GSPMD gives the same result on
   any mesh), for ``ffn`` (``smat-ffn-1.3b:smoke`` on 4 x 32 tokens, 4
   steps), ``attn`` (``smat-attn-1.3b:smoke``, the same), ``moe``
-  (``deepseek-v2-lite-16b:smoke``, 2 steps) and ``ssd``
-  (``mamba2-1.3b:smoke``, 2 steps); ``loss/small``: the ffn arch's step-0
+  (``deepseek-v2-lite-16b:smoke``, 2 steps), ``ssd``
+  (``mamba2-1.3b:smoke``), ``gemma`` (``gemma2-27b:smoke``), ``zamba``
+  (``zamba2-7b:smoke``), ``audio`` (``musicgen-medium:smoke``) and ``vlm``
+  (``pixtral-12b:smoke``, 24 tokens after 8 patches), 2 steps each;
+  ``loss/small``: the ffn arch's step-0
   loss on 2 x 32 tokens (``train_loss`` on the first batch); ``aux/moe``:
   the MoE arch's step-0 load-balance loss on 4 x 32;
 * ``grad/<case>/<path>``: ``jax.grad`` of ``train_loss`` on the first 4 x
@@ -29,6 +32,7 @@ runs below start from too, and R = 4 ranks' error feedback gradients
 Each file is written under a temporary name and renamed, so a reader sees
 it whole.
 """
+import concurrent.futures
 import dataclasses
 import os
 import sys
@@ -48,9 +52,12 @@ from repro.train import loop
 
 ARCH, MOE = "smat-ffn-1.3b:smoke", "deepseek-v2-lite-16b:smoke"
 ATTN, SSD = "smat-attn-1.3b:smoke", "mamba2-1.3b:smoke"
+GEMMA, ZAMBA = "gemma2-27b:smoke", "zamba2-7b:smoke"
+AUDIO, VLM = "musicgen-medium:smoke", "pixtral-12b:smoke"
 SHAPE = ShapeCell("t", "train", 32, 4)
 SMALL = ShapeCell("t", "train", 32, 2)
 STEPS, MOE_STEPS, EF_STEPS, R = 4, 2, 2, 4
+THREADS = 3
 
 
 def _cfg(arch):
@@ -137,11 +144,21 @@ def _init_once():
     """Draw each arch's seed-0 weights once and make ``init_params`` return
     a copy of them (the loop donates its parameters), so the JAX runs
     start from the weights written for the port."""
-    params = {arch: JT.init_params(_cfg(arch), seed=0)
-              for arch in (ARCH, MOE, ATTN, SSD)}
+    archs = (ARCH, MOE, ATTN, SSD, GEMMA, ZAMBA, AUDIO, VLM)
+    with concurrent.futures.ThreadPoolExecutor(THREADS) as pool:
+        params = dict(zip(archs, pool.map(
+            lambda arch: JT.init_params(_cfg(arch), seed=0), archs)))
     JT.init_params = lambda cfg, seed=0: jax.tree.map(jnp.copy,
                                                       params[cfg.name])
     return params
+
+
+def _case(case, arch, steps):
+    """The loop's losses and the step-0 ``jax.grad`` of one case."""
+    out = {f"loss/{case}": _losses(arch, SHAPE, steps)}
+    out.update({f"grad/{case}/{k}": v
+                for k, v in _grads0(arch, SHAPE).items()})
+    return out
 
 
 def main(out_dir):
@@ -150,15 +167,22 @@ def main(out_dir):
     for arch, params in _init_once().items():
         inputs.update(_flat(params, f"w/{arch}/"))
     _write(out_dir, "inputs.npz", inputs)
-    ref = _error_feedback(grads)
-    for case, arch, steps in (("ffn", ARCH, STEPS), ("attn", ATTN, STEPS),
-                              ("moe", MOE, MOE_STEPS),
-                              ("ssd", SSD, MOE_STEPS)):
-        ref[f"loss/{case}"] = _losses(arch, SHAPE, steps)
-        ref.update({f"grad/{case}/{k}": v
-                    for k, v in _grads0(arch, SHAPE).items()})
-    ref["loss/small"], _ = _step0(ARCH, SMALL)
-    _, ref["aux/moe"] = _step0(MOE, SHAPE)
+    # the cases in THREADS threads (as the draws above): XLA compiles and
+    # runs without the GIL, and each case's results are its own
+    with concurrent.futures.ThreadPoolExecutor(THREADS) as pool:
+        parts = [pool.submit(_case, *c) for c in (
+            ("zamba", ZAMBA, MOE_STEPS), ("moe", MOE, MOE_STEPS),
+            ("ffn", ARCH, STEPS), ("attn", ATTN, STEPS),
+            ("ssd", SSD, MOE_STEPS), ("gemma", GEMMA, MOE_STEPS),
+            ("audio", AUDIO, MOE_STEPS), ("vlm", VLM, MOE_STEPS))]
+        ef = pool.submit(_error_feedback, grads)
+        small = pool.submit(_step0, ARCH, SMALL)
+        moe0 = pool.submit(_step0, MOE, SHAPE)
+        ref = ef.result()
+        for part in parts:
+            ref.update(part.result())
+        ref["loss/small"], _ = small.result()
+        _, ref["aux/moe"] = moe0.result()
     _write(out_dir, "reference.npz", ref)
 
 

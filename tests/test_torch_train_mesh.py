@@ -23,7 +23,12 @@ runs (and the same runs in float64, for the floors below) and a one-rank
   4)`` and ``(2, 2)``, ``mamba2-1.3b:smoke`` (``ssd``, under
   ``remat="full"``), ``deepseek-v2-236b:smoke`` (a ``q_lora_rank``) and two
   MoE variants whose routed bank stays whole (6 experts; the ``einsum``
-  dispatch) on ``(1, 4)``, 2 steps; against the unsharded run: losses
+  dispatch), ``gemma2-27b:smoke`` (``gemma_pair``: both halves),
+  ``zamba2-7b:smoke`` (the shared block's shards in every unit),
+  ``musicgen-medium:smoke`` (``codebooks``: each table split on its
+  vocab), ``pixtral-12b:smoke`` (``tokens+patches``: 8 patches and 24
+  tokens on the carry) and its vocab-514 variant (the loss of the rank's
+  text positions) on ``(1, 4)``, 2 steps; against the unsharded run: losses
   within 1e-5 relative; step-0 gradients, gathered over ``model``, within
   1e-6 x max|grad| plus the leaf's float32 floor (the unsharded float32
   gradient's distance from the float64 one: up to 2e-6 x max on
@@ -37,18 +42,21 @@ runs (and the same runs in float64, for the floors below) and a one-rank
   and B5 and the batched products on 1/model of the heads, with the
   unsharded step's number of calls; the collectives and their backwards
   against their definitions, and which leaves split;
-* ``(1, 4)`` with ``gemma2-27b:smoke`` (``gemma_pair``, whose compute
-  stays replicated over ``model``): losses, step-0 gradients and the
-  final checkpoint (parameters and AdamW state) bit-equal to the
-  unsharded run's, the checkpoint byte for byte; the one-rank ``(1, 1)``
-  mesh's losses bit-equal too;
+* the split ``_embed`` of ``gemma2-27b:smoke``, ``musicgen-medium:smoke``
+  and ``pixtral-12b:smoke`` on ``(1, 4)``, float32 and bfloat16: each
+  rank's rows bit-equal to its positions of the unsharded ``_embed``;
+* ``(1, 4)`` with ``gemma2-27b:smoke`` on 4 x 30 tokens (the axis does not
+  divide the sequence, so the compute stays replicated over ``model``):
+  losses, step-0 gradients and the final checkpoint (parameters and AdamW
+  state) bit-equal to the unsharded run's, the checkpoint byte for byte;
+  the one-rank ``(1, 1)`` mesh's losses bit-equal too;
 * ``(2, 2, 1)`` (pod, data, model) and ``(4, 1)``, data-parallel only:
   losses within 1e-5 relative, the step-0 gradients summed over the data
   group within 1e-6 x max|grad|;
 * storage: each rank's bytes of every parameter, buffer, AdamW leaf and
   batch leaf equal ``launch.dryrun``'s per-device bytes at that mesh
   (``_cell_leaves``, which divides by ``_per_device_bytes``), for the
-  ``smat-ffn-1.3b`` meshes and the split MoE;
+  ``smat-ffn-1.3b`` meshes, the split MoE and the split gemma_pair;
 * ``deepseek-v2-lite-16b:smoke`` on ``(4, 1)``: loss and MoE ``aux_loss``
   within 1e-5 (the global means of ``lm_loss`` and ``moe._route``);
 * a batch of 2 on ``(4, 1)``: the data axes do not divide it, so it is
@@ -113,9 +121,13 @@ ATTN = "smat-attn-1.3b:smoke"
 DENSE = "minitron-4b:smoke"                # a dense FFN
 SSD = "mamba2-1.3b:smoke"
 DS236 = "deepseek-v2-236b:smoke"           # MLA with a q_lora_rank
-GEMMA = "gemma2-27b:smoke"                 # gemma_pair: compute replicated
+GEMMA = "gemma2-27b:smoke"                 # gemma_pair
+ZAMBA = "zamba2-7b:smoke"                  # zamba: a shared block
+AUDIO = "musicgen-medium:smoke"            # codebooks
+VLM = "pixtral-12b:smoke"                  # tokens+patches: 24 + 8 patches
 SHAPE = ShapeCell("t", "train", 32, 4)
 SMALL = ShapeCell("t", "train", 32, 2)    # (4, 1) does not divide it
+ODD = ShapeCell("t", "train", 30, 4)      # (1, 4) does not divide 30
 STEPS, MOE_STEPS, EF_STEPS = 4, 2, 2
 MESHES = ((1, 4), (2, 2), (4, 1))
 DATA_MESHES = ((2, 2, 1), (4, 1))         # model = 1: data-parallel only
@@ -123,15 +135,19 @@ DATA_MESHES = ((2, 2, 1), (4, 1))         # model = 1: data-parallel only
 # too: (case, arch, mesh)
 SPLIT = (("ffn1x4", ARCH, (1, 4)), ("ffn2x2", ARCH, (2, 2)),
          ("attn1x4", ATTN, (1, 4)), ("moe1x4", MOE, (1, 4)),
-         ("moe2x2", MOE, (2, 2)), ("ssd1x4", SSD, (1, 4)))
+         ("moe2x2", MOE, (2, 2)), ("ssd1x4", SSD, (1, 4)),
+         ("gemma1x4", GEMMA, (1, 4)), ("zamba1x4", ZAMBA, (1, 4)),
+         ("audio1x4", AUDIO, (1, 4)), ("vlm1x4", VLM, (1, 4)))
 # the fit rule's other side: a dim the model axis does not divide stays
 # replicated (6 heads: attention whole on every rank; d_ff 258: the dense
 # FFN token-wise on the rank's positions; vocab 514: embedding and loss on
 # the rank's positions; 6 experts: the routed bank whole on every rank);
 # the einsum dispatch keeps the bank whole too (the JAX package constrains
-# nothing in it)
+# nothing in it); pixtral with vocab 514: the loss scores the text
+# positions among the rank's positions of the carry
 HEADS6 = DENSE + "/heads6"
 VOCAB514 = DENSE + "/vocab514"
+VLM514 = VLM + "/vocab514"
 EXPERTS6 = MOE + "/experts6"
 EINSUM = MOE + "/einsum"
 VARIANTS = {"heads6": {"n_heads": 6, "d_ff": 258}, "vocab514":
@@ -141,22 +157,27 @@ VARIANTS = {"heads6": {"n_heads": 6, "d_ff": 258}, "vocab514":
 # a case's place in the list is part of its test's id
 SPLIT_ALL = SPLIT[:3] + (("dense1x4", DENSE, (1, 4)),
                          ("heads61x4", HEADS6, (1, 4)),
-                         ("vocab5141x4", VOCAB514, (1, 4))) + SPLIT[3:] + (
+                         ("vocab5141x4", VOCAB514, (1, 4))) + SPLIT[3:6] + (
     ("ds2361x4", DS236, (1, 4)), ("experts61x4", EXPERTS6, (1, 4)),
-    ("einsum1x4", EINSUM, (1, 4)))
+    ("einsum1x4", EINSUM, (1, 4))) + SPLIT[6:] + (
+    ("vlm5141x4", VLM514, (1, 4)),)
 # the runs whose final parameters are held (and run in float64 for that)
 FINAL = SPLIT_ALL[:4] + SPLIT[3:]
 # the REFS keys whose split runs' final parameters are held in float64 runs
 # too: AdamW's m / sqrt(v) turns the float32 split's noise in the norm
 # scales' near-zero gradients into single elements past the float32 bound
-# (2.1x in one of 128 of ``blocks.1.ln1`` on (1, 4))
-FINAL64 = ("moe",)
+# (2.1x in one of 128 of ``blocks.1.ln1`` on (1, 4); 1.2x in ``embed`` of
+# gemma2-27b:smoke, 1.4x in ``lm_head`` of musicgen-medium:smoke)
+FINAL64 = ("moe", "gemma", "audio")
 REFS = {"ffn": ARCH, "attn": ATTN, "dense": DENSE, "heads6": HEADS6,
         "vocab514": VOCAB514, "moe": MOE, "ssd": SSD, "ds236": DS236,
-        "experts6": EXPERTS6, "einsum": EINSUM}
-# the MLA/MoE and SSD runs train MOE_STEPS steps, the SSD run under
-# remat="full" (the collectives run again in the backward's recompute)
-SHORT = ("moe", "ssd", "ds236", "experts6", "einsum")
+        "experts6": EXPERTS6, "einsum": EINSUM, "gemma": GEMMA,
+        "zamba": ZAMBA, "audio": AUDIO, "vlm": VLM, "vlm514": VLM514}
+# the MLA/MoE, SSD and later layouts' runs train MOE_STEPS steps, the SSD
+# run under remat="full" (the collectives run again in the backward's
+# recompute)
+SHORT = ("moe", "ssd", "ds236", "experts6", "einsum", "gemma", "zamba",
+         "audio", "vlm", "vlm514")
 REMAT = {"ssd": "full"}
 WORLD = 4
 SPAWN_TIMEOUT_S = 300      # the group takes about 25 s
@@ -315,18 +336,18 @@ def _jax_weights(weights):
 
 
 # ------------------------------------------------------------- the ranks
-def _storage_and_grads(mesh, cfg):
+def _storage_and_grads(mesh, cfg, shape=SHAPE):
     """Per-leaf local bytes (held, and the dry-run's) and the step-0
     gradients summed over the data group."""
     model = st.shard_model(T.init_params(cfg, seed=0, device="cpu"), mesh)
     opt = st.init_opt_state(model)
-    b_specs = sh.batch_shardings(mesh, st.input_specs(cfg, SHAPE))
-    batch = sh.distribute_tree(mesh, _batch(cfg, SHAPE), b_specs)
+    b_specs = sh.batch_shardings(mesh, st.input_specs(cfg, shape))
+    batch = sh.distribute_tree(mesh, _batch(cfg, shape), b_specs)
     held = {"params." + k: _nbytes(v) for k, v in model.state_dict().items()}
     held.update({"opt." + k: _nbytes(v)
                  for k, v in T.flat_specs(opt).items()})
     held.update({"batch." + k: _nbytes(v) for k, v in batch.items()})
-    want, _, _ = dryrun._cell_leaves(cfg, SHAPE, mesh, False, "meta")
+    want, _, _ = dryrun._cell_leaves(cfg, shape, mesh, False, "meta")
     with _widths() as widths, _gathered_shapes() as shapes:
         metrics, grads = st.mesh_loss_and_grads(cfg, model, batch,
                                                 remat="none")
@@ -339,16 +360,16 @@ def _storage_and_grads(mesh, cfg):
             "batch_rows": sh.local(batch)["tokens"].shape[0]}
 
 
-def _case_run(name, arch, shape, out_dir, kw=None):
-    """Step-0 storage and gradients on ``shape``, then ``loop.train``
-    (``kw``, default ``_kw()``) checkpointed under
-    ``out_dir/ckpt_<name>``."""
+def _case_run(name, arch, shape, out_dir, kw=None, cell=SHAPE):
+    """Step-0 storage and gradients on the mesh ``shape``, then
+    ``loop.train`` of ``cell`` (``kw``, default ``_kw()``) checkpointed
+    under ``out_dir/ckpt_<name>``."""
     mesh = _mesh(shape)
     cfg = _cfg(arch)
-    out = _storage_and_grads(mesh, cfg)
+    out = _storage_and_grads(mesh, cfg, cell)
     ckpt = f"{out_dir}/ckpt_{name}"
     out["result"] = dataclasses.asdict(
-        loop.train(cfg, SHAPE, mesh, ckpt_dir=ckpt, **(kw or _kw())))
+        loop.train(cfg, cell, mesh, ckpt_dir=ckpt, **(kw or _kw())))
     return out
 
 
@@ -397,6 +418,38 @@ def _case_pod_order(out_dir):
             "placements": [str(p) for p in d.placements],
             "size1_alias": one.full_tensor().data_ptr() ==
             one.to_local().data_ptr()}
+
+
+# the archs whose split ``_embed`` is held bit-equal to the unsharded one:
+# the gemma_pair scale, the ordered codebook sum, the patch rows
+EMBED_ARCHS = (GEMMA, AUDIO, VLM)
+EMBED_DTYPES = ("float32", "bfloat16")
+
+
+def _case_embed(out_dir):
+    """The split ``_embed`` on a ``(1, 4)`` mesh, each rank with its vocab
+    shard of ``embed`` as the mesh step gathers it, against this rank's
+    positions of the unsharded ``_embed``: bit-equal or not, by arch and
+    dtype."""
+    mesh = _mesh((1, 4))
+    index = mesh_lib.model_group(mesh)[1]
+    out = {}
+    for arch in EMBED_ARCHS:
+        for dtype in EMBED_DTYPES:
+            cfg = dataclasses.replace(_cfg(arch), dtype=dtype)
+            full = T.init_params(cfg, seed=0, device="cpu")
+            batch = _batch(cfg, SHAPE)
+            with torch.no_grad():
+                want = T._embed(cfg, full, batch).chunk(4, dim=1)[index]
+                model = st.shard_model(full, mesh)
+                keep = sh.keep_axes(model.specs["embed"], ("model",))
+                shard = sh.gather_to(mesh, model.shards["embed"], keep)
+                with constrain.use_mesh(mesh, split=True):
+                    got = T._embed(cfg, types.SimpleNamespace(embed=shard),
+                                   batch)
+            out[arch, dtype] = (tuple(shard.shape), got.dtype == want.dtype
+                                and torch.equal(got, want))
+    return out
 
 
 def _rank_tensor(rank, shape, dtype=torch.float32):
@@ -469,9 +522,9 @@ CASES = {**{f"ffn{_name(m)}": (
             for c, a, m in SPLIT_ALL[2:]},
          **{f"{c}64": (lambda o, c=c, a=a, m=m: _case_final64(c, a, m, o))
             for c, a, m in FINAL if c[:-3] in FINAL64},
-         "gemma1x4": lambda o: _case_run("gemma1x4", GEMMA, (1, 4), o,
-                                         _kw(MOE_STEPS)),
-         "collectives": _case_collectives,
+         "gemma_odd": lambda o: _case_run("gemma_odd", GEMMA, (1, 4), o,
+                                          _kw(MOE_STEPS), ODD),
+         "embed": _case_embed, "collectives": _case_collectives,
          "moe": _case_moe, "undivided": _case_undivided,
          "elastic": _case_elastic}
 
@@ -515,14 +568,14 @@ def ranks():
         torch.set_num_threads(threads)
 
 
-def _step0(cfg, dtype=None):
+def _step0(cfg, dtype=None, shape=SHAPE):
     """The unsharded step-0 loss, gradients and kernel widths (the model in
     ``dtype`` when given)."""
     model = T.init_params(cfg, seed=0, device="cpu")
     if dtype is not None:
         model = model.to(dtype)
     with _widths() as widths:
-        loss, parts = T.train_loss(cfg, model, _batch(cfg, SHAPE),
+        loss, parts = T.train_loss(cfg, model, _batch(cfg, shape),
                                    remat="none")
         loss.backward()
     return {"loss0": float(loss.detach()), "widths": widths,
@@ -534,7 +587,7 @@ def _unsharded(tmp):
     cfg = _cfg(ARCH)
     final = {c[:-3] for c, _, _ in FINAL}
     return {**{f"{k}0": _step0(_cfg(a)) for k, a in REFS.items()},
-            "gemma0": _step0(_cfg(GEMMA)),
+            "gemma_odd0": _step0(_cfg(GEMMA), shape=ODD),
             # the same steps in float64 (the attention core computes in
             # float32 either way): each leaf's float32 rounding floor
             "f64": {k: _step0(_cfg(a), torch.float64)["grads"]
@@ -548,9 +601,9 @@ def _unsharded(tmp):
                 device="cpu", ckpt_dir=f"{tmp}/ckpt_ref64_{k}",
                 **_kw(_steps(k)))
                for k in final},
-            "gemma": loop.train(_cfg(GEMMA), SHAPE, device="cpu",
-                                ckpt_dir=f"{tmp}/ckpt_ref_gemma",
-                                **_kw(MOE_STEPS)),
+            "gemma_odd": loop.train(_cfg(GEMMA), ODD, device="cpu",
+                                    ckpt_dir=f"{tmp}/ckpt_ref_gemma_odd",
+                                    **_kw(MOE_STEPS)),
             "small": loop.train(cfg, SMALL, device="cpu", **_kw())}
 
 
@@ -600,7 +653,7 @@ def _spawn_and_reference():
                 jax_proc.kill()
         got = [torch.load(f"{tmp}/rank{r}.pt") for r in range(WORLD)]
         final = [c for c, _, _ in FINAL]
-        last = {"ckpt_ref_gemma": MOE_STEPS, "ckpt_gemma1x4": MOE_STEPS,
+        last = {"ckpt_ref_gemma_odd": MOE_STEPS, "ckpt_gemma_odd": MOE_STEPS,
                 **{f"ckpt{kind}_{name}": _steps(c[:-3]) for c in final
                    for kind, name in (("", c), ("", f"{c}64"),
                                       ("_ref", c[:-3]),
@@ -614,9 +667,9 @@ def _spawn_and_reference():
                               *(f"ckpt_{c}" for c in final),
                               *(f"ckpt_{c}64" for c in final
                                 if c[:-3] in FINAL64),
-                              "ckpt_ref_gemma", "ckpt_gemma1x4")}
+                              "ckpt_ref_gemma_odd", "ckpt_gemma_odd")}
         steps = {name: sorted(os.listdir(Path(tmp) / name))
-                 for name in ("ckpt_ref_gemma", "ckpt_gemma1x4",
+                 for name in ("ckpt_ref_gemma_odd", "ckpt_gemma_odd",
                               "elastic")}
     return got, ref, ckpts, steps, jax_ref
 
@@ -640,23 +693,24 @@ def _same_result(got):
 
 
 def test_one_data_rank_is_bit_equal_to_unsharded(ranks):
-    """``gemma2-27b:smoke`` (``gemma_pair``, whose compute stays
-    replicated over ``model``) on ``(1, 4)``: one data rank, so every step
-    is the unsharded one, bit for bit."""
+    """``gemma2-27b:smoke`` on ``(1, 4)`` over 4 x 30 tokens: the ``model``
+    axis does not divide the sequence, so the compute stays replicated over
+    it (the fit rule); one data rank, so every step is the unsharded one,
+    bit for bit."""
     got, ref, ckpts, steps, _ = ranks
-    case = _case(got, "gemma1x4")
+    case = _case(got, "gemma_odd")
     res = _same_result(case)
-    assert res["losses"] == ref["gemma"].losses
-    assert res["aux_losses"] == ref["gemma"].aux_losses
-    assert case[0]["loss0"] == ref["gemma0"]["loss0"]
+    assert res["losses"] == ref["gemma_odd"].losses
+    assert res["aux_losses"] == ref["gemma_odd"].aux_losses
+    assert case[0]["loss0"] == ref["gemma_odd0"]["loss0"]
     assert case[0]["split"] == []
-    for name, want in ref["gemma0"]["grads"].items():
+    for name, want in ref["gemma_odd0"]["grads"].items():
         assert torch.equal(case[0]["grads"][name], want), name
     # the final parameters and AdamW state, written on the mesh: the same
     # bytes as the unsharded run's checkpoint at the same step
-    assert steps["ckpt_gemma1x4"] == steps["ckpt_ref_gemma"] == \
+    assert steps["ckpt_gemma_odd"] == steps["ckpt_ref_gemma_odd"] == \
         ["step_00000002"]
-    assert ckpts["ckpt_gemma1x4"] == ckpts["ckpt_ref_gemma"]
+    assert ckpts["ckpt_gemma_odd"] == ckpts["ckpt_ref_gemma_odd"]
 
 
 def test_model_axis_of_one_is_bit_equal_to_unsharded(ranks):
@@ -774,20 +828,31 @@ def test_split_matches_jax_loop(ranks, case, arch, mesh):
     got, want, ref, _, jax_ref, key = _split_case(ranks, case)
     _close(_same_result(got)["losses"], jax_ref[f"loss/{key}"])
     for name, g in want["grads"].items():
-        path = name.split(".")
-        if path[0] == "blocks":
-            j = jax_ref["grad/" + "/".join([key, "blocks", *path[2:]])]
-            j = torch.from_numpy(j[int(path[1])])
-        else:
-            j = torch.from_numpy(jax_ref[f"grad/{key}/{name}"])
+        j = _jax_grad(jax_ref, key, name)
         floor = (g.double() - ref["f64"][key][name]).abs().max().item()
         tol = 1e-6 * j.abs().max().item() + 2 * floor
-        if ".".join(path[-2:]) in JAX_FROM_UNSHARDED.get(key, ()):
+        if ".".join(name.split(".")[-2:]) in JAX_FROM_UNSHARDED.get(key, ()):
             off = (g - j).abs().max().item()
             assert off <= 1e-5 * j.abs().max().item(), (key, name, off)
             tol += off - floor
         diff = (got[0]["grads"][name] - j).abs().max().item()
         assert diff <= tol, (case, name, diff, tol)
+
+
+# the stacked leading axes of the JAX tree under each top-level key: the
+# blocks' layer axis, zamba's units [n_units, unit_len] and tail
+_JAX_STACKED = {"blocks": 1, "units": 2, "tail": 1}
+
+
+def _jax_grad(jax_ref, key, name):
+    """``jax.grad``'s leaf of the port's parameter ``name`` (the stacked
+    layer axes indexed by the name's numbers)."""
+    path = name.split(".")
+    lead = _JAX_STACKED.get(path[0], 0)
+    j = jax_ref["grad/" + "/".join([key, path[0], *path[1 + lead:]])]
+    for i in path[1:1 + lead]:
+        j = j[int(i)]
+    return torch.from_numpy(np.ascontiguousarray(j))
 
 
 def _mla_moe_split(cfg, m):
@@ -818,6 +883,18 @@ def _mla_moe_split(cfg, m):
     return out
 
 
+def _attn_mlp_blocks(cfg):
+    """The prefixes of the modules holding an ``attn``/``mlp`` pair:
+    each ``attn_mlp`` block, both halves of each ``gemma_pair`` block,
+    ``zamba``'s shared block."""
+    if cfg.layout == "attn_mlp":
+        return [f"blocks.{i}." for i in range(cfg.n_layers)]
+    if cfg.layout == "gemma_pair":
+        return [f"blocks.{i}.{kind}." for i in range(cfg.n_layers // 2)
+                for kind in ("local", "global")]
+    return ["shared_attn."] if cfg.layout == "zamba" else []
+
+
 @pytest.mark.parametrize("case,arch,mesh", SPLIT_ALL)
 def test_split_rank_shapes_and_widths(ranks, case, arch, mesh):
     """Each rank holds 1/model of every head-, hidden-, expert- and
@@ -833,13 +910,15 @@ def test_split_rank_shapes_and_widths(ranks, case, arch, mesh):
     V, F = cfg.vocab_size, cfg.d_ff
     split = {}
     if V % m == 0:
-        split.update({"embed": (V // m, D), "lm_head": (D, V // m)})
+        cb = (cfg.n_codebooks,) if cfg.input_mode == "codebooks" else ()
+        split.update({"embed": cb + (V // m, D), "lm_head": cb + (D, V // m)})
     if cfg.layout == "mla_moe":
         split.update(_mla_moe_split(cfg, m))
-    heads = cfg.layout == "attn_mlp" and H % m == 0
+    blocks = _attn_mlp_blocks(cfg)
+    heads = H % m == 0
     kv = heads and KV % m == 0
-    for i in range(cfg.n_layers * heads):
-        a = f"blocks.{i}.attn."
+    for b in blocks * heads:
+        a = b + "attn."
         split.update({a + "wq": (D, H * hd // m), a + "wo": (H * hd // m, D)})
         if kv:
             split.update({a + "wk": (D, KV * hd // m),
@@ -849,9 +928,9 @@ def test_split_rank_shapes_and_widths(ranks, case, arch, mesh):
             if kv:
                 split.update({a + "bk": (KV * hd // m,),
                               a + "bv": (KV * hd // m,)})
-    dense = cfg.layout == "attn_mlp" and cfg.ffn_sparsity is None
-    for i in range(cfg.n_layers * (dense and F % m == 0)):
-        f = f"blocks.{i}.mlp."
+    dense = cfg.ffn_sparsity is None
+    for b in blocks * (dense and F % m == 0):
+        f = b + "mlp."
         split.update({f + "w_gate": (D, F // m), f + "w_up": (D, F // m),
                       f + "w_down": (F // m, D)})
     for r, c in enumerate(got):
@@ -860,8 +939,8 @@ def test_split_rank_shapes_and_widths(ranks, case, arch, mesh):
         shapes = {**{n: tuple(g.shape) for n, g in want["grads"].items()},
                   **split}
         assert c["shapes"] == shapes, r
-        if cfg.layout == "attn_mlp" and not kv:
-            assert c["shapes"]["blocks.0.attn.wk"] == (D, KV * hd)
+        if blocks and not kv:
+            assert c["shapes"][blocks[0] + "attn.wk"] == (D, KV * hd)
         rows = c["batch_rows"]
         tokens = rows * SHAPE.seq_len // m
         for kind, calls in c["widths"].items():
@@ -886,16 +965,26 @@ def test_rank_bytes_equal_the_dryrun_per_device_bytes(ranks, mesh):
             cfg.vocab_size * cfg.d_model * 4
 
 
-@pytest.mark.parametrize("case", ["moe1x4", "moe2x2"])
+@pytest.mark.parametrize("case", ["moe1x4", "moe2x2", "gemma1x4"])
 def test_split_moe_rank_bytes_equal_the_dryrun_per_device_bytes(ranks,
                                                                  case):
     got, _, _, _, _ = ranks
-    cfg = _cfg(MOE)
+    if case.startswith("moe"):
+        # the routed bank (model, data): a quarter of it on every rank
+        cfg = _cfg(MOE)
+        leaf = "params.blocks.0.moe.w_gate"
+        numel = cfg.n_experts * cfg.d_model * cfg.expert_d_ff
+    else:
+        # both halves' heads and hidden columns and the vocab over model
+        cfg = _cfg(GEMMA)
+        leaf = "params.blocks.0.global.mlp.w_gate"
+        numel = cfg.d_model * cfg.d_ff
     for r, c in enumerate(_case(got, case)):
         assert c["held"] == c["want"], (case, r)
-        # the routed bank (model, data): a quarter of it on every rank
-        assert 4 * c["held"]["params.blocks.0.moe.w_gate"] == \
-            cfg.n_experts * cfg.d_model * cfg.expert_d_ff * 4
+        assert 4 * c["held"][leaf] == numel * 4
+        if case == "gemma1x4":
+            assert 4 * c["held"]["params.embed"] == \
+                cfg.vocab_size * cfg.d_model * 4
 
 
 @pytest.mark.parametrize("case,arch,mesh", [
@@ -910,6 +999,22 @@ def test_split_aux_loss_matches_unsharded(ranks, case, arch, mesh):
     for r, c in enumerate(got):
         assert abs(c["aux0"] - want["aux0"]) <= 1e-6, (case, r, c["aux0"])
     _close(_same_result(got)["aux_losses"], ref[key].aux_losses)
+
+
+@pytest.mark.parametrize("arch", EMBED_ARCHS)
+@pytest.mark.parametrize("dtype", EMBED_DTYPES)
+def test_split_embed_is_bit_equal_to_unsharded(ranks, arch, dtype):
+    """The split ``_embed`` on each rank of ``(1, 4)``: the rank's positions
+    of the unsharded ``_embed``, bit for bit (each reduce-scattered row sum
+    has one nonzero term; the gemma_pair scale, the codebooks' ordered sum
+    and the patch rows act after it), from a quarter of the vocab."""
+    got, _, _, _, _ = ranks
+    cfg = _cfg(arch)
+    cb = (cfg.n_codebooks,) if cfg.input_mode == "codebooks" else ()
+    for r, case in enumerate(_case(got, "embed")):
+        shape, equal = case[arch, dtype]
+        assert shape == cb + (cfg.vocab_size // 4, cfg.d_model), (r, shape)
+        assert equal, (arch, dtype, r)
 
 
 def test_moe_global_aux_loss_matches_unsharded(ranks):
@@ -1025,6 +1130,8 @@ def test_split_max_and_bf16_sums(ranks):
         assert case["no_split"] == (None, True)
 
 
+# an attention + dense MLP pair whose kv heads the axis does not divide
+_ATTN_MLP = {"attn.wq", "attn.wo", "mlp.w_gate", "mlp.w_up", "mlp.w_down"}
 _MLA_MOE = {"mla.wq", "mla.wkv_b", "mla.wo", "moe.w_gate", "moe.w_up",
             "moe.w_down", "moe.shared.w_gate", "moe.shared.w_up",
             "moe.shared.w_down"}
@@ -1048,7 +1155,16 @@ _MLA_MOE = {"mla.wq", "mla.wkv_b", "mla.wo", "moe.w_gate", "moe.w_up",
     (MOE, (1, 4), 32, {"embed", "lm_head"} | _MLA_MOE),
     # ssd: the vocab only (the mixer's leaves stay replicated)
     ("mamba2-1.3b:smoke", (1, 4), 32, {"embed", "lm_head"}),
-    ("musicgen-medium:smoke", (1, 4), 32, set()),   # codebooks
+    # codebooks: each codebook's table split on its vocab; 2 kv heads
+    (AUDIO, (1, 4), 32, {"embed", "lm_head"} | _ATTN_MLP),
+    # gemma_pair: both halves of the block
+    (GEMMA, (1, 4), 32, {"embed", "lm_head"} | {
+        f"{kind}.{n}" for kind in ("local", "global") for n in _ATTN_MLP}),
+    # zamba: the shared block (no Mamba2 leaf)
+    (ZAMBA, (1, 4), 32, {"embed", "lm_head"} | {
+        f"shared_attn.{n}" for n in _ATTN_MLP}),
+    # tokens+patches: 32 tokens and 8 patches, the carry's 40 positions
+    (VLM, (1, 4), 40, {"embed", "lm_head"} | _ATTN_MLP),
 ])
 def test_split_leaves_follow_the_fit_rule(arch, shape, seq, want):
     """The leaves the mesh step computes on their ``model`` shard, by
@@ -1057,9 +1173,12 @@ def test_split_leaves_follow_the_fit_rule(arch, shape, seq, want):
     names = _split_names(arch, shape, seq)
     assert {n.split(".", 2)[-1] if n.startswith("blocks.") else n
             for n in names} == want
-    per_layer = len(want - {"embed", "lm_head"})
+    per_block = len(want - {"embed", "lm_head"})
+    cfg = get_config(arch)
+    blocks = {"gemma_pair": cfg.n_layers // 2, "zamba": 1}.get(cfg.layout,
+                                                               cfg.n_layers)
     assert len(names) == len(want & {"embed", "lm_head"}) + \
-        per_layer * get_config(arch).n_layers
+        per_block * blocks
 
 
 def _split_names(arch, shape, seq):
