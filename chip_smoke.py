@@ -41,7 +41,12 @@ against a one-rank mesh, each rank's launches and halved kernel widths;
 ``musicgen-medium`` (4 layers, 4 codebooks) and ``pixtral-12b`` (2
 layers, 1,024 patches and 1,024 tokens), bf16, full width, each rank's
 halved leaves (32 of 64 experts, half the heads, hidden columns and
-vocab) and B1-B5 counters at 0.
+vocab) and B1-B5 counters at 0.  ``[train-dp]`` splits the mesh's
+``data`` axis over the two processes instead (a ``(2, 1)`` mesh), whose
+step gathers the parameters one layer at a time and reduce-scatters
+their gradients: ``smat-ffn-1.3b`` (8 layers; B1/B2 on each rank's row)
+and ``gemma2-27b`` (1 pair) against ``[train-tp]``'s one-rank runs, with
+the step's record of gathers, reduce-scatters and live gathered bytes.
 Right after ``[build]``, ``[analysis]`` runs the static contract
 analyzer (``python -m repro_torch.analysis --all``), holds every kernel
 instantiation's shared-memory formula to the library's own query and its
@@ -83,6 +88,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -4429,20 +4435,24 @@ def _tp_widths():
 
 @contextlib.contextmanager
 def _tp_collectives():
-    """Calls of each ``torch.distributed`` collective the split runs."""
+    """Calls of each ``torch.distributed`` collective the mesh step runs,
+    and the element counts every ``all_reduce`` carried."""
     import torch.distributed as dist
     calls = dict.fromkeys(TP_COLLECTIVES, 0)
+    numels = set()
     own = {name: getattr(dist, name) for name in TP_COLLECTIVES}
 
     def counted(name):
         def call(*args, **kw):
             calls[name] += 1
+            if name == "all_reduce":
+                numels.add(args[0].numel())
             return own[name](*args, **kw)
         return call
     for name in TP_COLLECTIVES:
         setattr(dist, name, counted(name))
     try:
-        yield calls
+        yield calls, numels
     finally:
         for name, fn in own.items():
             setattr(dist, name, fn)
@@ -4450,30 +4460,42 @@ def _tp_collectives():
 
 @contextlib.contextmanager
 def _tp_shapes():
-    """The shape of every module parameter as ``T.train_loss`` sees it
-    (the mesh step's gathered parameters: a rank's shard of a split
-    leaf)."""
+    """The shape of every module parameter as each group the model runs
+    computes with it (inside ``launch.constrain.gathered``: the mesh
+    step's gathered parameters, a rank's shard of a split leaf)."""
     from repro_torch.models import transformer as T
-    own, shapes = T.train_loss, {}
+    own, shapes, prefix = (T.train_loss, T.gathered), {}, {}
 
     def train_loss(cfg, params, *args, **kw):
-        shapes.update({n: tuple(p.shape)
-                       for n, p in params.named_parameters()})
-        return own(cfg, params, *args, **kw)
-    T.train_loss = train_loss
+        prefix.update({id(m): n + "." if n else ""
+                       for n, m in params.named_modules()})
+        return own[0](cfg, params, *args, **kw)
+
+    @contextlib.contextmanager
+    def gathered(module, names=None):
+        with own[1](module, names):
+            shapes.update({prefix[id(module)] + n: tuple(p.shape)
+                           for n, p in module.named_parameters()
+                           if names is None or n in names})
+            yield
+    T.train_loss, T.gathered = train_loss, gathered
     try:
         yield shapes
     finally:
-        T.train_loss = own
+        T.train_loss, T.gathered = own
 
 
 def _tp_train(run, mesh, device):
     """One of TP_RUNS through ``train.loop.train(cfg, shape, mesh)``: its
     losses, step times, launches, kernel widths, the parameters' shapes
-    the step computes with, collective calls and peak memory on this
+    the step computes with, collective calls (and the element counts the
+    all-reduces carried), the last step's per-layer gather record
+    (``launch.steps.RECORD``) and the leaves its gradients were
+    reduce-scattered and all-reduced by, and peak memory on this
     process's card."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import steps as st
     from repro_torch.optim import adamw
     from repro_torch.train import loop
     tag, arch, cut, dtype, steps, batch, seq, _, remat = run
@@ -4483,7 +4505,7 @@ def _tp_train(run, mesh, device):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     _reset_counts()
-    with _tp_widths() as widths, _tp_collectives() as calls, \
+    with _tp_widths() as widths, _tp_collectives() as (calls, numels), \
             _tp_shapes() as shapes:
         res = loop.train(cfg, ShapeCell("chip", "train", seq, batch), mesh,
                          total_steps=steps, remat=remat,
@@ -4491,14 +4513,17 @@ def _tp_train(run, mesh, device):
     launches = _read_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" \
         else 0.0
-    steady = res.step_times[1:]
+    steady = res.step_times[1:] or res.step_times     # a 1-step run: its one
     return {"losses": res.losses, "step_times": res.step_times,
             "step_ms": 1e3 * sum(steady) / len(steady),
             "launches": launches, "peak_gb": peak, "collectives": calls,
             "widths": {k: sorted(set(v)) for k, v in widths.items()},
             "calls": {k: len(v) for k, v in widths.items()},
             "shapes": shapes, "aux_losses": res.aux_losses,
-            "params": cfg.param_count()}
+            "params": cfg.param_count(), "record": dict(st.RECORD),
+            "reduced": {kind: sorted(e[1] for e in st.EVENTS if e[0] == kind)
+                        for kind in ("reduce_scatter", "all_reduce")},
+            "all_reduce_numels": sorted(numels)}
 
 
 def _tp_halved(shapes):
@@ -4539,10 +4564,11 @@ def _nccl_two_ranks(rank, port):
         dist.destroy_process_group()
 
 
-def _tp_worker(rank, ports, out_dir, runs, device):
-    """One rank of the (1, TP_RANKS) mesh, a process of its own on the one
-    card: the nccl check, then a gloo group (CUDA tensors) and every run
-    of ``runs``; its results to ``out_dir/tp_rank<rank>.pt``."""
+def _tp_worker(rank, ports, out_dir, runs, device, shape):
+    """One rank of the ``(data, model)`` mesh ``shape`` of TP_RANKS ranks,
+    a process of its own on the one card: the nccl check, then a gloo
+    group (CUDA tensors) and every run of ``runs``; its results to
+    ``out_dir/tp_rank<rank>.pt``."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import torch.distributed as dist
 
@@ -4556,31 +4582,34 @@ def _tp_worker(rank, ports, out_dir, runs, device):
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{ports[0]}",
                             world_size=TP_RANKS, rank=rank)
     try:
-        mesh = mesh_lib.make_mesh((1, TP_RANKS), ("data", "model"),
+        mesh = mesh_lib.make_mesh(shape, ("data", "model"),
                                   device_type=device)
         out["model_index"] = mesh_lib.model_group(mesh)[1]
+        out["data_index"] = mesh_lib.data_group(mesh)[1]
         out["runs"] = {run[0]: _tp_train(run, mesh, device) for run in runs}
     finally:
         dist.destroy_process_group()
     torch.save(out, f"{out_dir}/tp_rank{rank}.pt")
 
 
-def _tp_spawn(runs, device):
-    """Every rank's results of ``_tp_worker``; fails if a rank fails or the
-    group outlasts TP_TIMEOUT_S (its processes are killed)."""
+def _tp_spawn(runs, device, shape=(1, TP_RANKS)):
+    """Every rank's results of ``_tp_worker`` on the mesh ``shape``; fails
+    if a rank fails or the group outlasts TP_TIMEOUT_S (its processes are
+    killed)."""
     import tempfile
 
     import torch.multiprocessing as mp
     with tempfile.TemporaryDirectory() as tmp:
         ctx = mp.start_processes(
             _tp_worker, args=((_free_port(), _free_port()), tmp, runs,
-                              device),
+                              device, shape),
             nprocs=TP_RANKS, join=False, start_method="spawn")
         deadline = time.monotonic() + TP_TIMEOUT_S
         try:
             while not ctx.join(timeout=5):
-                check(time.monotonic() < deadline, f"[train-tp] the "
-                      f"{TP_RANKS} ranks did not finish in {TP_TIMEOUT_S} s")
+                check(time.monotonic() < deadline, f"[train] the "
+                      f"{TP_RANKS} ranks of the {shape} mesh did not finish "
+                      f"in {TP_TIMEOUT_S} s")
         finally:
             for proc in ctx.processes:
                 if proc.is_alive():
@@ -4739,6 +4768,144 @@ def _tp_check_shapes(run, one, got):
           all(g["shapes"] == want for g in got),
           f"[train-tp] {tag}: a rank's parameter shapes are not the "
           f"one-rank mesh's with TP_HALVED's leaves halved ({named})")
+
+
+# [train-dp]: the mesh's data axis over two processes on the one card, a
+# (data, model) = (2, 1) mesh (gloo, CUDA tensors), through the per-layer
+# gather (``launch.steps``): TP_RUNS' ffn cut (B1 and B2 on each rank's
+# row) and gemma cut, both under remat "none" (the backward's gather is
+# the one autograd's saved tensors make); the references are [train-tp]'s
+# one-rank runs of the same cuts, seeds and batches.  DP_STEPS: a run's
+# steps where fewer than [train-tp]'s (the losses are held over the steps
+# both runs take): gemma's 1 of 2, for the script's time limit (a step of it
+# moves 11.6 GB of gathered weights and 7 GB of gradients through gloo:
+# 21-28 s a step on an H100 80GB HBM3, 700 W; the script read 909 s with
+# 2 against its 900 s budget)
+DP_MESH = (TP_RANKS, 1)
+DP_RUNS = ("ffn", "gemma")
+DP_STEPS = {"gemma": 1}
+
+
+def _dp_groups(cfg):
+    """The per-layer gather's groups of ``cfg`` on DP_MESH: the
+    data-sharded leaves by group (``embed``, each block, ``lm_head``),
+    and each leaf's element count whole and a rank's."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import transformer as T
+    mesh = mesh_lib.make_abstract_mesh(DP_MESH, ("data", "model"))
+    flat = T.flat_specs(T.param_specs(cfg, device="meta"))
+    specs = sh.param_shardings(mesh, flat)
+    groups, numels = {}, {}
+    for n, t in flat.items():
+        if sh.data_sharded(mesh, specs[n]):
+            groups.setdefault(".".join(n.split(".")[:2]) if
+                              n.startswith("blocks.") else n, []).append(n)
+            numels[n] = (t.numel(), t.numel() // TP_RANKS)
+    return groups, numels
+
+
+def train_dp_phase(smi, trained_tp):
+    """The training mesh's data axis on the card: a ``(data, model) = (2,
+    1)`` mesh of two processes on the one card (``[train-tp]``'s worker
+    and spawn; gloo with CUDA tensors), through ``train.loop.train(cfg,
+    shape, mesh)`` with the per-layer gather: DP_RUNS' cuts of TP_RUNS
+    (DP_STEPS' steps where given), each rank one of the two rows.  Each run is held against
+    ``[train-tp]``'s one-rank nccl run of the same cut, seeds and batches
+    (``trained_tp``): the losses within the run's tolerance and both
+    ranks' equal; ``ffn``: each rank's B1/B2 launches the one-rank run's
+    (48 B1 + 24 B2 a step at 8 layers) at half its tokens; ``gemma``:
+    B1-B5 at 0.  The last step's record (``launch.steps.RECORD``): its
+    largest group's gathered bytes the largest group of the config's
+    data-sharded leaves, its peak of live gathered bytes no larger than
+    that group's weights plus its gradient, each data-sharded leaf's
+    gradient reduce-scattered once, and no all-reduce (the collective
+    wrapper's element counts, and the step's own list) carrying a
+    data-sharded leaf's gradient, whole or a rank's block.  Logs a rank's
+    ms a step, peak memory, collective calls a step and the record beside
+    the card's name and power limit."""
+    from repro_torch.configs import get_config
+    runs = [(*r[:4], DP_STEPS.get(r[0], r[4]), *r[5:]) for r in TP_RUNS
+            if r[0] in DP_RUNS]
+    # the two ranks share the card: growable segments let each reuse what
+    # its gathers and gradients free (the ranks' processes read it)
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = _tp_spawn(runs, DEVICE, DP_MESH)
+    finally:
+        if conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    out = {}
+    for run in runs:
+        tag, arch, cut, dtype, steps, batch, seq, tol, remat = run
+        one = trained_tp[tag]["one_rank"]
+        got = [r["runs"][tag] for r in ranks]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got[0]["losses"],
+                                                      one["losses"]))
+        same = all(g["losses"] == got[0]["losses"] for g in got)
+        cfg = dataclasses.replace(get_config(arch), **cut, dtype=dtype)
+        groups, numels = _dp_groups(cfg)
+        size = torch.finfo(getattr(torch, dtype)).bits // 8
+        largest = max(size * sum(numels[n][0] for n in g)
+                      for g in groups.values())
+        leaves = sorted(numels)
+        carried = {c for n in leaves for c in numels[n]}
+        depth = ", ".join(f"{k}={v}" for k, v in cut.items())
+        log(f"[train-dp] {arch} {tag}: {depth} ({one['params'] / 1e9:.3f} B "
+            f"parameters), full width, {dtype}, {batch} x {seq} tokens, "
+            f"{steps} steps, remat {remat}, on a {DP_MESH} (data, model) "
+            f"mesh of {TP_RANKS} processes on one card (gloo, CUDA "
+            f"tensors): losses {got[0]['losses']} (both ranks equal: "
+            f"{same}); one-rank mesh {one['losses']}; max relative "
+            f"difference {rel:.3g} (tolerance {tol}); largest group "
+            f"{largest} B ({len(groups)} groups, {len(leaves)} data-sharded "
+            f"leaves)")
+        for r, g in enumerate(got):
+            per_step = {k: v / steps for k, v in g["collectives"].items()}
+            log(f"[train-dp] {tag} rank {r}: step ms "
+                f"{[round(1e3 * t, 3) for t in g['step_times']]}, steady "
+                f"{g['step_ms']:.3f} ms; peak {g['peak_gb']:.2f} GB; "
+                f"launches {g['launches']}; widths (G, N) {g['widths']}; "
+                f"collective calls a step {per_step}; last step's record "
+                f"{g['record']}; {smi}")
+        log(f"[train-dp] {tag} one-rank mesh ([train-tp]'s): steady "
+            f"{one['step_ms']:.3f} ms; peak {one['peak_gb']:.2f} GB; {smi}")
+        check(rel <= tol and same, f"[train-dp] {tag}: losses differ from "
+              f"the one-rank mesh's ({rel:.3g} > {tol}) or between ranks")
+        if tag == "ffn":
+            half = {k: sorted((1, w[1] // TP_RANKS) for w in ws)
+                    for k, ws in one["widths"].items()}
+            want = _counts(**{B1: 6 * cut["n_layers"] * steps,
+                              B2: 3 * cut["n_layers"] * steps})
+            check(one["launches"] == want and all(
+                g["launches"] == want and g["calls"] == one["calls"] and
+                g["widths"] == half for g in got),
+                f"[train-dp] {tag}: a rank's launches are not {want} at "
+                f"half the one-rank run's tokens")
+        else:
+            check(all(g["launches"] == _counts() for g in got),
+                  f"[train-dp] {tag}: a B1-B5 kernel launched")
+        for r, g in enumerate(got):
+            rec = g["record"]
+            check(rec["group_bytes"] == largest and
+                  rec["peak_bytes"] <= 2 * largest and
+                  g["reduced"]["reduce_scatter"] == leaves and
+                  rec["reduce_scatters"] == len(leaves) and
+                  not set(g["reduced"]["all_reduce"]) & set(leaves) and
+                  not set(g["all_reduce_numels"]) & carried,
+                  f"[train-dp] {tag} rank {r}: the record {rec} is past "
+                  f"its bound ({largest} B, its gradient as much), or a "
+                  f"data-sharded gradient was not reduce-scattered once or "
+                  f"crossed an all-reduce")
+        out[tag] = {"ranks": got, "one_rank": one}
+    check(sorted(r["data_index"] for r in ranks) == list(range(TP_RANKS)),
+          "[train-dp] the ranks' data indices are not 0..n-1")
+    launches = {k["name"]: sum(o["ranks"][0]["launches"][k["name"]]
+                               for o in out.values()) for k in KERNELS}
+    return launches, out
 
 
 # ------------------------------------------- the MLA/MoE and SSD layouts
@@ -5299,6 +5466,7 @@ def main():
     train_mesh_launches, trained_mesh = phase(train_mesh_phase, cfg, smi,
                                               trained)
     train_tp_launches, trained_tp = phase(train_tp_phase, smi)
+    train_dp_launches, trained_dp = phase(train_dp_phase, smi, trained_tp)
     phase(train_vs_plain_phase, cfg)
     phase(train_row_loop_vs_plain_phase, cfg)
     phase(restart_phase)
@@ -5391,6 +5559,8 @@ def main():
              "train_mesh": train_mesh_launches,
              # rank 0 of the (1, 2) mesh, both runs
              "train_tp": train_tp_launches,
+             # rank 0 of the (2, 1) mesh, both runs
+             "train_dp": train_dp_launches,
              "prefill_attn_sharded": prefill_sh_launches,
              # the paths without a TPU kernel: 0 launches each
              **{path: r["launches"] for path, r in (
@@ -5506,6 +5676,8 @@ def main():
     tp_ranks = {t: [ms_gb(r) for r in o["ranks"]]
                 for t, o in trained_tp.items()}
     tp_one = {t: ms_gb(o["one_rank"]) for t, o in trained_tp.items()}
+    dp_ranks = {t: [ms_gb(r) for r in o["ranks"]]
+                for t, o in trained_dp.items()}
     log(f"[main] REPRO_VERIFY_LAUNCH=1 hook: {hook_counts} dispatches "
         "checked, outputs bit-equal without it")
     log(f"[main] serving: {tok_s:.1f} tok/s (nnz_stream), {tok_s_rl:.1f} "
@@ -5517,7 +5689,8 @@ def main():
         f"{trained_mesh['peak_gb']:.2f} GB ([train] "
         f"{trained['peak_gb']:.2f} GB); split over a (1, {TP_RANKS}) mesh "
         f"on one card, ms a step and peak GB per rank {tp_ranks} (one-rank "
-        f"mesh {tp_one}).  Autotune winners: "
+        f"mesh {tp_one}); over a {DP_MESH} mesh with the per-layer "
+        f"gather {dp_ranks}.  Autotune winners: "
         f"{ {f'{k[0]} {k[1]} N={k[2]}': v for k, v in winners.items()} }.  "
         f"Kernel times per launch: {B1} and {B3} at the decode shape "
         f"(N={N_SLOTS}; train_forward and train_dB at N={TRAIN_N}, "

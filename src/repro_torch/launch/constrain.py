@@ -36,7 +36,10 @@ The collectives sit where GSPMD would insert them, each an autograd
     operand entering split compute, where no gather brings it in).
 
 Sums over the model group of 16-bit tensors run in float32 and round once
-(every reduction backend supports float32).  ``local_seq(x, dim)`` takes
+(every reduction backend supports float32).  ``all_gather(x, dim, group,
+size)`` is the plain all-gather under ``gather``, and under the mesh
+step's per-layer gather over any group (``launch.sharding``).
+``local_seq(x, dim)`` takes
 this rank's chunk with no collective: its backward leaves zeros at the
 other ranks' positions, this rank's share of a replicated computation's
 gradient, which the gather before it, or the gradient sum of a replicated
@@ -53,6 +56,12 @@ that share a ``model`` coordinate, ``launch.mesh.data_group``): what the
 losses' global counts and the gradients are summed over, where GSPMD would
 sum over the global batch; ``psum_model`` over the model group, with no
 gradient.
+
+``gathered(module, names)`` marks where the model runs one group of
+parameters (a block, ``zamba``'s shared block at each use, ``embed``, the
+head): the mesh step's per-layer gather (``launch.steps``, entered with
+``gathering``) brings the group's data-sharded leaves in for the group's
+compute and drops them after it; outside it the mark does nothing.
 
 ``BATCH`` is the conventional hierarchical batch axis (pod+data).
 """
@@ -82,6 +91,30 @@ _ACTIVE: list = []
 
 def constrain(x, *axes):
     return x
+
+
+# the active per-layer gathers (``launch.steps``), innermost last
+_GATHERS: list = []
+
+
+@contextlib.contextmanager
+def gathering(gather):
+    """Make ``gather`` (whose ``group(module, names)`` is a context
+    manager) the one ``gathered`` enters inside the block."""
+    _GATHERS.append(gather)
+    try:
+        yield gather
+    finally:
+        _GATHERS.pop()
+
+
+def gathered(module, names: Optional[Sequence[str]] = None):
+    """A context manager inside which the parameters of ``module`` (those
+    of ``names`` only, when given) are the ones to compute with: the
+    active per-layer gather's group, or nothing to do outside one."""
+    if not _GATHERS:
+        return contextlib.nullcontext()
+    return _GATHERS[-1].group(module, names)
 
 
 @contextlib.contextmanager
@@ -131,12 +164,17 @@ def _wide(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous()
 
 
-def _all_gather(x: torch.Tensor, dim: int, tp: ModelSplit) -> torch.Tensor:
+def all_gather(x: torch.Tensor, dim: int, group, size: int) -> torch.Tensor:
+    """The ``size`` ranks' ``x`` of ``group`` concatenated along ``dim`` in
+    the group's order (one ``all_gather_into_tensor``)."""
     import torch.distributed as dist
     x = x.contiguous()
-    out = x.new_empty((tp.size * x.numel(),))
-    dist.all_gather_into_tensor(out, x.reshape(-1), group=tp.group)
-    return torch.cat(out.view(tp.size, *x.shape).unbind(0), dim=dim)
+    out = x.new_empty((size * x.numel(),))
+    dist.all_gather_into_tensor(out, x.reshape(-1), group=group)
+    parts = out.view(size, *x.shape)
+    if dim == 0:
+        return parts.view(size * x.shape[0], *x.shape[1:])
+    return torch.cat(parts.unbind(0), dim=dim)
 
 
 def _reduce_scatter(x: torch.Tensor, dim: int,
@@ -163,7 +201,7 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, tp):
         ctx.dim, ctx.tp = dim, tp
-        return _all_gather(x, dim, tp)
+        return all_gather(x, dim, tp.group, tp.size)
 
     @staticmethod
     def backward(ctx, g):
@@ -178,7 +216,7 @@ class _Scatter(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _all_gather(g, ctx.dim, ctx.tp), None, None
+        return all_gather(g, ctx.dim, ctx.tp.group, ctx.tp.size), None, None
 
 
 class _Reduce(torch.autograd.Function):

@@ -13,8 +13,10 @@ card; ``"cpu"`` builds a mesh for ``gloo`` process groups (the CPU tests).
 process group: what the sharding rules read.  ``data_group`` gives a
 rank's data-parallel group under a mesh (the training mesh's gradient and
 loss sums run over it), ``model_group`` its tensor-parallel group (the
-split compute's collectives run over it).  The functions touch no process
-state until called.
+split compute's collectives run over it), ``axes_group`` the group along
+any set of axes (a parameter's gather over the axes it is sharded on,
+a gradient norm's sum over the axes its shards differ on).  The
+functions touch no process state until called.
 """
 from __future__ import annotations
 
@@ -108,22 +110,23 @@ def model_axis(mesh) -> str:
     return "model"
 
 
-# data_group's and model_group's results per mesh: {(id(mesh), kind):
-# (mesh, result)}
+# axes_group's results per mesh: {(id(mesh), axes): (mesh, result)}
 _GROUPS: Dict[tuple, tuple] = {}
 
 
-def _axis_group(mesh, kind: str, inner) -> Tuple[
-        Optional["dist.ProcessGroup"], int, int]:
+def axes_group(mesh, inner) -> Tuple[Optional["dist.ProcessGroup"], int,
+                                     int]:
     """``(group, index, size)`` of the ranks that share this rank's
-    coordinate on every axis outside ``inner``, ordered along ``inner``'s
-    axes major to minor in mesh order.  Every rank creates every such
-    group with ``dist.new_group``, in the same order, the first time it
-    asks (cached per mesh and ``kind``); ``group`` is None for one rank."""
+    coordinate on every axis outside ``inner`` (axis names; those the mesh
+    lacks are ignored), ordered along ``inner``'s axes major to minor in
+    mesh order.  Every rank creates every such group with
+    ``dist.new_group``, in the same order, the first time it asks (cached
+    per mesh and axes); ``group`` is None for one rank."""
+    names = axis_names(mesh)
+    kind = tuple(n for n in names if n in inner)
     hit = _GROUPS.get((id(mesh), kind))
     if hit is not None and hit[0] is mesh:
         return hit[1]
-    names = axis_names(mesh)
     i_dims = [i for i, n in enumerate(names) if n in inner]
     o_dims = [i for i in range(len(names)) if i not in i_dims]
     size = int(np.prod([mesh.mesh.shape[i] for i in i_dims], dtype=np.int64))
@@ -150,7 +153,7 @@ def data_group(mesh) -> Tuple[Optional["dist.ProcessGroup"], int, int]:
 
     The groups are built with ``dist.new_group`` over the ranks of each
     ``model`` coordinate, not with the private ``DeviceMesh._flatten``."""
-    return _axis_group(mesh, "data", ("pod", "data"))
+    return axes_group(mesh, ("pod", "data"))
 
 
 def model_group(mesh) -> Tuple[Optional["dist.ProcessGroup"], int, int]:
@@ -159,4 +162,4 @@ def model_group(mesh) -> Tuple[Optional["dist.ProcessGroup"], int, int]:
     ``data``), ordered along ``model``; ``index`` is this rank's ``model``
     coordinate, the shard of a model-sharded dim it holds.  ``group`` is
     None when the ``model`` axis has one rank (or the mesh none)."""
-    return _axis_group(mesh, "model", ("model",))
+    return axes_group(mesh, ("model",))

@@ -34,9 +34,18 @@ this rank's block of a full tensor (a view: no communication),
 ``distribute_tree`` does it for every leaf of a tree.  Back from a
 ``DTensor``: ``full`` gathers it whole (a collective), ``gather_to`` to
 another spec (``keep_axes`` drops a spec's other axes: the mesh step
-gathers a model-split parameter over the data axes only), ``local`` takes
-this rank's block (a view); ``full`` and ``local`` pass a plain tensor
-through and map over a nested mapping.
+gathers a model-split parameter over the data axes only), ``narrow_to``
+to a spec that shards more (a view), ``local`` takes this rank's block (a
+view); ``full`` and ``local`` pass a plain tensor through and map over a
+nested mapping.
+
+One data-sharded leaf at a time, for the mesh step's per-layer gather
+(``data_sharded`` says which leaves are): ``gather_data`` gathers this
+rank's block over the data axes its spec shards it on (one all-gather
+over their group; ``whole=True`` gathers the ``model`` axis too), and
+``scatter_grad`` takes a gradient whole over the data axes, each rank's
+partial sum, back to this rank's block of the storage: one
+reduce-scatter over the data group (pod-major), in the gradient's dtype.
 """
 from __future__ import annotations
 
@@ -45,8 +54,11 @@ from typing import Any, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.launch.mesh import axis_names, axis_sizes, data_axes
+from repro_torch.launch.constrain import all_gather
+from repro_torch.launch.mesh import (axes_group, axis_names, axis_sizes,
+                                     data_axes, data_group)
 
 
 class PartitionSpec(tuple):
@@ -429,6 +441,105 @@ def gather_to(mesh, d, spec) -> torch.Tensor:
     if not any(moved):
         return d.to_local()
     return d.redistribute(mesh, target).to_local()
+
+
+def narrow_to(mesh, d, spec):
+    """The ``DTensor`` ``d`` under ``spec``, which shards every mesh dim
+    ``d`` shards (on the same tensor dim) and maybe more: this rank's block
+    of ``d``'s local tensor (a view; no communication)."""
+    from torch.distributed.tensor import Shard
+    names = axis_names(mesh)
+    have = {n for n, p in zip(names, d.placements) if isinstance(p, Shard)}
+    more = P(*[tuple(a for a in _mesh_axes(mesh, e) if a not in have)
+               for e in spec])
+    return from_local(mesh, local_shard(mesh, d.to_local(), more), spec,
+                      d.shape)
+
+
+def _data_dim(mesh, spec):
+    """``(dim, axes)``: the tensor dim ``spec`` shards over data axes and
+    those axes in mesh order, or ``(None, ())``.  A parameter's spec
+    shards at most one dim over them, and over no other axis."""
+    data = data_axes(mesh)
+    found = [(d, _mesh_axes(mesh, a)) for d, a in enumerate(spec)
+             if set(_mesh_axes(mesh, a)) & set(data)]
+    if not found:
+        return None, ()
+    (d, axes), = found
+    if not set(axes) <= set(data):
+        raise ValueError(f"dim {d} of {spec} mixes data and other axes")
+    return d, axes
+
+
+def data_sharded(mesh, spec) -> bool:
+    """True where ``spec`` shards a dim over data axes of more than one
+    rank (the mesh step gathers such a leaf one layer at a time)."""
+    d, axes = _data_dim(mesh, spec)
+    return d is not None and _axis_size(mesh, axes) > 1
+
+
+def gather_data(mesh, local: torch.Tensor, spec,
+                whole: bool = False) -> torch.Tensor:
+    """This rank's block ``local`` of a leaf under ``spec`` gathered over
+    the data axes its spec shards it on (one all-gather over their group,
+    its ``model`` shard kept), and with ``whole`` over ``model`` too (a
+    second all-gather): the full tensor."""
+    d, axes = _data_dim(mesh, spec)
+    out = local
+    if d is not None:
+        group, _, size = axes_group(mesh, axes)
+        if size > 1:
+            out = all_gather(out, d, group, size)
+    if whole:
+        for e, a in enumerate(spec):
+            if "model" in _mesh_axes(mesh, a):
+                group, _, size = axes_group(mesh, ("model",))
+                if size > 1:
+                    out = all_gather(out, e, group, size)
+    return out
+
+
+def scatter_grad(mesh, grad: torch.Tensor, spec) -> torch.Tensor:
+    """This rank's block, under ``spec``, of the sum over the data group of
+    ``grad``: each rank's gradient of a leaf that ``spec`` shards over data
+    axes, whole over those axes (its ``model`` block already taken).  One
+    reduce-scatter over the data group, whose ranks are ordered pod-major:
+    rank ``i`` receives the block its coordinates on the spec's data axes
+    give (a gradient sharded on dim 0 is reduced in place, with no copy).
+    Where the mesh has a data axis the spec leaves unsharded (a ``pod``
+    axis; ``spec`` shards over ``data`` only), ranks that differ only there
+    hold the same block: each block is reduced in flat pieces, one a rank,
+    and the pieces are all-gathered over those axes.  The sum runs in the
+    gradient's dtype, as ``launch.constrain.psum_data`` sums the others."""
+    d, axes = _data_dim(mesh, spec)
+    group, _, size = data_group(mesh)
+    data = data_axes(mesh)
+    sizes = axis_sizes(mesh)
+    rest = tuple(a for a in data if a not in axes)
+    blocks = grad.chunk(_axis_size(mesh, axes), dim=d)
+    n_rest = size // len(blocks)
+    numel = blocks[0].numel()
+    if n_rest == 1:                  # rank i takes block i
+        piece = numel
+        buf = grad.reshape(-1) if d == 0 else torch.stack(blocks).reshape(-1)
+    else:
+        piece = -(-numel // n_rest)
+        buf = grad.new_zeros((size * piece,))
+        for i in range(size):
+            coord = dict(zip(data, np.unravel_index(
+                i, [sizes[a] for a in data])))
+            b = int(np.ravel_multi_index([coord[a] for a in axes],
+                                         [sizes[a] for a in axes]))
+            r = int(np.ravel_multi_index([coord[a] for a in rest],
+                                         [sizes[a] for a in rest]))
+            flat = blocks[b].reshape(-1)[r * piece:(r + 1) * piece]
+            buf[i * piece:i * piece + flat.numel()].copy_(flat)
+    out = buf.new_empty((piece,))
+    dist.reduce_scatter_tensor(out, buf, group=group)
+    if n_rest > 1:
+        r_group, _, _ = axes_group(mesh, rest)
+        out = all_gather(out, 0, r_group, n_rest)[:numel]
+    return out.view(blocks[0].shape)
 
 
 def full(tree) -> Any:

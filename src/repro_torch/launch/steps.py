@@ -14,14 +14,23 @@ a cell's inputs and AdamW state as ``meta``-device tensors (shape and dtype
 only), for the dry-run (``launch.dryrun``).
 
 Under a training mesh (``make_train_step(..., mesh=mesh)``) the step runs
-gather-then-compute over ZeRO-3 storage: a ``MeshModel`` (``shard_model``)
-stores each parameter as a ``DTensor`` under
-``launch.sharding.param_shardings`` and AdamW's moments under
-``opt_state_shardings`` (``init_opt_state``).  A step gathers the
-parameters, runs the model forward and backward on this rank's batch rows
-(the kernels get plain local tensors), sums the gradients, clips with the
-norm of the full gradient, and updates each rank's own shard of
-parameters and moments.
+over ZeRO-3 storage: a ``MeshModel`` (``shard_model``) stores each
+parameter as a ``DTensor`` under ``launch.sharding.param_shardings`` and
+AdamW's moments under ``opt_state_shardings`` (``init_opt_state``).  A
+step runs the model forward and backward on this rank's batch rows (the
+kernels get plain local tensors) and gathers the data-sharded parameters
+one group at a time, as the JAX package's scanned step does under GSPMD:
+a block (a ``gemma_pair`` pair; for ``zamba`` a Mamba2 layer, the shared
+block at each use, a tail layer), ``embed``, the head, each gathered just
+before it runs and dropped after, gathered again for its backward, its
+gradients reduce-scattered over the data group to the rank's blocks
+(``mesh_loss_and_grads``, ``_LayerGather``; ``RECORD`` counts it).  The
+step then clips with the norm of the full gradient, taken over every
+rank's blocks, and updates each rank's own shard of parameters and
+moments.  A data group of one rank, and a batch the data axes do not
+divide (replicated), keep the whole-model step: every parameter gathered
+for the step, the gradients summed whole (on one data rank the unsharded
+step bit for bit).
 
 Where the ``model`` axis has more than one rank and divides the sequence,
 the compute splits over it, as the JAX package's sharding rules and
@@ -43,12 +52,15 @@ split leaf's gradient is summed over the data group; a replicated leaf's
 heads, MLA's ``wkv_a``/``wq_a``, the router, every Mamba2 leaf) over the
 data and model groups.  A ``model`` axis of one rank, and a sequence the
 axis does not divide, gather every parameter whole and replicate the
-compute over ``model``.
+compute over ``model``.  Under both splits a data-sharded leaf's gradient
+is reduce-scattered over the data group, then (a replicated leaf) summed
+over the model group.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 from torch.distributed.tensor import DTensor
@@ -57,7 +69,8 @@ from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.core.sparse_linear import meta_spec as _spec
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import sharding as sh
-from repro_torch.launch.constrain import psum_data, psum_model, use_mesh
+from repro_torch.launch.constrain import (gathering, psum_data, psum_model,
+                                          use_mesh)
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 
@@ -115,8 +128,9 @@ class MeshModel:
     parameter as a ``DTensor`` under ``specs`` (its
     ``launch.sharding.param_shardings`` spec): the parameters' storage.
     ``module`` holds the buffers (the sparse layers' index arrays, which the
-    rules replicate) and, during a step only, the gathered parameters; its
-    parameters are empty between steps."""
+    rules replicate) and, during a step only, the parameters gathered for
+    the whole step (the data-sharded ones come in one group at a time,
+    ``mesh_loss_and_grads``); its parameters are empty between steps."""
     module: T.Transformer
     mesh: Any
     specs: Dict[str, Any]
@@ -234,73 +248,357 @@ def split_leaves(cfg: ModelConfig, mesh, specs: Dict[str, Any],
     return frozenset(n for n, spec in specs.items() if splits(n, spec))
 
 
+# the last mesh step's per-layer gather: plain integers, as the kernels
+# keep their launch counts (``reset_record`` zeroes them): ``gathers``
+# and ``regathers`` count leaves gathered over the data axes in the
+# forward and again in the backward, ``reduce_scatters`` gradients
+# reduce-scattered over the data group, ``all_reduces`` gradients summed
+# whole over a data group of more than one rank; ``peak_bytes`` is the
+# largest count of gathered parameter bytes alive at once on the rank,
+# ``group_bytes`` the largest group's gathered bytes
+RECORD: Dict[str, int] = dict.fromkeys(
+    ("gathers", "regathers", "reduce_scatters", "all_reduces",
+     "peak_bytes", "group_bytes"), 0)
+# the same step's collectives one by one, for checks:
+# ``("gather", phase, group, leaves, alive)`` (``alive``: every leaf
+# gathered on the rank just after it), ``("reduce_scatter", leaf)``,
+# ``("all_reduce", leaf)``
+EVENTS: list = []
+
+
+def reset_record() -> None:
+    RECORD.update(dict.fromkeys(RECORD, 0))
+    EVENTS.clear()
+
+
+class _Saved(NamedTuple):
+    """What autograd keeps of a gathered weight it saves: the leaf, the
+    group, and the view's geometry on the gathered tensor."""
+    group: str
+    name: str
+    size: torch.Size
+    stride: tuple
+    offset: int
+
+
+class _Gather(torch.autograd.Function):
+    """A leaf's gather over the data axes (forward), and its gradient's
+    reduce-scatter back to the rank's block (backward)."""
+
+    @staticmethod
+    def forward(ctx, local, layers, name, use):
+        ctx.layers, ctx.name, ctx.use = layers, name, use
+        return layers.gather(name)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.layers.reduce(ctx.name, ctx.use, grad), None, None, None
+
+
+class _LayerGather:
+    """The per-layer gather of one mesh step over the leaves ``names``
+    (data-sharded, data group of more than one rank): ``group`` is what
+    ``launch.constrain.gathered`` enters.  ``leaves`` holds each leaf's
+    block of the storage as a tensor that takes the gradient; ``whole``
+    names the leaves computed whole (the others keep their ``model``
+    shard)."""
+
+    def __init__(self, model: "MeshModel", names, whole):
+        self.mesh, self.specs, self.whole = model.mesh, model.specs, whole
+        root = model.module
+        self.prefix = {id(m): n + "." if n else ""
+                       for n, m in root.named_modules()}
+        self.owner = {}
+        for n in names:
+            path, _, attr = n.rpartition(".")
+            self.owner[n] = (root.get_submodule(path), attr)
+        self.leaves = {n: model.shards[n].to_local().detach()
+                       .requires_grad_() for n in names}
+        self.backward_phase = False
+        self.live = {}        # storage address -> (group, leaf), forward
+        self.groups = {}      # group -> its leaves
+        self.uses = dict.fromkeys(names, 0)   # forward uses to backward
+        self.pending = {}     # forward use -> leaves whose gradient is due
+        self.acc = {}         # leaf -> its summed gradient (shared block)
+        self.held = None      # (group, tensors, bytes) for a backward
+        self.alive = 0
+        self.n_uses = 0
+
+    # ---------------------------------------------------------- gathers
+    def gather(self, name) -> torch.Tensor:
+        RECORD["regathers" if self.backward_phase else "gathers"] += 1
+        return sh.gather_data(self.mesh, self.leaves[name].detach(),
+                              self.specs[name], whole=name in self.whole)
+
+    def _note(self, group, fulls, alive_names) -> int:
+        nbytes = sum(t.numel() * t.element_size() for t in fulls.values())
+        self.alive += nbytes
+        RECORD["peak_bytes"] = max(RECORD["peak_bytes"], self.alive)
+        RECORD["group_bytes"] = max(RECORD["group_bytes"], nbytes)
+        EVENTS.append(("gather", "backward" if self.backward_phase else
+                       "forward", group, tuple(sorted(fulls)),
+                       tuple(sorted(alive_names))))
+        return nbytes
+
+    def _release_held(self) -> None:
+        if self.held is not None:
+            self.alive -= self.held[2]
+            self.held = None
+
+    def _regather(self, group) -> dict:
+        """The group's leaves gathered for its backward (each group's
+        backward in turn; the one before is dropped)."""
+        self._release_held()
+        fulls = {n: self.gather(n) for n in self.groups[group]}
+        self.held = (group, fulls, self._note(group, fulls, fulls))
+        return fulls
+
+    @contextlib.contextmanager
+    def group(self, module, names):
+        prefix = self.prefix[id(module)]
+        group = prefix + "+".join(names) if names else prefix.rstrip(".")
+        leaves = [prefix + n for n in names] if names else \
+            [prefix + n for n, _ in module.named_parameters()]
+        mine = [n for n in leaves if n in self.leaves]
+        if not mine:
+            yield
+            return
+        self.groups[group] = mine
+        if self.backward_phase:      # a checkpoint's recompute
+            self._release_held()
+            use = None
+        else:
+            use, self.n_uses = self.n_uses, self.n_uses + 1
+            self.pending[use] = set(mine)
+            for n in mine:
+                self.uses[n] += 1
+        fulls = {n: _Gather.apply(self.leaves[n], self, n, use)
+                 for n in mine}
+        if self.backward_phase:
+            self.held = (group, None, self._note(group, fulls, fulls))
+        else:
+            alive = [n for _, n in self.live.values()] + mine
+            nbytes = self._note(group, fulls, alive)
+            self.live.update({t.untyped_storage().data_ptr(): (group, n)
+                              for n, t in fulls.items()})
+        params = {n: self.owner[n][0]._parameters[self.owner[n][1]]
+                  for n in mine}
+        for n in mine:
+            owner, attr = self.owner[n]
+            owner._parameters[attr] = fulls[n]
+        try:
+            yield
+        finally:
+            for n in mine:
+                owner, attr = self.owner[n]
+                owner._parameters[attr] = params[n]
+            if not self.backward_phase:
+                for t in fulls.values():
+                    del self.live[t.untyped_storage().data_ptr()]
+                self.alive -= nbytes
+
+    # ------------------------------------------------ autograd's saved
+    def _pack(self, t):
+        if not self.live or t.numel() == 0:
+            return t
+        hit = self.live.get(t.untyped_storage().data_ptr())
+        if hit is None:
+            return t
+        return _Saved(*hit, t.size(), t.stride(), t.storage_offset())
+
+    def _unpack(self, saved):
+        if not isinstance(saved, _Saved):
+            return saved
+        held = self.held
+        fulls = held[1] if held is not None and held[0] == saved.group \
+            and held[1] is not None else self._regather(saved.group)
+        return fulls[saved.name].as_strided(saved.size, saved.stride,
+                                            saved.offset)
+
+    # -------------------------------------------------------- gradients
+    def reduce(self, name, use, grad):
+        """A forward use's gradient of ``name``: summed into the leaf's
+        other uses' until its last in the backward (a shared block's first
+        in the forward), then reduce-scattered to the rank's block."""
+        self.uses[name] -= 1
+        out = None
+        if self.uses[name]:
+            self.acc[name] = grad if name not in self.acc \
+                else self.acc[name] + grad
+        else:
+            if name in self.acc:
+                grad = self.acc.pop(name) + grad
+            spec = self.specs[name]
+            if name in self.whole:       # its model block (a view)
+                grad = sh.local_shard(self.mesh, grad,
+                                      sh.keep_axes(spec, ("model",)))
+            out = sh.scatter_grad(self.mesh, grad, spec)
+            RECORD["reduce_scatters"] += 1
+            EVENTS.append(("reduce_scatter", name))
+        due = self.pending[use]
+        due.discard(name)
+        if not due:                  # the group's backward is done
+            self._release_held()
+        return out
+
+    @contextlib.contextmanager
+    def forward(self):
+        with gathering(self), torch.autograd.graph.saved_tensors_hooks(
+                self._pack, self._unpack):
+            yield
+
+    @contextlib.contextmanager
+    def backward(self):
+        self.backward_phase = True
+        try:
+            with gathering(self):
+                yield
+        finally:
+            self._release_held()
+
+
+def _divided(mesh, batch) -> bool:
+    """Whether ``batch`` (``DTensor`` leaves, or this rank's rows) is split
+    over a data group of more than one rank."""
+    if mesh_lib.data_group(mesh)[2] == 1:
+        return False
+    tokens = batch["tokens"]
+    return not isinstance(tokens, DTensor) or \
+        tokens.to_local().shape[0] < tokens.shape[0]
+
+
 def mesh_loss_and_grads(cfg: ModelConfig, model: MeshModel, batch: Dict,
                         remat: str = "full"):
-    """The mesh step's forward and backward: gather the parameters into
-    the module, run ``T.train_loss`` on this rank's rows of ``batch``
-    (``DTensor`` leaves under ``batch_shardings``, or local tensors),
-    release the gathered parameters, and sum the gradients and the loss
-    terms over the data group.  Returns ``(metrics, grads)``: the global
-    ``loss``, ``lm_loss`` and ``aux_loss``, and the full gradient of the
-    global loss by parameter name.
+    """The mesh step's forward and backward on this rank's rows of
+    ``batch`` (``DTensor`` leaves under ``batch_shardings``, or local
+    tensors).  Returns ``(metrics, grads)``: the global ``loss``,
+    ``lm_loss`` and ``aux_loss`` and the norm of the global loss's full
+    gradient (``grad_norm``), and that gradient by parameter name, each a
+    ``DTensor`` under the leaf's ``param_shardings`` spec (this rank's
+    block of it), as the JAX package's step returns it
+    (``out_shardings``).
+
+    Under a data group of more than one rank and a batch split over it,
+    the data-sharded leaves (``sharding.data_sharded``) are gathered one
+    group at a time (``_LayerGather``): the model marks each group it
+    runs (``launch.constrain.gathered``: a block, ``zamba``'s shared
+    block at each use, ``embed``, the head), the group's leaves are
+    gathered there (``sharding.gather_data``) and dropped once it has
+    run, and gathered again for its backward.  Under ``remat`` "full",
+    "dots" or "names" the checkpoint's recompute runs the group's gather
+    itself.  Under "none" a ``saved_tensors_hooks`` pair keeps autograd
+    from holding a gathered weight from the forward to the backward: the
+    pack hook stores a saved tensor that lives in a gathered weight as the
+    leaf's name and the view's geometry, and the unpack hook gathers the
+    group again (once for all its saved tensors) and takes the view.  The
+    hooks were chosen over an autograd ``Function`` around each group,
+    which would have to recompute the group's forward to rebuild what it
+    saves, and so launch its kernels twice.  Each gather is an autograd
+    ``Function`` (``_Gather``) whose backward receives the leaf's whole
+    gradient once the group's backward has made it, and reduce-scatters
+    it over the data group to the rank's block
+    (``sharding.scatter_grad``); a leaf used more than once (``zamba``'s
+    shared block) sums its uses' gradients and is reduce-scattered once,
+    after its last use in the backward (unit 0), its summed gradient held
+    whole until then.  No rank holds the model gathered, or its whole
+    gradient; ``RECORD`` and ``EVENTS`` keep what the step gathered and
+    reduced.
+
+    The other leaves (no data axis in their spec: norms, the sparse FFN's
+    ``vals``, the SSD's ``conv_w``/``A_log``/``D``/``dt_bias``) are taken
+    as today for the whole step and their gradients summed over the data
+    group whole (``psum_data``); so is every leaf under a data group of
+    one rank (the unsharded step bit for bit), or a batch the data axes
+    do not divide (replicated).
 
     Where ``split_leaves`` names leaves, the compute is split over
     ``model`` (``use_mesh(..., split=True)``): those leaves are gathered
-    over the data axes only (``gather_to``; each rank keeps its ``model``
-    shard) and their gradients, summed over the data group, come back as
-    ``DTensor``s sharded over ``model`` (the shard on each rank); every
-    other leaf is gathered whole and its gradient, the rank's share (its
+    over the data axes only (each rank keeps its ``model`` shard) and
+    every other leaf whole; the latter's gradient, the rank's share (its
     positions, its heads), is summed over the model group too.  Otherwise
-    every parameter is gathered whole (``DTensor.full_tensor``) and the
-    compute is replicated over ``model``."""
+    every parameter is gathered whole and the compute is replicated over
+    ``model``."""
     mesh = model.mesh
     params = dict(model.module.named_parameters())
+    by_layer = frozenset(n for n in params if sh.data_sharded(
+        mesh, model.specs[n])) if _divided(mesh, batch) else frozenset()
     batch = sh.local(batch)
     seq = batch["tokens"].shape[1] + (batch["patch_embeds"].shape[1]
                                       if "patch_embeds" in batch else 0)
     split = split_leaves(cfg, mesh, model.specs, seq)
-    keep = {n: sh.keep_axes(model.specs[n], ("model",)) for n in split}
+    held = {n: sh.keep_axes(model.specs[n], ("model",)) if n in split
+            else sh.P() for n in params}
+    reset_record()
+    layers = _LayerGather(model, by_layer, by_layer - split) \
+        if by_layer else None
     with use_mesh(mesh, split=bool(split)):
         for name, p in params.items():
-            d = model.shards[name]
-            p.data = sh.gather_to(mesh, d, keep[name]) if name in split \
-                else d.full_tensor()
+            if name not in by_layer:
+                d = model.shards[name]
+                p.data = sh.gather_to(mesh, d, held[name]) if name in split \
+                    else d.full_tensor()
             p.grad = None
-        loss, parts = T.train_loss(cfg, model.module, batch, remat=remat)
-        loss.backward()
+        with layers.forward() if layers else contextlib.nullcontext():
+            loss, parts = T.train_loss(cfg, model.module, batch, remat=remat)
+        with layers.backward() if layers else contextlib.nullcontext():
+            loss.backward()
         grads = {n: p.grad for n, p in params.items()}
         for p in params.values():
             p.grad = None
             _release(p)
-        names = [n for n, g in grads.items() if g is not None]
+        for n in by_layer:
+            grads[n] = layers.leaves[n].grad
+            held[n] = model.specs[n]
+        names = [n for n, g in grads.items()
+                 if g is not None and n not in by_layer]
         terms = [t.detach().float() for t in (loss, *parts.values())]
         *summed, total = psum_data([*(grads[n] for n in names),
                                     torch.stack(terms)])
-        whole = [i for i, n in enumerate(names) if n not in split]
-        for i, g in zip(whole, psum_model([summed[i] for i in whole])):
-            summed[i] = g
-    grads.update(zip(names, summed))
-    for name in split:
-        if grads[name] is not None:
-            grads[name] = sh.from_local(mesh, grads[name], keep[name],
-                                        model.shards[name].shape)
+        grads.update(zip(names, summed))
+        if mesh_lib.data_group(mesh)[2] > 1:
+            RECORD["all_reduces"] += len(names)
+            EVENTS.extend(("all_reduce", n) for n in names)
+        whole = [n for n, g in grads.items()
+                 if g is not None and n not in split]
+        grads.update(zip(whole, psum_model([grads[n] for n in whole])))
+        grads = {n: None if g is None else
+                 sh.from_local(mesh, g, held[n], model.shards[n].shape)
+                 for n, g in grads.items()}
+        gnorm = _split_norm(mesh, grads)
     metrics = dict(zip(("loss", *parts), total.unbind()))
-    return metrics, grads
+    metrics["grad_norm"] = gnorm
+    return metrics, {n: None if g is None else
+                     sh.narrow_to(mesh, g, model.specs[n])
+                     for n, g in grads.items()}
 
 
 def _split_norm(mesh, grads) -> torch.Tensor:
-    """The full gradient's norm, for ``mesh_loss_and_grads``' gradients:
-    ``adamw.global_norm`` where no leaf is split over ``model``; else each
-    split leaf's shard counted on its rank and summed over the model
-    group, and each whole leaf once."""
-    split = {n: g for n, g in grads.items() if isinstance(g, DTensor)}
-    if not split:
-        return adamw.global_norm(grads)
-    sq = adamw.sum_squares({n: g.to_local() for n, g in split.items()})
-    group = mesh_lib.model_group(mesh)[0]
-    torch.distributed.all_reduce(sq, group=group)
-    rest = {n: g for n, g in grads.items() if n not in split}
-    return torch.sqrt(sq + adamw.sum_squares(rest))
+    """The norm of the full gradient from ``DTensor`` gradients, each
+    element counted once: the leaves are grouped by the mesh axes (of more
+    than one rank) their placements shard, each group's sum of squares is
+    summed over those axes (an all-reduce of one number), and the
+    replicated leaves' is added last (``adamw.global_norm`` where every
+    leaf is replicated)."""
+    from torch.distributed.tensor import Shard
+    names = mesh_lib.axis_names(mesh)
+    sizes = mesh_lib.axis_sizes(mesh)
+    by_axes: Dict[tuple, dict] = {}
+    for n, g in grads.items():
+        if g is not None:
+            axes = tuple(a for a, p in zip(names, g.placements)
+                         if isinstance(p, Shard) and sizes[a] > 1)
+            by_axes.setdefault(axes, {})[n] = g.to_local()
+    rest = by_axes.pop((), {})
+    if not by_axes:
+        return adamw.global_norm(rest)
+    total = None
+    for axes in sorted(by_axes):
+        sq = adamw.sum_squares(by_axes[axes])
+        torch.distributed.all_reduce(sq,
+                                     group=mesh_lib.axes_group(mesh, axes)[0])
+        total = sq if total is None else total + sq
+    return torch.sqrt(total + adamw.sum_squares(rest)) if rest \
+        else torch.sqrt(total)
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
@@ -314,23 +612,18 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
 
     With ``mesh`` the model is a ``MeshModel`` on that mesh, ``opt_state``
     ``init_opt_state``'s and ``batch`` ``DTensor``s under
-    ``batch_shardings`` (or this rank's rows): the step gathers, computes
-    (``mesh_loss_and_grads``), clips with the full gradient's norm and
-    updates this rank's shards; the metrics are the global ones."""
+    ``batch_shardings`` (or this rank's rows): the step computes
+    (``mesh_loss_and_grads``: the per-layer gather, each gradient this
+    rank's block), clips with the full gradient's norm and updates this
+    rank's shards; the metrics are the global ones."""
     if mesh is not None:
         def mesh_step(model: MeshModel, opt_state, batch: Dict):
             if model.mesh is not mesh:
                 raise ValueError("the model is stored on another mesh")
             metrics, grads = mesh_loss_and_grads(cfg, model, batch, remat)
-            gnorm = _split_norm(mesh, grads)
-            data = mesh_lib.data_axes(mesh)
-            local_grads = {
-                n: None if g is None else
-                sh.local_shard(mesh, g.to_local(),
-                               sh.keep_axes(model.specs[n], data))
-                if isinstance(g, DTensor) else
-                sh.local_shard(mesh, g, model.specs[n])
-                for n, g in grads.items()}
+            gnorm = metrics.pop("grad_norm")
+            local_grads = {n: None if g is None else g.to_local()
+                           for n, g in grads.items()}
             state = sh.local(opt_state)
             _, state, om = adamw.update(opt_cfg, local_grads, state,
                                         sh.local(model.shards),

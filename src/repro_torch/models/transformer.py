@@ -48,6 +48,13 @@ vocab-split logits (softcapped as they are), whose cross-entropy
 ``lm_loss`` reduces over the model group; ``train_loss`` scores the text
 positions of ``tokens+patches`` by their global positions.
 
+Each group of parameters the JAX package's scan runs as one entry (a
+block, ``zamba``'s shared block at each use, a Mamba2 layer of a unit or
+the tail) and ``embed`` and the head run inside
+``launch.constrain.gathered``: under the training mesh's per-layer
+gather (``launch.steps``) their data-sharded weights are gathered there
+and dropped after; elsewhere the mark does nothing.
+
 ``forward``'s ``remat`` replaces the JAX package's ``jax.checkpoint``
 policies with ``torch.utils.checkpoint`` over each block: ``"full"``
 recomputes everything; ``"dots"`` and ``"names"`` run a selective
@@ -72,9 +79,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sparse_linear import meta_spec as _spec
 from repro_torch.core.sparse_linear import sparse_linear_specs
 from repro_torch.launch.constrain import (BATCH, MODEL, ModelSplit,
-                                          constrain, gather, local_seq,
-                                          model_split, pmax_model, psum_data,
-                                          reduce, scatter)
+                                          constrain, gather, gathered,
+                                          local_seq, model_split, pmax_model,
+                                          psum_data, reduce, scatter)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
@@ -530,8 +537,9 @@ def _remat_block(cfg: ModelConfig, blk: Block, x, remat: str):
     """One block without a cache under activation checkpointing (the JAX
     package's ``jax.checkpoint`` of the block, with ``remat``'s policy).
     Returns (x, aux)."""
-    def run(x_):
-        x_, _, aux = _apply_block(cfg, blk, x_, None, None)
+    def run(x_):                     # the recompute gathers the block too
+        with gathered(blk):
+            x_, _, aux = _apply_block(cfg, blk, x_, None, None)
         return x_, aux
     kw = {}
     if remat != "full":
@@ -550,7 +558,8 @@ def _run_stack(cfg, blocks, x, cache, pos, slot_mask, remat, lead=()):
             x, a = _remat_block(cfg, blk, x, remat)
         else:
             c = None if cache is None else _layer(cache, *lead, i)
-            x, _, a = _apply_block(cfg, blk, x, c, pos, slot_mask)
+            with gathered(blk):
+                x, _, a = _apply_block(cfg, blk, x, c, pos, slot_mask)
         aux = aux + a
     return x, aux
 
@@ -565,7 +574,9 @@ def _zamba_forward(cfg, params, x, cache, pos, slot_mask, remat):
                           cache["units_ssd"], pos, slot_mask, "none",
                           lead=(u,))
         c = None if cache is None else _layer(cache["units_attn"], u)
-        x, _ = _attn_mlp(cfg, params.shared_attn, x, c, pos, slot_mask, None)
+        with gathered(params.shared_attn):          # at each use
+            x, _ = _attn_mlp(cfg, params.shared_attn, x, c, pos, slot_mask,
+                             None)
     return _run_stack(ssd, params.tail, x, None if cache is None else
                       cache["tail_ssd"], pos, slot_mask, remat)
 
@@ -579,13 +590,16 @@ def forward(cfg: ModelConfig, params: Transformer, batch_in, *, cache=None,
     policies."""
     if remat not in REMAT:
         raise ValueError(f"unknown remat {remat!r}; want one of {REMAT}")
-    x = constrain(_embed(cfg, params, batch_in), BATCH)
+    with gathered(params, ("embed",)):
+        x = constrain(_embed(cfg, params, batch_in), BATCH)
     if cfg.layout == "zamba":
         x, aux = _zamba_forward(cfg, params, x, cache, pos, slot_mask, remat)
     else:
         x, aux = _run_stack(cfg, params.blocks, x, cache, pos, slot_mask,
                             remat)
-    return _head(cfg, params, x), cache, aux
+    with gathered(params, ("lm_head", "final_norm")):
+        logits = _head(cfg, params, x)
+    return logits, cache, aux
 
 
 # ================================================================ entry points

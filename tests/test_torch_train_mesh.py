@@ -256,21 +256,36 @@ def _widths():
 
 
 @contextlib.contextmanager
-def _gathered_shapes():
-    """Record the shape of every module parameter as ``T.train_loss``
-    sees it (the mesh step's gathered parameters)."""
-    own = T.train_loss
+def _gathered_shapes(root):
+    """Record the shape of every parameter of the module ``root`` as each
+    group the model runs computes with it (inside
+    ``launch.constrain.gathered``: the mesh step's gathered parameters,
+    one group at a time)."""
+    own = T.gathered
+    prefix = {id(m): n + "." if n else "" for n, m in root.named_modules()}
     shapes = {}
 
-    def train_loss(cfg, params, *args, **kw):
-        shapes.update({n: tuple(p.shape)
-                       for n, p in params.named_parameters()})
-        return own(cfg, params, *args, **kw)
-    T.train_loss = train_loss
+    @contextlib.contextmanager
+    def gathered(module, names=None):
+        with own(module, names):
+            shapes.update({prefix[id(module)] + n: tuple(p.shape)
+                           for n, p in module.named_parameters()
+                           if names is None or n in names})
+            yield
+    T.gathered = gathered
     try:
         yield shapes
     finally:
-        T.train_loss = own
+        T.gathered = own
+
+
+def _block(mesh, spec, shape):
+    """This rank's block of a tensor of ``shape`` under ``spec``: a
+    ``(start, stop)`` a dim."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple((int(r[0]), int(r[-1]) + 1) for r in (
+        sh.local_shard(mesh, torch.arange(n), sh.P(a))
+        for n, a in zip(shape, spec)))
 
 
 def _nbytes(t):
@@ -348,14 +363,19 @@ def _storage_and_grads(mesh, cfg, shape=SHAPE):
                  for k, v in T.flat_specs(opt).items()})
     held.update({"batch." + k: _nbytes(v) for k, v in batch.items()})
     want, _, _ = dryrun._cell_leaves(cfg, shape, mesh, False, "meta")
-    with _widths() as widths, _gathered_shapes() as shapes:
+    with _widths() as widths, _gathered_shapes(model.module) as shapes:
         metrics, grads = st.mesh_loss_and_grads(cfg, model, batch,
                                                 remat="none")
-    split = sorted(n for n, g in grads.items() if hasattr(g, "to_local"))
+    record = dict(st.RECORD)
+    split = sorted(n for n, s in shapes.items()
+                   if s != tuple(model.shards[n].shape))
     return {"held": held, "want": want, "loss0": float(metrics["loss"]),
             "aux0": float(metrics["aux_loss"]),
             "grads": sh.full(grads), "split": split, "widths": widths,
-            "shapes": shapes,
+            "shapes": shapes, "record": record,
+            "shards": {n: (g.to_local().clone(),
+                           _block(mesh, model.specs[n], g.shape))
+                       for n, g in grads.items() if g is not None},
             "model_index": mesh_lib.model_group(mesh)[1],
             "batch_rows": sh.local(batch)["tokens"].shape[0]}
 
@@ -392,7 +412,8 @@ def _case_undivided(out_dir):
     cfg = _cfg(ARCH)
     spec = sh.batch_shardings(mesh, st.input_specs(cfg, SMALL))["tokens"]
     res = loop.train(cfg, SMALL, mesh, **_kw())
-    return {"spec": tuple(spec), "result": dataclasses.asdict(res)}
+    return {"spec": tuple(spec), "result": dataclasses.asdict(res),
+            "record": dict(st.RECORD)}
 
 
 def _case_elastic(out_dir):
@@ -413,11 +434,23 @@ def _case_pod_order(out_dir):
     piece = coord[0] * 2 + coord[1]
     # a dim over the size-1 model axis: the gather is the shard itself
     one = sh.shard_tensor(mesh, full, sh.P(None, "model"))
+    # the per-layer gather's collectives: a block over ("pod", "data") and
+    # over "data" alone (replicated over pod) gathered back, and each
+    # rank's gradient summed over the 4 ranks into the rank's block
+    rank = dist.get_rank()
+    grad = _rank_tensor(rank, (8, 3))
+    over = {}
+    for name, spec in (("pod_data", sh.P(("pod", "data"), None)),
+                       ("data", sh.P("data", None))):
+        local = sh.local_shard(mesh, full, spec)
+        over[name] = (torch.equal(sh.gather_data(mesh, local, spec), full),
+                      sh.scatter_grad(mesh, grad, spec),
+                      _block(mesh, spec, full.shape))
     return {"local": torch.equal(d.to_local(), full[2 * piece:2 * piece + 2]),
             "gathered": torch.equal(d.full_tensor(), full),
             "placements": [str(p) for p in d.placements],
             "size1_alias": one.full_tensor().data_ptr() ==
-            one.to_local().data_ptr()}
+            one.to_local().data_ptr(), "layer": over}
 
 
 # the archs whose split ``_embed`` is held bit-equal to the unsharded one:
@@ -514,6 +547,45 @@ def _case_error_feedback(grads):
     return out
 
 
+# the per-layer gather's runs over data groups of more than one rank:
+# (case, arch, mesh), one step each under each of LAYER_REMATS on SHAPE
+# (ODD_DP for the case named in LAYER_CELLS: the model axis does not divide
+# its 31 positions, so no leaf splits and the model-sharded ones are
+# gathered over both axes), and the key of their unsharded step's
+# references
+ODD_DP = ShapeCell("t", "train", 31, 4)
+LAYERS = (("ffn4x1", ARCH, (4, 1)), ("ffn2x2x1", ARCH, (2, 2, 1)),
+          ("gemma2x2", GEMMA, (2, 2)), ("moe2x2", MOE, (2, 2)),
+          ("zamba4x1", ZAMBA, (4, 1)), ("ffn2x2odd", ARCH, (2, 2)))
+LAYER_REMATS = ("none", "full")
+LAYER_CELLS = {"ffn2x2odd": ODD_DP}
+LAYER_REFS = {"ffn4x1": "ffn", "ffn2x2x1": "ffn", "gemma2x2": "gemma",
+              "moe2x2": "moe", "zamba4x1": "zamba", "ffn2x2odd": "ffn_odd"}
+
+
+def _case_layers(out_dir):
+    """One mesh step of each of LAYERS under each of LAYER_REMATS: the
+    step's record and events, its loss and its gradients gathered
+    whole."""
+    out = {}
+    for case, arch, shape in LAYERS:
+        mesh = _mesh(shape)
+        cfg = _cfg(arch)
+        cell = LAYER_CELLS.get(case, SHAPE)
+        model = st.shard_model(T.init_params(cfg, seed=0, device="cpu"),
+                               mesh)
+        b_specs = sh.batch_shardings(mesh, st.input_specs(cfg, cell))
+        batch = sh.distribute_tree(mesh, _batch(cfg, cell), b_specs)
+        for remat in LAYER_REMATS:
+            metrics, grads = st.mesh_loss_and_grads(cfg, model, batch,
+                                                    remat=remat)
+            out[case, remat] = {"record": dict(st.RECORD),
+                                "events": list(st.EVENTS),
+                                "loss0": float(metrics["loss"]),
+                                "grads": sh.full(grads)}
+    return out
+
+
 CASES = {**{f"ffn{_name(m)}": (
     lambda o, m=m: _case_run(f"ffn{_name(m)}", ARCH, m, o))
     for m in MESHES + DATA_MESHES},
@@ -526,7 +598,7 @@ CASES = {**{f"ffn{_name(m)}": (
                                           _kw(MOE_STEPS), ODD),
          "embed": _case_embed, "collectives": _case_collectives,
          "moe": _case_moe, "undivided": _case_undivided,
-         "elastic": _case_elastic}
+         "elastic": _case_elastic, "layers": _case_layers}
 
 
 def _run(results, name, case, *args):
@@ -588,10 +660,12 @@ def _unsharded(tmp):
     final = {c[:-3] for c, _, _ in FINAL}
     return {**{f"{k}0": _step0(_cfg(a)) for k, a in REFS.items()},
             "gemma_odd0": _step0(_cfg(GEMMA), shape=ODD),
+            "ffn_odd0": _step0(cfg, shape=ODD_DP),
             # the same steps in float64 (the attention core computes in
             # float32 either way): each leaf's float32 rounding floor
-            "f64": {k: _step0(_cfg(a), torch.float64)["grads"]
-                    for k, a in REFS.items()},
+            "f64": {**{k: _step0(_cfg(a), torch.float64)["grads"]
+                       for k, a in REFS.items()},
+                    "ffn_odd": _step0(cfg, torch.float64, ODD_DP)["grads"]},
             **{k: loop.train(_cfg(a), SHAPE, device="cpu",
                              ckpt_dir=f"{tmp}/ckpt_ref_{k}", **_kw(_steps(k)))
                for k, a in REFS.items()},
@@ -613,7 +687,8 @@ def _one_rank_mesh(tmp):
     dist.init_process_group("gloo", store=dist.FileStore(f"{tmp}/store1", 1),
                             rank=0, world_size=1)
     try:
-        return loop.train(_cfg(ARCH), SHAPE, _mesh((1, 1)), **_kw())
+        res = loop.train(_cfg(ARCH), SHAPE, _mesh((1, 1)), **_kw())
+        return res, dict(st.RECORD)
     finally:
         dist.destroy_process_group()
 
@@ -637,7 +712,8 @@ def _spawn_and_reference():
             weights, grads = _inputs(tmp, jax_proc)
             with _jax_weights(weights):
                 ref = _unsharded(tmp)
-                ref["one_rank"] = _one_rank_mesh(tmp)
+                ref["one_rank"], ref["one_rank_record"] = \
+                    _one_rank_mesh(tmp)
             ref["ef_grads"] = grads
             deadline = time.monotonic() + SPAWN_TIMEOUT_S
             while not ranks.join(timeout=5):
@@ -704,6 +780,9 @@ def test_one_data_rank_is_bit_equal_to_unsharded(ranks):
     assert res["aux_losses"] == ref["gemma_odd"].aux_losses
     assert case[0]["loss0"] == ref["gemma_odd0"]["loss0"]
     assert case[0]["split"] == []
+    # no gather and no reduce-scatter over the data group of one rank
+    for c in case:
+        assert c["record"] == dict.fromkeys(st.RECORD, 0), c["record"]
     for name, want in ref["gemma_odd0"]["grads"].items():
         assert torch.equal(case[0]["grads"][name], want), name
     # the final parameters and AdamW state, written on the mesh: the same
@@ -715,13 +794,18 @@ def test_one_data_rank_is_bit_equal_to_unsharded(ranks):
 
 def test_model_axis_of_one_is_bit_equal_to_unsharded(ranks):
     """A ``model`` axis of one rank keeps the replicated step: the one-rank
-    ``(1, 1)`` gloo mesh's losses equal the unsharded run's bit for bit."""
+    ``(1, 1)`` gloo mesh's losses equal the unsharded run's bit for bit,
+    and its last step gathered and reduce-scattered nothing."""
     _, ref, _, _, _ = ranks
     assert ref["one_rank"].losses == ref["ffn"].losses
+    assert ref["one_rank_record"] == dict.fromkeys(st.RECORD, 0)
 
 
 @pytest.mark.parametrize("mesh", DATA_MESHES)
 def test_data_parallel_mesh_matches_unsharded(ranks, mesh):
+    """The step's gradients come back reduce-scattered: each rank's block
+    of every leaf (its storage block) against the same block of the
+    unsharded gradient."""
     got, ref, _, _, _ = ranks
     case = _case(got, f"ffn{_name(mesh)}")
     res = _same_result(case)
@@ -729,8 +813,10 @@ def test_data_parallel_mesh_matches_unsharded(ranks, mesh):
     _close(res["losses"], ref["ffn"].losses)
     _close(case[0]["loss0"], ref["ffn0"]["loss0"])
     for name, want in ref["ffn0"]["grads"].items():
-        for r, c in enumerate(case):      # every rank holds the full sum
-            diff = (c["grads"][name] - want).abs().max().item()
+        for r, c in enumerate(case):      # each rank holds its block
+            shard, block = c["shards"][name]
+            diff = (shard - want[tuple(slice(*b) for b in block)]).abs() \
+                .max().item()
             assert diff <= 1e-6 * want.abs().max().item(), (mesh, r, name,
                                                             diff)
 
@@ -1030,6 +1116,10 @@ def test_undivided_batch_is_replicated(ranks):
     case = _case(got, "undivided")
     assert case[0]["spec"] == (None, None)
     _close(_same_result(case)["losses"], ref["small"].losses)
+    for c in case:        # the replicated batch keeps the whole-model step
+        rec = c["record"]
+        assert rec["gathers"] == rec["regathers"] == \
+            rec["reduce_scatters"] == rec["peak_bytes"] == 0, rec
 
 
 def test_elastic_restart_onto_another_mesh(ranks):
@@ -1047,6 +1137,138 @@ def test_pod_data_dim_takes_the_jax_order(ranks):
         assert case["local"] and case["gathered"]
         assert case["placements"] == ["S(0)", "S(0)", "R"]
         assert case["size1_alias"]
+
+
+@pytest.mark.parametrize("spec", ["pod_data", "data"])
+def test_pod_data_gather_and_reduce_scatter_take_the_jax_order(ranks, spec):
+    """``gather_data`` brings a block sharded over ``("pod", "data")`` (pod
+    major) or over ``data`` alone back to the whole tensor, and
+    ``scatter_grad`` gives each rank its block of the 4 ranks' summed
+    gradient: one of four pod-major blocks, or, over ``data`` alone, the
+    block of its data coordinate (the same on both pods)."""
+    got, _, _, _, _ = ranks
+    total = sum(_rank_tensor(q, (8, 3)) for q in range(WORLD))
+    rows = set()
+    for r, case in enumerate(_case(got, "pod_order")):
+        gathered, block, (span, _) = case["layer"][spec]
+        assert gathered, r
+        torch.testing.assert_close(block, total[slice(*span)], rtol=1e-6,
+                                   atol=0)
+        rows.add(span)
+    assert len(rows) == (4 if spec == "pod_data" else 2)
+
+
+# ------------------------------------------------- the per-layer gather
+def _layer_groups(cfg, shape, seq_len):
+    """The per-layer gather's groups on a mesh of ``shape``, in forward
+    order (``embed``, the stack's blocks (``zamba``: each unit's Mamba2
+    layers, then its use of the shared block; the tail), the head), each
+    group's data-sharded leaves, each group's gathered bytes (float32;
+    a model-split leaf keeps its ``model`` shard), and the other floating
+    leaves."""
+    axes = ("pod", "data", "model")[-len(shape):]
+    mesh = mesh_lib.make_abstract_mesh(shape, axes)
+    flat = T.flat_specs(T.param_specs(cfg, device="meta"))
+    specs = sh.param_shardings(mesh, flat)
+    split = st.split_leaves(cfg, mesh, specs, seq_len)
+    m = mesh_lib.axis_sizes(mesh)["model"]
+    gathered = {}
+    for n, t in flat.items():
+        if sh.data_sharded(mesh, specs[n]):
+            keep = sh.keep_axes(specs[n], ("model",)) if n in split else ()
+            gathered[n] = [k // m if a == "model" else k for k, a in zip(
+                t.shape, tuple(keep) + (None,) * t.dim())]
+    others = sorted(n for n, t in flat.items() if t.is_floating_point()
+                    and n not in gathered and n in specs)
+    if cfg.layout == "zamba":
+        stack = [g for u in range(cfg.hybrid_n_units) for g in (
+            *(f"units.{u}.{i}" for i in range(cfg.hybrid_unit_len)),
+            "shared_attn")] + [f"tail.{i}" for i in range(cfg.hybrid_tail)]
+    else:
+        stack = [f"blocks.{i}" for i in range(T._n_repeats(cfg))]
+    order = ["embed", *stack, "lm_head+final_norm"]
+    members = {g: {n for n in gathered if n in g.split("+") or
+                   n.startswith(g + ".")} for g in order}
+    nbytes = {g: 4 * sum(int(np.prod(gathered[n])) for n in members[g])
+              for g in order}
+    return order, members, nbytes, others
+
+
+def _layer_runs(ranks, case, remat):
+    return [c[case, remat] for c in _case(ranks[0], "layers")]
+
+
+def _case_groups(case, arch, mesh):
+    return _layer_groups(_cfg(arch), mesh,
+                         LAYER_CELLS.get(case, SHAPE).seq_len)
+
+
+@pytest.mark.parametrize("remat", LAYER_REMATS)
+@pytest.mark.parametrize("case,arch,mesh", LAYERS)
+def test_layer_gather_holds_one_group_at_a_time(ranks, case, arch, mesh,
+                                                remat):
+    """The forward gathers each group just before it runs (``zamba``'s
+    shared block at each use), the backward gathers it again in reverse
+    order (every group but ``embed``, whose backward needs no weight: the
+    checkpoint's recompute under "full", autograd's saved tensors under
+    "none"), each time that group's data-sharded leaves and no other leaf
+    alive on the rank; the record counts them, and its peak of gathered
+    bytes is no larger than the largest group's weights plus its
+    gradient."""
+    order, members, nbytes, _ = _case_groups(case, arch, mesh)
+    for r, run in enumerate(_layer_runs(ranks, case, remat)):
+        gathers = [e for e in run["events"] if e[0] == "gather"]
+        fwd = [e[2] for e in gathers if e[1] == "forward"]
+        bwd = [e[2] for e in gathers if e[1] == "backward"]
+        assert fwd == order, (r, fwd)
+        assert bwd == order[:0:-1], (r, bwd)
+        for _, phase, group, leaves, alive in gathers:
+            assert set(leaves) == members[group], (r, phase, group, leaves)
+            assert alive == leaves, (r, phase, group, alive)
+        rec = run["record"]
+        assert rec["gathers"] == sum(len(members[g]) for g in fwd), rec
+        assert rec["regathers"] == sum(len(members[g]) for g in bwd), rec
+        assert rec["group_bytes"] == max(nbytes.values()), rec
+        assert rec["peak_bytes"] <= 2 * rec["group_bytes"], rec
+
+
+@pytest.mark.parametrize("remat", LAYER_REMATS)
+@pytest.mark.parametrize("case,arch,mesh", LAYERS)
+def test_layer_gather_reduce_scatters_each_gradient_once(ranks, case, arch,
+                                                         mesh, remat):
+    """Over one step each data-sharded leaf's gradient crosses exactly one
+    reduce-scatter over the data group (``zamba``'s shared block too,
+    after its last use in the backward) and no all-reduce; every other
+    floating leaf's crosses one all-reduce over the data group whole, as
+    before the per-layer gather."""
+    _, members, _, others = _case_groups(case, arch, mesh)
+    leaves = sorted(set().union(*members.values()))
+    for r, run in enumerate(_layer_runs(ranks, case, remat)):
+        ev = run["events"]
+        assert sorted(e[1] for e in ev if e[0] == "reduce_scatter") == \
+            leaves, r
+        assert sorted(e[1] for e in ev if e[0] == "all_reduce") == \
+            others, r
+        rec = run["record"]
+        assert (rec["reduce_scatters"], rec["all_reduces"]) == \
+            (len(leaves), len(others)), (r, rec)
+
+
+@pytest.mark.parametrize("remat", LAYER_REMATS)
+@pytest.mark.parametrize("case,arch,mesh", LAYERS)
+def test_layer_gather_matches_unsharded(ranks, case, arch, mesh, remat):
+    """Step 0 under the per-layer gather against the unsharded step: the
+    loss within 1e-5 relative, every rank's gradient (gathered whole)
+    within 1e-6 x max|grad| plus the leaf's float32 floor."""
+    _, ref, _, _, _ = ranks
+    key = LAYER_REFS[case]
+    want = ref[f"{key}0"]
+    for r, run in enumerate(_layer_runs(ranks, case, remat)):
+        _close(run["loss0"], want["loss0"])
+        for name, g in want["grads"].items():
+            tol = _grad_tol(g, ref["f64"][key][name])
+            diff = (run["grads"][name] - g).abs().max().item()
+            assert diff <= tol, (case, remat, r, name, diff, tol)
 
 
 # ------------------------------------------------------ against the JAX loop
