@@ -46,7 +46,9 @@ vocab) and B1-B5 counters at 0.  ``[train-dp]`` splits the mesh's
 step gathers the parameters one layer at a time and reduce-scatters
 their gradients: ``smat-ffn-1.3b`` (8 layers; B1/B2 on each rank's row)
 and ``gemma2-27b`` (1 pair) against ``[train-tp]``'s one-rank runs, with
-the step's record of gathers, reduce-scatters and live gathered bytes.
+the step's record of gathers, reduce-scatters and live gathered bytes,
+each step's gradient norm and each phase's peak memory; then a
+replicated batch and a checkpoint save on the same mesh.
 Right after ``[build]``, ``[analysis]`` runs the static contract
 analyzer (``python -m repro_torch.analysis --all``), holds every kernel
 instantiation's shared-memory formula to the library's own query and its
@@ -4485,14 +4487,57 @@ def _tp_shapes():
         T.train_loss, T.gathered = own
 
 
+@contextlib.contextmanager
+def _tp_phases(device):
+    """Each step's gradient norm (what AdamW clips with), and the last
+    step's peak memory in each phase on this process's card, with the
+    memory allocated at the phase's end: ``forward`` from the step before
+    (the batch, the gathers) to ``T.train_loss``'s return, ``backward``
+    with the gradients' collectives and norm up to ``adamw.update``, and
+    ``update``.  ``run_peak``: the largest of them over the run (the
+    phases reset the card's peak)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    own = (T.train_loss, adamw.update)
+    seen = {"grad_norms": [], "phases": {}, "run_peak": 0.0}
+    cuda = device == "cuda"
+
+    def mark(phase):
+        if cuda:
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            seen["phases"][phase] = (peak,
+                                     torch.cuda.memory_allocated() / 1e9)
+            seen["run_peak"] = max(seen["run_peak"], peak)
+            torch.cuda.reset_peak_memory_stats()
+
+    def train_loss(*args, **kw):
+        out = own[0](*args, **kw)
+        mark("forward")
+        return out
+
+    def update(*args, grad_norm=None, **kw):
+        mark("backward")
+        seen["grad_norms"].append(None if grad_norm is None
+                                  else float(grad_norm))
+        out = own[1](*args, grad_norm=grad_norm, **kw)
+        mark("update")
+        return out
+    T.train_loss, adamw.update = train_loss, update
+    try:
+        yield seen
+    finally:
+        T.train_loss, adamw.update = own
+
+
 def _tp_train(run, mesh, device):
     """One of TP_RUNS through ``train.loop.train(cfg, shape, mesh)``: its
     losses, step times, launches, kernel widths, the parameters' shapes
     the step computes with, collective calls (and the element counts the
     all-reduces carried), the last step's per-layer gather record
     (``launch.steps.RECORD``) and the leaves its gradients were
-    reduce-scattered and all-reduced by, and peak memory on this
-    process's card."""
+    reduce-scattered and all-reduced by, each step's gradient norm, and
+    peak memory on this process's card, of the whole run and of each
+    phase of its last step (``_tp_phases``)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeCell
     from repro_torch.launch import steps as st
@@ -4505,14 +4550,21 @@ def _tp_train(run, mesh, device):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     _reset_counts()
-    with _tp_widths() as widths, _tp_collectives() as (calls, numels), \
-            _tp_shapes() as shapes:
-        res = loop.train(cfg, ShapeCell("chip", "train", seq, batch), mesh,
-                         total_steps=steps, remat=remat,
-                         opt_cfg=adamw.AdamWConfig(total_steps=steps))
+    st.EVENTS = []
+    try:
+        with _tp_widths() as widths, _tp_collectives() as (calls, numels), \
+                _tp_shapes() as shapes, _tp_phases(device) as phases:
+            res = loop.train(cfg, ShapeCell("chip", "train", seq, batch),
+                             mesh, total_steps=steps, remat=remat,
+                             opt_cfg=adamw.AdamWConfig(total_steps=steps))
+        reduced = {kind: sorted(e[1] for e in st.EVENTS if e[0] == kind)
+                   for kind in ("reduce_scatter", "all_reduce")}
+    finally:
+        st.EVENTS = None
     launches = _read_counts()
-    peak = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" \
-        else 0.0
+    run_peak = phases.pop("run_peak")
+    peak = max(torch.cuda.max_memory_allocated() / 1e9, run_peak) \
+        if device == "cuda" else 0.0
     steady = res.step_times[1:] or res.step_times     # a 1-step run: its one
     return {"losses": res.losses, "step_times": res.step_times,
             "step_ms": 1e3 * sum(steady) / len(steady),
@@ -4521,9 +4573,8 @@ def _tp_train(run, mesh, device):
             "calls": {k: len(v) for k, v in widths.items()},
             "shapes": shapes, "aux_losses": res.aux_losses,
             "params": cfg.param_count(), "record": dict(st.RECORD),
-            "reduced": {kind: sorted(e[1] for e in st.EVENTS if e[0] == kind)
-                        for kind in ("reduce_scatter", "all_reduce")},
-            "all_reduce_numels": sorted(numels)}
+            "reduced": reduced, "all_reduce_numels": sorted(numels),
+            **phases}
 
 
 def _tp_halved(shapes):
@@ -4564,6 +4615,45 @@ def _nccl_two_ranks(rank, port):
         dist.destroy_process_group()
 
 
+# [train-dp]'s check of the paths that still gather every parameter
+# whole on a data axis of more than one rank: smat-ffn-1.3b:smoke, 2
+# steps of a batch of 1 x 32 tokens (the data axis does not divide it: the
+# batch is replicated), saving a checkpoint at step 2
+DP_WHOLE = ("smat-ffn-1.3b:smoke", 32, 1, 2)
+
+
+def _dp_whole(mesh, out_dir):
+    """DP_WHOLE on ``mesh``: its losses, the step's record, and whether
+    rank 0 wrote the checkpoint (``CheckpointManager.save`` gathers every
+    parameter and AdamW moment whole, ``launch.sharding.full``)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import steps as st
+    from repro_torch.train import loop
+    *_, steps = DP_WHOLE
+    ckpt = Path(out_dir) / "dp_whole"
+    res = loop.train(*_dp_whole_cell(), mesh, ckpt_dir=str(ckpt),
+                     **_dp_whole_kw())
+    dist.barrier()
+    return {"losses": res.losses, "record": dict(st.RECORD),
+            "written": (ckpt / f"step_{steps:08d}" / "arrays.npz").exists()}
+
+
+def _dp_whole_cell():
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    arch, seq, batch, _ = DP_WHOLE
+    return get_config(arch), ShapeCell("t", "train", seq, batch)
+
+
+def _dp_whole_kw():
+    from repro_torch.optim import adamw
+    steps = DP_WHOLE[-1]
+    return dict(total_steps=steps, ckpt_every=steps,
+                opt_cfg=adamw.AdamWConfig(lr=1e-3, total_steps=steps,
+                                          warmup_steps=1))
+
+
 def _tp_worker(rank, ports, out_dir, runs, device, shape):
     """One rank of the ``(data, model)`` mesh ``shape`` of TP_RANKS ranks,
     a process of its own on the one card: the nccl check, then a gloo
@@ -4587,6 +4677,8 @@ def _tp_worker(rank, ports, out_dir, runs, device, shape):
         out["model_index"] = mesh_lib.model_group(mesh)[1]
         out["data_index"] = mesh_lib.data_group(mesh)[1]
         out["runs"] = {run[0]: _tp_train(run, mesh, device) for run in runs}
+        if shape[0] > 1:
+            out["whole"] = _dp_whole(mesh, out_dir)
     finally:
         dist.destroy_process_group()
     torch.save(out, f"{out_dir}/tp_rank{rank}.pt")
@@ -4775,15 +4867,11 @@ def _tp_check_shapes(run, one, got):
 # gather (``launch.steps``): TP_RUNS' ffn cut (B1 and B2 on each rank's
 # row) and gemma cut, both under remat "none" (the backward's gather is
 # the one autograd's saved tensors make); the references are [train-tp]'s
-# one-rank runs of the same cuts, seeds and batches.  DP_STEPS: a run's
-# steps where fewer than [train-tp]'s (the losses are held over the steps
-# both runs take): gemma's 1 of 2, for the script's time limit (a step of it
+# one-rank runs of the same cuts, seeds and batches (a step of gemma's
 # moves 11.6 GB of gathered weights and 7 GB of gradients through gloo:
-# 21-28 s a step on an H100 80GB HBM3, 700 W; the script read 909 s with
-# 2 against its 900 s budget)
+# 21-28 s a step on an H100 80GB HBM3, 700 W)
 DP_MESH = (TP_RANKS, 1)
 DP_RUNS = ("ffn", "gemma")
-DP_STEPS = {"gemma": 1}
 
 
 def _dp_groups(cfg):
@@ -4809,24 +4897,29 @@ def train_dp_phase(smi, trained_tp):
     """The training mesh's data axis on the card: a ``(data, model) = (2,
     1)`` mesh of two processes on the one card (``[train-tp]``'s worker
     and spawn; gloo with CUDA tensors), through ``train.loop.train(cfg,
-    shape, mesh)`` with the per-layer gather: DP_RUNS' cuts of TP_RUNS
-    (DP_STEPS' steps where given), each rank one of the two rows.  Each run is held against
+    shape, mesh)`` with the per-layer gather: DP_RUNS' cuts of TP_RUNS,
+    each rank one of the two rows.  Each run is held against
     ``[train-tp]``'s one-rank nccl run of the same cut, seeds and batches
-    (``trained_tp``): the losses within the run's tolerance and both
-    ranks' equal; ``ffn``: each rank's B1/B2 launches the one-rank run's
-    (48 B1 + 24 B2 a step at 8 layers) at half its tokens; ``gemma``:
-    B1-B5 at 0.  The last step's record (``launch.steps.RECORD``): its
-    largest group's gathered bytes the largest group of the config's
-    data-sharded leaves, its peak of live gathered bytes no larger than
-    that group's weights plus its gradient, each data-sharded leaf's
-    gradient reduce-scattered once, and no all-reduce (the collective
-    wrapper's element counts, and the step's own list) carrying a
-    data-sharded leaf's gradient, whole or a rank's block.  Logs a rank's
-    ms a step, peak memory, collective calls a step and the record beside
-    the card's name and power limit."""
+    (``trained_tp``): the losses and each step's gradient norm within the
+    run's tolerance and both ranks' equal; ``ffn``: each rank's B1/B2
+    launches the one-rank run's (48 B1 + 24 B2 a step at 8 layers) at
+    half its tokens; ``gemma``: B1-B5 at 0.  The last step's record
+    (``launch.steps.RECORD``): its largest group's gathered bytes the
+    largest group of the config's data-sharded leaves, its peak of live
+    gathered bytes no larger than that group's weights plus its gradient,
+    each data-sharded leaf's gradient reduce-scattered once, and no
+    all-reduce (the collective wrapper's element counts, and the step's
+    own list) carrying a data-sharded leaf's gradient, whole or a rank's
+    block.  Logs a rank's ms a step, peak memory (of the run, and of each
+    phase of its last step), collective calls a step and the record
+    beside the card's name and power limit.  Then DP_WHOLE, the paths
+    that gather every parameter whole on the same mesh (a replicated
+    batch, the checkpoint's save): both ranks' losses equal and within
+    1e-5 of the same run without a mesh in this process, no per-layer
+    gather, the checkpoint written."""
     from repro_torch.configs import get_config
-    runs = [(*r[:4], DP_STEPS.get(r[0], r[4]), *r[5:]) for r in TP_RUNS
-            if r[0] in DP_RUNS]
+    from repro_torch.train import loop
+    runs = [r for r in TP_RUNS if r[0] in DP_RUNS]
     # the two ranks share the card: growable segments let each reuse what
     # its gathers and gradients free (the ranks' processes read it)
     conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
@@ -4845,7 +4938,10 @@ def train_dp_phase(smi, trained_tp):
         got = [r["runs"][tag] for r in ranks]
         rel = max(abs(a - b) / abs(b) for a, b in zip(got[0]["losses"],
                                                       one["losses"]))
-        same = all(g["losses"] == got[0]["losses"] for g in got)
+        rel_norm = max(abs(a - b) / abs(b) for a, b in zip(
+            got[0]["grad_norms"], one["grad_norms"]))
+        same = all(g["losses"] == got[0]["losses"] and
+                   g["grad_norms"] == got[0]["grad_norms"] for g in got)
         cfg = dataclasses.replace(get_config(arch), **cut, dtype=dtype)
         groups, numels = _dp_groups(cfg)
         size = torch.finfo(getattr(torch, dtype)).bits // 8
@@ -4860,7 +4956,9 @@ def train_dp_phase(smi, trained_tp):
             f"mesh of {TP_RANKS} processes on one card (gloo, CUDA "
             f"tensors): losses {got[0]['losses']} (both ranks equal: "
             f"{same}); one-rank mesh {one['losses']}; max relative "
-            f"difference {rel:.3g} (tolerance {tol}); largest group "
+            f"difference {rel:.3g} (tolerance {tol}); gradient norms "
+            f"{got[0]['grad_norms']} (one-rank {one['grad_norms']}; max "
+            f"relative difference {rel_norm:.3g}); largest group "
             f"{largest} B ({len(groups)} groups, {len(leaves)} data-sharded "
             f"leaves)")
         for r, g in enumerate(got):
@@ -4868,13 +4966,18 @@ def train_dp_phase(smi, trained_tp):
             log(f"[train-dp] {tag} rank {r}: step ms "
                 f"{[round(1e3 * t, 3) for t in g['step_times']]}, steady "
                 f"{g['step_ms']:.3f} ms; peak {g['peak_gb']:.2f} GB; "
+                f"last step's (peak GB, allocated GB at its end) by phase "
+                f"{g['phases']}; "
                 f"launches {g['launches']}; widths (G, N) {g['widths']}; "
                 f"collective calls a step {per_step}; last step's record "
                 f"{g['record']}; {smi}")
         log(f"[train-dp] {tag} one-rank mesh ([train-tp]'s): steady "
-            f"{one['step_ms']:.3f} ms; peak {one['peak_gb']:.2f} GB; {smi}")
-        check(rel <= tol and same, f"[train-dp] {tag}: losses differ from "
-              f"the one-rank mesh's ({rel:.3g} > {tol}) or between ranks")
+            f"{one['step_ms']:.3f} ms; peak {one['peak_gb']:.2f} GB; last "
+            f"step's by phase {one['phases']}; {smi}")
+        check(rel <= tol and rel_norm <= tol and same,
+              f"[train-dp] {tag}: losses or gradient norms differ from the "
+              f"one-rank mesh's ({rel:.3g}, {rel_norm:.3g} > {tol}) or "
+              f"between ranks")
         if tag == "ffn":
             half = {k: sorted((1, w[1] // TP_RANKS) for w in ws)
                     for k, ws in one["widths"].items()}
@@ -4903,6 +5006,21 @@ def train_dp_phase(smi, trained_tp):
         out[tag] = {"ranks": got, "one_rank": one}
     check(sorted(r["data_index"] for r in ranks) == list(range(TP_RANKS)),
           "[train-dp] the ranks' data indices are not 0..n-1")
+    whole = [r["whole"] for r in ranks]
+    plain = loop.train(*_dp_whole_cell(), device=DEVICE, **_dp_whole_kw())
+    rel = max(abs(a - b) / abs(b) for a, b in zip(whole[0]["losses"],
+                                                  plain.losses))
+    log(f"[train-dp] {DP_WHOLE[0]}, a replicated batch of {DP_WHOLE[2]} x "
+        f"{DP_WHOLE[1]} tokens on the {DP_MESH} mesh, a checkpoint saved at "
+        f"step {DP_WHOLE[3]}: losses {[w['losses'] for w in whole]}; "
+        f"without a mesh {plain.losses} (max relative difference "
+        f"{rel:.3g}); records {[w['record'] for w in whole]}; checkpoint "
+        f"written {whole[0]['written']}")
+    check(all(w["losses"] == whole[0]["losses"] and
+              w["record"]["gathers"] == w["record"]["reduce_scatters"] == 0
+              for w in whole) and rel <= 1e-5 and whole[0]["written"],
+          "[train-dp] the whole-gather paths (a replicated batch, the "
+          "checkpoint's save) failed on the mesh")
     launches = {k["name"]: sum(o["ranks"][0]["launches"][k["name"]]
                                for o in out.values()) for k in KERNELS}
     return launches, out

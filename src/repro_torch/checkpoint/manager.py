@@ -17,8 +17,8 @@ unsigned-integer views with the true dtype in the manifest, and decoded
 through torch alone (no ``ml_dtypes``).
 
 Mesh-agnostic: a ``DTensor`` leaf (a training mesh's shard) is gathered
-with ``full_tensor()`` on the calling thread, on every rank, since the
-gather is a collective; only then may the background writer run, and under
+whole (``launch.sharding.full``) on the calling thread, on every rank,
+since the gather is a collective; only then may the background writer run, and under
 an initialised process group only rank 0 writes.  A checkpoint written on
 a mesh is byte-identical to one written without one.  ``restore(...,
 mesh=, specs=)`` distributes each leaf under its spec on ``mesh``

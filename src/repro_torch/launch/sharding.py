@@ -32,9 +32,7 @@ both, major to minor in mesh order, as JAX nests them), ``local_shard``
 this rank's block of a full tensor (a view: no communication),
 ``shard_tensor`` a ``DTensor`` that owns a copy of that block, and
 ``distribute_tree`` does it for every leaf of a tree.  Back from a
-``DTensor``: ``full`` gathers it whole (a collective), ``gather_to`` to
-another spec (``keep_axes`` drops a spec's other axes: the mesh step
-gathers a model-split parameter over the data axes only), ``narrow_to``
+``DTensor``: ``full`` gathers it whole (a collective), ``narrow_to``
 to a spec that shards more (a view), ``local`` takes this rank's block (a
 view); ``full`` and ``local`` pass a plain tensor through and map over a
 nested mapping.
@@ -42,7 +40,9 @@ nested mapping.
 One data-sharded leaf at a time, for the mesh step's per-layer gather
 (``data_sharded`` says which leaves are): ``gather_data`` gathers this
 rank's block over the data axes its spec shards it on (one all-gather
-over their group; ``whole=True`` gathers the ``model`` axis too), and
+over their group; ``whole=True`` gathers the ``model`` axis too; the mesh
+step gathers a model-split parameter over the data axes only, every
+other one whole), and
 ``scatter_grad`` takes a gradient whole over the data axes, each rank's
 partial sum, back to this rank's block of the storage: one
 reduce-scatter over the data group (pod-major), in the gradient's dtype.
@@ -428,21 +428,6 @@ def _leafwise(fn, tree):
     return fn(tree)
 
 
-def gather_to(mesh, d, spec) -> torch.Tensor:
-    """This rank's block of the ``DTensor`` ``d`` redistributed under
-    ``spec`` (a collective over the mesh dims whose placement changes; a
-    mesh dim of one rank needs none, and when none does the block is
-    ``d``'s own, a view).  ``gather_to(mesh, d, keep_axes(spec,
-    ("model",)))`` gathers a parameter over the data axes and keeps its
-    ``model`` shard."""
-    target = placements(mesh, spec)
-    moved = [a != b for a, b, n in zip(d.placements, target,
-                                        mesh.mesh.shape) if int(n) > 1]
-    if not any(moved):
-        return d.to_local()
-    return d.redistribute(mesh, target).to_local()
-
-
 def narrow_to(mesh, d, spec):
     """The ``DTensor`` ``d`` under ``spec``, which shards every mesh dim
     ``d`` shards (on the same tensor dim) and maybe more: this rank's block
@@ -478,25 +463,36 @@ def data_sharded(mesh, spec) -> bool:
     return d is not None and _axis_size(mesh, axes) > 1
 
 
+def gather_over(mesh, local: torch.Tensor, spec, axes) -> torch.Tensor:
+    """This rank's block ``local`` of a tensor under ``spec`` gathered over
+    the mesh ``axes``: one all-gather for each dim sharded over any of them,
+    over their group (``launch.mesh.axes_group``, whose ranks run major to
+    minor in mesh order, the order of the blocks).  A dim sharded over
+    these and other axes keeps its block over the others, which must be
+    the major ones.  ``local`` itself where nothing is gathered."""
+    out = local
+    for e, a in enumerate(spec):
+        on = _mesh_axes(mesh, a)
+        mine = tuple(x for x in on if x in axes)
+        if not mine:
+            continue
+        if on[len(on) - len(mine):] != mine:
+            raise ValueError(f"dim {e} of {spec}: a gather over {mine} "
+                             f"leaves a minor axis of {on} sharded")
+        group, _, size = axes_group(mesh, mine)
+        if size > 1:
+            out = all_gather(out, e, group, size)
+    return out
+
+
 def gather_data(mesh, local: torch.Tensor, spec,
                 whole: bool = False) -> torch.Tensor:
     """This rank's block ``local`` of a leaf under ``spec`` gathered over
     the data axes its spec shards it on (one all-gather over their group,
     its ``model`` shard kept), and with ``whole`` over ``model`` too (a
     second all-gather): the full tensor."""
-    d, axes = _data_dim(mesh, spec)
-    out = local
-    if d is not None:
-        group, _, size = axes_group(mesh, axes)
-        if size > 1:
-            out = all_gather(out, d, group, size)
-    if whole:
-        for e, a in enumerate(spec):
-            if "model" in _mesh_axes(mesh, a):
-                group, _, size = axes_group(mesh, ("model",))
-                if size > 1:
-                    out = all_gather(out, e, group, size)
-    return out
+    return gather_over(mesh, local, spec,
+                       data_axes(mesh) + (("model",) if whole else ()))
 
 
 def scatter_grad(mesh, grad: torch.Tensor, spec) -> torch.Tensor:
@@ -542,11 +538,25 @@ def scatter_grad(mesh, grad: torch.Tensor, spec) -> torch.Tensor:
     return out.view(blocks[0].shape)
 
 
+def _full(d) -> torch.Tensor:
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, names = d.device_mesh, axis_names(d.device_mesh)
+    dims = [() for _ in range(d.dim())]
+    for name, p in zip(names, d.placements):
+        if isinstance(p, Shard):
+            dims[p.dim] += (name,)
+        elif not isinstance(p, Replicate):
+            raise ValueError(f"cannot gather a {p} placement")
+    return gather_over(mesh, d.to_local(), P(*[a or None for a in dims]),
+                       names)
+
+
 def full(tree) -> Any:
     """Every ``DTensor`` leaf of ``tree`` (or ``tree`` itself) gathered to
     its full tensor (a collective: every rank of its mesh calls it, in the
-    same order); any other leaf as it is."""
-    return _leafwise(lambda t: t.full_tensor() if hasattr(t, "full_tensor")
+    same order; ``gather_over`` every axis, not ``DTensor.full_tensor``,
+    which crashed over gloo with CUDA tensors); any other leaf as it is."""
+    return _leafwise(lambda t: _full(t) if hasattr(t, "full_tensor")
                      else t, tree)
 
 

@@ -53,8 +53,10 @@ heads, MLA's ``wkv_a``/``wq_a``, the router, every Mamba2 leaf) over the
 data and model groups.  A ``model`` axis of one rank, and a sequence the
 axis does not divide, gather every parameter whole and replicate the
 compute over ``model``.  Under both splits a data-sharded leaf's gradient
-is reduce-scattered over the data group, then (a replicated leaf) summed
-over the model group.
+is reduce-scattered over the data group; a leaf computed whole is summed
+over the model group too: before its scatter where its spec shards it
+over ``model`` (each rank's share is of the whole leaf, so the sum comes
+before the rank's ``model`` block is taken), after it otherwise.
 """
 from __future__ import annotations
 
@@ -69,8 +71,8 @@ from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.core.sparse_linear import meta_spec as _spec
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import sharding as sh
-from repro_torch.launch.constrain import (gathering, psum_data, psum_model,
-                                          use_mesh)
+from repro_torch.launch.constrain import (gathering, model_split, psum_data,
+                                          psum_model, use_mesh)
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 
@@ -259,16 +261,22 @@ def split_leaves(cfg: ModelConfig, mesh, specs: Dict[str, Any],
 RECORD: Dict[str, int] = dict.fromkeys(
     ("gathers", "regathers", "reduce_scatters", "all_reduces",
      "peak_bytes", "group_bytes"), 0)
-# the same step's collectives one by one, for checks:
-# ``("gather", phase, group, leaves, alive)`` (``alive``: every leaf
-# gathered on the rank just after it), ``("reduce_scatter", leaf)``,
-# ``("all_reduce", leaf)``
-EVENTS: list = []
+# the same step's collectives one by one, kept only where a check turns
+# them on (``EVENTS = []``; None keeps nothing): ``("gather", phase, group,
+# leaves, alive)`` (``alive``: every leaf gathered on the rank just after
+# it), ``("reduce_scatter", leaf)``, ``("all_reduce", leaf)``
+EVENTS: Optional[list] = None
 
 
 def reset_record() -> None:
     RECORD.update(dict.fromkeys(RECORD, 0))
-    EVENTS.clear()
+    if EVENTS is not None:
+        EVENTS.clear()
+
+
+def _event(*event) -> None:
+    if EVENTS is not None:
+        EVENTS.append(event)
 
 
 class _Saved(NamedTuple):
@@ -301,7 +309,9 @@ class _LayerGather:
     ``launch.constrain.gathered`` enters.  ``leaves`` holds each leaf's
     block of the storage as a tensor that takes the gradient; ``whole``
     names the leaves computed whole (the others keep their ``model``
-    shard)."""
+    shard); ``summed`` those of them whose gradient was summed over the
+    model group before its scatter (a split's shares of a leaf sharded
+    over ``model``)."""
 
     def __init__(self, model: "MeshModel", names, whole):
         self.mesh, self.specs, self.whole = model.mesh, model.specs, whole
@@ -320,6 +330,7 @@ class _LayerGather:
         self.uses = dict.fromkeys(names, 0)   # forward uses to backward
         self.pending = {}     # forward use -> leaves whose gradient is due
         self.acc = {}         # leaf -> its summed gradient (shared block)
+        self.summed = set()
         self.held = None      # (group, tensors, bytes) for a backward
         self.alive = 0
         self.n_uses = 0
@@ -335,9 +346,10 @@ class _LayerGather:
         self.alive += nbytes
         RECORD["peak_bytes"] = max(RECORD["peak_bytes"], self.alive)
         RECORD["group_bytes"] = max(RECORD["group_bytes"], nbytes)
-        EVENTS.append(("gather", "backward" if self.backward_phase else
-                       "forward", group, tuple(sorted(fulls)),
-                       tuple(sorted(alive_names))))
+        if EVENTS is not None:
+            _event("gather", "backward" if self.backward_phase else
+                   "forward", group, tuple(sorted(fulls)),
+                   tuple(sorted(alive_names)))
         return nbytes
 
     def _release_held(self) -> None:
@@ -430,11 +442,16 @@ class _LayerGather:
                 grad = self.acc.pop(name) + grad
             spec = self.specs[name]
             if name in self.whole:       # its model block (a view)
-                grad = sh.local_shard(self.mesh, grad,
-                                      sh.keep_axes(spec, ("model",)))
+                model = sh.keep_axes(spec, ("model",))
+                if "model" in model and model_split() is not None:
+                    # each model rank's share (its positions): summed
+                    # before the block is taken
+                    grad, = psum_model([grad])
+                    self.summed.add(name)
+                grad = sh.local_shard(self.mesh, grad, model)
             out = sh.scatter_grad(self.mesh, grad, spec)
             RECORD["reduce_scatters"] += 1
-            EVENTS.append(("reduce_scatter", name))
+            _event("reduce_scatter", name)
         due = self.pending[use]
         due.discard(name)
         if not due:                  # the group's backward is done
@@ -501,21 +518,23 @@ def mesh_loss_and_grads(cfg: ModelConfig, model: MeshModel, batch: Dict,
     shared block) sums its uses' gradients and is reduce-scattered once,
     after its last use in the backward (unit 0), its summed gradient held
     whole until then.  No rank holds the model gathered, or its whole
-    gradient; ``RECORD`` and ``EVENTS`` keep what the step gathered and
-    reduced.
+    gradient; ``RECORD`` counts what the step gathered and reduced
+    (``EVENTS`` lists each collective, where a check turns it on).
 
     The other leaves (no data axis in their spec: norms, the sparse FFN's
-    ``vals``, the SSD's ``conv_w``/``A_log``/``D``/``dt_bias``) are taken
-    as today for the whole step and their gradients summed over the data
-    group whole (``psum_data``); so is every leaf under a data group of
-    one rank (the unsharded step bit for bit), or a batch the data axes
-    do not divide (replicated).
+    ``vals``, the SSD's ``conv_w``/``A_log``/``D``/``dt_bias``) are
+    gathered once for the whole step (``sharding.gather_data``) and their
+    gradients summed over the data group whole (``psum_data``); so is
+    every leaf under a data group of one rank (the unsharded step bit for
+    bit), or a batch the data axes do not divide (replicated).
 
     Where ``split_leaves`` names leaves, the compute is split over
     ``model`` (``use_mesh(..., split=True)``): those leaves are gathered
     over the data axes only (each rank keeps its ``model`` shard) and
     every other leaf whole; the latter's gradient, the rank's share (its
-    positions, its heads), is summed over the model group too.  Otherwise
+    positions, its heads), is summed over the model group too (a
+    data-sharded leaf's before its reduce-scatter where its spec shards it
+    over ``model``, ``_LayerGather.summed``).  Otherwise
     every parameter is gathered whole and the compute is replicated over
     ``model``."""
     mesh = model.mesh
@@ -534,9 +553,9 @@ def mesh_loss_and_grads(cfg: ModelConfig, model: MeshModel, batch: Dict,
     with use_mesh(mesh, split=bool(split)):
         for name, p in params.items():
             if name not in by_layer:
-                d = model.shards[name]
-                p.data = sh.gather_to(mesh, d, held[name]) if name in split \
-                    else d.full_tensor()
+                p.data = sh.gather_data(mesh, model.shards[name].to_local(),
+                                        model.specs[name],
+                                        whole=name not in split)
             p.grad = None
         with layers.forward() if layers else contextlib.nullcontext():
             loss, parts = T.train_loss(cfg, model.module, batch, remat=remat)
@@ -557,9 +576,11 @@ def mesh_loss_and_grads(cfg: ModelConfig, model: MeshModel, batch: Dict,
         grads.update(zip(names, summed))
         if mesh_lib.data_group(mesh)[2] > 1:
             RECORD["all_reduces"] += len(names)
-            EVENTS.extend(("all_reduce", n) for n in names)
+            for n in names:
+                _event("all_reduce", n)
+        summed = layers.summed if layers else ()
         whole = [n for n, g in grads.items()
-                 if g is not None and n not in split]
+                 if g is not None and n not in split and n not in summed]
         grads.update(zip(whole, psum_model([grads[n] for n in whole])))
         grads = {n: None if g is None else
                  sh.from_local(mesh, g, held[n], model.shards[n].shape)

@@ -475,8 +475,9 @@ def _case_embed(out_dir):
             with torch.no_grad():
                 want = T._embed(cfg, full, batch).chunk(4, dim=1)[index]
                 model = st.shard_model(full, mesh)
-                keep = sh.keep_axes(model.specs["embed"], ("model",))
-                shard = sh.gather_to(mesh, model.shards["embed"], keep)
+                shard = sh.gather_data(mesh,
+                                       model.shards["embed"].to_local(),
+                                       model.specs["embed"])
                 with constrain.use_mesh(mesh, split=True):
                     got = T._embed(cfg, types.SimpleNamespace(embed=shard),
                                    batch)
@@ -551,16 +552,20 @@ def _case_error_feedback(grads):
 # (case, arch, mesh), one step each under each of LAYER_REMATS on SHAPE
 # (ODD_DP for the case named in LAYER_CELLS: the model axis does not divide
 # its 31 positions, so no leaf splits and the model-sharded ones are
-# gathered over both axes), and the key of their unsharded step's
-# references
+# gathered over both axes; the einsum dispatch's expert bank is sharded
+# over both axes but computed whole beside the split, so its gradient is
+# summed over the model group before its block is taken), and the key of
+# their unsharded step's references
 ODD_DP = ShapeCell("t", "train", 31, 4)
 LAYERS = (("ffn4x1", ARCH, (4, 1)), ("ffn2x2x1", ARCH, (2, 2, 1)),
           ("gemma2x2", GEMMA, (2, 2)), ("moe2x2", MOE, (2, 2)),
-          ("zamba4x1", ZAMBA, (4, 1)), ("ffn2x2odd", ARCH, (2, 2)))
+          ("zamba4x1", ZAMBA, (4, 1)), ("ffn2x2odd", ARCH, (2, 2)),
+          ("einsum2x2", EINSUM, (2, 2)))
 LAYER_REMATS = ("none", "full")
 LAYER_CELLS = {"ffn2x2odd": ODD_DP}
 LAYER_REFS = {"ffn4x1": "ffn", "ffn2x2x1": "ffn", "gemma2x2": "gemma",
-              "moe2x2": "moe", "zamba4x1": "zamba", "ffn2x2odd": "ffn_odd"}
+              "moe2x2": "moe", "zamba4x1": "zamba", "ffn2x2odd": "ffn_odd",
+              "einsum2x2": "einsum"}
 
 
 def _case_layers(out_dir):
@@ -568,6 +573,7 @@ def _case_layers(out_dir):
     step's record and events, its loss and its gradients gathered
     whole."""
     out = {}
+    st.EVENTS = []
     for case, arch, shape in LAYERS:
         mesh = _mesh(shape)
         cfg = _cfg(arch)
